@@ -11,12 +11,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              inputs at the main path's shapes, TF32 off: error, kernel time,
              plain-version time, one PyTorch library call's time as a
              yardstick, and the least time the card could take (bound);
+             for gn1_gelu_fwd also a device copy of its input. All
+             times are device time: 20 calls captured in one CUDA graph,
+             replayed and timed with CUDA events, so the wrapper's host cost
+             is not in them;
 4. slice   - the full-width cfg_twophase_ufno model (3 blocks x 192
              features, 10 modes, 96x64 grid, time window 25) built by
              SurrogateEngine.from_config on the card, random weights from
-             the seed, serves a 19-bundled-step rollout of batch 4; checks
-             shape, finiteness, the kernels' launch counts, and one step
-             against the same step run by the port on the CPU.
+             the seed, serves three 19-bundled-step rollouts of batch 4
+             (the rate is their median); checks shape, finiteness, each
+             rollout's kernel launch counts, and one step
+             against the same step run by the port on the CPU; then records
+             the shapes gn1_gelu_fwd sees in one step and times those calls
+             (graph replay) beside their summed bound.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, printing no result, without a CUDA device or outside
@@ -25,13 +32,14 @@ a checkout of the repo. Longer outputs (ptxas reports) go to ``--out``.
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 CFG = "nps_tpu_torch/configs/train/cfg_twophase_ufno.py"
-BATCH, TW, NX1, NX2, N_STEPS = 4, 25, 96, 64, 19
+BATCH, TW, NX1, NX2, N_STEPS, ROLLOUTS = 4, 25, 96, 64, 19, 3
 HIDDEN, BLOCKS, MODES = 192, 3, 10
 N_STATIC, N_SPATIAL = 2, 2
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
@@ -57,21 +65,53 @@ def rel_err(a, ref):
                  / ref.float().abs().max())
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` runs, by CUDA events."""
+def graph_ms(fn, calls=20, replays=10, warmup=3):
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between two CUDA events. Returns
+    (ms, None), or (None, why) when the capture is refused; there is no
+    fallback to timing eager calls."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as e:
+        return None, f"graph capture refused: {e}"[:300]
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (replays * calls), None
+
+
+def timed(rec, fn, key):
+    """Put ``fn``'s graph-replay time under ``rec[key]`` (None and the
+    reason under ``rec["timing_refused"]`` if capture is refused)."""
+    ms, why = graph_ms(fn)
+    rec[key] = ms
+    if why:
+        rec.setdefault("timing_refused", {})[key] = why
+
+
+def gn_bound(shapes, itemsize=4):
+    """Least time of gn1_gelu_fwd over ``shapes``: x read once, y written
+    once, GN_FLOPS_PER_ELEMENT flops per element."""
+    n = sum(math.prod(s) for s in shapes)
+    return bound(2 * itemsize * n, GN_FLOPS_PER_ELEMENT * n)
 
 
 def bound(nbytes, flops):
@@ -134,17 +174,20 @@ def phase_kernels(gen):
         xb = x.to(torch.bfloat16)
         err_bf16 = rel_err(gn.gn1_gelu_fwd(xb, gamma, beta),
                            gn.gn_gelu_plain(xb, gamma, beta))
-        ms = time_ms(lambda: gn.gn1_gelu_fwd(x, gamma, beta))
-        plain_ms = time_ms(lambda: gn.gn_gelu_plain(x, gamma, beta))
-        library_ms = time_ms(lambda: F.gelu(F.group_norm(x, 1, gamma, beta)))
-        n = x.numel()
-        bound_ms, bound_by = bound(2 * 4 * n, GN_FLOPS_PER_ELEMENT * n)
+        bound_ms, bound_by = gn_bound([shape])
         rec = {"phase": "kernel", "name": "gn1_gelu_fwd", "shape": shape,
                "rel_err": err, "rel_err_bf16": err_bf16,
                "max_abs_err": float((y_k - y_p).abs().max()),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bound_how": "x read once + y written once, f32, at 3.35 TB/s"}
+        timed(rec, lambda: gn.gn1_gelu_fwd(x, gamma, beta), "ms")
+        timed(rec, lambda: gn.gn_gelu_plain(x, gamma, beta), "plain_ms")
+        timed(rec, lambda: F.gelu(F.group_norm(x, 1, gamma, beta)),
+              "library_ms")
+        # a yardstick for the bound: a device copy moves the same bytes
+        flat, dst = x.view(-1), torch.empty_like(x).view(-1)
+        timed(rec, lambda: dst.copy_(flat), "copy_ms")
+        rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
         emit(rec)
         if not (err < REL_TOL_F32 and err_bf16 < REL_TOL_BF16):
             raise AssertionError(f"gn1_gelu_fwd disagrees at {shape}: "
@@ -182,9 +225,6 @@ def phase_kernels(gen):
         return torch.fft.irfft2(out_ft, s=(n1, n2))
 
     err_library = rel_err(rfft_conv(), y_p)
-    ms = time_ms(lambda: sp.spectral_dft2d_fwd(x, packed, (m1, m2)))
-    plain_ms = time_ms(lambda: sp.spectral_conv_2d_plain(x, ws, (m1, m2)))
-    library_ms = time_ms(rfft_conv)
     K = 2 * m1
     flops = (b * ci * (n1 * n2 * m2 * 4 + n1 * K * m2 * 8)   # forward DFT
              + K * m2 * b * ci * co * 8                      # complex mix
@@ -195,16 +235,58 @@ def phase_kernels(gen):
            "shape": [SPEC_SHAPE, co, [m1, m2]], "rel_err": err,
            "rel_err_film": err_film, "rel_err_library_vs_plain": err_library,
            "max_abs_err": float((y_k - y_p).abs().max()),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_how": f"x + weights + out f32 once at 3.35 TB/s "
                         f"({nbytes} B); {flops} flop at 67 TFLOP/s"}
+    timed(rec, lambda: sp.spectral_dft2d_fwd(x, packed, (m1, m2)), "ms")
+    timed(rec, lambda: sp.spectral_conv_2d_plain(x, ws, (m1, m2)),
+          "plain_ms")
+    timed(rec, rfft_conv, "library_ms")
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
     emit(rec)
     if not (err < REL_TOL_F32 and err_film < REL_TOL_F32):
         raise AssertionError(f"spectral_dft2d_fwd disagrees: {err}, "
                              f"film {err_film}")
     results["spectral_dft2d_fwd"] = rec
     return results
+
+
+def gn_step_time(eng, u0, cond, sc):
+    """The gn1_gelu_fwd calls of one bundled step: record the shapes the
+    wrapper sees, then time the same calls on fresh inputs (graph replay)
+    beside their summed bound."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    seen = []
+    wrapped = gn.gn1_gelu_fwd
+
+    def record(x, weight, bias, gelu=True, eps=gn.EPS):
+        seen.append((tuple(x.shape), x.dtype, gelu))
+        return wrapped(x, weight, bias, gelu, eps)
+
+    gn.gn1_gelu_fwd = record
+    try:
+        eng.step(u0, cond=cond, spatial_cond=sc)
+    finally:
+        gn.gn1_gelu_fwd = wrapped
+    calls = []
+    for shape, dtype, gelu in seen:
+        x = torch.randn(shape, device="cuda").to(dtype)
+        w = torch.ones(shape[1], device="cuda")
+        calls.append((x, w, torch.zeros_like(w), gelu))
+    ms, why = graph_ms(lambda: [wrapped(*c) for c in calls], calls=5)
+    bound_ms, bound_by = gn_bound([s for s, _, _ in seen],
+                                  torch.finfo(seen[0][1]).bits // 8)
+    counts = {}
+    for s, _, _ in seen:
+        counts[s] = counts.get(s, 0) + 1
+    return {"calls": len(seen),
+            "shapes": [[list(s), n] for s, n in sorted(counts.items())],
+            "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms if ms else None,
+            **({"timing_refused": why} if why else {})}
 
 
 def phase_slice(seed, card):
@@ -227,13 +309,18 @@ def phase_slice(seed, card):
 
     step_gpu = eng.step(u0, cond=cond, spatial_cond=sc)   # also warms up
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.rollout(u0, N_STEPS, cond=cond, spatial_cond=sc)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    # ROLLOUTS rollouts, each with the counts set to 0 just before it and
+    # read just after it; the rate is their median (the host clock's spread
+    # between runs is a few percent)
+    seconds, launches = [], []
+    for _ in range(ROLLOUTS):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.rollout(u0, N_STEPS, cond=cond, spatial_cond=sc)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(dict(kernels.launches))
 
     cpu = SurrogateEngine.from_config(CFG, pde=pde, device="cpu")
     cpu.model.load_state_dict({k: v.cpu()
@@ -242,26 +329,29 @@ def phase_slice(seed, card):
     step_err = float(np.abs(step_gpu[:1] - step_cpu).max()
                      / np.abs(step_cpu).max())
 
+    gn_step = gn_step_time(eng, u0, cond, sc)
+
     want = {"gn1_gelu_fwd": 48 * N_STEPS, "spectral_dft2d_fwd": 3 * N_STEPS}
+    median = sorted(seconds)[len(seconds) // 2]
     rec = {"phase": "slice", "config": CFG, "batch": BATCH,
            "bundled_steps": N_STEPS, "out_shape": list(out.shape),
            "finite": bool(np.isfinite(out).all()),
-           "launches": launches, "launches_expected": want,
+           "launches": launches[0], "launches_expected": want,
            "step_rel_err_vs_cpu": step_err, "rollout_seconds": seconds,
-           "bundled_steps_per_s": N_STEPS / seconds,
-           "samples_steps_per_s": BATCH * N_STEPS / seconds,
+           "bundled_steps_per_s": N_STEPS / median,
+           "samples_steps_per_s": BATCH * N_STEPS / median,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "card": card, "tf32": False}
+           "gn1_gelu_step": gn_step, "card": card, "tf32": False}
     emit(rec)
     if tuple(out.shape) != (BATCH, 1, N_STEPS * TW, NX1, NX2):
         raise AssertionError(f"rollout shape {out.shape}")
     if not rec["finite"]:
         raise AssertionError("rollout has non-finite values")
-    if launches != want:
+    if any(n != want for n in launches):
         raise AssertionError(f"launch counts {launches} != {want}")
     if not step_err < REL_TOL_STEP:
         raise AssertionError(f"card vs CPU step differs: {step_err}")
-    return launches
+    return launches[0]
 
 
 def main():
@@ -302,7 +392,11 @@ def main():
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "parity": "ok"})
+                     "library_ms": r["library_ms"],
+                     "bound_share": r["bound_share"], "parity": "ok",
+                     "timing": "device: CUDA graph of 20 calls, replayed"})
+        if "timing_refused" in r:
+            line[-1]["timing_refused"] = r["timing_refused"]
     with open(out_dir / "kernels.json", "w") as f:
         json.dump({"card": card, "kernels": line}, f, indent=1)
     emit({"kernels": line})

@@ -10,54 +10,135 @@
 //
 // Bound on the H100: memory bandwidth. Per element it does a few flops and
 // one erff, far below the card's 67 TFLOP/s f32; the least traffic is one
-// read of x and one write of y at 3.35 TB/s. This design reads x twice
-// (once for the statistics, once to normalize), so it can reach at best
-// two thirds of that bound; a sample of the main path (up to ~10.5 MB f32)
-// is too large for one SM's 227 KB of shared memory, so the Pallas design of
-// one program per sample holding the sample on chip does not carry over.
+// read of x and one write of y at 3.35 TB/s. The statistics need the whole
+// sample before the first y can be written, and a sample of the main path
+// (up to ~10.5 MB f32) is far larger than one SM's 227 KB of shared memory,
+// so the Pallas design (one program holds a sample in VMEM) does not carry
+// over, and a design that reads x once for the sums and once more to
+// normalise can reach at most two thirds of the bound.
 //
-// Design: two kernels on the caller's stream.
-//   pass 1: grid (nblk, b). Each CTA folds a strided slice of one sample
-//           into an f32 (sum, sum of squares) partial, written to scratch.
-//   pass 2: grid (nblk, b). Each CTA first reduces its sample's nblk
-//           partials (a few KB, from L2), then normalizes, applies gamma and
-//           beta and GELU to its slice in one read and one write.
-// Many CTAs per sample keep all 132 SMs busy at the main path's batch of 4.
-// f32 input uses 16-byte vector loads where the layout allows it; bf16 input
-// is read as scalars, with f32 statistics and arithmetic.
+// Design: one persistent cooperative kernel that reads x from device memory
+// once. The grid is as many CTAs as can be resident at once (occupancy x
+// SMs: one 1024-thread CTA per SM with all of its shared memory), launched
+// with cudaLaunchCooperativeKernel, so the grid-wide barrier never waits on
+// a CTA that is not running. The work goes in rounds; each round takes as
+// many samples (`spr`) as the grid's shared memory holds, and each sample of
+// a round is cut into G = grid / spr contiguous slices, one per CTA (at the
+// main path's [4, 388, 100, 68]: two rounds of two samples). In round r a
+// CTA:
+//   1. waits for its slice, copied into shared memory with 16-byte cp.async
+//      copies (round 0 before the loop, round r during step 4 of round r-1);
+//   2. folds an f32 (sum x, sum x^2) partial over it, publishes it to device
+//      memory and meets every other CTA at grid.sync();
+//   3. reduces its sample's G partials in a fixed order (every CTA of the
+//      sample gets the same bits: the result is deterministic);
+//   4. normalises, applies gamma/beta and GELU from shared memory and stores
+//      y with 16-byte streaming stores; right after each store, the thread
+//      copies the same 16 bytes of its slice of round r+1 into the place
+//      just read, so the next round's reads stream while this round's
+//      writes do. A thread only ever touches its own units of shared
+//      memory, so this needs no barrier.
+// grid.sync() resets its own barrier, so no state outlives a call. f32 uses
+// 16-byte vectors when the sample length is a multiple of 4 (bf16: of 8);
+// other lengths are copied and normalised as scalars. bf16 input keeps f32
+// statistics and arithmetic and is rounded once on output. erf is the
+// Abramowitz-Stegun 7.1.26 rational form (absolute error below 1.5e-7, about
+// the rounding of f32 near 1) with the hardware exp: branch-free, where
+// CUDA's erff takes one of two paths per lane, so a warp runs both.
+//
+// The host side plans once per shape (gn1_gelu_plan): grid, samples per
+// round, slice length, rounds; the wrapper raises on a sample larger than
+// the grid's shared memory holds (about 29.8 MB f32 on an H100).
 //
 // Indices within a sample are 32-bit: the wrapper keeps C * hw below
 // 2^31 - 2^20.
 //
 // Layout contract: x is NCHW (any number of spatial dims) and contiguous,
 // hw = product of the spatial dims, n = C * hw per sample; gamma and beta
-// are f32 [C]; y has x's shape and type; stats is f32 [b, 2];
-// partials is f32 [b, nblk, 2] scratch.
+// are f32 [C]; y has x's shape and type; stats is f32 [b, 2]; partials is
+// f32 [b, G, 2] scratch.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// 16 bytes of T as floats, and back (the store is a streaming one).
+template <typename T>
+struct Vec16 {
+  static constexpr int N = 16 / sizeof(T);
+};
+__device__ __forceinline__ void unpack16(uint4 a, float* v, float) {
+  v[0] = __uint_as_float(a.x);
+  v[1] = __uint_as_float(a.y);
+  v[2] = __uint_as_float(a.z);
+  v[3] = __uint_as_float(a.w);
 }
-__device__ __forceinline__ void store_f(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16(v);
+__device__ __forceinline__ void unpack16(uint4 a, float* v, __nv_bfloat16) {
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    v[2 * i] = __low2float(h);
+    v[2 * i + 1] = __high2float(h);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* v) {
+  unpack16(*reinterpret_cast<const uint4*>(p), v, T());
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  uint4 a;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  __stcs(reinterpret_cast<uint4*>(p), a);
 }
 
+// GELU with erf (not the tanh approximation); see the note at the top
 __device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+  const float z = v * 0.70710678118654752f;
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, fabsf(z), 1.0f));
+  const float p = t * fmaf(fmaf(fmaf(fmaf(1.061405429f, t, -1.453152027f), t,
+                                     1.421413741f), t, -0.284496736f), t,
+                           0.254829592f);
+  const float q = p * __expf(-z * z);
+  return 0.5f * v * (z >= 0.f ? 2.0f - q : q);
+}
+
+// e / hw for 0 <= e < 2^31 without an integer division: a float estimate,
+// corrected to the exact quotient.
+__device__ __forceinline__ int div_hw(int e, int hw, float inv_hw) {
+  int q = static_cast<int>(static_cast<float>(e) * inv_hw);
+  while (q * hw > e) --q;
+  while ((q + 1) * hw <= e) ++q;
+  return q;
 }
 
 // Sum two values over the block; the result is valid in every thread.
+// Every thread of the block must call it.
 __device__ __forceinline__ float2 block_sum2(float2 v) {
-  __shared__ float2 warp_part[kThreads / 32];
+  __shared__ float2 warp_part[kWarps];
   for (int off = 16; off > 0; off >>= 1) {
     v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
     v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
@@ -67,7 +148,7 @@ __device__ __forceinline__ float2 block_sum2(float2 v) {
   __syncthreads();
   float2 t = make_float2(0.f, 0.f);
   if (warp == 0) {
-    if (lane < kThreads / 32) t = warp_part[lane];
+    if (lane < kWarps) t = warp_part[lane];
     for (int off = 16; off > 0; off >>= 1) {
       t.x += __shfl_xor_sync(0xffffffffu, t.x, off);
       t.y += __shfl_xor_sync(0xffffffffu, t.y, off);
@@ -76,128 +157,264 @@ __device__ __forceinline__ float2 block_sum2(float2 v) {
   }
   __syncthreads();
   t = warp_part[0];
-  __syncthreads();  // warp_part may be reused by the caller
+  __syncthreads();  // warp_part is reused by the next call
   return t;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn1_partial_kernel(const T* __restrict__ x, int n, float2* __restrict__ partials) {
-  const int sample = blockIdx.y, nblk = gridDim.x;
-  const T* xs = x + (int64_t)sample * n;
-  float s = 0.f, q = 0.f;
-  const int stride = nblk * kThreads;
-  const int i0 = blockIdx.x * kThreads + threadIdx.x;
-  bool vec = false;
-  if constexpr (sizeof(T) == 4) {
-    vec = (n % 4 == 0) && ((reinterpret_cast<uintptr_t>(xs) & 15) == 0);
-  }
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xs);
-    for (int i = i0; i < n / 4; i += stride) {
-      float4 v = x4[i];
-      s += (v.x + v.y) + (v.z + v.w);
-      q += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
-    }
-  } else {
-    for (int i = i0; i < n; i += stride) {
-      float v = load_f(xs, i);
-      s += v;
-      q += v * v;
-    }
-  }
-  float2 t = block_sum2(make_float2(s, q));
-  if (threadIdx.x == 0) partials[(int64_t)sample * nblk + blockIdx.x] = t;
-}
+struct Args {
+  const void* x;
+  const float* gamma;
+  const float* beta;
+  void* y;
+  float* stats;
+  float2* partials;
+  int b, n, hw;
+  float eps;
+  int gelu;
+  int spr, G, per, rounds, vec;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn1_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                 const float* __restrict__ beta, const float2* __restrict__ partials,
-                 int n, int hw, float eps, int apply_gelu,
-                 T* __restrict__ y, float* __restrict__ stats) {
-  const int sample = blockIdx.y, nblk = gridDim.x;
-  float2 acc = make_float2(0.f, 0.f);
-  for (int j = threadIdx.x; j < nblk; j += kThreads) {
-    float2 p = partials[(int64_t)sample * nblk + j];
-    acc.x += p.x;
-    acc.y += p.y;
-  }
-  acc = block_sum2(acc);
-  const float inv_n = 1.0f / (float)n;
-  const float mean = acc.x * inv_n;
-  const float var = fmaxf(acc.y * inv_n - mean * mean, 0.0f);
-  const float inv = rsqrtf(var + eps);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    stats[2 * sample] = mean;
-    stats[2 * sample + 1] = inv;
-  }
+__global__ void __launch_bounds__(kThreads, 1) gn1_gelu_kernel(Args a) {
+  constexpr int V = Vec16<T>::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const buf = reinterpret_cast<T*>(smem_raw);
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  T* __restrict__ y = static_cast<T*>(a.y);
+  cg::grid_group grid = cg::this_grid();
 
-  const T* xs = x + (int64_t)sample * n;
-  T* ys = y + (int64_t)sample * n;
-  const int stride = nblk * kThreads;
-  const int i0 = blockIdx.x * kThreads + threadIdx.x;
-  bool vec = false;
-  if constexpr (sizeof(T) == 4) {
-    vec = (hw % 4 == 0) && ((reinterpret_cast<uintptr_t>(xs) & 15) == 0) &&
-          ((reinterpret_cast<uintptr_t>(ys) & 15) == 0);
-  }
-  if (vec) {
-    // four neighbours share one channel because hw % 4 == 0
-    const float4* x4 = reinterpret_cast<const float4*>(xs);
-    float4* y4 = reinterpret_cast<float4*>(ys);
-    for (int i = i0; i < n / 4; i += stride) {
-      const int c = (4 * i) / hw;
-      const float g = gamma[c] * inv, bb = beta[c];
-      float4 v = x4[i];
-      v.x = (v.x - mean) * g + bb;
-      v.y = (v.y - mean) * g + bb;
-      v.z = (v.z - mean) * g + bb;
-      v.w = (v.w - mean) * g + bb;
-      if (apply_gelu) {
-        v.x = gelu_erf(v.x);
-        v.y = gelu_erf(v.y);
-        v.z = gelu_erf(v.z);
-        v.w = gelu_erf(v.w);
+  const int slot = blockIdx.x / a.G, part = blockIdx.x % a.G;
+  const bool active = slot < a.spr;
+  const int lo = part * a.per;
+  const int len = active ? max(0, min(a.n, lo + a.per) - lo) : 0;
+  const int nv = a.vec ? len / V : len;  // units: 16-byte vectors or elements
+  const float inv_hw = 1.0f / static_cast<float>(a.hw);
+  const float inv_n = 1.0f / static_cast<float>(a.n);
+  // this CTA's slice of round r, or null past the last round or sample
+  auto slice = [&](int r) -> const T* {
+    const int s = r * a.spr + slot;
+    return r < a.rounds && s < a.b && len > 0 ? x + static_cast<int64_t>(s) * a.n + lo
+                                               : nullptr;
+  };
+  // unit i of a slice into shared memory; a thread only ever touches the
+  // units i = threadIdx.x + k * kThreads, so it needs no barrier but its own
+  // cp.async wait
+  auto fetch = [&](const T* src, int i) {
+    if (a.vec)
+      nps::cp_async16(buf + i * V, src + i * V);
+    else
+      buf[i] = src[i];
+  };
+  auto fold = [&](const float* v, int m, float2& acc) {
+    for (int k = 0; k < m; ++k) {
+      acc.x += v[k];
+      acc.y = fmaf(v[k], v[k], acc.y);
+    }
+  };
+
+  if (const T* src = slice(0))
+    for (int i = threadIdx.x; i < nv; i += kThreads) fetch(src, i);
+  nps::cp_async_commit();
+  for (int r = 0; r < a.rounds; ++r) {
+    const int s = r * a.spr + slot;
+    const bool live = active && s < a.b;  // len may be 0: it still publishes
+    float2 acc = make_float2(0.f, 0.f);
+    nps::cp_async_wait_all();
+    if (live) {
+      for (int i = threadIdx.x; i < nv; i += kThreads) {
+        float v[V];
+        if (a.vec) {
+          load16(buf + i * V, v);
+          fold(v, V, acc);
+        } else {
+          v[0] = to_f(buf[i]);
+          fold(v, 1, acc);
+        }
       }
-      y4[i] = v;
     }
-  } else {
-    for (int i = i0; i < n; i += stride) {
-      const int c = i / hw;
-      float v = (load_f(xs, i) - mean) * (gamma[c] * inv) + beta[c];
-      if (apply_gelu) v = gelu_erf(v);
-      store_f(ys, i, v);
+    const float2 mine = block_sum2(acc);
+    if (live && threadIdx.x == 0) a.partials[static_cast<int64_t>(s) * a.G + part] = mine;
+    grid.sync();
+    if (!live) continue;
+
+    // the sample's partials, summed in the same order by each of its CTAs
+    float2 tot = make_float2(0.f, 0.f);
+    for (int j = threadIdx.x; j < a.G; j += kThreads) {
+      const float2 p = __ldcg(a.partials + static_cast<int64_t>(s) * a.G + j);
+      tot.x += p.x;
+      tot.y += p.y;
     }
+    tot = block_sum2(tot);
+    const float mean = tot.x * inv_n;
+    const float var = fmaxf(tot.y * inv_n - mean * mean, 0.0f);
+    const float inv = rsqrtf(var + a.eps);
+    if (part == 0 && threadIdx.x == 0) {
+      a.stats[2 * s] = mean;
+      a.stats[2 * s + 1] = inv;
+    }
+
+    // normalise; once a unit is stored, its shared memory takes the same
+    // unit of round r + 1
+    const T* next = slice(r + 1);
+    T* ys = y + static_cast<int64_t>(s) * a.n + lo;
+    // the channel of the thread's current unit and the offset in it, carried
+    // from unit to unit (a step is kThreads * V elements)
+    const int nch = a.n / a.hw;  // past the last channel only after the last unit
+    int c = div_hw(lo + threadIdx.x * V, a.hw, inv_hw);
+    int rem = lo + threadIdx.x * V - c * a.hw;
+    float g = 0.f, bb = 0.f;
+    if (c < nch) {
+      g = __ldg(a.gamma + c) * inv;
+      bb = __ldg(a.beta + c);
+    }
+    for (int i = threadIdx.x; i < nv; i += kThreads) {
+      if (a.vec) {
+        float v[V];
+        load16(buf + i * V, v);
+        if (rem + V <= a.hw) {  // the vector lies in one channel
+#pragma unroll
+          for (int k = 0; k < V; ++k) v[k] = fmaf(v[k] - mean, g, bb);
+        } else {  // it crosses into the next channel(s)
+          int ck = c, rk = rem;
+          float gk = g, bk = bb;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            if (rk == a.hw) {
+              rk = 0;
+              ++ck;
+              gk = __ldg(a.gamma + ck) * inv;
+              bk = __ldg(a.beta + ck);
+            }
+            v[k] = fmaf(v[k] - mean, gk, bk);
+            ++rk;
+          }
+        }
+        rem += kThreads * V;
+        if (rem >= a.hw) {
+          const int q = div_hw(rem, a.hw, inv_hw);
+          c += q;
+          rem -= q * a.hw;
+          if (c < nch) {
+            g = __ldg(a.gamma + c) * inv;
+            bb = __ldg(a.beta + c);
+          }
+        }
+        if (a.gelu) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) v[k] = gelu_erf(v[k]);
+        }
+        store16(ys + i * V, v);
+      } else {
+        const int c = div_hw(lo + i, a.hw, inv_hw);
+        const float t = fmaf(to_f(buf[i]) - mean, __ldg(a.gamma + c) * inv, __ldg(a.beta + c));
+        put(ys + i, a.gelu ? gelu_erf(t) : t);
+      }
+      // the store above used the unit's value, so its read of shared memory
+      // is complete before the copy below overwrites it
+      if (next) fetch(next, i);
+    }
+    nps::cp_async_commit();
   }
 }
 
+// Per element type: the shared memory a CTA gets, and the grid that fits.
+struct Config {
+  int smem = 0, grid = 0;
+  cudaError_t err = cudaSuccess;
+};
+
 template <typename T>
-void launch(const void* x, const float* gamma, const float* beta, void* y,
-            float* stats, float* partials, int b, int c, long long hw, int nblk,
-            float eps, int apply_gelu, cudaStream_t stream) {
-  const int n = (int)(c * hw);  // the wrapper keeps n below 2^31 - 2^20
-  dim3 grid(nblk, b);
-  gn1_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), n, reinterpret_cast<float2*>(partials));
-  gn1_apply_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), gamma, beta, reinterpret_cast<const float2*>(partials),
-      n, (int)hw, eps, apply_gelu, static_cast<T*>(y), stats);
+const Config& config() {
+  static Config cfg = [] {
+    Config c;
+    c.err = nps::allow_max_smem(gn1_gelu_kernel<T>);
+    int dev = 0, optin = 0, sms = 0, occ = 0;
+    cudaFuncAttributes attr;
+    if (c.err == cudaSuccess) c.err = cudaGetDevice(&dev);
+    if (c.err == cudaSuccess)
+      c.err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (c.err == cudaSuccess)
+      c.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (c.err == cudaSuccess) c.err = cudaFuncGetAttributes(&attr, gn1_gelu_kernel<T>);
+    if (c.err != cudaSuccess) return c;
+    c.smem = (optin - static_cast<int>(attr.sharedSizeBytes)) / 16 * 16;
+    c.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gn1_gelu_kernel<T>,
+                                                           kThreads, c.smem);
+    c.grid = occ * sms;
+    return c;
+  }();
+  return cfg;
+}
+
+template <typename T>
+int plan(int b, long long n, int* out) {
+  constexpr int V = Vec16<T>::N;
+  const Config& cfg = config<T>();
+  if (cfg.err != cudaSuccess) return static_cast<int>(cfg.err);
+  for (int i = 0; i < 6; ++i) out[i] = 0;
+  if (cfg.grid < 1) return 0;
+  const long long full = cfg.smem / static_cast<int>(sizeof(T));
+  const int vec = n % V == 0;
+  const int align = vec ? V : 1;
+  auto slice = [&](int spr) {
+    const long long G = cfg.grid / spr;
+    return ((n + G - 1) / G + align - 1) / align * align;
+  };
+  // the most samples per round whose slices fit shared memory
+  int spr = min(b, cfg.grid);
+  while (spr >= 1 && slice(spr) > full) --spr;
+  if (spr < 1) return 0;  // out[0] == 0: the sample does not fit
+  // as few rounds as fit, with the samples spread evenly over them
+  const int rounds = (b + spr - 1) / spr;
+  spr = (b + rounds - 1) / rounds;
+  out[0] = cfg.grid;
+  out[1] = spr;
+  out[2] = cfg.grid / spr;
+  out[3] = static_cast<int>(slice(spr));
+  out[4] = rounds;
+  out[5] = vec;
+  return 0;
+}
+
+template <typename T>
+int launch(Args a, int grid, cudaStream_t stream) {
+  const Config& cfg = config<T>();
+  if (cfg.err != cudaSuccess) return static_cast<int>(cfg.err);
+  void* params[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(gn1_gelu_kernel<T>), dim3(grid), dim3(kThreads), params,
+      static_cast<size_t>(cfg.smem), stream));
 }
 
 }  // namespace
 
-extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta,
-                            void* y, float* stats, float* partials, int b, int c,
-                            long long hw, int nblk, float eps, int apply_gelu,
-                            int is_bf16, void* stream) {
+// out = [grid, samples per round, CTAs per sample, slice length, rounds,
+// vector path]; grid 0 means the shape does not fit. Returns a CUDA error.
+extern "C" int gn1_gelu_plan(int b, long long n, int is_bf16, int* out) {
+  return is_bf16 ? plan<__nv_bfloat16>(b, n, out) : plan<float>(b, n, out);
+}
+
+extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta, void* y,
+                            float* stats, float* partials, int b, int c, long long hw,
+                            float eps, int apply_gelu, int is_bf16, int grid, int spr,
+                            int G, int per, int rounds, int vec, void* stream) {
+  Args a;
+  a.x = x;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.y = y;
+  a.stats = stats;
+  a.partials = reinterpret_cast<float2*>(partials);
+  a.b = b;
+  a.n = static_cast<int>(c * hw);  // the wrapper keeps n below 2^31 - 2^20
+  a.hw = static_cast<int>(hw);
+  a.eps = eps;
+  a.gelu = apply_gelu;
+  a.spr = spr;
+  a.G = G;
+  a.per = per;
+  a.rounds = rounds;
+  a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch<__nv_bfloat16>(x, gamma, beta, y, stats, partials, b, c, hw, nblk, eps,
-                          apply_gelu, s);
-  } else {
-    launch<float>(x, gamma, beta, y, stats, partials, b, c, hw, nblk, eps,
-                  apply_gelu, s);
-  }
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch<__nv_bfloat16>(a, grid, s) : launch<float>(a, grid, s);
 }

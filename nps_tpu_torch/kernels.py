@@ -31,9 +31,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # x, gamma, beta, y, stats, partials, b, c, hw, nblk, eps, gelu, bf16,
-    # stream
-    "gn1_gelu_fwd": [P, P, P, P, P, P, I, I, I64, I, F32, I, I, P],
+    # b, n, bf16, out[6]
+    "gn1_gelu_plan": [I, I64, I, P],
+    # x, gamma, beta, y, stats, partials, b, c, hw, eps, gelu, bf16, then
+    # the plan (grid, samples per round, CTAs per sample, slice, rounds,
+    # vec), stream
+    "gn1_gelu_fwd": [P] * 6 + [I, I, I64, F32, I, I] + [I] * 6 + [P],
     # x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
     # xr, xi, yr, yi, out, b, ci, co, n1, n2, m1, m2, stream
     "spectral_dft2d_fwd": [P, P, P, I] + [P] * 8 + [P] * 5

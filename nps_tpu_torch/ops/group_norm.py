@@ -13,7 +13,7 @@ the plain version, a CUDA tensor the kernel ``gn1_gelu_fwd``
 (``csrc/gn1_gelu.cu``); there is no fallback between them.
 """
 
-import math
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +21,6 @@ import torch.nn.functional as F
 from nps_tpu_torch import kernels
 
 EPS = 1e-5
-_THREADS = 256
 
 
 def group_norm_plain(x, num_groups, weight, bias, eps=EPS):
@@ -48,6 +47,26 @@ def gn_gelu_plain(x, weight, bias, gelu=True, eps=EPS):
     return y.to(x.dtype)
 
 
+_PLANS = {}
+
+
+def _plan(b, n, is_bf16):
+    """The persistent kernel's launch plan for ``b`` samples of ``n``
+    elements: (grid, samples per round, CTAs per sample, slice length,
+    rounds, vector path). Cached per shape; raises when a sample does not
+    fit the grid's shared memory."""
+    key = (b, n, is_bf16)
+    if key not in _PLANS:
+        out = (ctypes.c_int * 6)()
+        kernels.check(kernels.library().gn1_gelu_plan(b, n, int(is_bf16), out),
+                      "gn1_gelu_plan")
+        if out[0] == 0:
+            raise ValueError(f"gn1_gelu_fwd: a sample of {n} elements does not "
+                             "fit the shared memory of the resident grid")
+        _PLANS[key] = tuple(out)
+    return _PLANS[key]
+
+
 def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS):
     """Launch the fused GroupNorm(1)+GELU kernel on a CUDA tensor."""
     if x.device.type != "cuda":
@@ -69,16 +88,17 @@ def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS):
     if n >= 2 ** 31 - 2 ** 20:
         raise ValueError(f"a sample of {n} elements exceeds the kernel's "
                          "32-bit indexing")
-    # partial sums per sample: enough CTAs to fill the card, each folding
-    # about 16 elements per thread
-    nblk = max(1, min(1024, math.ceil(n / (_THREADS * 16))))
+    bf16 = x.dtype == torch.bfloat16
+    grid, spr, ctas, per, rounds, vec = _plan(b, n, bf16)
     y = torch.empty_like(x)
+    # 16-byte copies need 16-byte aligned samples in and out
+    vec = int(vec and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
-    partials = torch.empty((b, nblk, 2), dtype=torch.float32, device=x.device)
+    partials = torch.empty((b, ctas, 2), dtype=torch.float32, device=x.device)
     rc = kernels.library().gn1_gelu_fwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), partials.data_ptr(), b, c, hw, nblk, float(eps),
-        int(bool(gelu)), int(x.dtype == torch.bfloat16),
+        stats.data_ptr(), partials.data_ptr(), b, c, hw, float(eps),
+        int(bool(gelu)), int(bf16), grid, spr, ctas, per, rounds, vec,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_fwd")
     kernels.launches["gn1_gelu_fwd"] += 1

@@ -54,7 +54,7 @@ def _dft_mats_inv_rows(n, m):
 
 
 _TABLES = {}
-_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on sm_90
+_SMEM_LIMIT = 232448  # bytes of shared memory one CTA may opt in to on sm_90
 
 
 def dft_tables(n1, n2, m1, m2, device):
@@ -128,6 +128,32 @@ def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
     return out / (n1 * n2)
 
 
+def _check_kernel_fits(b, ci, n1, n2, m1, m2):
+    """Raise on a shape the kernel's design does not take: m2 above its
+    largest unrolled bound (16), more threads per output row than a CTA
+    has, or more shared memory per CTA than the H100 gives. Mirrors the
+    sizes in ``csrc/spectral_dft2d.cu``."""
+    if m2 > 16:
+        raise ValueError(f"spectral_dft2d_fwd takes m2 <= 16, got {m2}")
+    bound = next(v for v in (4, 8, 10, 16) if m2 <= v)
+    vec = 4 if n2 % 4 == 0 else 1
+    if n2 // vec > 256:
+        raise ValueError(f"spectral_dft2d_fwd takes rows of at most "
+                         f"{256 * vec} points, got {n2}")
+    k = 2 * m1
+    ld = n2 + (4 if vec == 4 else 1)
+    tile = 8 if b > 4 else 4 if b > 2 else b
+    ci_pad = -(-ci // 16) * 16
+    need = 4 * max(
+        -(-n1 * ld // 4) * 4                                 # forward DFT
+        + 2 * (n2 * bound + n1 * k + n1 * bound),
+        4 * 16 * 2 * 64 + 2 * ci_pad * tile,                 # mix
+        2 * (k * bound + k * n1 + n1 * bound))                # inverse DFT
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"spectral_dft2d_fwd needs {need} B of shared memory "
+                         f"per CTA at this shape; the H100 gives {_SMEM_LIMIT}")
+
+
 def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
     """Launch the truncated-DFT spectral-conv kernel on CUDA tensors.
     ``w_packed`` is :func:`pack_weights_2d`'s layout."""
@@ -153,10 +179,7 @@ def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
             raise ValueError(f"film must be [{b}, {co}, >={k}, >={m2}] on "
                              f"{x.device}")
         film_ptr = film.data_ptr()
-    smem = 4 * max(n1 * n2 + 2 * n1 * m2, 2 * b * ci, 2 * k * m2 + 2 * k * n2)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"spectral_dft2d_fwd needs {smem} B of shared memory "
-                         f"per CTA at this shape; the H100 gives {_SMEM_LIMIT}")
+    _check_kernel_fits(b, ci, n1, n2, m1, m2)
     tables = dft_tables(n1, n2, m1, m2, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     xr = torch.empty((k * m2, b, ci), **f32)

@@ -6,8 +6,10 @@
 Builds ``cfg_twophase_ufno`` on the GPU as ``chip_smoke.py`` does, warms up
 with one step, then traces ``--steps`` steps with ``torch.profiler``. Prints
 one JSON line: the host time per step, the device-busy share of the traced
-window, and the device time of the kernels summed by name (top 25), with
-the card's name and power limit. The Chrome trace goes to ``--out``.
+window, the device time of the kernels summed by name (top 25, and every
+kernel of the port's CUDA sources), and the median device time of one
+spectral-conv call (its three kernels overlap), with the card's name and
+power limit. The Chrome trace goes to ``--out``.
 """
 
 import argparse
@@ -27,12 +29,29 @@ from nps_tpu_torch.pde import PDE2D
 CFG = "nps_tpu_torch/configs/train/cfg_twophase_ufno.py"
 # device-side records of the profiler's own work, not kernels of the step
 PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
+# the device kernels of the port's hand-written CUDA sources, by name
+PORTED_KERNELS = ("gn1_gelu_kernel", "dft_fwd_kernel", "mix_kernel",
+                  "dft_inv_kernel")
 
 
 def _device_events(prof):
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.name not in PROFILER_RECORDS]
+
+
+def _call_spans_us(events, first, last):
+    """Device time of each call of a kernel chain: from the start of a
+    ``first`` kernel to the end of the next ``last`` kernel (the chain's
+    kernels may overlap, so their summed durations overstate it)."""
+    spans, start = [], None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if first in e.name:
+            start = e.time_range.start
+        elif last in e.name and start is not None:
+            spans.append(e.time_range.end - start)
+            start = None
+    return spans
 
 
 def _busy_share(events, window_us):
@@ -98,15 +117,23 @@ def main():
     rows = sorted(((us, k, n) for k, (us, n) in by_name.items()),
                   reverse=True)
     total_dev_us = sum(r[0] for r in rows)
+    spans = sorted(_call_spans_us(events, "dft_fwd_kernel", "dft_inv_kernel"))
+
+    def row(us, k, n):
+        return {"name": k[:90], "ms_per_step": us / 1e3 / args.steps,
+                "share": us / total_dev_us, "calls_per_step": n / args.steps}
+
     print(json.dumps({
         "card": card, "batch": b, "steps": args.steps, "tf32": args.tf32,
         "host_ms_per_step": 1e3 * window_s / args.steps,
         "device_ms_per_step": total_dev_us / 1e3 / args.steps,
         "device_busy_share": _busy_share(events, window_s * 1e6),
-        "top_kernels": [{"name": k[:90], "ms_per_step": us / 1e3 / args.steps,
-                         "share": us / total_dev_us,
-                         "calls_per_step": n / args.steps}
-                        for us, k, n in rows[:25]],
+        "top_kernels": [row(*r) for r in rows[:25]],
+        "ported_kernels": [row(*r) for r in rows
+                           if any(s in r[1] for s in PORTED_KERNELS)],
+        "spectral_dft2d_fwd_call_ms": {
+            "median": spans[len(spans) // 2] / 1e3 if spans else None,
+            "calls_per_step": len(spans) / args.steps},
     }), flush=True)
 
 

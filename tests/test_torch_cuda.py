@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions at edge shapes the
-main path does not reach (scalar and vector paths, bf16, a batch above the
-mix kernel's 8-sample register tile, more than 128 output channels, FiLM),
-and the engine on the card against the engine on the CPU.
+main path does not reach (scalar and vector paths, bf16, several rounds of
+the persistent GroupNorm grid, a batch above the mix kernel's 8-sample
+register tile, channel counts that are not multiples of its tiles, every
+unrolled m2 bound, FiLM), and the engine on the card against the engine on
+the CPU.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine, which
 has no JAX, run it without the repo's conftest:
@@ -48,6 +50,54 @@ def test_gn1_gelu_kernel(shape, dtype, tol, gelu):
     assert _rel(y, gn.gn_gelu_plain(x, w, b, gelu)) < tol
 
 
+# (shape, rounds of the persistent grid in f32 on an H100): one sample, the
+# main path's largest shape (two rounds of two samples), b=5 (three rounds
+# of two and one), a sample that takes the whole grid (two rounds of one),
+# the whole batch in one round at b=5, channels that change inside a
+# 16-byte vector (hw % 4 != 0, hw < 4)
+@pytest.mark.parametrize("shape,rounds", [
+    ((1, 388, 100, 68), 1),
+    ((4, 388, 100, 68), 2),
+    ((5, 388, 100, 68), 3),
+    ((2, 1024, 100, 68), 2),
+    ((5, 200, 100, 68), 1),
+    ((2, 4, 7, 9), 1),
+    ((2, 8, 1, 3), 1),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gn1_gelu_kernel_persistent_rounds(shape, rounds, dtype, tol):
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    c = shape[1]
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    y = gn.gn1_gelu_fwd(x, w, b)
+    assert _rel(y, gn.gn_gelu_plain(x, w, b)) < tol
+    if dtype == torch.float32:
+        assert gn._plan(shape[0], x[0].numel(), False)[4] == rounds
+
+
+def test_gn1_gelu_kernel_second_call_matches_first():
+    """No barrier state outlives a call: a second call, and calls at other
+    shapes and round counts in between, give the same bits."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((4, 192, 47, 31), device="cuda", generator=g)
+    w = torch.randn(192, device="cuda", generator=g)
+    b = torch.randn(192, device="cuda", generator=g)
+    first = gn.gn1_gelu_fwd(x, w, b)
+    gn.gn1_gelu_fwd(torch.randn((2, 192, 100, 68), device="cuda"), w, b)
+    gn.gn1_gelu_fwd(torch.randn((6, 192, 100, 68), device="cuda"), w, b)
+    second = gn.gn1_gelu_fwd(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _rel(second, gn.gn_gelu_plain(x, w, b)) < 1e-5
+
+
 def test_gn1_gelu_kernel_refuses_bad_input():
     from nps_tpu_torch.ops import group_norm as gn
 
@@ -59,11 +109,20 @@ def test_gn1_gelu_kernel_refuses_bad_input():
         gn.gn1_gelu_fwd(x.double(), w, b)
     with pytest.raises(ValueError):
         gn.gn1_gelu_fwd(x, w[:3], b)
+    # one f32 sample of 55.7 MB: more than the resident grid's shared memory
+    big = torch.zeros((1, 2048, 100, 68), device="cuda")
+    w, b = torch.ones(2048, device="cuda"), torch.zeros(2048, device="cuda")
+    with pytest.raises(ValueError, match="does not fit"):
+        gn.gn1_gelu_fwd(big, w, b)
 
 
 @pytest.mark.parametrize("b,ci,co,grid,modes", [
-    (10, 5, 130, (16, 12), (4, 4)),
-    (3, 7, 6, (12, 10), (3, 6)),     # Nyquist column kept
+    (10, 5, 130, (16, 12), (4, 4)),     # b above the 8-sample tile
+    (3, 7, 6, (12, 10), (3, 6)),        # Nyquist column kept
+    (4, 198, 200, (96, 64), (10, 10)),  # co, ci not multiples of the tiles
+    (5, 13, 64, (32, 20), (8, 10)),
+    (1, 9, 70, (20, 18), (5, 9)),       # scalar rows and weights, b=1
+    (2, 4, 8, (32, 32), (4, 16)),       # the largest m2 bound
 ])
 @pytest.mark.parametrize("film_mode", [None, 0, 1])
 def test_spectral_kernel(b, ci, co, grid, modes, film_mode):
