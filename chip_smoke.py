@@ -23,7 +23,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              rollout's kernel launch counts, and one step
              against the same step run by the port on the CPU; then records
              the shapes gn1_gelu_fwd sees in one step and times those calls
-             (graph replay) beside their summed bound.
+             (graph replay) beside their summed bound;
+5. train   - the same model built by the training CLI's
+             get_config_static and trained on the card: a synthetic
+             split from the port's generator (20
+             simulations of 501 frames on the 96x64 grid, one channel: the
+             one cut, --dataset.c_filter=[0]), 2 epochs at the config's
+             batch 16 with a 19-bundled-step validation rollout, best-model
+             save and a checkpoint; then train steps at injected depths 0
+             and 8 timed (median of 5 after a warm-up, host clock around
+             synchronised steps) with their launch counts and peak memory;
+             and one depth-1 step at batch 2 against the same step run by
+             the port on the CPU (loss and every gradient).
+
+In the kernels phase the backward ops join the forward kernels: the
+gn1_gelu_bwd kernel and the spectral conv's backward (the forward kernel on
+dy with the adjoint weights, and one batched product for the weight
+gradient), each against autograd through its plain version. Their "ms" is
+graph replay of the op itself; the plain and library backwards run through
+the autograd engine, which a graph captured apart from its forward cannot
+replay, so theirs are eager calls between two CUDA events.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, printing no result, without a CUDA device or outside
@@ -54,6 +73,15 @@ SPEC_SHAPE = (BATCH, HIDDEN + N_STATIC + N_SPATIAL, NX1, NX2)
 REL_TOL_F32 = 1e-5    # kernel vs plain, f32: sums in another order
 REL_TOL_BF16 = 1e-2   # bf16 output: one rounding of an 8-bit mantissa
 REL_TOL_STEP = 1e-4   # card vs CPU step, the ROADMAP forward bar
+REL_TOL_GRAD = 1e-4   # backward kernels vs plain autograd, f32: more terms
+REL_TOL_STEP_GRAD = 5e-3  # card vs CPU gradients, the ROADMAP gradient bar
+# the train step's largest GroupNorm input at the config's batch 16
+GN_BWD_SHAPE = (16, 2 * HIDDEN + N_STATIC + N_SPATIAL, 100, 68)
+# GN+GELU backward flops per element: x-hat, the pre-activation, GELU' around
+# one exp (~12), the two sums, then the same again and dx in the apply pass
+GN_BWD_FLOPS_PER_ELEMENT = 40
+TRAIN_BATCH, TRAIN_SIMS, TRAIN_NT, TRAIN_EPOCHS = 16, 20, 501, 2
+TRAIN_DEPTHS, TIMED_STEPS = (0, 8), 5
 
 
 def emit(obj):
@@ -98,6 +126,24 @@ def graph_ms(fn, calls=20, replays=10, warmup=3):
     return start.elapsed_time(end) / (replays * calls), None
 
 
+def event_ms(fn, calls=10, warmup=2):
+    """Device time per call of ``fn`` from eager calls between two CUDA
+    events (for work a separately captured graph cannot replay)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def timed(rec, fn, key):
     """Put ``fn``'s graph-replay time under ``rec[key]`` (None and the
     reason under ``rec["timing_refused"]`` if capture is refused)."""
@@ -112,6 +158,14 @@ def gn_bound(shapes, itemsize=4):
     once, GN_FLOPS_PER_ELEMENT flops per element."""
     n = sum(math.prod(s) for s in shapes)
     return bound(2 * itemsize * n, GN_FLOPS_PER_ELEMENT * n)
+
+
+def spectral_flops(b, ci, co, n1, n2, m1, m2):
+    """Flops of one truncated-DFT spectral conv, [b, ci] -> [b, co]."""
+    k = 2 * m1
+    return (b * ci * (n1 * n2 * m2 * 4 + n1 * k * m2 * 8)   # forward DFT
+            + k * m2 * b * ci * co * 8                      # complex mix
+            + b * co * (k * n2 * m2 * 8 + n1 * n2 * k * 4))  # inverse DFT
 
 
 def bound(nbytes, flops):
@@ -225,10 +279,7 @@ def phase_kernels(gen):
         return torch.fft.irfft2(out_ft, s=(n1, n2))
 
     err_library = rel_err(rfft_conv(), y_p)
-    K = 2 * m1
-    flops = (b * ci * (n1 * n2 * m2 * 4 + n1 * K * m2 * 8)   # forward DFT
-             + K * m2 * b * ci * co * 8                      # complex mix
-             + b * co * (K * n2 * m2 * 8 + n1 * n2 * K * 4))  # inverse DFT
+    flops = spectral_flops(b, ci, co, n1, n2, m1, m2)
     nbytes = 4 * (x.numel() + packed.numel() + b * co * n1 * n2)
     bound_ms, bound_by = bound(nbytes, flops)
     rec = {"phase": "kernel", "name": "spectral_dft2d_fwd",
@@ -248,7 +299,134 @@ def phase_kernels(gen):
         raise AssertionError(f"spectral_dft2d_fwd disagrees: {err}, "
                              f"film {err_film}")
     results["spectral_dft2d_fwd"] = rec
+    results["gn1_gelu_bwd"] = gn_bwd_record(gen)
+    results["spectral_dft2d_bwd"] = spectral_bwd_record(gen)
     return results
+
+
+def _grads(fn, leaves, dy):
+    """(output, autograd graph inputs, gradients) of ``fn`` at copies of
+    ``leaves``; the graph is kept for timing its backward again."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    y = fn(*leaves)
+    return y, leaves, torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
+def _errors(got, ref):
+    return (max(rel_err(a, r) for a, r in zip(got, ref)),
+            max(float((a - r).abs().max()) for a, r in zip(got, ref)))
+
+
+def gn_bwd_record(gen):
+    """gn1_gelu_bwd at the train step's largest GroupNorm input against
+    autograd through the plain version and through F.group_norm + F.gelu."""
+    import torch
+    import torch.nn.functional as F
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    shape, c = GN_BWD_SHAPE, GN_BWD_SHAPE[1]
+    x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
+    gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    dy = torch.randn(shape, device="cuda", generator=gen)
+    _, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta)
+    got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy)
+    y_p, leaves_p, ref = _grads(gn.gn_gelu_plain, (x, gamma, beta), dy)
+    torch.cuda.synchronize()
+    err, max_abs = _errors(got, ref)
+    n = math.prod(shape)
+    bound_ms, bound_by = bound(3 * 4 * n, GN_BWD_FLOPS_PER_ELEMENT * n)
+    rec = {"phase": "kernel", "name": "gn1_gelu_bwd", "shape": shape,
+           "rel_err": err, "max_abs_err": max_abs,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_how": "x, dy read once + dx written once, f32, at "
+                        "3.35 TB/s"}
+    timed(rec, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy), "ms")
+    rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_p, leaves_p, dy, retain_graph=True))
+    del y_p, leaves_p
+    y_l, leaves_l, _ = _grads(
+        lambda x, w, b: F.gelu(F.group_norm(x, 1, w, b)), (x, gamma, beta),
+        dy)
+    rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_l, leaves_l, dy, retain_graph=True))
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    emit(rec)
+    if not err < REL_TOL_GRAD:
+        raise AssertionError(f"gn1_gelu_bwd disagrees: {err}")
+    return rec
+
+
+def spectral_bwd_record(gen):
+    """SpectralConv2dFn's backward (dx and both weight gradients) at the
+    main path's shape against autograd through the plain version and
+    through rfft2 + einsum + irfft2."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from nps_tpu_torch.ops import spectral as sp
+
+    b, ci, n1, n2 = SPEC_SHAPE
+    co, m1, m2 = HIDDEN, MODES, MODES
+    modes = (m1, m2)
+    x = torch.randn(SPEC_SHAPE, device="cuda", generator=gen)
+    ws = [torch.rand((2, ci, co, m1, m2), device="cuda", generator=gen)
+          / (ci * co) for _ in range(2)]
+    dy = torch.randn((b, co, n1, n2), device="cuda", generator=gen)
+    # the Function's backward called as autograd would call it
+    _, xr, xi = sp.spectral_dft2d_fwd_spectrum(x, sp.pack_weights_2d(ws),
+                                               modes)
+    ctx = SimpleNamespace(saved_tensors=(xr, xi, *ws), modes=modes,
+                          grid=(n1, n2), needs_input_grad=(True,) * 3 + (False,))
+    got = sp.SpectralConv2dFn.backward(ctx, dy)[:3]
+    y_p, leaves_p, ref = _grads(
+        lambda x, w1, w2: sp.spectral_conv_2d_plain(x, [w1, w2], modes),
+        (x, *ws), dy)
+    torch.cuda.synchronize()
+    err, max_abs = _errors(got, ref)
+
+    def rfft_conv(x, w1, w2):
+        w = torch.cat([w1, w2], 3)
+        xf = torch.fft.rfft2(x)
+        blk = torch.cat([xf[:, :, :m1, :m2], xf[:, :, n1 - m1:, :m2]], dim=2)
+        mixed = torch.einsum("bikm,iokm->bokm", blk, torch.complex(w[0], w[1]))
+        out_ft = torch.zeros((b, co, n1, n2 // 2 + 1), dtype=mixed.dtype,
+                             device="cuda")
+        out_ft[:, :, :m1, :m2] = mixed[:, :, :m1]
+        out_ft[:, :, n1 - m1:, :m2] = mixed[:, :, m1:]
+        return torch.fft.irfft2(out_ft, s=(n1, n2))
+
+    modes_n = 2 * m1 * m2
+    nbytes = 4 * (dy.numel() + 2 * ws[0].numel()       # dy, W read
+                  + 2 * modes_n * b * ci                # saved spectrum
+                  + x.numel() + 2 * ws[0].numel())      # dx, dW written
+    flops = (spectral_flops(b, co, ci, n1, n2, m1, m2)  # dx: adjoint conv
+             + modes_n * b * ci * co * 8)               # dW: complex products
+    bound_ms, bound_by = bound(nbytes, flops)
+    rec = {"phase": "kernel", "name": "spectral_dft2d_bwd",
+           "shape": [SPEC_SHAPE, co, [m1, m2]], "rel_err": err,
+           "max_abs_err": max_abs, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "bound_how": f"dy + weights + saved spectrum read, dx + dW "
+                        f"written once, f32, at 3.35 TB/s ({nbytes} B); "
+                        f"{flops} flop at 67 TFLOP/s"}
+    timed(rec, lambda: sp.SpectralConv2dFn.backward(ctx, dy), "ms")
+    rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_p, leaves_p, dy, retain_graph=True))
+    del y_p, leaves_p
+    y_l, leaves_l, ref_l = _grads(rfft_conv, (x, *ws), dy)
+    rec["rel_err_library_vs_plain"] = _errors(ref_l, ref)[0]
+    rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_l, leaves_l, dy, retain_graph=True))
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    emit(rec)
+    if not err < REL_TOL_GRAD:
+        raise AssertionError(f"spectral_dft2d_bwd disagrees: {err}")
+    return rec
 
 
 def gn_step_time(eng, u0, cond, sc):
@@ -354,6 +532,166 @@ def phase_slice(seed, card):
     return launches[0]
 
 
+def _grad_errors(got, ref):
+    """Per parameter max|d| / max|ref|, a tensor whose gradient is below
+    1e-5 of the model's largest held at that floor (zero in exact
+    arithmetic, f32 noise on both sides); the worst one: (err, name)."""
+    floor = 1e-5 * max(float(r.abs().max()) for r in ref.values())
+    return max((float((got[k].cpu() - r).abs().max())
+                / max(float(r.abs().max()), floor), k)
+               for k, r in ref.items())
+
+
+def phase_train(seed, card, out_dir):
+    """Train the full-width model (built by the CLI's get_config_static)
+    for TRAIN_EPOCHS epochs, time single steps at the depths TRAIN_DEPTHS,
+    and hold one depth-1 step against the CPU. Returns the 2-epoch run's
+    launches."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels, train_cli
+    from nps_tpu_torch.configs.parse import parse_args
+    from nps_tpu_torch.data.pipeline import prefetch_to_device
+    from nps_tpu_torch.data.synthetic import generate
+    from nps_tpu_torch.inference import autotuned_convs
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        generate(f"{tmp}/data/twophase", n_sims=TRAIN_SIMS, n_channels=1,
+                 nt=TRAIN_NT, nx1=NX1, nx2=NX2, seed=seed)
+        gen_s = time.perf_counter() - t0
+        argv = ["chip_smoke", f"--dataset.base_path={tmp}/data",
+                "--dataset.c_filter=[0]", f"--seed={seed}",
+                f"--trainer.num_epochs={TRAIN_EPOCHS}",
+                "--trainer.test_interval=1", "--trainer.print_interval=1",
+                f"--experiment_path={tmp}/out", "--experiment_name=train"]
+
+        def build(device):
+            saved = sys.argv
+            try:
+                sys.argv = argv
+                with contextlib.redirect_stdout(sys.stderr):
+                    args = parse_args(CFG)
+            finally:
+                sys.argv = saved
+            trainer = train_cli.get_config_static(args, device=device)[4]
+            trainer.set_optimizer(dict(args["optimizer"]))
+            trainer.set_lr_scheduler(dict(args["lr_scheduler"]))
+            return trainer
+
+        trainer = build("cuda")
+        if trainer.config.batch_size != TRAIN_BATCH:
+            raise AssertionError(f"config batch {trainer.config.batch_size}")
+        log = open(out_dir / "train.log", "w")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            train_losses, val_losses, _ = trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        log.close()
+        save = trainer.config.save_path
+        with open(save + "_metrics.jsonl") as f:
+            metrics = [json.loads(line) for line in f]
+        files = {suffix: Path(save + suffix).exists()
+                 for suffix in ("_default.pt", "_checkpoint.pt", "_final.pt")}
+        n_steps = TRAIN_EPOCHS * len(trainer.get_dataloaders()[0])
+
+        # single steps at injected depths, on one batch of the split
+        batches = prefetch_to_device(iter(trainer.get_dataloaders()[0]),
+                                     trainer.device)
+        batch = next(batches)
+        batches.close()
+        steps = {}
+        with autotuned_convs():
+            for depth in TRAIN_DEPTHS:
+                trainer.train_step(batch, 0, 0, unrolled=depth)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                seconds, counts = [], []
+                for i in range(TIMED_STEPS):
+                    kernels.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss, _ = trainer.train_step(batch, 0, i + 1,
+                                                 unrolled=depth)
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t0)
+                    counts.append(dict(kernels.launches))
+                median = sorted(seconds)[len(seconds) // 2]
+                want = {"gn1_gelu_fwd": 48 * (depth + 1),
+                        "gn1_gelu_bwd": 48,
+                        "spectral_dft2d_fwd": 3 * (depth + 1) + 3,
+                        "spectral_dft2d_bwd": 3}
+                steps[depth] = {
+                    "step_seconds": seconds, "ms_per_step": 1e3 * median,
+                    "samples_per_s": TRAIN_BATCH / median,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "loss": float(loss), "launches": counts[0],
+                    "launches_expected": want,
+                    "launches_ok": all(c == want for c in counts)}
+
+            # one depth-1 step at batch 2, card against CPU, same weights
+            # and start steps
+            cpu = build("cpu")
+            cpu.ensure_initialized()  # builds its optimizer
+            cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                       trainer.model.state_dict().items()})
+            small = tuple(t[:2] for t in batch)
+            steps0 = torch.randint(TW, TRAIN_NT - 2 * TW + 1, (2,),
+                                   generator=torch.Generator().manual_seed(seed))
+            loss_gpu, _ = trainer.train_step(small, 0, 0, unrolled=1,
+                                             steps0=steps0)
+            loss_cpu, _ = cpu.train_step(tuple(t.cpu() for t in small), 0, 0,
+                                         unrolled=1, steps0=steps0)
+        loss_err = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+        grad_err, grad_worst = _grad_errors(
+            {k: p.grad for k, p in trainer.model.named_parameters()},
+            {k: p.grad for k, p in cpu.model.named_parameters()})
+
+    want_run = {"gn1_gelu_bwd": 48 * n_steps,
+                "spectral_dft2d_bwd": 3 * n_steps}
+    rec = {"phase": "train", "config": CFG, "batch": TRAIN_BATCH,
+           "epochs": TRAIN_EPOCHS, "train_steps": n_steps,
+           "data": {"sims": TRAIN_SIMS, "nt": TRAIN_NT, "grid": [NX1, NX2],
+                    "channels": 1, "cut": "--dataset.c_filter=[0]",
+                    "generate_seconds": gen_s},
+           "train_seconds": train_s, "train_losses": train_losses,
+           "val_losses": val_losses["default"],
+           "metrics_lines": len(metrics), "files": files,
+           "launches": launches, "launches_expected": want_run,
+           "steps": {str(d): v for d, v in steps.items()},
+           "step_vs_cpu": {"depth": 1, "batch": 2, "loss_gpu": float(loss_gpu),
+                           "loss_cpu": float(loss_cpu),
+                           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                           "worst_grad": grad_worst},
+           "card": card, "tf32": False}
+    emit(rec)
+    if not (np.isfinite(train_losses).all()
+            and np.isfinite(val_losses["default"]).all()
+            and len(val_losses["default"]) == TRAIN_EPOCHS):
+        raise AssertionError("training losses are not finite")
+    if len(metrics) != TRAIN_EPOCHS or not all(files.values()):
+        raise AssertionError(f"missing outputs: {len(metrics)} metric "
+                             f"lines, files {files}")
+    if any(launches.get(k) != v for k, v in want_run.items()) or not all(
+            launches.get(k) for k in ("gn1_gelu_fwd", "spectral_dft2d_fwd")):
+        raise AssertionError(f"training launches {launches}, want {want_run}")
+    if not all(v["launches_ok"] for v in steps.values()):
+        raise AssertionError("train-step launch counts differ from the "
+                             "expected ones")
+    if not (loss_err < REL_TOL_STEP and grad_err < REL_TOL_STEP_GRAD):
+        raise AssertionError(f"card vs CPU train step: loss {loss_err}, "
+                             f"gradient {grad_err} ({grad_worst})")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -377,24 +715,41 @@ def main():
     card = phase_device()
     phase_build(out_dir)
     kern = phase_kernels(gen)
-    launches = phase_slice(args.seed, card)
+    serve = phase_slice(args.seed, card)
+    train = phase_train(args.seed, card, out_dir)
 
-    sources = {"gn1_gelu_fwd": ("nps_tpu_torch/csrc/gn1_gelu.cu",
-                                "tools/pallas_group_norm_evidence.py:61"),
-               "spectral_dft2d_fwd": (
-                   "nps_tpu_torch/csrc/spectral_dft2d.cu",
-                   "nps_tpu/ops/pallas/spectral_dft.py:144 (git 92d7866^)")}
+    # name -> (source, TPU kernel replaced, the path whose run gives
+    # "launches"); the forward kernels keep the serving path's count
+    sources = {
+        "gn1_gelu_fwd": ("nps_tpu_torch/csrc/gn1_gelu.cu",
+                         "tools/pallas_group_norm_evidence.py:61", serve),
+        "gn1_gelu_bwd": ("nps_tpu_torch/csrc/gn1_gelu.cu",
+                         "tools/pallas_group_norm_evidence.py:106 (_gn_bwd, "
+                         "XLA)", train),
+        "spectral_dft2d_fwd": (
+            "nps_tpu_torch/csrc/spectral_dft2d.cu",
+            "nps_tpu/ops/pallas/spectral_dft.py:144 (git 92d7866^)", serve),
+        "spectral_dft2d_bwd": (
+            "nps_tpu_torch/csrc/spectral_dft2d.cu (on dy, adjoint weights) "
+            "+ nps_tpu_torch/ops/spectral.py:spectral_weight_grad",
+            "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
+            "_pallas_bwd, XLA)", train)}
     line = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path) in sources.items():
         r = kern[name]
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": path.get(name, 0),
+                     "launches_by_path": {"serve": serve.get(name, 0),
+                                          "train": train.get(name, 0)},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "bound_share": r["bound_share"], "parity": "ok",
-                     "timing": "device: CUDA graph of 20 calls, replayed"})
+                     "timing": "device: CUDA graph of 20 calls, replayed"
+                               + ("; plain and library: eager calls between "
+                                  "CUDA events" if name.endswith("_bwd")
+                                  else "")})
         if "timing_refused" in r:
             line[-1]["timing_refused"] = r["timing_refused"]
     with open(out_dir / "kernels.json", "w") as f:

@@ -37,8 +37,8 @@ def make_dataset(base_args):
 
 def make_trainer(base_args):
     """The JAX package's trainer group, key for key, so both parsers give
-    the same dicts. The trainer is not ported yet and the serving engine
-    reads none of these keys (not ``device`` either)."""
+    the same dicts. Neither the trainer nor the serving engine reads
+    ``device``: the caller chooses the device."""
     return dict(
         object="AutoregressivePushforwardTrainer",
         neighbors=3,

@@ -57,6 +57,29 @@
 // hw = product of the spatial dims, n = C * hw per sample; gamma and beta
 // are f32 [C]; y has x's shape and type; stats is f32 [b, 2]; partials is
 // f32 [b, G, 2] scratch.
+//
+// gn1_gelu_bwd: the backward of the same op, f32. The TPU side has no
+// Pallas backward: its _gn_bwd (tools/pallas_group_norm_evidence.py:106-127)
+// is one XLA fusion. With pre = xh * gamma + beta, xh = (x - mean) * inv,
+// g = dy * GELU'(pre) (GELU'(z) = Phi(z) + z phi(z), the forward's erf form
+// and one shared exp) and t = g * gamma:
+//   dx     = inv * (t - mean_n(t) - xh * mean_n(t * xh))   per sample
+//   dgamma = sum_{b, hw} g * xh,   dbeta = sum_{b, hw} g   per channel
+// Bound on the H100: memory bandwidth, one read of x and dy and one write of
+// dx (0.151 ms at [16, 388, 100, 68] f32). Design: two passes over x and dy,
+// so 5 of the bound's 3 tensor passes (the two reads of the sums pass cannot
+// stay in the 50 MB L2 at the main path's 338 MB):
+//   1. gn1_bwd_sums: one CTA per (sample, channel) plane folds the plane's
+//      sum g and sum g * xh, reduced inside the CTA in a fixed order, into
+//      ws [b, C, 2]. Every per-sample and per-channel sum the gradient needs
+//      is a sum of these, since gamma is constant over a plane;
+//   2. gn1_bwd_reduce: one CTA per sample sums gamma[c] * ws over its
+//      channels (mean_n(t), mean_n(t * xh) into coef [b, 2]); further CTAs
+//      sum ws over the batch per channel into dgamma and dbeta;
+//   3. gn1_bwd_apply: one CTA per plane recomputes g and writes dx with
+//      streaming stores.
+// No atomics: every sum runs in the same order on every call, so the result
+// is deterministic. Planes of a multiple of 4 elements use 16-byte vectors.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -386,6 +409,165 @@ int launch(Args a, int grid, cudaStream_t stream) {
       static_cast<size_t>(cfg.smem), stream));
 }
 
+// ---- backward ----------------------------------------------------------------
+constexpr int kBwdThreads = 256;
+
+// d/dz of the exact-erf GELU: Phi(z) + z phi(z), erf as in gelu_erf; the
+// exp(-z^2/2) of phi is the exp the erf form already takes
+__device__ __forceinline__ float gelu_erf_grad(float v) {
+  const float z = v * 0.70710678118654752f;
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, fabsf(z), 1.0f));
+  const float p = t * fmaf(fmaf(fmaf(fmaf(1.061405429f, t, -1.453152027f), t,
+                                     1.421413741f), t, -0.284496736f), t,
+                           0.254829592f);
+  const float e = __expf(-z * z);
+  const float cdf = 0.5f * (z >= 0.f ? 2.0f - p * e : p * e);
+  return fmaf(v * 0.39894228040143268f, e, cdf);
+}
+
+// Sum two values over a kBwdThreads block, in a fixed order; valid in
+// thread 0. Every thread of the block must call it.
+__device__ __forceinline__ float2 bwd_block_sum2(float2 v) {
+  constexpr int W = kBwdThreads / 32;
+  __shared__ float2 part[W];
+  for (int off = 16; off > 0; off >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+  }
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+  if (threadIdx.x == 0)
+    for (int w = 0; w < W; ++w) {
+      t.x += part[w].x;
+      t.y += part[w].y;
+    }
+  return t;
+}
+
+struct BwdArgs {
+  const float* x;
+  const float* dy;
+  const float* gamma;
+  const float* beta;
+  const float* stats;  // [b, 2] (mean, inv) from the forward
+  float* ws;           // [b, C, 2] per-plane (sum g, sum g * xh)
+  float* coef;         // [b, 2] (mean_n(t), mean_n(t * xh))
+  float* dx;
+  float* dgamma;
+  float* dbeta;
+  int b, c, hw, gelu;
+  float inv_n;
+};
+
+// the plane's constants: mean, inv, gamma, beta
+struct Plane {
+  int64_t off;
+  int s, ch;
+  float mean, inv, g, bb;
+};
+__device__ __forceinline__ Plane plane_of(const BwdArgs& a) {
+  Plane p;
+  p.s = blockIdx.x / a.c;
+  p.ch = blockIdx.x % a.c;
+  p.off = static_cast<int64_t>(blockIdx.x) * a.hw;
+  p.mean = __ldg(a.stats + 2 * p.s);
+  p.inv = __ldg(a.stats + 2 * p.s + 1);
+  p.g = __ldg(a.gamma + p.ch);
+  p.bb = __ldg(a.beta + p.ch);
+  return p;
+}
+
+// g and xh of one element
+__device__ __forceinline__ void grad_in(const BwdArgs& a, const Plane& p, float xv, float dyv,
+                                        float& g, float& xh) {
+  xh = (xv - p.mean) * p.inv;
+  g = a.gelu ? dyv * gelu_erf_grad(fmaf(xh, p.g, p.bb)) : dyv;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kBwdThreads) gn1_bwd_sums(BwdArgs a) {
+  const Plane p = plane_of(a);
+  float2 acc = make_float2(0.f, 0.f);
+  auto fold = [&](float xv, float dyv) {
+    float g, xh;
+    grad_in(a, p, xv, dyv, g, xh);
+    acc.x += g;
+    acc.y = fmaf(g, xh, acc.y);
+  };
+  if constexpr (VEC) {
+    const float4* x4 = reinterpret_cast<const float4*>(a.x + p.off);
+    const float4* d4 = reinterpret_cast<const float4*>(a.dy + p.off);
+    for (int i = threadIdx.x; i < a.hw / 4; i += kBwdThreads) {
+      const float4 xv = x4[i], dv = d4[i];
+      fold(xv.x, dv.x);
+      fold(xv.y, dv.y);
+      fold(xv.z, dv.z);
+      fold(xv.w, dv.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < a.hw; i += kBwdThreads) fold(a.x[p.off + i], a.dy[p.off + i]);
+  }
+  acc = bwd_block_sum2(acc);
+  if (threadIdx.x == 0) reinterpret_cast<float2*>(a.ws)[blockIdx.x] = acc;
+}
+
+// CTAs [0, b): per-sample coefficients; CTAs [b, ...): per-channel dgamma,
+// dbeta, one channel per thread, summed over the batch in order
+__global__ void __launch_bounds__(kBwdThreads) gn1_bwd_reduce(BwdArgs a) {
+  const float2* ws = reinterpret_cast<const float2*>(a.ws);
+  if (blockIdx.x < static_cast<unsigned>(a.b)) {
+    const int s = blockIdx.x;
+    float2 acc = make_float2(0.f, 0.f);
+    for (int ch = threadIdx.x; ch < a.c; ch += kBwdThreads) {
+      const float2 v = ws[static_cast<int64_t>(s) * a.c + ch];
+      const float gm = __ldg(a.gamma + ch);
+      acc.x = fmaf(gm, v.x, acc.x);
+      acc.y = fmaf(gm, v.y, acc.y);
+    }
+    acc = bwd_block_sum2(acc);
+    if (threadIdx.x == 0) {
+      a.coef[2 * s] = acc.x * a.inv_n;
+      a.coef[2 * s + 1] = acc.y * a.inv_n;
+    }
+    return;
+  }
+  const int ch = (blockIdx.x - a.b) * kBwdThreads + threadIdx.x;
+  if (ch >= a.c) return;
+  float sg = 0.f, sgx = 0.f;
+  for (int s = 0; s < a.b; ++s) {
+    const float2 v = ws[static_cast<int64_t>(s) * a.c + ch];
+    sg += v.x;
+    sgx += v.y;
+  }
+  a.dbeta[ch] = sg;
+  a.dgamma[ch] = sgx;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kBwdThreads) gn1_bwd_apply(BwdArgs a) {
+  const Plane p = plane_of(a);
+  const float ct = __ldg(a.coef + 2 * p.s), ctx = __ldg(a.coef + 2 * p.s + 1);
+  auto dx_of = [&](float xv, float dyv) {
+    float g, xh;
+    grad_in(a, p, xv, dyv, g, xh);
+    return p.inv * (fmaf(g, p.g, -ct) - xh * ctx);
+  };
+  if constexpr (VEC) {
+    const float4* x4 = reinterpret_cast<const float4*>(a.x + p.off);
+    const float4* d4 = reinterpret_cast<const float4*>(a.dy + p.off);
+    float4* o4 = reinterpret_cast<float4*>(a.dx + p.off);
+    for (int i = threadIdx.x; i < a.hw / 4; i += kBwdThreads) {
+      const float4 xv = x4[i], dv = d4[i];
+      __stcs(o4 + i, make_float4(dx_of(xv.x, dv.x), dx_of(xv.y, dv.y), dx_of(xv.z, dv.z),
+                                 dx_of(xv.w, dv.w)));
+    }
+  } else {
+    for (int i = threadIdx.x; i < a.hw; i += kBwdThreads)
+      a.dx[p.off + i] = dx_of(a.x[p.off + i], a.dy[p.off + i]);
+  }
+}
+
 }  // namespace
 
 // out = [grid, samples per round, CTAs per sample, slice length, rounds,
@@ -417,4 +599,44 @@ extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta
   a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(a, grid, s) : launch<float>(a, grid, s);
+}
+
+// f32 backward, three kernels (see the note at the top); vec: hw % 4 == 0
+// and every tensor 16-byte aligned. Returns the first CUDA error.
+extern "C" int gn1_gelu_bwd(const float* x, const float* dy, const float* gamma, const float* beta,
+                            const float* stats, float* ws, float* coef, float* dx, float* dgamma,
+                            float* dbeta, int b, int c, long long hw, int apply_gelu, int vec,
+                            void* stream) {
+  BwdArgs a;
+  a.x = x;
+  a.dy = dy;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.stats = stats;
+  a.ws = ws;
+  a.coef = coef;
+  a.dx = dx;
+  a.dgamma = dgamma;
+  a.dbeta = dbeta;
+  a.b = b;
+  a.c = c;
+  a.hw = static_cast<int>(hw);  // the wrapper keeps c * hw below 2^31 - 2^20
+  a.gelu = apply_gelu;
+  a.inv_n = 1.0f / static_cast<float>(static_cast<double>(c) * hw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int planes = b * c;
+  if (vec)
+    gn1_bwd_sums<true><<<planes, kBwdThreads, 0, s>>>(a);
+  else
+    gn1_bwd_sums<false><<<planes, kBwdThreads, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn1_bwd_reduce<<<b + (c + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (vec)
+    gn1_bwd_apply<true><<<planes, kBwdThreads, 0, s>>>(a);
+  else
+    gn1_bwd_apply<false><<<planes, kBwdThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

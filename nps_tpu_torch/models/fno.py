@@ -10,11 +10,31 @@ import math
 
 import torch
 from torch import nn
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.common import ConvND, Dense
 from nps_tpu_torch.ops.spectral import pack_weights_2d, spectral_conv_nd
+
+
+class _OptimizerSteps:
+    """Counts the steps of every ``torch.optim`` optimizer in the process.
+    Not every optimizer bumps its parameters' version counters (the fused
+    Adam does not), so the packed-weight cache keys on this count too."""
+
+    count = 0
+    handle = None
+
+    @classmethod
+    def _hook(cls, optimizer, args, kwargs):
+        cls.count += 1
+
+    @classmethod
+    def current(cls):
+        if cls.handle is None:
+            cls.handle = register_optimizer_step_post_hook(cls._hook)
+        return cls.count
 
 
 def _modes_tuple(modes, nd):
@@ -59,10 +79,12 @@ class SpectralConvND(nn.Module):
                 w.mul_(self.scale)
 
     def packed_weights(self):
-        """The CUDA kernel's weight layout, re-packed only when a weight
-        changed (in place, or by being replaced)."""
+        """The CUDA kernel's weight layout for calls without gradients,
+        re-packed when a weight changed: in place (a new version, or any
+        optimizer step since) or by being replaced."""
         ws = (self.weights1, self.weights2)
-        key = tuple((w.data_ptr(), w._version, w.device) for w in ws)
+        key = (_OptimizerSteps.current(),
+               *((w.data_ptr(), w._version, w.device) for w in ws))
         if self._packed[0] != key:
             with torch.no_grad():
                 self._packed = (key, pack_weights_2d(ws))
@@ -73,7 +95,11 @@ class SpectralConvND(nn.Module):
         if self.weights_feat is not None:
             assert p is not None, "FiLM conditioning requires the cond vector"
             film = self.weights_feat(p).reshape((p.shape[0],) + self.film_grid)
-        w_packed = self.packed_weights() if x.device.type == "cuda" else None
+        # with gradients the CUDA path packs inside SpectralConv2dFn, so the
+        # weights stay in the graph; the cache serves no-grad calls only
+        w_packed = (self.packed_weights()
+                    if x.device.type == "cuda" and not torch.is_grad_enabled()
+                    else None)
         return spectral_conv_nd(x, [self.weights1, self.weights2], self.modes,
                                 film=film, film_mode=self.transform_mode,
                                 num_spatial_dims=self.nd, w_packed=w_packed)

@@ -11,6 +11,10 @@ Layout: NCHW (any number of spatial dims), contiguous; f32, or bf16 with f32
 statistics and f32 arithmetic, rounded once on output. A CPU tensor takes
 the plain version, a CUDA tensor the kernel ``gn1_gelu_fwd``
 (``csrc/gn1_gelu.cu``); there is no fallback between them.
+
+Gradients: on CUDA, :class:`GNGeluFn` pairs the forward kernel with the
+hand-written backward ``gn1_gelu_bwd`` (f32 only; a bf16 input raises in the
+backward). On the CPU, autograd runs through the plain version.
 """
 
 import ctypes
@@ -69,6 +73,29 @@ def _plan(b, n, is_bf16):
 
 def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS):
     """Launch the fused GroupNorm(1)+GELU kernel on a CUDA tensor."""
+    return gn1_gelu_fwd_stats(x, weight, bias, gelu, eps)[0]
+
+
+def _check_affine(x, weight, bias):
+    c = x.shape[1]
+    for name, p in (("weight", weight), ("bias", bias)):
+        if (p.device != x.device or p.dtype != torch.float32
+                or tuple(p.shape) != (c,) or not p.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous f32 [{c}] tensor "
+                             f"on {x.device}")
+
+
+def _check_sample_size(x):
+    n = x[0].numel()
+    if n >= 2 ** 31 - 2 ** 20:
+        raise ValueError(f"a sample of {n} elements exceeds the kernel's "
+                         "32-bit indexing")
+    return n
+
+
+def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS):
+    """:func:`gn1_gelu_fwd` that also returns the per-sample statistics the
+    kernel writes, ``stats`` [b, 2] f32 (mean, inv), for the backward."""
     if x.device.type != "cuda":
         raise ValueError(f"gn1_gelu_fwd takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -78,16 +105,9 @@ def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS):
     if x.ndim < 3:
         raise ValueError(f"expects [b, C, *sp], got shape {tuple(x.shape)}")
     b, c = x.shape[:2]
-    for name, p in (("weight", weight), ("bias", bias)):
-        if (p.device != x.device or p.dtype != torch.float32
-                or tuple(p.shape) != (c,) or not p.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous f32 [{c}] tensor "
-                             f"on {x.device}")
+    _check_affine(x, weight, bias)
     hw = x[0, 0].numel()
-    n = c * hw
-    if n >= 2 ** 31 - 2 ** 20:
-        raise ValueError(f"a sample of {n} elements exceeds the kernel's "
-                         "32-bit indexing")
+    n = _check_sample_size(x)
     bf16 = x.dtype == torch.bfloat16
     grid, spr, ctas, per, rounds, vec = _plan(b, n, bf16)
     y = torch.empty_like(x)
@@ -102,11 +122,71 @@ def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS):
         kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_fwd")
     kernels.launches["gn1_gelu_fwd"] += 1
-    return y
+    return y, stats
+
+
+def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
+    """Launch the backward kernel: (dx, dweight, dbias) of the fused op at
+    ``x`` for the output gradient ``dy``, from the forward's ``stats``.
+    f32, CUDA, contiguous."""
+    if x.device.type != "cuda":
+        raise ValueError(f"gn1_gelu_bwd takes CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32 or dy.dtype != torch.float32:
+        raise TypeError(f"gn1_gelu_bwd takes f32, got {x.dtype} and "
+                        f"{dy.dtype}")
+    if x.ndim < 3 or dy.shape != x.shape:
+        raise ValueError(f"expects x and dy of one [b, C, *sp] shape, got "
+                         f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("gn1_gelu_bwd takes contiguous NCHW tensors")
+    b, c = x.shape[:2]
+    _check_affine(x, weight, bias)
+    if (stats.device != x.device or stats.dtype != torch.float32
+            or tuple(stats.shape) != (b, 2) or not stats.is_contiguous()):
+        raise ValueError(f"stats must be the forward's f32 [{b}, 2] tensor")
+    _check_sample_size(x)
+    hw = x[0, 0].numel()
+    dx = torch.empty_like(x)
+    dw, db = torch.empty_like(weight), torch.empty_like(bias)
+    ws = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    coef = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    vec = int(hw % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x, dy, dx)))
+    rc = kernels.library().gn1_gelu_bwd(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), b, c, hw, int(bool(gelu)), vec,
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_gelu_bwd")
+    kernels.launches["gn1_gelu_bwd"] += 1
+    return dx, dw, db
+
+
+class GNGeluFn(torch.autograd.Function):
+    """GroupNorm(1) [+ exact GELU] on CUDA tensors: the forward kernel, and
+    the backward kernel for its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gelu, eps):
+        y, stats = gn1_gelu_fwd_stats(x, weight, bias, gelu, eps)
+        ctx.save_for_backward(x, weight, bias, stats)
+        ctx.gelu = gelu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, stats = ctx.saved_tensors
+        dx, dw, db = gn1_gelu_bwd(x, weight, bias, stats, dy.contiguous(),
+                                  ctx.gelu)
+        return dx, dw, db, None, None
 
 
 def gn_gelu(x, weight, bias, gelu=True, eps=EPS):
-    """GroupNorm(1 group) [+ exact GELU]: plain on CPU, the kernel on CUDA."""
+    """GroupNorm(1 group) [+ exact GELU]: plain on CPU, the kernels on CUDA
+    (:class:`GNGeluFn` where a gradient is wanted)."""
     if x.device.type == "cpu":
         return gn_gelu_plain(x, weight, bias, gelu, eps)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias)):
+        return GNGeluFn.apply(x, weight, bias, bool(gelu), eps)
     return gn1_gelu_fwd(x, weight, bias, gelu, eps)

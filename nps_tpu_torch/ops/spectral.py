@@ -14,6 +14,17 @@ the low and the high row modes. FiLM ``[b, co, 2*m1, m2]``.
 A CPU tensor takes the plain version; a CUDA tensor the kernel
 ``spectral_dft2d_fwd`` (``csrc/spectral_dft2d.cu``, the port of the TPU
 kernel K1). The 1D and 3D paths are not ported yet and raise.
+
+Gradients on CUDA go through :class:`SpectralConv2dFn`. The map is linear,
+and its adjoint is the same three stages with the conjugate-transposed
+weights: the per-mode factor h(m)/(n1 n2) of the inverse is a real scalar
+per mode, so it commutes with the mix. So the input gradient is the same
+kernel run on ``dy`` with :func:`pack_adjoint_weights_2d`, and that launch's
+spectrum scratch holds ``dy``'s truncated spectrum G. The weight gradient
+per mode is h(m)/(n1 n2) * sum_b conj(X_i) G_o, with X the forward's saved
+spectrum: one ``torch.bmm`` over the modes (a plain matrix product, left to
+cuBLAS as the JAX package leaves it to XLA). FiLM gradients on CUDA are not
+ported and raise. On the CPU, autograd runs through the plain version.
 """
 
 import numpy as np
@@ -67,7 +78,11 @@ def dft_tables(n1, n2, m1, m2, device):
     if key not in _TABLES:
         mats = (*_dft_mats_fwd(n2, m2), *_dft_mats_fwd_rows(n1, m1),
                 *_dft_mats_inv_half(n2, m2), *_dft_mats_inv_rows(n1, m1))
-        _TABLES[key] = tuple(torch.from_numpy(a).to(device) for a in mats)
+        # normal tensors even when first built under inference mode, so a
+        # later autograd pass through the plain version can save them
+        with torch.inference_mode(False):
+            _TABLES[key] = tuple(torch.from_numpy(a).to(device)
+                                 for a in mats)
     return _TABLES[key]
 
 
@@ -86,13 +101,24 @@ def check_modes(modes, spatial_shape):
                 f"the low/high mode blocks overlap the spectrum")
 
 
+def _pack(weights, order):
+    """[weights1, weights2], each [2, ci, co, m1, m2], permuted by
+    ``order`` and stacked along the row modes (low, then high) in one copy
+    each: [2*m1, m2, ...]."""
+    w1, w2 = (w.permute(*order) for w in weights)
+    out = torch.empty((2 * w1.shape[0],) + tuple(w1.shape[1:]),
+                      dtype=w1.dtype, device=w1.device)
+    out[:w1.shape[0]].copy_(w1)
+    out[w1.shape[0]:].copy_(w2)
+    return out
+
+
 def pack_weights_2d(weights):
     """[weights1, weights2] -> the kernel's per-mode layout
     ``[2*m1*m2, 2, ci, co]`` (mode = k*m2 + m, row modes low then high), so
     that each mode's [ci, co] slice is one contiguous read."""
-    w = torch.cat([weights[0], weights[1]], dim=3)  # [2, ci, co, 2m1, m2]
-    two, ci, co, k, m2 = w.shape
-    return w.permute(3, 4, 0, 1, 2).reshape(k * m2, two, ci, co).contiguous()
+    out = _pack(weights, (3, 4, 0, 1, 2))  # [2m1, m2, 2, ci, co]
+    return out.reshape(-1, *out.shape[2:])
 
 
 def _film_factor(film, k, m2, film_mode):
@@ -157,6 +183,14 @@ def _check_kernel_fits(b, ci, n1, n2, m1, m2):
 def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
     """Launch the truncated-DFT spectral-conv kernel on CUDA tensors.
     ``w_packed`` is :func:`pack_weights_2d`'s layout."""
+    return spectral_dft2d_fwd_spectrum(x, w_packed, modes, film,
+                                       film_mode)[0]
+
+
+def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1):
+    """:func:`spectral_dft2d_fwd` that also returns the kernel's scratch
+    copy of ``x``'s truncated spectrum: (out, xr, xi), xr and xi the real and
+    imaginary parts, f32 [2*m1*m2, b, ci] (mode k*m2 + m)."""
     m1, m2 = modes
     if x.device.type != "cuda":
         raise ValueError(f"spectral_dft2d_fwd takes CUDA tensors, got "
@@ -195,7 +229,78 @@ def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
         kernels.stream_ptr(x.device))
     kernels.check(rc, "spectral_dft2d_fwd")
     kernels.launches["spectral_dft2d_fwd"] += 1
-    return out
+    return out, xr, xi
+
+
+def pack_adjoint_weights_2d(weights):
+    """The kernel's layout of the adjoint mix: per mode the conjugate
+    transpose W^H [co, ci] of W [ci, co], i.e. ``[2*m1*m2, 2, co, ci]``
+    with the real part transposed and the imaginary part negated and
+    transposed."""
+    out = _pack(weights, (3, 4, 0, 2, 1))  # [2m1, m2, 2, co, ci]
+    out[:, :, 1].neg_()
+    return out.reshape(-1, *out.shape[2:])
+
+
+def mode_scale(n1, n2, m1, m2, device):
+    """h(m) / (n1 n2) per retained mode k*m2 + m, f32 [2*m1*m2]: the real
+    factor the inverse DFT applies to each mode (h: Hermitian doubling).
+    Built once per shape and device, like :func:`dft_tables`."""
+    device = torch.device(device)
+    key = ("scale", n1, n2, m1, m2, device)
+    if key not in _TABLES:
+        k = np.arange(m2)
+        h = np.where((k == 0) | ((n2 % 2 == 0) & (k == n2 // 2)), 1.0, 2.0)
+        s = np.tile(h / (n1 * n2), 2 * m1).astype(np.float32)
+        with torch.inference_mode(False):
+            _TABLES[key] = torch.from_numpy(s).to(device)
+    return _TABLES[key]
+
+
+def spectral_weight_grad(xr, xi, gr, gi, scale, m1):
+    """(dweights1, dweights2) from the input spectrum X [modes, b, ci], the
+    output-gradient spectrum G [modes, b, co] (real and imaginary parts) and
+    the per-mode :func:`mode_scale`: dW = scale * sum_b conj(X) G, as one
+    batched product [X_re; X_im]^T [[G_re, G_im]; [G_im, -G_re]]."""
+    a = torch.cat([xr, xi], dim=1) * scale[:, None, None]   # [M, 2b, ci]
+    g = torch.cat([torch.cat([gr, gi], dim=2),
+                   torch.cat([gi, -gr], dim=2)], dim=1)      # [M, 2b, 2co]
+    dw = torch.bmm(a.transpose(1, 2), g)                     # [M, ci, 2co]
+    modes, ci, co = dw.shape[0], dw.shape[1], dw.shape[2] // 2
+    m2 = modes // (2 * m1)
+    dw = dw.reshape(2 * m1, m2, ci, 2, co).permute(3, 2, 4, 0, 1)
+    return dw[:, :, :, :m1].contiguous(), dw[:, :, :, m1:].contiguous()
+
+
+class SpectralConv2dFn(torch.autograd.Function):
+    """The 2D spectral conv on CUDA tensors with its gradient: the forward
+    kernel, the same kernel on ``dy`` with the adjoint weights for the input
+    gradient, and one batched product for the weight gradient. The weights
+    are packed here on every call, so they stay in the graph."""
+
+    @staticmethod
+    def forward(ctx, x, weights1, weights2, modes):
+        ws = (weights1, weights2)
+        out, xr, xi = spectral_dft2d_fwd_spectrum(x, pack_weights_2d(ws),
+                                                  modes)
+        ctx.save_for_backward(xr, xi, weights1, weights2)
+        ctx.modes, ctx.grid = modes, tuple(x.shape[2:])
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        xr, xi, weights1, weights2 = ctx.saved_tensors
+        (m1, m2), (n1, n2) = ctx.modes, ctx.grid
+        dx, gr, gi = spectral_dft2d_fwd_spectrum(
+            dy.contiguous(), pack_adjoint_weights_2d((weights1, weights2)),
+            ctx.modes)
+        # the backward's launch, counted under the forward kernel too
+        kernels.launches["spectral_dft2d_bwd"] += 1
+        dw1 = dw2 = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw1, dw2 = spectral_weight_grad(
+                xr, xi, gr, gi, mode_scale(n1, n2, m1, m2, dy.device), m1)
+        return (dx if ctx.needs_input_grad[0] else None), dw1, dw2, None
 
 
 def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
@@ -203,7 +308,9 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     """Apply a mode-truncated spectral conv to ``x`` [b, ci, *sp].
 
     ``w_packed`` optionally carries :func:`pack_weights_2d` of ``weights``
-    for the CUDA path, so a caller can pack once instead of per call.
+    for the CUDA path without gradients, so a caller can pack once instead
+    of per call. Where a gradient is wanted the CUDA path takes
+    :class:`SpectralConv2dFn` and ignores ``w_packed``.
     """
     nd = num_spatial_dims or (x.ndim - 2)
     modes = tuple(int(m) for m in modes)
@@ -213,6 +320,13 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
             f"the {nd}D spectral conv is not ported yet (2D only)")
     if x.device.type == "cpu":
         return spectral_conv_2d_plain(x, weights, modes, film, film_mode)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *weights)):
+        if film is not None:
+            raise NotImplementedError(
+                "FiLM gradients of the CUDA spectral conv are not ported "
+                "yet (ROADMAP.md section 1, 'Left from P5/P6')")
+        return SpectralConv2dFn.apply(x, weights[0], weights[1], modes)
     if w_packed is None:
         w_packed = pack_weights_2d(weights)
     return spectral_dft2d_fwd(x, w_packed, modes, film, film_mode)

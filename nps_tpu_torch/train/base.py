@@ -1,0 +1,612 @@
+"""Training runtime backbone (counterpart of ``nps_tpu/train/base.py``), one
+device: dataloaders, the epoch loop with periodic named validation ->
+best-model save -> test-on-best, batch-size-weighted test aggregation, a
+metrics JSON line per epoch, best/final model export, and a full
+checkpoint with resume, written on schedule and on SIGTERM/SIGINT.
+
+The device is the caller's (``device``, "cuda" unless asked otherwise); the
+config's ``trainer.device`` is not read. The whole loop, backward included,
+runs inside the engine's :func:`autotuned_convs`: left to its heuristics,
+cuDNN picks an FFT algorithm for the U-Net's f32 convs that made a step of
+the full-width U-FNO about 65x slower on an H100 (PERF.md).
+
+Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
+item: the parallel regimes and gradient accumulation (P9), a compute dtype
+other than f32 (P3), variable-time data (P11), the cheaper pushforward
+forward (P13). Parameters are a ``state_dict`` of the PyTorch reference's
+key names (``.pt``), which ``nps_tpu.compat.convert_state_dict`` reads.
+"""
+
+import json
+import os
+import random as py_random
+import signal
+import time
+import warnings
+from abc import ABCMeta, abstractmethod
+from argparse import Namespace
+
+import numpy as np
+import torch
+
+from nps_tpu_torch.common.interfaces import D
+from nps_tpu_torch.compat.jax_weights import from_jax_params
+from nps_tpu_torch.data.pipeline import (DeviceCacheLoader, HostDataLoader,
+                                         prefetch_to_device)
+from nps_tpu_torch.inference import autotuned_convs, resolve_device
+from nps_tpu_torch.models.initializers import reset_parameters
+from nps_tpu_torch.train import optim as optim_lib
+from nps_tpu_torch.utils import misc as util
+from nps_tpu_torch.utils.seed import get_seed
+
+try:
+    import wandb
+except ModuleNotFoundError:
+    wandb = None
+
+# config keys of regimes the port does not have yet: (key, whether a value
+# asks for it, ROADMAP item)
+_UNPORTED = (
+    ("data_parallel", bool, "P9"), ("zero1", bool, "P9"),
+    ("spatial_parallel", lambda v: int(v or 0) > 1, "P9"),
+    ("tensor_parallel", lambda v: int(v or 0) > 1, "P9"),
+    ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9"),
+    ("expert_parallel", lambda v: int(v or 0) > 1, "P9"),
+    ("grad_accum", lambda v: int(v or 0) > 1, "P9"),
+    ("compute_dtype", lambda v: v not in (None, "float32"), "P3"),
+    ("variable_time", bool, "P11"),
+    ("pushforward_fast", bool, "P13"),
+)
+
+
+def refuse_unported(config):
+    """Raise NotImplementedError for a config that asks for a regime the
+    port does not have yet, naming its ROADMAP item."""
+    for key, active, item in _UNPORTED:
+        value = getattr(config, key, None)
+        if value is not None and active(value):
+            raise NotImplementedError(
+                f"trainer.{key}={value!r} is not ported yet (ROADMAP {item})")
+
+
+def _weighted_add(acc, v, bs):
+    """Accumulate a batch metric weighted by batch size; recurses into
+    nested dicts."""
+    if isinstance(v, dict):
+        acc = acc or {}
+        return {k: _weighted_add(acc.get(k), vv, bs) for k, vv in v.items()}
+    v = util.to_float(v) * bs
+    return v if acc is None else acc + v
+
+
+def _weighted_div(v, n):
+    if isinstance(v, dict):
+        return {k: _weighted_div(vv, n) for k, vv in v.items()}
+    return v / n
+
+
+class TrainInterface(metaclass=ABCMeta):
+    def __init__(self, model, data, criterion, optimizer=None,
+                 lr_scheduler=None, config=None, save_path="models/model",
+                 max_train_batches=float("inf"), max_test_batches=float("inf"),
+                 epoch_callback=None, use_wandb=False, wandb_kwargs=None,
+                 wandb_config_dict=None, device="cuda", **kwargs):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.data = data
+        self.config = config if config is not None else Namespace(**kwargs)
+        self.config.save_path = save_path
+        if not hasattr(self.config, "variable_time"):
+            self.config.variable_time = \
+                self.data.data_interface == D.sim1d_var_t
+        refuse_unported(self.config)
+
+        self.criterion = criterion
+        self.optimizer_spec = optimizer  # config dict or (optimizer, lr)
+        self.lr_scheduler_spec = lr_scheduler
+        self.max_train_batches = max_train_batches
+        self.max_test_batches = max_test_batches
+        self.epoch_callback = epoch_callback
+        self.print_setting = dict(getattr(self.config, "print_setting",
+                                          dict(print_per_step=False)))
+        self.use_wandb = use_wandb and wandb is not None
+        if use_wandb and wandb is None:
+            warnings.warn("Could not import WandB -- WandB not used!")
+        self.wandb_kwargs = wandb_kwargs
+        self.wandb_config_dict = wandb_config_dict
+        self.test_kwargs_list = getattr(self.config, "test_kwargs_list",
+                                        [("default", {})])
+
+        self.preempted = False
+        self._preempt_requested = False
+        self._last_epoch_partial = False
+        self.initialized = False
+        self.optimizer = None
+        self.base_lr = None
+        self.lr_scheduler = None
+        self.start_epoch = 0
+
+    def __repr__(self):
+        return self.__class__.__name__
+
+    @property
+    @abstractmethod
+    def model_interface(self):
+        raise NotImplementedError("model_interface not set!")
+
+    @property
+    @abstractmethod
+    def data_interface(self):
+        raise NotImplementedError("data_interface not set!")
+
+    # ------------------------------------------------------------------
+    # parameters, optimizer, scheduler
+    # ------------------------------------------------------------------
+    def init_params(self, seed=None):
+        """Draw torch-default weights from ``torch.Generator(seed)`` (the
+        config's seed by default), on the host, so a seed gives the same
+        weights on any device."""
+        seed = get_seed() if seed is None else seed
+        reset_parameters(self.model, torch.Generator().manual_seed(seed))
+        self.initialized = True
+
+    def load_jax_params(self, tree):
+        """Load an ``nps_tpu`` parameter tree (nested dicts of arrays)."""
+        self.model.load_state_dict(from_jax_params(tree))
+        self.initialized = True
+        return self
+
+    def ensure_initialized(self):
+        """Draw the weights unless loaded, and build the optimizer once its
+        spec is set."""
+        if not self.initialized:
+            self.init_params()
+        if self.optimizer is None and self.optimizer_spec is not None:
+            self._build_optimizer()
+
+    def set_optimizer(self, optimizer):
+        self.optimizer_spec = optimizer
+        if self.initialized:
+            self._build_optimizer()
+
+    def set_lr_scheduler(self, lr_scheduler):
+        self.lr_scheduler_spec = lr_scheduler
+        self._build_lr_scheduler()
+
+    def _build_optimizer(self):
+        if self.optimizer_spec is None:
+            return
+        spec = self.optimizer_spec
+        if isinstance(spec, dict):
+            self.optimizer, self.base_lr = optim_lib.build_optimizer(
+                self.model.parameters(), **spec)
+        else:
+            self.optimizer, self.base_lr = spec
+        self._build_lr_scheduler()
+
+    def _build_lr_scheduler(self):
+        spec = self.lr_scheduler_spec
+        if self.optimizer is None:
+            return
+        if spec is None:
+            self.lr_scheduler = optim_lib.ConstantLR(self.base_lr)
+        elif isinstance(spec, dict):
+            self.lr_scheduler = optim_lib.build_lr_scheduler(self.base_lr,
+                                                             **spec)
+        else:
+            self.lr_scheduler = spec
+
+    # ------------------------------------------------------------------
+    # data loading
+    # ------------------------------------------------------------------
+    def get_dataloaders(self):
+        """(train, valid, test) loaders. ``eval_batch_size`` (0: the train
+        batch size) sizes the evaluation loaders; ``device_cache`` keeps the
+        splits on the device (``device_cache_scope="train"``: the train split
+        only; ``device_cache_dtype``: cast the cached floats)."""
+        kw = dict(batch_size=self.config.batch_size, shuffle=True,
+                  seed=get_seed())
+        ekw = dict(kw, batch_size=int(
+            getattr(self.config, "eval_batch_size", 0)
+            or self.config.batch_size))
+        splits = (self.data.train, self.data.valid, self.data.test)
+        if not getattr(self.config, "device_cache", False):
+            return tuple(HostDataLoader(s, **k)
+                         for s, k in zip(splits, (kw, ekw, ekw)))
+        scope = str(getattr(self.config, "device_cache_scope", None)
+                    or "all").lower()
+        train = DeviceCacheLoader(
+            splits[0], device=self.device,
+            cache_dtype=getattr(self.config, "device_cache_dtype", None),
+            **kw)
+        if scope == "train":
+            return (train, HostDataLoader(splits[1], **ekw),
+                    HostDataLoader(splits[2], **ekw))
+        return (train,
+                DeviceCacheLoader(splits[1], device=self.device, **ekw),
+                DeviceCacheLoader(splits[2], device=self.device, **ekw))
+
+    def _batches(self, loader):
+        if getattr(loader, "device_resident", False):
+            return iter(loader)
+        return prefetch_to_device(iter(loader), self.device)
+
+    # ------------------------------------------------------------------
+    # the step contract
+    # ------------------------------------------------------------------
+    def train_step(self, batch, epoch, batch_idx, loader):
+        """Consume one device batch, update the parameters, return
+        (loss, preds_or_None)."""
+        raise NotImplementedError("The method train_step should be implemented!")
+
+    def test_step(self, batch, batch_idx, use_train_loss_calc=False,
+                  include_data=False, **kwargs):
+        if include_data:
+            raise ValueError(
+                "include_data is only supported when implemented in test_step")
+        if not use_train_loss_calc:
+            raise NotImplementedError("The test_step method is not implemented!")
+        loss, _ = self.train_step(batch, epoch=0, batch_idx=batch_idx,
+                                  loader=None)
+        return loss, {}
+
+    def simulate(self, u, *args, **kwargs):
+        raise NotImplementedError("The method simulate is not implemented!")
+
+    def __call__(self):
+        self.train()
+
+    # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
+    def train(self):
+        assert self.model.model_interface in self.model_interface, \
+            f"{self} does not support model {self.model}."
+        assert self.data.data_interface in self.model.data_interface, \
+            f"{self.model} does not support data from {self.data}."
+        assert self.data.data_interface in self.data_interface, \
+            f"{self} does not support data from {self.data}."
+
+        train_loader, valid_loader, test_loader = self.get_dataloaders()
+        self.ensure_initialized()
+        if self.maybe_resume(train_loader=train_loader):
+            print(f"Resumed from checkpoint at epoch {self.start_epoch}")
+        self._install_preempt_handlers()
+        if self.use_wandb:
+            wandb.init(config=self.wandb_config_dict, **(self.wandb_kwargs or {}))
+        with autotuned_convs():
+            return self._train_epochs(train_loader, valid_loader, test_loader)
+
+    def _train_epochs(self, train_loader, valid_loader, test_loader):
+        fall_back = False
+        train_losses = []
+        min_val_loss = {name: float("inf") for name, _ in self.test_kwargs_list}
+        # best-model tracking continues across a resume
+        for name, v in getattr(self, "_resumed_min_val_loss", {}).items():
+            if name in min_val_loss:
+                min_val_loss[name] = v
+        val_losses = {name: [] for name, _ in self.test_kwargs_list}
+        val_stats_list = {name: [] for name, _ in self.test_kwargs_list}
+        time_start = time.perf_counter()
+        samples_seen = 0
+
+        for epoch in range(self.start_epoch, self.config.num_epochs):
+            train_loss, n_samples = self.train_one_epoch(train_loader, epoch)
+            if self._last_epoch_partial or self._preempt_requested:
+                # a partial epoch's loss is dropped and the checkpoint points
+                # at `epoch`; a signal caught after the epoch's last batch
+                # keeps the epoch and resumes at epoch + 1
+                partial = self._last_epoch_partial
+                if not partial:
+                    train_losses.append(train_loss)
+                return self._preempt_exit(epoch + (0 if partial else 1),
+                                          min_val_loss, train_loader,
+                                          train_losses, val_losses,
+                                          val_stats_list)
+            samples_seen += n_samples
+            train_losses.append(train_loss)
+
+            if (epoch + 1) % self.config.print_interval == 0:
+                dt_total = time.perf_counter() - time_start
+                if (epoch + 1) % self.config.test_interval == 0:
+                    progress = 1.0
+                else:
+                    nxt = epoch + 1
+                    prev_test = nxt - nxt % self.config.test_interval
+                    progress = (epoch + 1 - prev_test) / self.config.test_interval
+                sps = samples_seen / max(dt_total, 1e-9)
+                print(f"Epoch {epoch} (progress: {progress:.2f}, "
+                      f"{dt_total:.4f}s, {sps:.1f} samples/s), "
+                      f"Loss {util.to_float(train_loss)}")
+                time_start = time.perf_counter()
+                samples_seen = 0
+
+            epoch_log = {"train_loss": util.to_float(train_loss)}
+            if (epoch + 1) % self.config.test_interval == 0:
+                for name, test_kwargs in self.test_kwargs_list:
+                    print(f"Evaluation on validation dataset for setting "
+                          f"[{name}]:")
+                    if callable(test_kwargs):
+                        val_loss, val_stats = test_kwargs(valid_loader, self)
+                    else:
+                        try:
+                            val_loss, val_stats = self.test(
+                                valid_loader, fall_back,
+                                test_kwargs=test_kwargs)
+                        except NotImplementedError:
+                            warnings.warn(
+                                "test_step not implemented; falling back to "
+                                "training loss for validation!")
+                            fall_back = True
+                            val_loss, val_stats = self.test(
+                                valid_loader, fall_back,
+                                test_kwargs=test_kwargs)
+                    val_loss = util.to_float(val_loss)
+                    print(f"Evaluation metric: {val_loss}")
+                    if not self.print_setting.get("print_per_step", False):
+                        val_stats = {k: v for k, v in val_stats.items()
+                                     if "step" not in k.lower()}
+                    stats_f = util.to_floatdict(val_stats)
+                    print(util.dict_str(stats_f, prefix="-"))
+                    print()
+
+                    epoch_log[name + " - val loss"] = val_loss
+                    for k, v in stats_f.items():
+                        epoch_log[name + "-" + str(k)] = v
+
+                    val_losses[name].append(val_loss)
+                    val_stats_list[name].append(val_stats)
+                    if val_loss < min_val_loss[name]:
+                        self.save_model(self.config.save_path + f"_{name}")
+                        min_val_loss[name] = val_loss
+                        print("Found new best model, evaluation on test "
+                              "dataset:")
+                        if callable(test_kwargs):
+                            test_loss, test_stats = test_kwargs(test_loader,
+                                                                self)
+                        else:
+                            test_loss, test_stats = self.test(
+                                test_loader, fall_back, test_kwargs=test_kwargs)
+                        print(f"Test metric: {util.to_float(test_loss)}")
+                        if not self.print_setting.get("print_per_step", False):
+                            test_stats = {k: v for k, v in test_stats.items()
+                                          if "step" not in k.lower()}
+                        print(util.dict_str(util.to_floatdict(test_stats),
+                                            prefix="-"))
+                        print()
+
+            # on its own schedule, not nested in the test_interval block:
+            # None -> test_interval, 0 disables
+            ckpt_every = getattr(self.config, "checkpoint_interval", None)
+            ckpt_every = (self.config.test_interval if ckpt_every is None
+                          else int(ckpt_every))
+            if ckpt_every and (epoch + 1) % ckpt_every == 0:
+                self.save_checkpoint(epoch + 1, min_val_loss,
+                                     train_loader=train_loader)
+
+            self._log_metrics_jsonl(epoch, epoch_log)
+            if self.use_wandb:
+                wandb.log(epoch_log)
+            if self._preempt_requested:
+                # caught during validation or checkpointing: the epoch is
+                # complete, so the resumed run continues at epoch + 1
+                return self._preempt_exit(epoch + 1, min_val_loss,
+                                          train_loader, train_losses,
+                                          val_losses, val_stats_list)
+
+        self._restore_preempt_handlers()
+        self.save_model(self.config.save_path + "_final")
+        if self.use_wandb:
+            wandb.finish()
+        return train_losses, val_losses, val_stats_list
+
+    def train_one_epoch(self, loader, epoch):
+        total_loss = torch.zeros((), device=self.device)
+        n_samples = 0
+        self._last_epoch_partial = False
+        for batch_idx, batch in enumerate(self._batches(loader)):
+            if self._preempt_requested:
+                # stop at the batch boundary; train() checkpoints and exits
+                self._last_epoch_partial = True
+                return float(total_loss), n_samples
+            loss, _ = self.train_step(batch, epoch, batch_idx, loader=loader)
+            bs = util.get_batch_size(batch)
+            total_loss = total_loss + loss / bs
+            n_samples += bs
+            if batch_idx >= self.max_train_batches:
+                break
+        # as the reference: the break is inclusive of batch_idx ==
+        # max_train_batches, and the denominator stays len(loader)
+        total_loss = total_loss / len(loader)
+
+        if self.epoch_callback is not None:
+            self.epoch_callback(self, loader, epoch)
+
+        if self.lr_scheduler is not None and self.optimizer is not None:
+            if (epoch + 1) % self.config.lr_step_interval == 0:
+                self.lr_scheduler.step()
+                optim_lib.set_learning_rate(self.optimizer,
+                                            self.lr_scheduler.lr)
+        return float(total_loss), n_samples
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def test(self, loader, use_train_loss_calc=False, include_data=False,
+             test_kwargs=None):
+        test_kwargs = test_kwargs or {}
+        self.ensure_initialized()
+        loss = 0.0
+        other_metrics = {}
+        n_total = 0
+        data_gt, data_pred, data_other = [], [], []
+        with autotuned_convs():
+            for batch_idx, batch in enumerate(self._batches(loader)):
+                out = self.test_step(batch, batch_idx, use_train_loss_calc,
+                                     include_data, **test_kwargs)
+                if include_data:
+                    batch_loss, batch_metrics, batch_data = out
+                else:
+                    batch_loss, batch_metrics = out
+                bs = util.get_batch_size(batch)
+                loss = loss + util.to_float(batch_loss) * bs
+                n_total += bs
+                for k, v in batch_metrics.items():
+                    other_metrics[k] = _weighted_add(other_metrics.get(k), v,
+                                                     bs)
+                if include_data:
+                    data_gt.append(np.asarray(batch_data[0]))
+                    data_pred.append(np.asarray(batch_data[1]))
+                    data_other.extend(batch_data[2])
+                if batch_idx >= self.max_test_batches - 1:
+                    break
+        loss = loss / n_total
+        other_metrics = {k: _weighted_div(v, n_total)
+                         for k, v in other_metrics.items()}
+        if include_data:
+            data_gt = np.concatenate(data_gt, axis=0)
+            data_pred = np.concatenate(data_pred, axis=0)
+            return loss, other_metrics, (np.stack([data_gt, data_pred]),
+                                         data_other)
+        return loss, other_metrics
+
+    def _log_metrics_jsonl(self, epoch, epoch_log):
+        """Append one JSON line per epoch to ``<save_path>_metrics.jsonl``,
+        a training-curve record a hard kill cannot lose; a resumed run keeps
+        appending. Opt-out: ``trainer.metrics_jsonl=False``."""
+        if not getattr(self.config, "metrics_jsonl", True):
+            return
+        path = self.config.save_path + "_metrics.jsonl"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps({"epoch": epoch, **epoch_log}, default=float)
+                    + "\n")
+
+    # ------------------------------------------------------------------
+    # preemption: SIGTERM/SIGINT -> checkpoint at a batch boundary -> exit
+    # ------------------------------------------------------------------
+    def _install_preempt_handlers(self):
+        """SIGTERM/SIGINT sets a flag; the epoch loop stops at the next batch
+        boundary, saves a full checkpoint and returns with ``self.preempted``
+        set. A second signal raises KeyboardInterrupt. Opt-out:
+        ``trainer.preempt_checkpoint=False``. No-op off the main thread."""
+        self._orig_handlers = {}
+        if not getattr(self.config, "preempt_checkpoint", True):
+            return
+        self.preempted = False
+        self._preempt_requested = False
+        self._last_epoch_partial = False
+
+        def handler(signum, frame):
+            if self._preempt_requested:
+                self._restore_preempt_handlers()
+                raise KeyboardInterrupt
+            print(f"[nps_tpu_torch] caught signal {signum}: checkpointing at "
+                  f"the next batch boundary, then exiting (signal again to "
+                  f"abort immediately)")
+            self._preempt_requested = True
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._orig_handlers[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                self._orig_handlers = {}
+                return
+
+    def _restore_preempt_handlers(self):
+        for sig, h in getattr(self, "_orig_handlers", {}).items():
+            signal.signal(sig, h)
+        self._orig_handlers = {}
+
+    def _preempt_exit(self, epoch, min_val_loss, train_loader,
+                      train_losses, val_losses, val_stats_list):
+        self.save_checkpoint(epoch, min_val_loss, train_loader=train_loader)
+        self.preempted = True
+        self._restore_preempt_handlers()
+        print(f"Preempted at epoch {epoch}: checkpoint saved — rerun with "
+              f"trainer.resume=True to continue")
+        if self.use_wandb:
+            wandb.finish()
+        return train_losses, val_losses, val_stats_list
+
+    # ------------------------------------------------------------------
+    # model export, checkpoint and resume
+    # ------------------------------------------------------------------
+    def save_model(self, save_name):
+        """Write the model's ``state_dict`` (CPU tensors) to
+        ``save_name`` (``.pt`` unless it has an extension)."""
+        root, ext = os.path.splitext(save_name)
+        save_name = root + (ext or ".pt")
+        os.makedirs(os.path.dirname(save_name) or ".", exist_ok=True)
+        torch.save({k: v.detach().cpu()
+                    for k, v in self.model.state_dict().items()}, save_name)
+        print(f"Saved model at {save_name}")
+
+    def load_model(self, save_name):
+        state = torch.load(save_name, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state)
+        self.initialized = True
+
+    def _ckpt_path(self):
+        return self.config.save_path + "_checkpoint.pt"
+
+    def _rng_states(self):
+        """Hook: the subclass's own generators, saved with a checkpoint."""
+        return {}
+
+    def _set_rng_states(self, states):
+        """Hook: restore what :meth:`_rng_states` saved."""
+
+    def save_checkpoint(self, epoch, min_val_loss=None, train_loader=None):
+        """The full training state: model, optimizer, epoch, scheduler
+        counter, best validation losses and every generator, so a resumed
+        run continues the same sequence of batches and draws."""
+        state = dict(
+            epoch=epoch,
+            model={k: v.detach().cpu()
+                   for k, v in self.model.state_dict().items()},
+            optimizer=(self.optimizer.state_dict()
+                       if self.optimizer is not None else None),
+            lr_epoch=getattr(self.lr_scheduler, "epoch", 0),
+            min_val_loss=min_val_loss or {},
+            np_random=np.random.get_state(),
+            py_random=py_random.getstate(),
+            torch_random=torch.get_rng_state(),
+            rng=self._rng_states(),
+        )
+        rng = getattr(train_loader, "_rng", None)
+        if rng is not None:
+            state["loader_rng"] = rng.bit_generator.state
+        path = self._ckpt_path()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        print(f"Saved checkpoint at {path} (epoch {epoch})")
+
+    def maybe_resume(self, train_loader=None):
+        if not getattr(self.config, "resume", False):
+            return False
+        path = self._ckpt_path()
+        if not os.path.exists(path):
+            return False
+        # this program's own file: it holds numpy and python RNG states,
+        # which the weights-only loader refuses
+        state = torch.load(path, map_location="cpu", weights_only=False)
+        self.model.load_state_dict(state["model"])
+        self.initialized = True
+        if self.optimizer is not None and state["optimizer"] is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
+        self.start_epoch = state["epoch"]
+        self._resumed_min_val_loss = dict(state.get("min_val_loss", {}))
+        if train_loader is not None and "loader_rng" in state \
+                and getattr(train_loader, "_rng", None) is not None:
+            train_loader._rng.bit_generator.state = state["loader_rng"]
+        if hasattr(self.lr_scheduler, "epoch"):
+            self.lr_scheduler.epoch = state["lr_epoch"]
+            optim_lib.set_learning_rate(self.optimizer, self.lr_scheduler.lr)
+        np.random.set_state(state["np_random"])
+        py_random.setstate(state["py_random"])
+        torch.set_rng_state(state["torch_random"])
+        self._set_rng_states(state["rng"])
+        return True

@@ -1,0 +1,102 @@
+"""Optimizer / LR-scheduler registry (counterpart of
+``nps_tpu/train/optim.py``).
+
+``build_optimizer`` maps the config's dotted names onto ``torch.optim``
+with the JAX package's defaults (betas (0.9, 0.999), eps 1e-8). optax's
+``adam`` with a weight decay is its decoupled ``adamw``, so that case maps
+to ``AdamW``, as ``optim.AdamW`` does (default decay 0.01). The schedulers
+are the same host-side classes: MultiStepLR multiplies the learning rate by
+``gamma`` each time its step counter crosses a milestone, and the trainer
+steps it every ``lr_step_interval`` epochs and writes the rate into the
+optimizer with :func:`set_learning_rate`.
+"""
+
+import numpy as np
+import torch
+
+
+def build_optimizer(params, object="optim.Adam", lr=1e-3, **kwargs):
+    """-> (torch optimizer over ``params``, base learning rate)."""
+    name = object.split(".")[-1].lower()
+    kw = dict(kwargs)
+    betas = tuple(kw.pop("betas", (0.9, 0.999)))
+    eps = kw.pop("eps", 1e-8)
+    weight_decay = kw.pop("weight_decay", 0.0)
+    if name == "adam":
+        if weight_decay:
+            opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                    weight_decay=weight_decay)
+        else:
+            opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+    elif name == "adamw":
+        opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                weight_decay=weight_decay or 0.01)
+    elif name == "sgd":
+        opt = torch.optim.SGD(params, lr=lr,
+                              momentum=kw.pop("momentum", 0.0))
+    else:
+        raise ValueError(f"Unknown optimizer '{object}'")
+    return opt, float(lr)
+
+
+class MultiStepLR:
+    """Torch MultiStepLR replica operating on a host-side lr value."""
+
+    def __init__(self, base_lr, milestones, gamma=0.1):
+        self.base_lr = float(base_lr)
+        self.milestones = sorted(int(m) for m in milestones)
+        self.gamma = float(gamma)
+        self.epoch = 0  # scheduler step counter (not training epochs)
+
+    def step(self):
+        self.epoch += 1
+
+    @property
+    def lr(self):
+        n = int(np.searchsorted(self.milestones, self.epoch, side="right"))
+        return self.base_lr * (self.gamma ** n)
+
+
+class StepLR:
+    def __init__(self, base_lr, step_size, gamma=0.1):
+        self.base_lr = float(base_lr)
+        self.step_size = int(step_size)
+        self.gamma = float(gamma)
+        self.epoch = 0
+
+    def step(self):
+        self.epoch += 1
+
+    @property
+    def lr(self):
+        return self.base_lr * (self.gamma ** (self.epoch // self.step_size))
+
+
+class ConstantLR:
+    def __init__(self, base_lr):
+        self.base_lr = float(base_lr)
+
+    def step(self):
+        pass
+
+    @property
+    def lr(self):
+        return self.base_lr
+
+
+def build_lr_scheduler(base_lr, object=None, **kwargs):
+    if object is None:
+        return ConstantLR(base_lr)
+    name = object.split(".")[-1] if isinstance(object, str) else object
+    if name == "MultiStepLR":
+        return MultiStepLR(base_lr, kwargs["milestones"],
+                           kwargs.get("gamma", 0.1))
+    if name == "StepLR":
+        return StepLR(base_lr, kwargs["step_size"], kwargs.get("gamma", 0.1))
+    raise ValueError(f"Unknown lr scheduler '{object}'")
+
+
+def set_learning_rate(optimizer, lr):
+    """Write ``lr`` into every parameter group of ``optimizer``."""
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)

@@ -1,0 +1,319 @@
+"""Autoregressive pushforward trainer (counterpart of
+``nps_tpu/train/pushforward.py``).
+
+- ``train_step``: the unroll depth ramps with ``epoch // lr_step_interval``
+  up to ``config.unrolling`` and is drawn uniformly below that; each batch
+  element gets a random start step; ``unrolled`` model steps run under
+  ``torch.no_grad()``, feeding predictions back as inputs with BC
+  extraction, injection and min clipping between steps; then one step with
+  gradients, loss sqrt(MSE_sum), backward and an optimizer update.
+- ``test_step``: one-step losses at every tw-strided start, the unrolled
+  rollout loss (normalised by the spatial cell count and the rollout
+  length) and the numerical-baseline loss.
+- ``simulate``: the rollout API, from ``nr_gt_steps * tw`` ground-truth
+  frames to ``t_res`` in tw-strided steps.
+
+The step's phases are named profiler ranges (``train_step/pushforward``,
+``/forward``, ``/backward``, ``/optimizer``), which ``python -m
+nps_tpu_torch.trace_step --train`` reads; outside a profiler they cost a
+few microseconds per step.
+
+Randomness comes from two ``torch.Generator``s seeded from the config's
+seed: the depth choice and the start steps; ``train_step`` also takes an
+injected ``unrolled`` and ``steps0``. The JAX package's compile-ahead,
+``_jit_cache`` and ``dynamic_unroll`` machinery has no counterpart: PyTorch
+runs each depth eagerly, with nothing to compile. GNN models (ROADMAP P10)
+and variable-time data (P11) raise.
+"""
+
+import math
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from nps_tpu_torch.common.interfaces import D, M
+from nps_tpu_torch.train.base import TrainInterface
+from nps_tpu_torch.utils.process_output import process_step
+from nps_tpu_torch.utils.seed import get_seed
+
+
+def window(u, steps, tw, mode):
+    """Per-element time windows of u [b, c, t, *sp] at ``steps`` [b]
+    (ints): 'data' -> [step-tw, step), 'labels' -> [step, step+tw), 'both'
+    -> both."""
+    lo, n = {"data": (-tw, tw), "labels": (0, tw), "both": (-tw, 2 * tw)}[mode]
+    out = torch.stack([u[i, :, s + lo:s + lo + n]
+                       for i, s in enumerate(steps.tolist())])
+    if mode == "both":
+        return out[:, :, :tw], out[:, :, tw:]
+    return out
+
+
+def _opt(x):
+    """None for an empty placeholder ([b, 0])."""
+    return None if (x is None or x.numel() == 0) else x
+
+
+class AutoregressivePushforwardTrainer(TrainInterface):
+    data_interface = [D.sim1d, D.sim2d, D.sim1d_var_t]
+    model_interface = [M.AR_TB, M.AR_TB_GNN]
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        if self.model.model_interface == M.AR_TB_GNN:
+            raise NotImplementedError("GNN training is not ported yet "
+                                      "(ROADMAP P10)")
+        self.tw = self.config.time_window
+        self.t_res = self.config.base_resolution[0]
+        if not hasattr(self.config, "process_settings"):
+            self.config.process_settings = {}
+        seed = get_seed()
+        self.depth_rng = torch.Generator().manual_seed(seed)
+        self.start_rng = torch.Generator().manual_seed(seed + 1)
+
+    def _rng_states(self):
+        return {"depth": self.depth_rng.get_state(),
+                "start": self.start_rng.get_state()}
+
+    def _set_rng_states(self, states):
+        if states:
+            self.depth_rng.set_state(states["depth"])
+            self.start_rng.set_state(states["start"])
+
+    def _apply(self, data, cond, bc, x, t_cond, spatial_cond):
+        return self.model(data, cond=cond, bc=bc, pos=x, t_cond=t_cond,
+                          spatial_cond=spatial_cond)
+
+    def _process(self, *args, **kwargs):
+        return process_step(self.data.pde, self.model.model_interface, *args,
+                            process_settings=self.config.process_settings,
+                            **kwargs)
+
+    @staticmethod
+    def _floats(batch):
+        """The batch in f32 (a device cache may hold a narrower type)."""
+        return tuple(t.float() if t.is_floating_point() else t for t in batch)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def train_step(self, batch, epoch, batch_idx, loader=None, unrolled=None,
+                   steps0=None):
+        """One pushforward step and optimizer update; returns (loss, None).
+        ``unrolled`` and ``steps0`` [b] override the drawn depth and start
+        steps."""
+        u_base, u_super, x, cond, t_cond, spatial_cond = self._floats(batch)
+        t_res, b, tw = int(u_super.shape[2]), int(u_super.shape[0]), self.tw
+        if unrolled is None:
+            max_unrolling = min(epoch // self.config.lr_step_interval,
+                                self.config.unrolling)
+            unrolled = int(torch.randint(max_unrolling + 1, (1,),
+                                         generator=self.depth_rng))
+        hi = t_res - tw - tw * unrolled + 1
+        if hi <= tw:
+            raise ValueError(
+                f"trajectory too short to train at unroll depth {unrolled}: "
+                f"t_res={t_res} needs at least tw*(unrolled+2)="
+                f"{tw * (unrolled + 2)} (tw={tw})")
+        if steps0 is None:
+            steps0 = torch.randint(tw, hi, (b,), generator=self.start_rng)
+        steps = torch.as_tensor(steps0, dtype=torch.long).cpu()
+        cond_, t_cond_, sc_ = _opt(cond), _opt(t_cond), _opt(spatial_cond)
+
+        def t_window(steps):
+            return (window(t_cond_, steps, tw, "labels")
+                    if t_cond_ is not None else None)
+
+        with torch.no_grad(), record_function("train_step/pushforward"):
+            data, labels = window(u_super, steps, tw, "both")
+            _, bc = self._process(data, data, labels, get_bc=True,
+                                  set_bc=False, set_min=False)
+            for _ in range(unrolled):
+                pred = self._apply(data, cond_, bc, x, t_window(steps), sc_)
+                labels_prev = labels
+                steps = steps + tw
+                labels = window(u_super, steps, tw, "labels")
+                data, bc = self._process(pred, labels_prev, labels,
+                                         get_bc=True, set_bc=True,
+                                         set_min=True)
+
+        self.optimizer.zero_grad(set_to_none=True)
+        with record_function("train_step/forward"):
+            pred = self._apply(data, cond_, bc, x, t_window(steps), sc_)
+            pred, _ = self._process(pred, labels, None, get_bc=False,
+                                    set_bc=True, set_min=True)
+            loss = torch.sqrt(self.criterion(pred, labels))
+        with record_function("train_step/backward"):
+            loss.backward()
+        with record_function("train_step/optimizer"):
+            self.optimizer.step()
+        return loss.detach(), None
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def test_step(self, batch, batch_idx, use_train_loss_calc=False,
+                  include_data=False, max_test_len=None):
+        if use_train_loss_calc:
+            raise RuntimeError(
+                "use_train_loss_calc=True is unexpected: test_step is "
+                "implemented")
+        u_base, u_super, x, cond, t_cond, spatial_cond = self._floats(batch)
+        t_res = int(u_super.shape[2])
+        if max_test_len is not None:
+            t_res = min(max_test_len, t_res)
+        b, tw = int(u_super.shape[0]), self.tw
+        steps_list = list(range(tw, t_res - tw + 1, tw))
+        if not steps_list:
+            raise ValueError(
+                f"evaluation needs at least one (input, label) window pair: "
+                f"t_res={t_res} < 2*time_window={2 * tw}. Use a dataset with "
+                f"nt >= 2*time_window or lower --time_window.")
+        cond_, t_cond_, sc_ = _opt(cond), _opt(t_cond), _opt(spatial_cond)
+        crit = self.criterion
+
+        step_losses = []
+        for step in steps_list:
+            data = u_super[:, :, step - tw:step]
+            labels = u_super[:, :, step:step + tw]
+            _, bc = self._process(data, data, labels, get_bc=True,
+                                  set_bc=False, set_min=False)
+            tc = t_cond_[:, :, step:step + tw] if t_cond_ is not None else None
+            pred = self._apply(data, cond_, bc, x, tc, sc_)
+            pred, _ = self._process(pred, labels, None, get_bc=False,
+                                    set_bc=True, set_min=True)
+            step_losses.append(crit(pred, labels) / b)
+        step_losses = torch.stack(step_losses)
+
+        sim = self._simulate(u_super, cond_, x, t_cond_, sc_,
+                             nr_gt_steps=self.config.nr_gt_steps, t_res=t_res,
+                             compute_loss=True, include_data=include_data,
+                             use_bc=True, clip_min=True, divide_by_t=True,
+                             batch_size=b)
+        unrolled_sum = torch.sum(sim["losses"])
+
+        base_sum = torch.zeros((), device=u_super.device)
+        if _opt(u_base) is not None:
+            spatial_cells = math.prod(self.config.base_resolution[1:])
+            starts = range(tw * self.config.nr_gt_steps, t_res - tw + 1, tw)
+            base = [crit(u_super[:, :, s:s + tw], u_base[:, :, s:s + tw])
+                    / spatial_cells / b for s in starts]
+            base_sum = torch.sum(torch.stack(base)) / max(tw * len(base), 1)
+
+        vals = torch.cat([torch.stack([unrolled_sum, base_sum,
+                                       step_losses.mean()]),
+                          step_losses]).tolist()
+        info = {"Unrolled base losses": vals[1],
+                "Unrolled forward losses": vals[0],
+                "Mean per-step loss": vals[2]}
+        for s, v in zip(steps_list, vals[3:]):
+            info[f"Step {s}, mean loss"] = v
+        if include_data:
+            pred0 = u_super[:, :, tw * self.config.nr_gt_steps - tw:
+                            tw * self.config.nr_gt_steps]
+            data_pred = torch.cat([pred0, *sim["preds"]], dim=2)
+            data_gt = torch.cat([pred0, *sim["labels"]], dim=2)
+            return vals[0], info, (data_gt.cpu().numpy(),
+                                   data_pred.cpu().numpy(),
+                                   [{} for _ in range(b)])
+        return vals[0], info
+
+    def _simulate(self, u, cond, x, t_cond, spatial_cond, nr_gt_steps, t_res,
+                  compute_loss, include_data, use_bc, clip_min, divide_by_t,
+                  batch_size, u_bc=None, u_mask=None):
+        """The rollout loop shared by test_step and simulate: a dict of
+        ``losses`` [n_steps] and, with include_data, ``preds`` and
+        ``labels`` (lists of [b, c, tw, *sp] windows)."""
+        tw = self.tw
+        spatial_cells = math.prod(self.config.base_resolution[1:])
+        steps_list = list(range(tw * nr_gt_steps, t_res - tw + 1, tw))
+        if not steps_list:
+            raise ValueError(
+                f"simulate() needs at least one rollout window: t_res="
+                f"{t_res} < {nr_gt_steps + 1}*time_window (tw={tw}, "
+                f"nr_gt_steps={nr_gt_steps}). Use a longer trajectory or "
+                f"lower --time_window.")
+        if u_bc is None:
+            u_bc = u
+        pred = u[:, :, tw * nr_gt_steps - tw: tw * nr_gt_steps]
+        bc_prev = u_bc[:, :, tw * nr_gt_steps - tw: tw * nr_gt_steps]
+        losses, preds, labels_seq = [], [], []
+        for s in steps_list:
+            labels = u[:, :, s:s + tw] if compute_loss else None
+            tc = t_cond[:, :, s:s + tw] if t_cond is not None else None
+            if use_bc:
+                bc_next = u_bc[:, :, s:s + tw]
+                _, bc = self._process(pred, bc_prev, bc_next, get_bc=True,
+                                      set_bc=False, set_min=False)
+            else:
+                bc, bc_next = None, bc_prev
+            pred = self._apply(pred, cond, bc, x, tc, spatial_cond)
+            if u_mask is not None and compute_loss:
+                mask = u_mask[:, :, s:s + tw]
+                pred, labels = pred * mask, labels * mask
+            if use_bc:
+                pred, _ = self._process(pred, bc_next, None, get_bc=False,
+                                        set_bc=True, set_min=False)
+            if clip_min:
+                pred, _ = self._process(pred, None, None, get_bc=False,
+                                        set_bc=False, set_min=True)
+            if compute_loss:
+                losses.append(self.criterion(pred, labels) / spatial_cells
+                              / batch_size)
+                labels_seq.append(labels)
+            if include_data:
+                preds.append(pred)
+            bc_prev = bc_next
+        result = {"preds": preds, "labels": labels_seq}
+        if compute_loss:
+            losses = torch.stack(losses)
+            result["losses"] = (losses / (tw * len(steps_list))
+                                if divide_by_t else losses)
+        return result
+
+    def simulate(self, u, conditioning, x, compute_loss, include_data,
+                 nr_gt_steps, t_res, t_conditioning=None,
+                 spatial_conditioning=None, clip_min=True, use_bc=True,
+                 u_bc=None, u_mask=None, divide_by_t=True):
+        """Rollout API on numpy inputs; returns numpy as the JAX package's:
+        losses (a list), (losses, (gt, pred)) or pred."""
+        tw = self.tw
+        if compute_loss and u.shape[2] < t_res:
+            raise ValueError("Cannot compute loss if no ground-truth "
+                             "simulation is provided for the full rollout")
+        if u.shape[2] < nr_gt_steps * tw:
+            raise ValueError("The data is shorter than nr_gt_steps*tw")
+        if u_mask is not None and not compute_loss:
+            raise ValueError("Mask supplied but compute_loss=False!")
+        if not compute_loss and not include_data:
+            raise ValueError(
+                "simulate() with compute_loss=False and include_data=False "
+                "returns nothing; request at least one output")
+
+        def dev(a):
+            if a is None:
+                return None
+            return _opt(torch.as_tensor(np.asarray(a, np.float32),
+                                        device=self.device))
+
+        u = dev(u)
+        with torch.no_grad():
+            res = self._simulate(
+                u, dev(conditioning), dev(x), dev(t_conditioning),
+                dev(spatial_conditioning), nr_gt_steps=nr_gt_steps,
+                t_res=t_res, compute_loss=compute_loss,
+                include_data=include_data, use_bc=use_bc, clip_min=clip_min,
+                divide_by_t=divide_by_t, batch_size=int(u.shape[0]),
+                u_bc=dev(u_bc), u_mask=dev(u_mask))
+            losses = (list(res["losses"].cpu().numpy()) if compute_loss
+                      else None)
+            if not include_data:
+                return losses
+            pred0 = u[:, :, tw * nr_gt_steps - tw: tw * nr_gt_steps]
+            data_pred = torch.cat([pred0, *res["preds"]], dim=2).cpu().numpy()
+            if not compute_loss:
+                return data_pred
+            data_gt = torch.cat([pred0, *res["labels"]], dim=2).cpu().numpy()
+        return losses, (data_gt, data_pred)

@@ -181,3 +181,122 @@ def test_gn1_gelu_kernel_constant_sample_clamps_variance():
     ref = torch.nn.functional.gelu(b.reshape(1, 8, 1, 1).expand_as(x))
     assert torch.isfinite(y).all()
     assert float((y - ref).abs().max()) < 0.05
+
+
+# ---- gradients: GNGeluFn and SpectralConv2dFn (bar 1e-4, f32) ---------------
+def _grads(fn, inputs, dy):
+    inputs = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*inputs)
+    return (out, *torch.autograd.grad(out, inputs, dy))
+
+
+@pytest.mark.parametrize("shape", [(4, 388, 100, 68), (16, 388, 100, 68),
+                                   (16, 192, 47, 31), (3, 5, 7, 9)])
+@pytest.mark.parametrize("gelu", [True, False])
+def test_gn_gelu_fn_gradient_matches_plain_autograd(shape, gelu):
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    c = shape[1]
+    x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(shape, device="cuda", generator=g)
+    kernels.reset_launches()
+    got = _grads(lambda *t: gn.GNGeluFn.apply(*t, gelu, gn.EPS), (x, w, b), dy)
+    assert dict(kernels.launches) == {"gn1_gelu_fwd": 1, "gn1_gelu_bwd": 1}
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, gelu), (x, w, b), dy)
+    for a, r, name in zip(got, ref, ("y", "dx", "dgamma", "dbeta")):
+        assert _rel(a, r) < 1e-4, name
+
+
+def test_gn_gelu_bwd_is_deterministic():
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((4, 192, 47, 31), device="cuda", generator=g)
+    w = torch.randn(192, device="cuda", generator=g)
+    b = torch.randn(192, device="cuda", generator=g)
+    dy = torch.randn_like(x)
+    _, stats = gn.gn1_gelu_fwd_stats(x, w, b)
+    first = gn.gn1_gelu_bwd(x, w, b, stats, dy)
+    second = gn.gn1_gelu_bwd(x, w, b, stats, dy)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("b,ci,co,grid,modes", [
+    (4, 196, 192, (96, 64), (10, 10)),  # the main path
+    (3, 7, 6, (12, 10), (3, 6)),        # the Nyquist column kept
+    (2, 9, 70, (20, 18), (5, 9)),       # scalar rows
+])
+def test_spectral_fn_gradient_matches_plain_autograd(b, ci, co, grid, modes):
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((b, ci) + grid, device="cuda", generator=g)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    dy = torch.randn((b, co) + grid, device="cuda", generator=g)
+    kernels.reset_launches()
+    got = _grads(lambda *t: sp.SpectralConv2dFn.apply(*t, modes),
+                 (x, *ws), dy)
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 2,
+                                      "spectral_dft2d_bwd": 1}
+    ref = _grads(lambda x, w1, w2: sp.spectral_conv_2d_plain(x, [w1, w2],
+                                                             modes),
+                 (x, *ws), dy)
+    for a, r, name in zip(got, ref, ("y", "dx", "dw1", "dw2")):
+        assert _rel(a, r) < 1e-4, name
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_spectral_layer_after_adam_step_uses_new_weights(fused):
+    """The packed-weight cache of no-grad calls sees an optimizer step."""
+    from nps_tpu_torch.models.fno import SpectralConvND
+    from nps_tpu_torch.ops import spectral as sp
+
+    torch.manual_seed(0)
+    layer = SpectralConvND(196, 192, (10, 10), 2).cuda()
+    x = torch.randn((2, 196, 96, 64), device="cuda")
+    with torch.no_grad():
+        layer(x)  # fills the cache
+    opt = torch.optim.Adam(layer.parameters(), lr=1e-2, fused=fused)
+    layer(x).square().mean().backward()
+    opt.step()
+    with torch.inference_mode():
+        out = layer(x)
+        ref = sp.spectral_conv_2d_plain(x, [layer.weights1, layer.weights2],
+                                        (10, 10))
+    assert _rel(out, ref) < 1e-5
+
+
+def test_kernel_outputs_carry_gradients_in_a_model():
+    """GN and spectral outputs reach the loss only through the kernels; a
+    backward must still give their parameters nonzero gradients."""
+    from nps_tpu_torch.models.common import GroupNorm
+    from nps_tpu_torch.models.fno import SpectralConvND
+
+    torch.manual_seed(1)
+    spec = SpectralConvND(8, 8, (4, 4), 2).cuda()
+    norm = GroupNorm(1, 8).cuda()
+    x = torch.randn((2, 8, 24, 16), device="cuda")
+    loss = norm.with_gelu(spec(x)).square().sum()
+    loss.backward()
+    for name, p in (("weights1", spec.weights1), ("weights2", spec.weights2),
+                    ("gn weight", norm.weight), ("gn bias", norm.bias)):
+        assert p.grad is not None and float(p.grad.abs().sum()) > 0, name
+
+
+def test_film_with_gradients_raises_on_cuda():
+    """No silent route to the plain version: FiLM gradients are not ported."""
+    from nps_tpu_torch.ops import spectral as sp
+
+    x = torch.randn((2, 4, 12, 10), device="cuda", requires_grad=True)
+    ws = [torch.rand((2, 4, 3, 3, 4), device="cuda") for _ in range(2)]
+    film = torch.randn((2, 3, 6, 4), device="cuda")
+    with pytest.raises(NotImplementedError, match="FiLM"):
+        sp.spectral_conv_nd(x, ws, (3, 4), film=film)
+    with torch.no_grad():
+        sp.spectral_conv_nd(x, ws, (3, 4), film=film)

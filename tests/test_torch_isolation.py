@@ -62,3 +62,15 @@ def test_engine_without_device_refuses_to_run_on_cpu(monkeypatch):
         SurrogateEngine.from_config(
             "nps_tpu_torch/configs/train/cfg_twophase_ufno.py", pde=pde,
             overrides=["--model.hidden_features=8"])
+
+
+def test_train_cli_without_device_refuses_to_run_on_cpu(monkeypatch):
+    from nps_tpu_torch import train_cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["prog", "-C", "nps_tpu_torch/configs/train/cfg_twophase_ufno.py",
+            "--model.hidden_features=8"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.cli(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.cli(argv + ["--device", "cuda"])
