@@ -33,16 +33,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              save and a checkpoint; then train steps at injected depths 0
              and 8 timed (median of 5 after a warm-up, host clock around
              synchronised steps) with their launch counts and peak memory;
-             and one depth-1 step at batch 2 against the same step run by
-             the port on the CPU (loss and every gradient).
+             one depth-1 step at batch 2 against the same step run by the
+             port on the CPU (loss and every gradient); and both kernel ops
+             (GNGeluFn, SpectralConv2dFn), output and gradients, at every
+             input shape one train step at batch 16 gave them, against
+             autograd through their plain versions.
 
-In the kernels phase the backward ops join the forward kernels: the
-gn1_gelu_bwd kernel and the spectral conv's backward (the forward kernel on
-dy with the adjoint weights, and one batched product for the weight
-gradient), each against autograd through its plain version. Their "ms" is
-graph replay of the op itself; the plain and library backwards run through
-the autograd engine, which a graph captured apart from its forward cannot
-replay, so theirs are eager calls between two CUDA events.
+In the kernels phase the spectral conv runs at the serving batch (4) and
+the train batch (16), and the backward ops join the forward kernels at the
+train batch: the gn1_gelu_bwd kernel and the spectral conv's backward (the
+forward kernel on dy with the adjoint weights, and one batched product for
+the weight gradient), each against autograd through its plain version.
+Their "ms" is graph replay of the op itself; the plain and library
+backwards run through the autograd engine, which a graph captured apart
+from its forward cannot replay, so theirs are eager calls between two CUDA
+events.
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, printing no result, without a CUDA device or outside
@@ -50,6 +55,7 @@ a checkout of the repo. Longer outputs (ptxas reports) go to ``--out``.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -69,7 +75,7 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 GN_FLOPS_PER_ELEMENT = 8
 GN_SHAPES = [(BATCH, 2 * HIDDEN + N_STATIC + N_SPATIAL, 100, 68),
              (BATCH, HIDDEN, 47, 31)]
-SPEC_SHAPE = (BATCH, HIDDEN + N_STATIC + N_SPATIAL, NX1, NX2)
+SPEC_CI = HIDDEN + N_STATIC + N_SPATIAL
 REL_TOL_F32 = 1e-5    # kernel vs plain, f32: sums in another order
 REL_TOL_BF16 = 1e-2   # bf16 output: one rounding of an 8-bit mantissa
 REL_TOL_STEP = 1e-4   # card vs CPU step, the ROADMAP forward bar
@@ -81,6 +87,9 @@ GN_BWD_SHAPE = (16, 2 * HIDDEN + N_STATIC + N_SPATIAL, 100, 68)
 # one exp (~12), the two sums, then the same again and dx in the apply pass
 GN_BWD_FLOPS_PER_ELEMENT = 40
 TRAIN_BATCH, TRAIN_SIMS, TRAIN_NT, TRAIN_EPOCHS = 16, 20, 501, 2
+# the spectral conv's input: serving at batch 4, training at batch 16 (its
+# mix runs two 8-sample tiles there); the backward runs only in training
+SPEC_SHAPES = [(b, SPEC_CI, NX1, NX2) for b in (BATCH, TRAIN_BATCH)]
 TRAIN_DEPTHS, TIMED_STEPS = (0, 8), 5
 
 
@@ -210,7 +219,6 @@ def phase_kernels(gen):
     import torch.nn.functional as F
 
     from nps_tpu_torch.ops import group_norm as gn
-    from nps_tpu_torch.ops import spectral as sp
 
     dev = torch.device("cuda")
     results = {}
@@ -249,9 +257,50 @@ def phase_kernels(gen):
         results.setdefault("gn1_gelu_fwd", rec)   # the largest shape
 
     # ---- spectral_dft2d_fwd (K1) --------------------------------------------
-    b, ci, n1, n2 = SPEC_SHAPE
+    recs = [spectral_fwd_record(gen, shape) for shape in SPEC_SHAPES]
+    results["spectral_dft2d_fwd"] = recs[0]   # the serving shape's
+    results["gn1_gelu_bwd"] = gn_bwd_record(gen)
+    results["spectral_dft2d_bwd"] = spectral_bwd_record(gen)
+    return results
+
+
+def complex_weights(w1, w2):
+    """[weights1, weights2] as one complex [ci, co, 2*m1, m2] tensor."""
+    import torch
+
+    w = torch.cat([w1, w2], 3)
+    return torch.complex(w[0], w[1])
+
+
+def rfft_conv(x, w_c, modes):
+    """The spectral conv as rfft2 + einsum + irfft2, with the weights in
+    complex form (:func:`complex_weights`): the library yardstick."""
+    import torch
+
+    m1, m2 = modes
+    b, _, n1, n2 = x.shape
+    co = w_c.shape[1]
+    xf = torch.fft.rfft2(x)
+    blk = torch.cat([xf[:, :, :m1, :m2], xf[:, :, n1 - m1:, :m2]], dim=2)
+    mixed = torch.einsum("bikm,iokm->bokm", blk, w_c)
+    out_ft = torch.zeros((b, co, n1, n2 // 2 + 1), dtype=mixed.dtype,
+                         device=x.device)
+    out_ft[:, :, :m1, :m2] = mixed[:, :, :m1]
+    out_ft[:, :, n1 - m1:, :m2] = mixed[:, :, m1:]
+    return torch.fft.irfft2(out_ft, s=(n1, n2))
+
+
+def spectral_fwd_record(gen, shape):
+    """spectral_dft2d_fwd at ``shape`` -> HIDDEN channels, with and without
+    FiLM, against its plain version; times beside the library call's."""
+    import torch
+
+    from nps_tpu_torch.ops import spectral as sp
+
+    dev = torch.device("cuda")
+    b, ci, n1, n2 = shape
     co, m1, m2 = HIDDEN, MODES, MODES
-    x = torch.randn(SPEC_SHAPE, device=dev, generator=gen)
+    x = torch.randn(shape, device=dev, generator=gen)
     ws = [torch.rand((2, ci, co, m1, m2), device=dev, generator=gen)
           / (ci * co) for _ in range(2)]
     packed = sp.pack_weights_2d(ws)
@@ -265,25 +314,13 @@ def phase_kernels(gen):
                    for mode in (0, 1))
     torch.cuda.synchronize()
     err = rel_err(y_k, y_p)
-
-    w_c = torch.complex(torch.cat(ws, 3)[0], torch.cat(ws, 3)[1])
-
-    def rfft_conv():
-        xf = torch.fft.rfft2(x)
-        blk = torch.cat([xf[:, :, :m1, :m2], xf[:, :, n1 - m1:, :m2]], dim=2)
-        mixed = torch.einsum("bikm,iokm->bokm", blk, w_c)
-        out_ft = torch.zeros((b, co, n1, n2 // 2 + 1), dtype=mixed.dtype,
-                             device=dev)
-        out_ft[:, :, :m1, :m2] = mixed[:, :, :m1]
-        out_ft[:, :, n1 - m1:, :m2] = mixed[:, :, m1:]
-        return torch.fft.irfft2(out_ft, s=(n1, n2))
-
-    err_library = rel_err(rfft_conv(), y_p)
+    w_c = complex_weights(*ws)
+    err_library = rel_err(rfft_conv(x, w_c, (m1, m2)), y_p)
     flops = spectral_flops(b, ci, co, n1, n2, m1, m2)
     nbytes = 4 * (x.numel() + packed.numel() + b * co * n1 * n2)
     bound_ms, bound_by = bound(nbytes, flops)
     rec = {"phase": "kernel", "name": "spectral_dft2d_fwd",
-           "shape": [SPEC_SHAPE, co, [m1, m2]], "rel_err": err,
+           "shape": [shape, co, [m1, m2]], "rel_err": err,
            "rel_err_film": err_film, "rel_err_library_vs_plain": err_library,
            "max_abs_err": float((y_k - y_p).abs().max()),
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -292,16 +329,13 @@ def phase_kernels(gen):
     timed(rec, lambda: sp.spectral_dft2d_fwd(x, packed, (m1, m2)), "ms")
     timed(rec, lambda: sp.spectral_conv_2d_plain(x, ws, (m1, m2)),
           "plain_ms")
-    timed(rec, rfft_conv, "library_ms")
+    timed(rec, lambda: rfft_conv(x, w_c, (m1, m2)), "library_ms")
     rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
     emit(rec)
     if not (err < REL_TOL_F32 and err_film < REL_TOL_F32):
-        raise AssertionError(f"spectral_dft2d_fwd disagrees: {err}, "
-                             f"film {err_film}")
-    results["spectral_dft2d_fwd"] = rec
-    results["gn1_gelu_bwd"] = gn_bwd_record(gen)
-    results["spectral_dft2d_bwd"] = spectral_bwd_record(gen)
-    return results
+        raise AssertionError(f"spectral_dft2d_fwd disagrees at {shape}: "
+                             f"{err}, film {err_film}")
+    return rec
 
 
 def _grads(fn, leaves, dy):
@@ -332,15 +366,16 @@ def gn_bwd_record(gen):
     gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
     dy = torch.randn(shape, device="cuda", generator=gen)
-    _, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta)
+    y_k, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta)
     got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy)
     y_p, leaves_p, ref = _grads(gn.gn_gelu_plain, (x, gamma, beta), dy)
     torch.cuda.synchronize()
     err, max_abs = _errors(got, ref)
+    err_y = rel_err(y_k, y_p)
     n = math.prod(shape)
     bound_ms, bound_by = bound(3 * 4 * n, GN_BWD_FLOPS_PER_ELEMENT * n)
     rec = {"phase": "kernel", "name": "gn1_gelu_bwd", "shape": shape,
-           "rel_err": err, "max_abs_err": max_abs,
+           "rel_err": err, "max_abs_err": max_abs, "rel_err_fwd_y": err_y,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_how": "x, dy read once + dx written once, f32, at "
                         "3.35 TB/s"}
@@ -355,14 +390,15 @@ def gn_bwd_record(gen):
         y_l, leaves_l, dy, retain_graph=True))
     rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
     emit(rec)
-    if not err < REL_TOL_GRAD:
-        raise AssertionError(f"gn1_gelu_bwd disagrees: {err}")
+    if not (err < REL_TOL_GRAD and err_y < REL_TOL_F32):
+        raise AssertionError(f"gn1_gelu_bwd disagrees: {err} (forward y "
+                             f"{err_y})")
     return rec
 
 
 def spectral_bwd_record(gen):
     """SpectralConv2dFn's backward (dx and both weight gradients) at the
-    main path's shape against autograd through the plain version and
+    train step's shape against autograd through the plain version and
     through rfft2 + einsum + irfft2."""
     from types import SimpleNamespace
 
@@ -370,10 +406,11 @@ def spectral_bwd_record(gen):
 
     from nps_tpu_torch.ops import spectral as sp
 
-    b, ci, n1, n2 = SPEC_SHAPE
+    shape = SPEC_SHAPES[-1]
+    b, ci, n1, n2 = shape
     co, m1, m2 = HIDDEN, MODES, MODES
     modes = (m1, m2)
-    x = torch.randn(SPEC_SHAPE, device="cuda", generator=gen)
+    x = torch.randn(shape, device="cuda", generator=gen)
     ws = [torch.rand((2, ci, co, m1, m2), device="cuda", generator=gen)
           / (ci * co) for _ in range(2)]
     dy = torch.randn((b, co, n1, n2), device="cuda", generator=gen)
@@ -388,18 +425,6 @@ def spectral_bwd_record(gen):
         (x, *ws), dy)
     torch.cuda.synchronize()
     err, max_abs = _errors(got, ref)
-
-    def rfft_conv(x, w1, w2):
-        w = torch.cat([w1, w2], 3)
-        xf = torch.fft.rfft2(x)
-        blk = torch.cat([xf[:, :, :m1, :m2], xf[:, :, n1 - m1:, :m2]], dim=2)
-        mixed = torch.einsum("bikm,iokm->bokm", blk, torch.complex(w[0], w[1]))
-        out_ft = torch.zeros((b, co, n1, n2 // 2 + 1), dtype=mixed.dtype,
-                             device="cuda")
-        out_ft[:, :, :m1, :m2] = mixed[:, :, :m1]
-        out_ft[:, :, n1 - m1:, :m2] = mixed[:, :, m1:]
-        return torch.fft.irfft2(out_ft, s=(n1, n2))
-
     modes_n = 2 * m1 * m2
     nbytes = 4 * (dy.numel() + 2 * ws[0].numel()       # dy, W read
                   + 2 * modes_n * b * ci                # saved spectrum
@@ -408,7 +433,7 @@ def spectral_bwd_record(gen):
              + modes_n * b * ci * co * 8)               # dW: complex products
     bound_ms, bound_by = bound(nbytes, flops)
     rec = {"phase": "kernel", "name": "spectral_dft2d_bwd",
-           "shape": [SPEC_SHAPE, co, [m1, m2]], "rel_err": err,
+           "shape": [shape, co, [m1, m2]], "rel_err": err,
            "max_abs_err": max_abs, "bound_ms": bound_ms,
            "bound_by": bound_by,
            "bound_how": f"dy + weights + saved spectrum read, dx + dW "
@@ -418,7 +443,9 @@ def spectral_bwd_record(gen):
     rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
         y_p, leaves_p, dy, retain_graph=True))
     del y_p, leaves_p
-    y_l, leaves_l, ref_l = _grads(rfft_conv, (x, *ws), dy)
+    y_l, leaves_l, ref_l = _grads(
+        lambda x, w1, w2: rfft_conv(x, complex_weights(w1, w2), modes),
+        (x, *ws), dy)
     rec["rel_err_library_vs_plain"] = _errors(ref_l, ref)[0]
     rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
         y_l, leaves_l, dy, retain_graph=True))
@@ -542,12 +569,82 @@ def _grad_errors(got, ref):
                for k, r in ref.items())
 
 
+@contextlib.contextmanager
+def kernel_shapes():
+    """Record the distinct inputs the kernels' forward calls see inside the
+    block: GN+GELU (shape, gelu) and spectral conv (shape, co, modes)."""
+    from nps_tpu_torch.ops import group_norm as gn
+    from nps_tpu_torch.ops import spectral as sp
+
+    seen = {"gn": set(), "spectral": set()}
+    gn_fwd, sp_fwd = gn.gn1_gelu_fwd_stats, sp.spectral_dft2d_fwd_spectrum
+
+    def gn_record(x, weight, bias, gelu=True, eps=gn.EPS):
+        seen["gn"].add((tuple(x.shape), bool(gelu)))
+        return gn_fwd(x, weight, bias, gelu, eps)
+
+    def sp_record(x, w_packed, modes, film=None, film_mode=1,
+                  op="spectral_dft2d_fwd"):
+        if op == "spectral_dft2d_fwd":
+            seen["spectral"].add((tuple(x.shape), w_packed.shape[3],
+                                  tuple(modes)))
+        return sp_fwd(x, w_packed, modes, film, film_mode, op)
+
+    gn.gn1_gelu_fwd_stats = gn_record
+    sp.spectral_dft2d_fwd_spectrum = sp_record
+    try:
+        yield seen
+    finally:
+        gn.gn1_gelu_fwd_stats, sp.spectral_dft2d_fwd_spectrum = gn_fwd, sp_fwd
+
+
+def check_shapes(seen, gen):
+    """Both kernel ops, output and gradients, at every input ``seen`` in a
+    train step, against autograd through their plain versions on fresh
+    inputs: output < REL_TOL_F32, each gradient < REL_TOL_GRAD."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+    from nps_tpu_torch.ops import spectral as sp
+
+    def compare(fn, plain, leaves, dy):
+        y, _, got = _grads(fn, leaves, dy)
+        y_p, _, ref = _grads(plain, leaves, dy)
+        return {"rel_err_y": rel_err(y, y_p),
+                "rel_err_grad": _errors(got, ref)[0]}
+
+    rows = []
+    for shape, gelu in sorted(seen["gn"]):
+        c = shape[1]
+        x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
+        gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+        beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        dy = torch.randn(shape, device="cuda", generator=gen)
+        rows.append({"op": "GNGeluFn", "shape": shape, "gelu": gelu,
+                     **compare(lambda *t: gn.GNGeluFn.apply(*t, gelu, gn.EPS),
+                               lambda *t: gn.gn_gelu_plain(*t, gelu),
+                               (x, gamma, beta), dy)})
+    for shape, co, modes in sorted(seen["spectral"]):
+        b, ci, n1, n2 = shape
+        x = torch.randn(shape, device="cuda", generator=gen)
+        ws = [torch.rand((2, ci, co, *modes), device="cuda", generator=gen)
+              / (ci * co) for _ in range(2)]
+        dy = torch.randn((b, co, n1, n2), device="cuda", generator=gen)
+        rows.append({"op": "SpectralConv2dFn", "shape": shape, "co": co,
+                     **compare(lambda x, w1, w2: sp.SpectralConv2dFn.apply(
+                                   x, w1, w2, modes),
+                               lambda x, w1, w2: sp.spectral_conv_2d_plain(
+                                   x, [w1, w2], modes),
+                               (x, *ws), dy)})
+    torch.cuda.synchronize()
+    return rows
+
+
 def phase_train(seed, card, out_dir):
     """Train the full-width model (built by the CLI's get_config_static)
     for TRAIN_EPOCHS epochs, time single steps at the depths TRAIN_DEPTHS,
-    and hold one depth-1 step against the CPU. Returns the 2-epoch run's
-    launches."""
-    import contextlib
+    hold one depth-1 step against the CPU, and check both kernel ops at
+    every input shape of a step. Returns the 2-epoch run's launches."""
     import tempfile
 
     import numpy as np
@@ -610,6 +707,8 @@ def phase_train(seed, card, out_dir):
         batches.close()
         steps = {}
         with autotuned_convs():
+            with kernel_shapes() as seen:   # also a first warm-up
+                trainer.train_step(batch, 0, 0, unrolled=1)
             for depth in TRAIN_DEPTHS:
                 trainer.train_step(batch, 0, 0, unrolled=depth)  # warm-up
                 torch.cuda.synchronize()
@@ -625,9 +724,11 @@ def phase_train(seed, card, out_dir):
                     seconds.append(time.perf_counter() - t0)
                     counts.append(dict(kernels.launches))
                 median = sorted(seconds)[len(seconds) // 2]
+                # the K1 kernel's 3 (depth + 1) + 3 launches, counted by the
+                # op each serves: the forwards, and the backward's on dy
                 want = {"gn1_gelu_fwd": 48 * (depth + 1),
                         "gn1_gelu_bwd": 48,
-                        "spectral_dft2d_fwd": 3 * (depth + 1) + 3,
+                        "spectral_dft2d_fwd": 3 * (depth + 1),
                         "spectral_dft2d_bwd": 3}
                 steps[depth] = {
                     "step_seconds": seconds, "ms_per_step": 1e3 * median,
@@ -654,6 +755,8 @@ def phase_train(seed, card, out_dir):
         grad_err, grad_worst = _grad_errors(
             {k: p.grad for k, p in trainer.model.named_parameters()},
             {k: p.grad for k, p in cpu.model.named_parameters()})
+        shape_checks = check_shapes(
+            seen, torch.Generator(device="cuda").manual_seed(seed + 1))
 
     want_run = {"gn1_gelu_bwd": 48 * n_steps,
                 "spectral_dft2d_bwd": 3 * n_steps}
@@ -671,6 +774,7 @@ def phase_train(seed, card, out_dir):
                            "loss_cpu": float(loss_cpu),
                            "loss_rel_err": loss_err, "grad_rel_err": grad_err,
                            "worst_grad": grad_worst},
+           "kernels_at_train_shapes": shape_checks,
            "card": card, "tf32": False}
     emit(rec)
     if not (np.isfinite(train_losses).all()
@@ -686,6 +790,13 @@ def phase_train(seed, card, out_dir):
     if not all(v["launches_ok"] for v in steps.values()):
         raise AssertionError("train-step launch counts differ from the "
                              "expected ones")
+    bad = [r for r in shape_checks
+           if not (r["rel_err_y"] < REL_TOL_F32
+                   and r["rel_err_grad"] < REL_TOL_GRAD)]
+    if bad or {r["op"] for r in shape_checks} != {"GNGeluFn",
+                                                  "SpectralConv2dFn"}:
+        raise AssertionError(f"kernels at the train step's shapes: {bad}, "
+                             f"{len(shape_checks)} checked")
     if not (loss_err < REL_TOL_STEP and grad_err < REL_TOL_STEP_GRAD):
         raise AssertionError(f"card vs CPU train step: loss {loss_err}, "
                              f"gradient {grad_err} ({grad_worst})")

@@ -11,7 +11,8 @@ The engine runs on ``device`` ("cuda" unless the caller asks for "cpu"); on
 the GPU the model goes through the hand-written kernels. The rollout is a
 Python loop of model applications under ``torch.inference_mode()``, with
 cuDNN choosing each convolution's algorithm by timing (see
-:func:`autotuned_convs`). Inputs
+:func:`autotuned_convs`) and the spectral weights packed once per call of
+``step`` or ``rollout``. Inputs
 and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, c, tw, *sp]``, ``cond`` ``[b, n_static]``, ``spatial_cond``
 ``[b, n_spatial, *sp]``. Sharding, export and the GNN path are not ported
@@ -27,6 +28,7 @@ import torch
 import nps_tpu_torch.models as models
 from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.configs.parse import parse_args
+from nps_tpu_torch.models.fno import packed_spectral_weights
 from nps_tpu_torch.models.initializers import reset_parameters
 from nps_tpu_torch.pde import PDE2D
 
@@ -133,7 +135,8 @@ class SurrogateEngine:
 
     def step(self, u, cond=None, spatial_cond=None):
         """One bundled step: [b, c, tw, *sp] -> the next tw frames."""
-        with torch.inference_mode(), autotuned_convs():
+        with torch.inference_mode(), autotuned_convs(), \
+                packed_spectral_weights(self.model):
             u = self._tensor(u)
             out = self._apply(u, self._tensor(cond), self._pos(u.shape[0]),
                               self._tensor(spatial_cond))
@@ -145,7 +148,8 @@ class SurrogateEngine:
 
         Returns [b, c, n_steps*tw(+tw), *sp] predicted frames (numpy).
         """
-        with torch.inference_mode(), autotuned_convs():
+        with torch.inference_mode(), autotuned_convs(), \
+                packed_spectral_weights(self.model):
             pred = self._tensor(u0)
             cond, spatial_cond = self._tensor(cond), self._tensor(spatial_cond)
             pos = self._pos(pred.shape[0])

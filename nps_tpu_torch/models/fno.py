@@ -4,13 +4,18 @@
 (real ``[2, ci, co, m1, m2]``) and calls ``ops.spectral.spectral_conv_nd``.
 ``FNO_Layer`` adds the pointwise-conv bypass. The ``FNO`` processor is not
 ported yet.
+
+Each call packs the weights into the CUDA kernel's layout, inside the
+autograd Function where a gradient is wanted. A caller that applies the
+model many times with fixed weights (a serving rollout) wraps the calls in
+:func:`packed_spectral_weights`, which packs once for the whole block.
 """
 
 import math
+from contextlib import contextmanager
 
 import torch
 from torch import nn
-from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.activations import resolve_activation
@@ -18,23 +23,21 @@ from nps_tpu_torch.models.common import ConvND, Dense
 from nps_tpu_torch.ops.spectral import pack_weights_2d, spectral_conv_nd
 
 
-class _OptimizerSteps:
-    """Counts the steps of every ``torch.optim`` optimizer in the process.
-    Not every optimizer bumps its parameters' version counters (the fused
-    Adam does not), so the packed-weight cache keys on this count too."""
-
-    count = 0
-    handle = None
-
-    @classmethod
-    def _hook(cls, optimizer, args, kwargs):
-        cls.count += 1
-
-    @classmethod
-    def current(cls):
-        if cls.handle is None:
-            cls.handle = register_optimizer_step_post_hook(cls._hook)
-        return cls.count
+@contextmanager
+def packed_spectral_weights(model):
+    """Pack the weights of every ``SpectralConvND`` in ``model`` once, and
+    let the calls inside the block without gradients use that pack. The
+    caller keeps the weights fixed inside the block; the packs are dropped
+    at its end, so the next block packs whatever the weights are then."""
+    layers = [m for m in model.modules() if isinstance(m, SpectralConvND)]
+    try:
+        with torch.no_grad():
+            for m in layers:
+                m.w_packed = pack_weights_2d((m.weights1, m.weights2))
+        yield
+    finally:
+        for m in layers:
+            m.w_packed = None
 
 
 def _modes_tuple(modes, nd):
@@ -69,7 +72,7 @@ class SpectralConvND(nn.Module):
         self.weights_feat = (Dense(feature_transform_dim,
                                    math.prod(self.film_grid))
                              if feature_transform else None)
-        self._packed = (None, None)
+        self.w_packed = None  # set by packed_spectral_weights
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -78,31 +81,17 @@ class SpectralConvND(nn.Module):
             with torch.no_grad():
                 w.mul_(self.scale)
 
-    def packed_weights(self):
-        """The CUDA kernel's weight layout for calls without gradients,
-        re-packed when a weight changed: in place (a new version, or any
-        optimizer step since) or by being replaced."""
-        ws = (self.weights1, self.weights2)
-        key = (_OptimizerSteps.current(),
-               *((w.data_ptr(), w._version, w.device) for w in ws))
-        if self._packed[0] != key:
-            with torch.no_grad():
-                self._packed = (key, pack_weights_2d(ws))
-        return self._packed[1]
-
     def forward(self, x, p=None):
         film = None
         if self.weights_feat is not None:
             assert p is not None, "FiLM conditioning requires the cond vector"
             film = self.weights_feat(p).reshape((p.shape[0],) + self.film_grid)
         # with gradients the CUDA path packs inside SpectralConv2dFn, so the
-        # weights stay in the graph; the cache serves no-grad calls only
-        w_packed = (self.packed_weights()
-                    if x.device.type == "cuda" and not torch.is_grad_enabled()
-                    else None)
+        # weights stay in the graph; there it ignores w_packed
         return spectral_conv_nd(x, [self.weights1, self.weights2], self.modes,
                                 film=film, film_mode=self.transform_mode,
-                                num_spatial_dims=self.nd, w_packed=w_packed)
+                                num_spatial_dims=self.nd,
+                                w_packed=self.w_packed)
 
 
 class FNO_Layer(nn.Module):

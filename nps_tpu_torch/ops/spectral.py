@@ -187,10 +187,13 @@ def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
                                        film_mode)[0]
 
 
-def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1):
+def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
+                                op="spectral_dft2d_fwd"):
     """:func:`spectral_dft2d_fwd` that also returns the kernel's scratch
     copy of ``x``'s truncated spectrum: (out, xr, xi), xr and xi the real and
-    imaginary parts, f32 [2*m1*m2, b, ci] (mode k*m2 + m)."""
+    imaginary parts, f32 [2*m1*m2, b, ci] (mode k*m2 + m). The launch is
+    counted under ``op``, the op it serves ("spectral_dft2d_bwd" for the
+    backward's launch on dy)."""
     m1, m2 = modes
     if x.device.type != "cuda":
         raise ValueError(f"spectral_dft2d_fwd takes CUDA tensors, got "
@@ -228,7 +231,7 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1):
         out.data_ptr(), b, ci, co, n1, n2, m1, m2,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "spectral_dft2d_fwd")
-    kernels.launches["spectral_dft2d_fwd"] += 1
+    kernels.launches[op] += 1
     return out, xr, xi
 
 
@@ -293,9 +296,7 @@ class SpectralConv2dFn(torch.autograd.Function):
         (m1, m2), (n1, n2) = ctx.modes, ctx.grid
         dx, gr, gi = spectral_dft2d_fwd_spectrum(
             dy.contiguous(), pack_adjoint_weights_2d((weights1, weights2)),
-            ctx.modes)
-        # the backward's launch, counted under the forward kernel too
-        kernels.launches["spectral_dft2d_bwd"] += 1
+            ctx.modes, op="spectral_dft2d_bwd")
         dw1 = dw2 = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw1, dw2 = spectral_weight_grad(

@@ -17,15 +17,18 @@ power limit. The Chrome trace goes to ``--out``.
 With ``--train`` the step is a train step at the injected pushforward
 depth ``--depth`` (the trainer built by the training CLI's
 ``get_config_static`` on a synthetic split of the config's grid, made in a
-temporary directory), and the kernel time is also split by the step's phases: the no-grad
-pushforward, the forward, the backward and the optimizer. A kernel belongs
-to the phase whose profiler range (``train_step/...``) is the nearest
-enclosing one of the operator that launched it; the backward's operators
-run on autograd's own thread and are recognised by name.
+temporary directory), and the kernel time is also split by the step's
+phases: the no-grad pushforward, the forward, the backward and the
+optimizer. A kernel belongs to the phase whose profiler range
+(``train_step/...``) was open when the CUDA runtime call that launched it
+ran; the two are paired by CUPTI's correlation id. What no phase claims is
+listed as ``unattributed``: the phases and it sum to the kernel time, and
+``unattributed_top`` names the kernels it holds.
 """
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -52,11 +55,15 @@ PHASES = ("pushforward", "forward", "backward", "optimizer")
 
 def _device_events(prof):
     """The device kernels and copies; not the profiler's own records, nor
-    the device-side spans of the train step's ``train_step/...`` ranges."""
-    return [e for e in prof.events()
+    the device-side spans of host ranges (``train_step/...``,
+    ``Optimizer.step#Adam.step``), which carry their range's name and cover
+    kernels counted on their own."""
+    events = prof.events()
+    host = {e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in PROFILER_RECORDS
-            and not e.name.startswith("train_step/")]
+            and e.name not in PROFILER_RECORDS and e.name not in host]
 
 
 def _call_spans_us(events, first, last):
@@ -89,33 +96,42 @@ def _busy_share(events, window_us):
     return busy / window_us if window_us else 0.0
 
 
-def _phase_of(event):
-    """The train-step phase of a CPU operator: the nearest enclosing
-    ``train_step/<phase>`` range, or "backward" for autograd's operators."""
-    while event is not None:
-        if event.name.startswith("train_step/"):
-            return event.name.split("/", 1)[1]
-        if event.name.startswith("autograd::engine::evaluate_function"):
-            return "backward"
-        event = event.cpu_parent
-    return None
+def _is_runtime_call(name):
+    """A CUDA API call (``cudaLaunchKernel``, ``cuLaunchKernel``): the
+    host side of a launch or a copy."""
+    return re.match(r"cu(da)?[A-Z]", name) is not None
 
 
-def _phases(prof, steps):
-    """Kernel ms per step by phase, from the operators' kernels."""
+def _phases(prof, events, steps):
+    """Device ms per step of ``events`` by phase: each event goes to the
+    ``train_step/<phase>`` range whose host window holds the runtime call
+    that launched it (same correlation id). The backward's calls come from
+    autograd's own thread, inside the window of the backward's range, which
+    waits for them. The operators' own kernel lists are not used: the
+    profiler links kernels to them by ids drawn from two counters, and the
+    sums came out above the kernel time."""
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = [(e.time_range.start, e.time_range.end, e.name.split("/", 1)[1])
+              for e in cpu if e.name.startswith("train_step/")]
+    if not ranges:
+        return None
+    launched_at = {e.id: e.time_range.start for e in cpu
+                   if _is_runtime_call(e.name)}
     out = {p: 0.0 for p in PHASES}
-    found = False
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue
-        kernels = getattr(e, "kernels", None) or []
-        if not kernels:
-            continue
-        phase = _phase_of(e)
+    rest = defaultdict(float)
+    for k in events:
+        t = launched_at.get(k.id)
+        phase = next((p for start, end, p in ranges
+                      if t is not None and start <= t <= end), None)
+        ms = k.time_range.elapsed_us() / 1e3 / steps
         if phase in out:
-            found = True
-            out[phase] += sum(k.duration for k in kernels) / 1e3 / steps
-    return out if found else None
+            out[phase] += ms
+        else:
+            rest[k.name[:90]] += ms
+    out["unattributed"] = sum(rest.values())
+    out["unattributed_top"] = sorted(rest.items(), key=lambda kv: -kv[1])[:5]
+    return out
 
 
 def _card():
@@ -248,7 +264,8 @@ def main():
     }
     if args.train:
         rec["depth"] = args.depth
-        rec["kernel_ms_per_step_by_phase"] = _phases(prof, args.steps)
+        rec["kernel_ms_per_step_by_phase"] = _phases(prof, events,
+                                                     args.steps)
     print(json.dumps(rec), flush=True)
 
 

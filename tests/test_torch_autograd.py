@@ -10,15 +10,17 @@ The kernels themselves are held against the same plain autograd on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Bar: max|d| / max|ref| < 1e-5 in f32 (the same sums in another order).
-Also held here: the packed-weight cache of ``SpectralConvND`` sees an
-optimizer step, whichever Adam implementation makes it.
+Also held here: the weights packed once for a block of calls
+(``packed_spectral_weights``) are the weights after an optimizer step,
+whichever Adam implementation makes it.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nps_tpu_torch.models.fno import SpectralConvND
+from nps_tpu_torch.models import fno
+from nps_tpu_torch.models.fno import SpectralConvND, packed_spectral_weights
 from nps_tpu_torch.ops import group_norm as gn
 from nps_tpu_torch.ops import spectral as sp
 
@@ -30,7 +32,8 @@ def _rel(a, ref):
 
 
 # ---- K1 ---------------------------------------------------------------------
-def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1):
+def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1,
+                          op="spectral_dft2d_fwd"):
     """What ``spectral_dft2d_fwd_spectrum`` returns, in plain PyTorch: the
     output, and X = sum u e^{-i theta} at the retained modes as [modes, b, c]
     real and imaginary parts."""
@@ -167,21 +170,49 @@ def test_tables_built_under_inference_mode_serve_autograd_later():
     assert x.grad is not None
 
 
-# ---- the packed-weight cache --------------------------------------------------
+# ---- the packed-weight cache ------------------------------------------------
 @pytest.mark.parametrize("impl", ["for-loop", "foreach", "fused"])
 def test_packed_weight_cache_sees_an_optimizer_step(impl):
     torch.manual_seed(0)
     layer = SpectralConvND(4, 3, (2, 3), 2)
-    before = layer.packed_weights().clone()
-    assert layer.packed_weights() is layer.packed_weights()  # cached
+    with packed_spectral_weights(layer):
+        before = layer.w_packed
+        torch.testing.assert_close(
+            before, sp.pack_weights_2d([layer.weights1, layer.weights2]),
+            rtol=0, atol=0)
+    assert layer.w_packed is None  # dropped at the block's end
     kw = {"for-loop": dict(foreach=False), "foreach": dict(foreach=True),
           "fused": dict(fused=True)}[impl]
     opt = torch.optim.Adam(layer.parameters(), lr=0.1, **kw)
     x = torch.randn(2, 4, 8, 6)
     layer(x).square().sum().backward()
     opt.step()
-    after = layer.packed_weights()
+    with packed_spectral_weights(layer):
+        after = layer.w_packed
     assert not torch.equal(after, before)
     torch.testing.assert_close(
         after, sp.pack_weights_2d([layer.weights1, layer.weights2]),
         rtol=0, atol=0)
+
+
+def test_packed_weights_reach_the_op_only_inside_the_block(monkeypatch):
+    """The layer hands the block's pack to the op, and nothing outside a
+    block: there each call packs its own."""
+    seen = []
+
+    def record(x, weights, modes, w_packed=None, **kw):
+        seen.append(w_packed)
+        return sp.spectral_conv_2d_plain(x, weights, modes)
+
+    monkeypatch.setattr(fno, "spectral_conv_nd", record)
+    torch.manual_seed(1)
+    model = torch.nn.Sequential(SpectralConvND(4, 4, (2, 3), 2),
+                                SpectralConvND(4, 3, (2, 3), 2))
+    x = torch.randn(2, 4, 8, 6)
+    model(x)
+    with torch.inference_mode(), packed_spectral_weights(model):
+        model(x)
+        packs = [m.w_packed for m in model]
+    assert seen[:2] == [None, None]
+    assert all(a is b for a, b in zip(seen[2:], packs))
+    assert all(m.w_packed is None for m in model)

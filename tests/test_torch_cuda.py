@@ -226,7 +226,8 @@ def test_gn_gelu_bwd_is_deterministic():
 
 
 @pytest.mark.parametrize("b,ci,co,grid,modes", [
-    (4, 196, 192, (96, 64), (10, 10)),  # the main path
+    (4, 196, 192, (96, 64), (10, 10)),  # the serving path
+    (16, 196, 192, (96, 64), (10, 10)),  # the train step: two batch tiles
     (3, 7, 6, (12, 10), (3, 6)),        # the Nyquist column kept
     (2, 9, 70, (20, 18), (5, 9)),       # scalar rows
 ])
@@ -242,7 +243,7 @@ def test_spectral_fn_gradient_matches_plain_autograd(b, ci, co, grid, modes):
     kernels.reset_launches()
     got = _grads(lambda *t: sp.SpectralConv2dFn.apply(*t, modes),
                  (x, *ws), dy)
-    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 2,
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 1,
                                       "spectral_dft2d_bwd": 1}
     ref = _grads(lambda x, w1, w2: sp.spectral_conv_2d_plain(x, [w1, w2],
                                                              modes),
@@ -253,19 +254,21 @@ def test_spectral_fn_gradient_matches_plain_autograd(b, ci, co, grid, modes):
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_spectral_layer_after_adam_step_uses_new_weights(fused):
-    """The packed-weight cache of no-grad calls sees an optimizer step."""
-    from nps_tpu_torch.models.fno import SpectralConvND
+    """The weights packed for a block of no-grad calls are the weights
+    after an optimizer step."""
+    from nps_tpu_torch.models.fno import (SpectralConvND,
+                                          packed_spectral_weights)
     from nps_tpu_torch.ops import spectral as sp
 
     torch.manual_seed(0)
     layer = SpectralConvND(196, 192, (10, 10), 2).cuda()
     x = torch.randn((2, 196, 96, 64), device="cuda")
-    with torch.no_grad():
-        layer(x)  # fills the cache
+    with torch.no_grad(), packed_spectral_weights(layer):
+        layer(x)
     opt = torch.optim.Adam(layer.parameters(), lr=1e-2, fused=fused)
     layer(x).square().mean().backward()
     opt.step()
-    with torch.inference_mode():
+    with torch.inference_mode(), packed_spectral_weights(layer):
         out = layer(x)
         ref = sp.spectral_conv_2d_plain(x, [layer.weights1, layer.weights2],
                                         (10, 10))
