@@ -42,9 +42,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 In the kernels phase the spectral conv runs at the serving batch (4) and
 the train batch (16), and the backward ops join the forward kernels at the
 train batch: the gn1_gelu_bwd kernel and the spectral conv's backward (the
-forward kernel on dy with the adjoint weights, and one batched product for
-the weight gradient), each against autograd through its plain version.
-Their "ms" is graph replay of the op itself; the plain and library
+adjoint launch spectral_dft2d_bwd on dy with the forward's saved weight
+pack, and the weight-gradient kernel spectral_dw2d), each against autograd
+through its plain version; the backward is called on the autograd node its
+forward built, and its two launches are also timed and checked apart,
+against their plain versions (spectral_dw2d also for the same bits on two
+calls). Their "ms" is graph replay of the op itself; the plain and library
 backwards run through the autograd engine, which a graph captured apart
 from its forward cannot replay, so theirs are eager calls between two CUDA
 events.
@@ -260,7 +263,8 @@ def phase_kernels(gen):
     recs = [spectral_fwd_record(gen, shape) for shape in SPEC_SHAPES]
     results["spectral_dft2d_fwd"] = recs[0]   # the serving shape's
     results["gn1_gelu_bwd"] = gn_bwd_record(gen)
-    results["spectral_dft2d_bwd"] = spectral_bwd_record(gen)
+    results["spectral_dft2d_bwd"], results["spectral_dw2d"] = (
+        spectral_bwd_records(gen))
     return results
 
 
@@ -396,12 +400,14 @@ def gn_bwd_record(gen):
     return rec
 
 
-def spectral_bwd_record(gen):
+def spectral_bwd_records(gen):
     """SpectralConv2dFn's backward (dx and both weight gradients) at the
-    train step's shape against autograd through the plain version and
-    through rfft2 + einsum + irfft2."""
-    from types import SimpleNamespace
-
+    train step's shape, called as autograd calls it on the node its forward
+    built (so it reads what the forward saved), against autograd through
+    the plain version and through rfft2 + einsum + irfft2; then its two
+    launches apart, each against its plain version and beside its bound:
+    the adjoint launch (spectral_dft2d_bwd) and the weight gradient
+    (spectral_dw2d). Returns both records."""
     import torch
 
     from nps_tpu_torch.ops import spectral as sp
@@ -414,21 +420,22 @@ def spectral_bwd_record(gen):
     ws = [torch.rand((2, ci, co, m1, m2), device="cuda", generator=gen)
           / (ci * co) for _ in range(2)]
     dy = torch.randn((b, co, n1, n2), device="cuda", generator=gen)
-    # the Function's backward called as autograd would call it
-    _, xr, xi = sp.spectral_dft2d_fwd_spectrum(x, sp.pack_weights_2d(ws),
-                                               modes)
-    ctx = SimpleNamespace(saved_tensors=(xr, xi, *ws), modes=modes,
-                          grid=(n1, n2), needs_input_grad=(True,) * 3 + (False,))
-    got = sp.SpectralConv2dFn.backward(ctx, dy)[:3]
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *ws)]
+    # the output is kept alive with its node: some PyTorch versions free a
+    # node's saved tensors with its last output
+    y = sp.SpectralConv2dFn.apply(*leaves, modes)
+    node = y.grad_fn
+    got = node.apply(dy)[:3]
     y_p, leaves_p, ref = _grads(
         lambda x, w1, w2: sp.spectral_conv_2d_plain(x, [w1, w2], modes),
         (x, *ws), dy)
     torch.cuda.synchronize()
     err, max_abs = _errors(got, ref)
     modes_n = 2 * m1 * m2
-    nbytes = 4 * (dy.numel() + 2 * ws[0].numel()       # dy, W read
+    w_numel = 2 * ws[0].numel()
+    nbytes = 4 * (dy.numel() + w_numel                 # dy, W read
                   + 2 * modes_n * b * ci                # saved spectrum
-                  + x.numel() + 2 * ws[0].numel())      # dx, dW written
+                  + x.numel() + w_numel)                # dx, dW written
     flops = (spectral_flops(b, co, ci, n1, n2, m1, m2)  # dx: adjoint conv
              + modes_n * b * ci * co * 8)               # dW: complex products
     bound_ms, bound_by = bound(nbytes, flops)
@@ -439,7 +446,7 @@ def spectral_bwd_record(gen):
            "bound_how": f"dy + weights + saved spectrum read, dx + dW "
                         f"written once, f32, at 3.35 TB/s ({nbytes} B); "
                         f"{flops} flop at 67 TFLOP/s"}
-    timed(rec, lambda: sp.SpectralConv2dFn.backward(ctx, dy), "ms")
+    timed(rec, lambda: node.apply(dy), "ms")
     rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
         y_p, leaves_p, dy, retain_graph=True))
     del y_p, leaves_p
@@ -449,11 +456,60 @@ def spectral_bwd_record(gen):
     rec["rel_err_library_vs_plain"] = _errors(ref_l, ref)[0]
     rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
         y_l, leaves_l, dy, retain_graph=True))
+    del y_l, leaves_l, ref_l
     rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+
+    # the adjoint launch on the forward's saved pack
+    xr, xi, packed = node.saved_tensors
+    adj = sp.spectral_dft2d_bwd(dy, packed, modes)
+    adj_err, adj_abs = _errors(adj, sp.spectral_dft2d_bwd_plain(dy, packed,
+                                                                modes))
+    adj_bytes = 4 * (dy.numel() + packed.numel() + x.numel())
+    adj_bound, adj_by = bound(adj_bytes,
+                              spectral_flops(b, co, ci, n1, n2, m1, m2))
+    rec["adjoint"] = {"rel_err": adj_err, "max_abs_err": adj_abs,
+                      "bound_ms": adj_bound, "bound_by": adj_by,
+                      "bound_how": f"dy + pack read, dx written once "
+                                   f"({adj_bytes} B)"}
+    timed(rec["adjoint"], lambda: sp.spectral_dft2d_bwd(dy, packed, modes),
+          "ms")
+    timed(rec["adjoint"],
+          lambda: sp.spectral_dft2d_bwd_plain(dy, packed, modes), "plain_ms")
+    rec["adjoint"]["bound_share"] = (adj_bound / rec["adjoint"]["ms"]
+                                     if rec["adjoint"]["ms"] else None)
     emit(rec)
-    if not err < REL_TOL_GRAD:
-        raise AssertionError(f"spectral_dft2d_bwd disagrees: {err}")
-    return rec
+
+    # the weight gradient from the saved spectrum and the adjoint's G
+    gr, gi = adj[1:]
+    scale = sp.mode_scale(n1, n2, m1, m2, "cuda")
+    dw = sp.spectral_dw2d(xr, xi, gr, gi, scale, m1)
+    dw_again = sp.spectral_dw2d(xr, xi, gr, gi, scale, m1)
+    dw_ref = sp.spectral_weight_grad(xr, xi, gr, gi, scale, m1)
+    torch.cuda.synchronize()
+    dw_err, dw_abs = _errors(dw, dw_ref)
+    dw_bytes = 4 * (2 * modes_n * b * (ci + co) + w_numel)
+    dw_bound, dw_by = bound(dw_bytes, modes_n * b * ci * co * 8)
+    rec_dw = {"phase": "kernel", "name": "spectral_dw2d",
+              "shape": [[modes_n, b, ci], co, [m1, m2]], "rel_err": dw_err,
+              "max_abs_err": dw_abs,
+              "same_bits": all(torch.equal(a, c)
+                               for a, c in zip(dw, dw_again)),
+              "bound_ms": dw_bound, "bound_by": dw_by,
+              "bound_how": f"X + G read, dW written once, f32, at 3.35 TB/s "
+                           f"({dw_bytes} B)",
+              "library_ms": None}
+    timed(rec_dw, lambda: sp.spectral_dw2d(xr, xi, gr, gi, scale, m1), "ms")
+    timed(rec_dw, lambda: sp.spectral_weight_grad(xr, xi, gr, gi, scale, m1),
+          "plain_ms")
+    rec_dw["bound_share"] = dw_bound / rec_dw["ms"] if rec_dw["ms"] else None
+    emit(rec_dw)
+    if not (err < REL_TOL_GRAD and adj_err < REL_TOL_F32):
+        raise AssertionError(f"spectral_dft2d_bwd disagrees: {err} (adjoint "
+                             f"launch {adj_err})")
+    if not (dw_err < REL_TOL_F32 and rec_dw["same_bits"]):
+        raise AssertionError(f"spectral_dw2d disagrees: {dw_err}, same bits "
+                             f"{rec_dw['same_bits']}")
+    return rec, rec_dw
 
 
 def gn_step_time(eng, u0, cond, sc):
@@ -583,12 +639,10 @@ def kernel_shapes():
         seen["gn"].add((tuple(x.shape), bool(gelu)))
         return gn_fwd(x, weight, bias, gelu, eps)
 
-    def sp_record(x, w_packed, modes, film=None, film_mode=1,
-                  op="spectral_dft2d_fwd"):
-        if op == "spectral_dft2d_fwd":
-            seen["spectral"].add((tuple(x.shape), w_packed.shape[3],
-                                  tuple(modes)))
-        return sp_fwd(x, w_packed, modes, film, film_mode, op)
+    def sp_record(x, w_packed, modes, film=None, film_mode=1):
+        seen["spectral"].add((tuple(x.shape), w_packed.shape[3],
+                              tuple(modes)))
+        return sp_fwd(x, w_packed, modes, film, film_mode)
 
     gn.gn1_gelu_fwd_stats = gn_record
     sp.spectral_dft2d_fwd_spectrum = sp_record
@@ -724,12 +778,12 @@ def phase_train(seed, card, out_dir):
                     seconds.append(time.perf_counter() - t0)
                     counts.append(dict(kernels.launches))
                 median = sorted(seconds)[len(seconds) // 2]
-                # the K1 kernel's 3 (depth + 1) + 3 launches, counted by the
-                # op each serves: the forwards, and the backward's on dy
+                # K1: 3 (depth + 1) forwards, and per backward one adjoint
+                # launch on dy and one weight gradient
                 want = {"gn1_gelu_fwd": 48 * (depth + 1),
                         "gn1_gelu_bwd": 48,
                         "spectral_dft2d_fwd": 3 * (depth + 1),
-                        "spectral_dft2d_bwd": 3}
+                        "spectral_dft2d_bwd": 3, "spectral_dw2d": 3}
                 steps[depth] = {
                     "step_seconds": seconds, "ms_per_step": 1e3 * median,
                     "samples_per_s": TRAIN_BATCH / median,
@@ -759,7 +813,8 @@ def phase_train(seed, card, out_dir):
             seen, torch.Generator(device="cuda").manual_seed(seed + 1))
 
     want_run = {"gn1_gelu_bwd": 48 * n_steps,
-                "spectral_dft2d_bwd": 3 * n_steps}
+                "spectral_dft2d_bwd": 3 * n_steps,
+                "spectral_dw2d": 3 * n_steps}
     rec = {"phase": "train", "config": CFG, "batch": TRAIN_BATCH,
            "epochs": TRAIN_EPOCHS, "train_steps": n_steps,
            "data": {"sims": TRAIN_SIMS, "nt": TRAIN_NT, "grid": [NX1, NX2],
@@ -841,10 +896,15 @@ def main():
             "nps_tpu_torch/csrc/spectral_dft2d.cu",
             "nps_tpu/ops/pallas/spectral_dft.py:144 (git 92d7866^)", serve),
         "spectral_dft2d_bwd": (
-            "nps_tpu_torch/csrc/spectral_dft2d.cu (on dy, adjoint weights) "
-            "+ nps_tpu_torch/ops/spectral.py:spectral_weight_grad",
+            "nps_tpu_torch/csrc/spectral_dft2d.cu (spectral_dft2d_bwd on dy "
+            "with the forward's pack + spectral_dw2d; ms, plain_ms, "
+            "library_ms of the whole backward)",
             "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
-            "_pallas_bwd, XLA)", train)}
+            "_pallas_bwd, XLA)", train),
+        "spectral_dw2d": (
+            "nps_tpu_torch/csrc/spectral_dft2d.cu",
+            "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
+            "_pallas_bwd, XLA: its weight gradient)", train)}
     line = []
     for name, (src, replaces, path) in sources.items():
         r = kern[name]
@@ -861,8 +921,12 @@ def main():
                                + ("; plain and library: eager calls between "
                                   "CUDA events" if name.endswith("_bwd")
                                   else "")})
-        if "timing_refused" in r:
-            line[-1]["timing_refused"] = r["timing_refused"]
+        for key in ("timing_refused", "same_bits"):
+            if key in r:
+                line[-1][key] = r[key]
+        if "adjoint" in r:   # the backward's adjoint launch alone
+            line[-1]["adjoint"] = {k: r["adjoint"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")}
     with open(out_dir / "kernels.json", "w") as f:
         json.dump({"card": card, "kernels": line}, f, indent=1)
     emit({"kernels": line})

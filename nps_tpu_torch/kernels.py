@@ -44,6 +44,11 @@ SIGNATURES = {
     # xr, xi, yr, yi, out, b, ci, co, n1, n2, m1, m2, stream
     "spectral_dft2d_fwd": [P, P, P, I] + [P] * 8 + [P] * 5
                           + [I] * 7 + [P],
+    # dy, w_packed, c2, s2, c1, s1, ic2, is2, ic1, is1, gr, gi, hr, hi, dx,
+    # b, ci, co, n1, n2, m1, m2, stream
+    "spectral_dft2d_bwd": [P, P] + [P] * 8 + [P] * 5 + [I] * 7 + [P],
+    # xr, xi, gr, gi, scale, dw1, dw2, b, ci, co, m1, m2, stream
+    "spectral_dw2d": [P] * 7 + [I] * 5 + [P],
 }
 
 launches = Counter()

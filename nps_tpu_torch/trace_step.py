@@ -49,7 +49,8 @@ CFG = "nps_tpu_torch/configs/train/cfg_twophase_ufno.py"
 PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
 # the device kernels of the port's hand-written CUDA sources, by name
 PORTED_KERNELS = ("gn1_gelu_kernel", "gn1_bwd_", "dft_fwd_kernel",
-                  "mix_kernel", "dft_inv_kernel")
+                  "mix_kernel", "mix_adj_kernel", "dft_inv_kernel",
+                  "spectral_dw_kernel")
 PHASES = ("pushforward", "forward", "backward", "optimizer")
 
 

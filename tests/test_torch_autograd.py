@@ -3,8 +3,11 @@
 ``GNGeluFn`` and ``SpectralConv2dFn`` launch CUDA kernels, which do not run
 here. Their backward designs are held on the CPU by putting a plain
 emulation of exactly what each kernel computes in the launch's place: for
-K1 the forward kernel's output and its spectrum scratch, for K2 the
-forward's statistics and the backward kernel's two-pass formula. The
+K1 the forward kernel's output and its spectrum scratch, then the
+backward's adjoint launch (reading the forward's weight pack transposed and
+conjugated) and its weight-gradient kernel, through their plain versions;
+for K2 the forward's statistics and the backward kernel's two-pass
+formula. The
 Function's gradient must then equal autograd through the plain version.
 The kernels themselves are held against the same plain autograd on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -32,8 +35,7 @@ def _rel(a, ref):
 
 
 # ---- K1 ---------------------------------------------------------------------
-def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1,
-                          op="spectral_dft2d_fwd"):
+def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1):
     """What ``spectral_dft2d_fwd_spectrum`` returns, in plain PyTorch: the
     output, and X = sum u e^{-i theta} at the retained modes as [modes, b, c]
     real and imaginary parts."""
@@ -56,15 +58,27 @@ def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1,
             im.reshape(k * m2, b, ci).float())
 
 
-@pytest.mark.parametrize("b,ci,co,grid,modes", [
+def _fake_spectral_launches(monkeypatch):
+    """The three launches of SpectralConv2dFn replaced by plain versions:
+    the forward by the emulation above, the backward's two kernels by their
+    plain versions with the same inputs and outputs."""
+    monkeypatch.setattr(sp, "spectral_dft2d_fwd_spectrum",
+                        _fake_spectral_launch)
+    monkeypatch.setattr(sp, "spectral_dft2d_bwd", sp.spectral_dft2d_bwd_plain)
+    monkeypatch.setattr(sp, "spectral_dw2d", sp.spectral_weight_grad)
+
+
+SPECTRAL_CASES = [
     (2, 5, 3, (12, 10), (3, 4)),     # even n2 below the Nyquist column
     (3, 4, 6, (12, 10), (3, 6)),     # the Nyquist column kept (h = 1)
     (1, 3, 4, (10, 9), (5, 5)),      # odd n2, 2*m1 = n1
-])
+]
+
+
+@pytest.mark.parametrize("b,ci,co,grid,modes", SPECTRAL_CASES)
 def test_spectral_fn_gradient_matches_plain_autograd(monkeypatch, b, ci, co,
                                                       grid, modes):
-    monkeypatch.setattr(sp, "spectral_dft2d_fwd_spectrum",
-                        _fake_spectral_launch)
+    _fake_spectral_launches(monkeypatch)
     g = torch.Generator().manual_seed(0)
     x = torch.randn((b, ci) + grid, generator=g, requires_grad=True)
     ws = [torch.rand((2, ci, co) + modes, generator=g).requires_grad_()
@@ -81,13 +95,58 @@ def test_spectral_fn_gradient_matches_plain_autograd(monkeypatch, b, ci, co,
         assert _rel(got, ref) < REL, name
 
 
-def test_adjoint_packing_is_the_conjugate_transpose():
+def test_adjoint_read_of_the_pack_is_the_conjugate_transpose():
+    """The adjoint mix reads the forward's pack [M, 2, ci, co] as W^H: per
+    mode H = G W^H in complex arithmetic, W^H [co, ci]."""
     g = torch.Generator().manual_seed(1)
     ws = [torch.randn((2, 3, 5, 2, 4), generator=g) for _ in range(2)]
-    fwd = sp.pack_weights_2d(ws)          # [M, 2, ci, co]
-    adj = sp.pack_adjoint_weights_2d(ws)  # [M, 2, co, ci]
-    torch.testing.assert_close(adj[:, 0], fwd[:, 0].transpose(1, 2))
-    torch.testing.assert_close(adj[:, 1], -fwd[:, 1].transpose(1, 2))
+    packed = sp.pack_weights_2d(ws)                      # [M, 2, ci, co]
+    gr, gi = (torch.randn((16, 2, 5), generator=g) for _ in range(2))
+    hr, hi = sp.adjoint_mix_plain(packed, gr, gi)        # [M, b, ci]
+    w_h = torch.complex(packed[:, 0], packed[:, 1]).conj().transpose(1, 2)
+    ref = torch.bmm(torch.complex(gr, gi), w_h)
+    torch.testing.assert_close(hr, ref.real)
+    torch.testing.assert_close(hi, ref.imag)
+
+
+@pytest.mark.parametrize("needs", ["all", "x", "weights"])
+def test_spectral_fn_saves_the_pack_not_the_weights(monkeypatch, needs):
+    """The forward keeps its spectrum and the kernel-layout pack it built,
+    and no tensor of the weights' shape; a gradient of x alone, or of the
+    weights alone, comes out of the same saved tensors."""
+    _fake_spectral_launches(monkeypatch)
+    g = torch.Generator().manual_seed(5)
+    modes = (3, 4)
+    x = torch.randn((2, 5, 12, 10), generator=g)
+    ws = [torch.rand((2, 5, 3) + modes, generator=g) for _ in range(2)]
+    x.requires_grad_(needs in ("all", "x"))
+    for w in ws:
+        w.requires_grad_(needs in ("all", "weights"))
+    out = sp.SpectralConv2dFn.apply(x, ws[0], ws[1], modes)
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [(24, 2, 5), (24, 2, 5),
+                                               (24, 2, 5, 3)]
+    assert torch.equal(saved[2], sp.pack_weights_2d(ws))
+    leaves = [t for t in (x, *ws) if t.requires_grad]
+    dy = torch.randn(out.shape, generator=g)
+    grads = torch.autograd.grad(out, leaves, dy)
+    refs = torch.autograd.grad(sp.spectral_conv_2d_plain(x, ws, modes),
+                               leaves, dy)
+    for got, ref in zip(grads, refs):
+        assert _rel(got, ref) < REL
+
+
+def test_backward_kernel_wrappers_refuse_cpu_tensors():
+    """The backward's launches take CUDA tensors only; the CPU path never
+    reaches them (autograd runs through the plain version)."""
+    dy = torch.zeros((1, 3, 12, 10))
+    packed = torch.zeros((24, 2, 5, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        sp.spectral_dft2d_bwd(dy, packed, (3, 4))
+    xs = torch.zeros((24, 1, 5))
+    gs = torch.zeros((24, 1, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        sp.spectral_dw2d(xs, xs, gs, gs, torch.zeros(24), 3)
 
 
 # ---- K2 ---------------------------------------------------------------------

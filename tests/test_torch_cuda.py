@@ -244,12 +244,74 @@ def test_spectral_fn_gradient_matches_plain_autograd(b, ci, co, grid, modes):
     got = _grads(lambda *t: sp.SpectralConv2dFn.apply(*t, modes),
                  (x, *ws), dy)
     assert dict(kernels.launches) == {"spectral_dft2d_fwd": 1,
-                                      "spectral_dft2d_bwd": 1}
+                                      "spectral_dft2d_bwd": 1,
+                                      "spectral_dw2d": 1}
     ref = _grads(lambda x, w1, w2: sp.spectral_conv_2d_plain(x, [w1, w2],
                                                              modes),
                  (x, *ws), dy)
     for a, r, name in zip(got, ref, ("y", "dx", "dw1", "dw2")):
         assert _rel(a, r) < 1e-4, name
+
+
+@pytest.mark.parametrize("b,ci,co,grid,modes", [
+    (16, 196, 192, (96, 64), (10, 10)),  # the train step
+    (10, 5, 130, (16, 12), (4, 4)),     # b above the 8-sample tile, co % 4 != 0
+    (3, 7, 6, (12, 10), (3, 6)),        # Nyquist column kept
+    (4, 198, 200, (96, 64), (10, 10)),  # ci, co not multiples of the tiles
+    (2, 9, 70, (20, 18), (5, 9)),       # scalar rows
+    (1, 4, 8, (32, 32), (4, 16)),       # the largest m2 bound, b=1
+])
+def test_spectral_bwd_kernel_matches_plain(b, ci, co, grid, modes):
+    """The adjoint launch on the forward's pack against its plain version:
+    dx and dy's spectrum G; a second call gives the same bits."""
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dy = torch.randn((b, co) + grid, device="cuda", generator=g)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          for _ in range(2)]
+    packed = sp.pack_weights_2d(ws)
+    got = sp.spectral_dft2d_bwd(dy, packed, modes)
+    ref = sp.spectral_dft2d_bwd_plain(dy, packed, modes)
+    for a, r, name in zip(got, ref, ("dx", "gr", "gi")):
+        assert a.shape == r.shape, name
+        assert _rel(a, r) < 1e-5, name
+    again = sp.spectral_dft2d_bwd(dy, packed, modes)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("ci,co,modes", [
+    (5, 7, (3, 4)),        # odd channels: scalar loads, partial tiles
+    (196, 192, (10, 10)),  # the train step: 196 -> 192, 20 mode chunks
+    (12, 72, (3, 7)),      # 16-byte loads, partial tiles, 21 modes: a
+                           # partial mode chunk
+])
+def test_spectral_dw2d_matches_plain(b, ci, co, modes):
+    """spectral_dw2d against spectral_weight_grad on the same spectra; a
+    second call gives the same bits (fixed-order sums, no atomics)."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    m1, m2 = modes
+    g = torch.Generator(device="cuda").manual_seed(8)
+    nm = 2 * m1 * m2
+    xr, xi = (torch.randn((nm, b, ci), device="cuda", generator=g)
+              for _ in range(2))
+    gr, gi = (torch.randn((nm, b, co), device="cuda", generator=g)
+              for _ in range(2))
+    scale = sp.mode_scale(2 * m1 + 2, 2 * m2, m1, m2, "cuda")
+    kernels.reset_launches()
+    got = sp.spectral_dw2d(xr, xi, gr, gi, scale, m1)
+    assert dict(kernels.launches) == {"spectral_dw2d": 1}
+    ref = sp.spectral_weight_grad(xr, xi, gr, gi, scale, m1)
+    for a, r, name in zip(got, ref, ("dw1", "dw2")):
+        assert a.shape == r.shape == (2, ci, co, m1, m2), name
+        assert _rel(a, r) < 1e-5, name
+    again = sp.spectral_dw2d(xr, xi, gr, gi, scale, m1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -87,6 +87,42 @@ def test_spectral_1d_3d_not_ported(shape, modes):
         port.spectral_conv_nd(x, [], modes)
 
 
+@pytest.mark.parametrize("b,ci,co,grid,modes", [
+    (2, 5, 3, (12, 10), (3, 4)),     # even n2 below the Nyquist column
+    (3, 4, 6, (12, 10), (3, 6)),     # the Nyquist column kept (h = 1)
+    (1, 3, 4, (10, 9), (5, 5)),      # odd n2, 2*m1 = n1
+])
+def test_spectral_fn_gradient_matches_jax_vjp(monkeypatch, b, ci, co, grid,
+                                              modes):
+    """SpectralConv2dFn's backward design (the adjoint launch on the
+    forward's pack and the weight-gradient kernel, both through their plain
+    versions in the launches' place) against ``jax.vjp`` of the reference,
+    same numpy inputs and cotangent. Bar: the gradient bar of ROADMAP "How
+    a part is held", 5e-3, as max|d| / max|ref|."""
+    monkeypatch.setattr(port, "spectral_dft2d_fwd_spectrum",
+                        port.spectral_dft2d_fwd_spectrum_plain)
+    monkeypatch.setattr(port, "spectral_dft2d_bwd",
+                        port.spectral_dft2d_bwd_plain)
+    monkeypatch.setattr(port, "spectral_dw2d", port.spectral_weight_grad)
+    rng = np.random.default_rng(5)
+    x, ws, _ = _inputs(rng, b, *grid, ci=ci, co=co, modes=modes, film=False)
+    dy = rng.standard_normal((b, *grid, co)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda x, w1, w2: jax_spectral(
+            x, [w1, w2], modes, precision="highest"), x, *ws)
+        refs = [np.asarray(t) for t in vjp(dy)]
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    wt = [torch.from_numpy(w).requires_grad_() for w in ws]
+    out = port.SpectralConv2dFn.apply(xt, wt[0], wt[1], modes)
+    got = torch.autograd.grad(
+        out, [xt, *wt], torch.from_numpy(dy).permute(0, 3, 1, 2).contiguous())
+    got = [got[0].permute(0, 2, 3, 1).numpy(), got[1].numpy(),
+           got[2].numpy()]
+    for g, ref, name in zip(got, refs, ("dx", "dw1", "dw2")):
+        assert g.shape == ref.shape, name
+        assert _rel(g, ref) < 5e-3, name
+
+
 def test_pack_weights_layout():
     """The kernel's packed weights hold mode (k, m) at row k*m2 + m, low row
     modes from weights1 then high ones from weights2."""
