@@ -30,14 +30,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              simulations of 501 frames on the 96x64 grid, one channel: the
              one cut, --dataset.c_filter=[0]), 2 epochs at the config's
              batch 16 with a 19-bundled-step validation rollout, best-model
-             save and a checkpoint; then train steps at injected depths 0
+             save and a checkpoint (stdout to train_ufno.log in --out);
+             then train steps at injected depths 0
              and 8 timed (median of 5 after a warm-up, host clock around
              synchronised steps) with their launch counts and peak memory;
              one depth-1 step at batch 2 against the same step run by the
              port on the CPU (loss and every gradient); and both kernel ops
              (GNGeluFn, SpectralConv2dFn), output and gradients, at every
              input shape one train step at batch 16 gave them, against
-             autograd through their plain versions.
+             autograd through their plain versions;
+6. family  - the other three twophase families at full width, one line
+             each: cfg_twophase_drn (Dilated ResNet, 2 blocks x 128
+             features, kernel 5; no hand kernel), cfg_twophase_unet
+             (U-Net, 32 features, ch_mults [2, 2, 1, 2]; 44 GN+GELU calls
+             per apply) and cfg_twophase_ufno_fno (an FNO and a U-FNO block
+             of 192 features, 10 modes; 16 GN+GELU and 2 spectral calls).
+             Each goes through the same serving and training code as the
+             two phases before (family_serve, family_train), with one
+             training epoch and the median of 3 timed steps per depth.
 
 In the kernels phase the spectral conv runs at the serving batch (4) and
 the train batch (16), and the backward ops join the forward kernels at the
@@ -47,7 +57,10 @@ pack, and the weight-gradient kernel spectral_dw2d), each against autograd
 through its plain version; the backward is called on the autograd node its
 forward built, and its two launches are also timed and checked apart,
 against their plain versions (spectral_dw2d also for the same bits on two
-calls). Their "ms" is graph replay of the op itself; the plain and library
+calls), and the backward with FiLM in both modes (dx, dW and dfilm
+against plain autograd; its input-gradient launch, which runs the FiLM
+stage before the adjoint mix, also alone). Their "ms" is graph replay of
+the op itself; the plain and library
 backwards run through the autograd engine, which a graph captured apart
 from its forward cannot replay, so theirs are eager calls between two CUDA
 events.
@@ -63,10 +76,10 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-CFG = "nps_tpu_torch/configs/train/cfg_twophase_ufno.py"
 BATCH, TW, NX1, NX2, N_STEPS, ROLLOUTS = 4, 25, 96, 64, 19, 3
 HIDDEN, BLOCKS, MODES = 192, 3, 10
 N_STATIC, N_SPATIAL = 2, 2
@@ -89,11 +102,23 @@ GN_BWD_SHAPE = (16, 2 * HIDDEN + N_STATIC + N_SPATIAL, 100, 68)
 # GN+GELU backward flops per element: x-hat, the pre-activation, GELU' around
 # one exp (~12), the two sums, then the same again and dx in the apply pass
 GN_BWD_FLOPS_PER_ELEMENT = 40
+# cfg_twophase_unet's largest and smallest GroupNorm inputs at batch 16:
+# the top of the up path, where the transposed convs have grown the grid
+# past 96x64, and the 9x5 (odd h*w) inside the middle level's valid convs
+GN_UNET_SHAPES = [(16, 132, 130, 98), (16, 256, 9, 5)]
 TRAIN_BATCH, TRAIN_SIMS, TRAIN_NT, TRAIN_EPOCHS = 16, 20, 501, 2
 # the spectral conv's input: serving at batch 4, training at batch 16 (its
 # mix runs two 8-sample tiles there); the backward runs only in training
 SPEC_SHAPES = [(b, SPEC_CI, NX1, NX2) for b in (BATCH, TRAIN_BATCH)]
-TRAIN_DEPTHS, TIMED_STEPS = (0, 8), 5
+TRAIN_DEPTHS = (0, 8)
+# the four twophase families at full width: per model apply, the GN+GELU
+# calls (every U-Net ResidualBlock norm) and the spectral-conv calls (one
+# per FNO layer), then the training epochs and the timed steps per depth;
+# the Dilated ResNet runs neither kernel (its convs go to cuDNN). The
+# U-FNO is the main path: its serving and training lines are the "slice"
+# and "train" phases, the others' the "family" phase
+FAMILIES = {"ufno": (48, 3, TRAIN_EPOCHS, 5), "drn": (0, 0, 1, 3),
+            "unet": (44, 0, 1, 3), "ufno_fno": (16, 2, 1, 3)}
 
 
 def emit(obj):
@@ -265,7 +290,48 @@ def phase_kernels(gen):
     results["gn1_gelu_bwd"] = gn_bwd_record(gen)
     results["spectral_dft2d_bwd"], results["spectral_dw2d"] = (
         spectral_bwd_records(gen))
+    results["spectral_dft2d_bwd"]["film"] = [
+        spectral_film_bwd_record(gen, mode) for mode in (0, 1)]
+    unet = [gn_shape_record(gen, shape) for shape in GN_UNET_SHAPES]
+    for name in ("gn1_gelu_fwd", "gn1_gelu_bwd"):
+        results[name]["unet_shapes"] = [
+            {"shape": r["shape"], **r[name]} for r in unet]
     return results
+
+
+def gn_shape_record(gen, shape):
+    """gn1_gelu_fwd and gn1_gelu_bwd at ``shape`` against the plain
+    version (the backward against autograd through it), each with its
+    device time beside its bound."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    c, n = shape[1], math.prod(shape)
+    x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
+    gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    dy = torch.randn(shape, device="cuda", generator=gen)
+    y, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta)
+    got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy)
+    y_p, _, ref = _grads(gn.gn_gelu_plain, (x, gamma, beta), dy)
+    torch.cuda.synchronize()
+    fwd = {"rel_err": rel_err(y, y_p)}
+    fwd["bound_ms"], fwd["bound_by"] = gn_bound([shape])
+    timed(fwd, lambda: gn.gn1_gelu_fwd(x, gamma, beta), "ms")
+    bwd = {"rel_err": _errors(got, ref)[0]}
+    bwd["bound_ms"], bwd["bound_by"] = bound(3 * 4 * n,
+                                             GN_BWD_FLOPS_PER_ELEMENT * n)
+    timed(bwd, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy), "ms")
+    for r in (fwd, bwd):
+        r["bound_share"] = r["bound_ms"] / r["ms"] if r["ms"] else None
+    rec = {"phase": "kernel", "name": "gn1_gelu (U-Net shape)",
+           "shape": shape, "gn1_gelu_fwd": fwd, "gn1_gelu_bwd": bwd}
+    emit(rec)
+    if not (fwd["rel_err"] < REL_TOL_F32 and bwd["rel_err"] < REL_TOL_GRAD):
+        raise AssertionError(f"gn1_gelu at {shape}: forward "
+                             f"{fwd['rel_err']}, backward {bwd['rel_err']}")
+    return rec
 
 
 def complex_weights(w1, w2):
@@ -512,6 +578,76 @@ def spectral_bwd_records(gen):
     return rec, rec_dw
 
 
+def spectral_film_bwd_record(gen, film_mode):
+    """SpectralConv2dFn's backward with FiLM at the train step's shape (dx,
+    both weight gradients and dfilm), on the node its forward built,
+    against autograd through the plain version; then the input-gradient
+    launch with FiLM (its FiLM stage film_bwd_kernel before the adjoint
+    mix) against its plain version."""
+    import torch
+
+    from nps_tpu_torch.ops import spectral as sp
+
+    shape = SPEC_SHAPES[-1]
+    b, ci, n1, n2 = shape
+    co, m1, m2 = HIDDEN, MODES, MODES
+    modes = (m1, m2)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    ws = [torch.rand((2, ci, co, m1, m2), device="cuda", generator=gen)
+          / (ci * co) for _ in range(2)]
+    film = torch.randn((b, co, 2 * m1, m2), device="cuda", generator=gen)
+    dy = torch.randn((b, co, n1, n2), device="cuda", generator=gen)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, *ws, film)]
+    y = sp.SpectralConv2dFn.apply(*leaves[:3], modes, leaves[3], film_mode)
+    node = y.grad_fn   # y stays alive with its node (see spectral_bwd_records)
+    got = node.apply(dy)
+    got = [got[0], got[1], got[2], got[4]]
+    y_p, leaves_p, ref = _grads(
+        lambda x, w1, w2, f: sp.spectral_conv_2d_plain(x, [w1, w2], modes, f,
+                                                       film_mode),
+        (x, *ws, film), dy)
+    torch.cuda.synchronize()
+    err, max_abs = _errors(got, ref)
+    modes_n = 2 * m1 * m2
+    w_numel = 2 * ws[0].numel()
+    spec = modes_n * b * co   # one part of the pre-FiLM spectrum, or of G
+    nbytes = 4 * (dy.numel() + w_numel + 2 * modes_n * b * ci
+                  + 2 * spec + film.numel()               # U and film read
+                  + x.numel() + w_numel + film.numel())   # dx, dW, dfilm
+    flops = (spectral_flops(b, co, ci, n1, n2, m1, m2)
+             + modes_n * b * ci * co * 8 + 6 * spec)
+    bound_ms, bound_by = bound(nbytes, flops)
+    rec = {"phase": "kernel", "name": "spectral_dft2d_bwd (FiLM)",
+           "film_mode": film_mode, "shape": [shape, co, [m1, m2]],
+           "rel_err": err, "max_abs_err": max_abs, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "bound_how": f"as spectral_dft2d_bwd, and the pre-FiLM spectrum "
+                        f"and film read, dfilm written ({nbytes} B)"}
+    timed(rec, lambda: node.apply(dy), "ms")
+    rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_p, leaves_p, dy, retain_graph=True))
+    del y_p, leaves_p
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+
+    # the input-gradient launch with FiLM on what the forward saved
+    xr, xi, packed, film_s, ur, ui = node.saved_tensors
+    scale = sp.mode_scale(n1, n2, m1, m2, "cuda")
+    args = (dy, packed, modes, film_s, film_mode, (ur, ui), scale)
+    adj = sp.spectral_dft2d_bwd(*args)
+    adj_err, adj_abs = _errors(adj, sp.spectral_dft2d_bwd_plain(*args))
+    rec["adjoint"] = {"rel_err": adj_err, "max_abs_err": adj_abs}
+    timed(rec["adjoint"], lambda: sp.spectral_dft2d_bwd(*args), "ms")
+    emit(rec)
+    if not (err < REL_TOL_GRAD and adj_err < REL_TOL_F32):
+        raise AssertionError(f"spectral_dft2d_bwd with FiLM (mode "
+                             f"{film_mode}) disagrees: {err} (input-gradient "
+                             f"launch {adj_err})")
+    return {k: rec[k] for k in ("film_mode", "rel_err", "max_abs_err", "ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "bound_share")} | {
+        "adjoint_ms": rec["adjoint"]["ms"]}
+
+
 def gn_step_time(eng, u0, cond, sc):
     """The gn1_gelu_fwd calls of one bundled step: record the shapes the
     wrapper sees, then time the same calls on fresh inputs (graph replay)
@@ -550,71 +686,6 @@ def gn_step_time(eng, u0, cond, sc):
             **({"timing_refused": why} if why else {})}
 
 
-def phase_slice(seed, card):
-    import numpy as np
-    import torch
-
-    from nps_tpu_torch import kernels
-    from nps_tpu_torch.inference import SurrogateEngine
-    from nps_tpu_torch.pde import PDE2D
-
-    pde = PDE2D(tmin=0.0, tmax=10.0, nt=501, L1=1.0, L2=NX2 / NX1, nx1=NX1,
-                nx2=NX2, x=None, name="twophase", n_cond_static=N_STATIC,
-                n_cond_spatial=N_SPATIAL)
-    eng = SurrogateEngine.from_config(CFG, pde=pde, device="cuda")
-    eng.init_params(seed=seed)
-    rng = np.random.default_rng(seed)
-    u0 = (0.1 + 0.8 * rng.random((BATCH, 1, TW, NX1, NX2))).astype(np.float32)
-    cond = rng.random((BATCH, N_STATIC)).astype(np.float32)
-    sc = (rng.random((BATCH, N_SPATIAL, NX1, NX2)) > 0.9).astype(np.float32)
-
-    step_gpu = eng.step(u0, cond=cond, spatial_cond=sc)   # also warms up
-    torch.cuda.reset_peak_memory_stats()
-    # ROLLOUTS rollouts, each with the counts set to 0 just before it and
-    # read just after it; the rate is their median (the host clock's spread
-    # between runs is a few percent)
-    seconds, launches = [], []
-    for _ in range(ROLLOUTS):
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.rollout(u0, N_STEPS, cond=cond, spatial_cond=sc)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        launches.append(dict(kernels.launches))
-
-    cpu = SurrogateEngine.from_config(CFG, pde=pde, device="cpu")
-    cpu.model.load_state_dict({k: v.cpu()
-                               for k, v in eng.model.state_dict().items()})
-    step_cpu = cpu.step(u0[:1], cond=cond[:1], spatial_cond=sc[:1])
-    step_err = float(np.abs(step_gpu[:1] - step_cpu).max()
-                     / np.abs(step_cpu).max())
-
-    gn_step = gn_step_time(eng, u0, cond, sc)
-
-    want = {"gn1_gelu_fwd": 48 * N_STEPS, "spectral_dft2d_fwd": 3 * N_STEPS}
-    median = sorted(seconds)[len(seconds) // 2]
-    rec = {"phase": "slice", "config": CFG, "batch": BATCH,
-           "bundled_steps": N_STEPS, "out_shape": list(out.shape),
-           "finite": bool(np.isfinite(out).all()),
-           "launches": launches[0], "launches_expected": want,
-           "step_rel_err_vs_cpu": step_err, "rollout_seconds": seconds,
-           "bundled_steps_per_s": N_STEPS / median,
-           "samples_steps_per_s": BATCH * N_STEPS / median,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "gn1_gelu_step": gn_step, "card": card, "tf32": False}
-    emit(rec)
-    if tuple(out.shape) != (BATCH, 1, N_STEPS * TW, NX1, NX2):
-        raise AssertionError(f"rollout shape {out.shape}")
-    if not rec["finite"]:
-        raise AssertionError("rollout has non-finite values")
-    if any(n != want for n in launches):
-        raise AssertionError(f"launch counts {launches} != {want}")
-    if not step_err < REL_TOL_STEP:
-        raise AssertionError(f"card vs CPU step differs: {step_err}")
-    return launches[0]
-
-
 def _grad_errors(got, ref):
     """Per parameter max|d| / max|ref|, a tensor whose gradient is below
     1e-5 of the model's largest held at that floor (zero in exact
@@ -639,10 +710,10 @@ def kernel_shapes():
         seen["gn"].add((tuple(x.shape), bool(gelu)))
         return gn_fwd(x, weight, bias, gelu, eps)
 
-    def sp_record(x, w_packed, modes, film=None, film_mode=1):
+    def sp_record(x, w_packed, modes, *args, **kwargs):
         seen["spectral"].add((tuple(x.shape), w_packed.shape[3],
                               tuple(modes)))
-        return sp_fwd(x, w_packed, modes, film, film_mode)
+        return sp_fwd(x, w_packed, modes, *args, **kwargs)
 
     gn.gn1_gelu_fwd_stats = gn_record
     sp.spectral_dft2d_fwd_spectrum = sp_record
@@ -694,168 +765,330 @@ def check_shapes(seen, gen):
     return rows
 
 
-def phase_train(seed, card, out_dir):
-    """Train the full-width model (built by the CLI's get_config_static)
-    for TRAIN_EPOCHS epochs, time single steps at the depths TRAIN_DEPTHS,
-    hold one depth-1 step against the CPU, and check both kernel ops at
-    every input shape of a step. Returns the 2-epoch run's launches."""
-    import tempfile
+def make_split(tmp, seed):
+    """The synthetic twophase split both training phases read: TRAIN_SIMS
+    simulations of TRAIN_NT frames on the full grid, one channel. Returns
+    the seconds it took."""
+    from nps_tpu_torch.data.synthetic import generate
 
-    import numpy as np
+    t0 = time.perf_counter()
+    generate(f"{tmp}/data/twophase", n_sims=TRAIN_SIMS, n_channels=1,
+             nt=TRAIN_NT, nx1=NX1, nx2=NX2, seed=seed)
+    return time.perf_counter() - t0
+
+
+def build_trainer(cfg, argv, device):
+    """The trainer the CLI builds from ``cfg`` and ``argv``, with its
+    optimizer and scheduler set."""
+    from nps_tpu_torch import train_cli
+    from nps_tpu_torch.configs.parse import parse_args
+
+    saved = sys.argv
+    try:
+        sys.argv = argv
+        with contextlib.redirect_stdout(sys.stderr):
+            args = parse_args(cfg)
+    finally:
+        sys.argv = saved
+    trainer = train_cli.get_config_static(args, device=device)[4]
+    trainer.set_optimizer(dict(args["optimizer"]))
+    trainer.set_lr_scheduler(dict(args["lr_scheduler"]))
+    return trainer
+
+
+def train_argv(tmp, seed, epochs, name):
+    return ["chip_smoke", f"--dataset.base_path={tmp}/data",
+            "--dataset.c_filter=[0]", f"--seed={seed}",
+            f"--trainer.num_epochs={epochs}",
+            "--trainer.test_interval=1", "--trainer.print_interval=1",
+            f"--experiment_path={tmp}/out", f"--experiment_name={name}"]
+
+
+def timed_steps(trainer, batch, depth, want, n_timed):
+    """``n_timed`` train steps at an injected depth after a warm-up, each
+    with the launch counts set to 0 just before it: host seconds around
+    synchronised steps, their median, peak memory and the launch counts
+    against ``want``."""
     import torch
 
-    from nps_tpu_torch import kernels, train_cli
-    from nps_tpu_torch.configs.parse import parse_args
-    from nps_tpu_torch.data.pipeline import prefetch_to_device
-    from nps_tpu_torch.data.synthetic import generate
-    from nps_tpu_torch.inference import autotuned_convs
+    from nps_tpu_torch import kernels
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        t0 = time.perf_counter()
-        generate(f"{tmp}/data/twophase", n_sims=TRAIN_SIMS, n_channels=1,
-                 nt=TRAIN_NT, nx1=NX1, nx2=NX2, seed=seed)
-        gen_s = time.perf_counter() - t0
-        argv = ["chip_smoke", f"--dataset.base_path={tmp}/data",
-                "--dataset.c_filter=[0]", f"--seed={seed}",
-                f"--trainer.num_epochs={TRAIN_EPOCHS}",
-                "--trainer.test_interval=1", "--trainer.print_interval=1",
-                f"--experiment_path={tmp}/out", "--experiment_name=train"]
-
-        def build(device):
-            saved = sys.argv
-            try:
-                sys.argv = argv
-                with contextlib.redirect_stdout(sys.stderr):
-                    args = parse_args(CFG)
-            finally:
-                sys.argv = saved
-            trainer = train_cli.get_config_static(args, device=device)[4]
-            trainer.set_optimizer(dict(args["optimizer"]))
-            trainer.set_lr_scheduler(dict(args["lr_scheduler"]))
-            return trainer
-
-        trainer = build("cuda")
-        if trainer.config.batch_size != TRAIN_BATCH:
-            raise AssertionError(f"config batch {trainer.config.batch_size}")
-        log = open(out_dir / "train.log", "w")
+    trainer.train_step(batch, 0, 0, unrolled=depth)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, counts = [], []
+    for i in range(n_timed):
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            train_losses, val_losses, _ = trainer.train()
+        loss, _ = trainer.train_step(batch, 0, i + 1, unrolled=depth)
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = dict(kernels.launches)
-        log.close()
-        save = trainer.config.save_path
-        with open(save + "_metrics.jsonl") as f:
-            metrics = [json.loads(line) for line in f]
-        files = {suffix: Path(save + suffix).exists()
-                 for suffix in ("_default.pt", "_checkpoint.pt", "_final.pt")}
-        n_steps = TRAIN_EPOCHS * len(trainer.get_dataloaders()[0])
+        seconds.append(time.perf_counter() - t0)
+        counts.append(dict(kernels.launches))
+    median = sorted(seconds)[len(seconds) // 2]
+    return {"step_seconds": seconds, "ms_per_step": 1e3 * median,
+            "samples_per_s": TRAIN_BATCH / median,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "loss": float(loss), "launches": counts[0],
+            "launches_expected": want,
+            "launches_ok": all(c == want for c in counts)}
 
-        # single steps at injected depths, on one batch of the split
-        batches = prefetch_to_device(iter(trainer.get_dataloaders()[0]),
-                                     trainer.device)
-        batch = next(batches)
-        batches.close()
-        steps = {}
-        with autotuned_convs():
-            with kernel_shapes() as seen:   # also a first warm-up
-                trainer.train_step(batch, 0, 0, unrolled=1)
-            for depth in TRAIN_DEPTHS:
-                trainer.train_step(batch, 0, 0, unrolled=depth)  # warm-up
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                seconds, counts = [], []
-                for i in range(TIMED_STEPS):
-                    kernels.reset_launches()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    loss, _ = trainer.train_step(batch, 0, i + 1,
-                                                 unrolled=depth)
-                    torch.cuda.synchronize()
-                    seconds.append(time.perf_counter() - t0)
-                    counts.append(dict(kernels.launches))
-                median = sorted(seconds)[len(seconds) // 2]
-                # K1: 3 (depth + 1) forwards, and per backward one adjoint
-                # launch on dy and one weight gradient
-                want = {"gn1_gelu_fwd": 48 * (depth + 1),
-                        "gn1_gelu_bwd": 48,
-                        "spectral_dft2d_fwd": 3 * (depth + 1),
-                        "spectral_dft2d_bwd": 3, "spectral_dw2d": 3}
-                steps[depth] = {
-                    "step_seconds": seconds, "ms_per_step": 1e3 * median,
-                    "samples_per_s": TRAIN_BATCH / median,
-                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                    "loss": float(loss), "launches": counts[0],
-                    "launches_expected": want,
-                    "launches_ok": all(c == want for c in counts)}
 
-            # one depth-1 step at batch 2, card against CPU, same weights
-            # and start steps
-            cpu = build("cpu")
-            cpu.ensure_initialized()  # builds its optimizer
-            cpu.model.load_state_dict({k: v.cpu() for k, v in
-                                       trainer.model.state_dict().items()})
-            small = tuple(t[:2] for t in batch)
-            steps0 = torch.randint(TW, TRAIN_NT - 2 * TW + 1, (2,),
-                                   generator=torch.Generator().manual_seed(seed))
-            loss_gpu, _ = trainer.train_step(small, 0, 0, unrolled=1,
-                                             steps0=steps0)
-            loss_cpu, _ = cpu.train_step(tuple(t.cpu() for t in small), 0, 0,
-                                         unrolled=1, steps0=steps0)
-        loss_err = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
-        grad_err, grad_worst = _grad_errors(
-            {k: p.grad for k, p in trainer.model.named_parameters()},
-            {k: p.grad for k, p in cpu.model.named_parameters()})
-        shape_checks = check_shapes(
-            seen, torch.Generator(device="cuda").manual_seed(seed + 1))
+def step_vs_cpu(cfg, argv, trainer, batch, seed):
+    """One depth-1 train step at batch 2 on the card and by the port on the
+    CPU, same weights and start steps: (record, loss error, worst gradient
+    error)."""
+    import torch
 
-    want_run = {"gn1_gelu_bwd": 48 * n_steps,
-                "spectral_dft2d_bwd": 3 * n_steps,
-                "spectral_dw2d": 3 * n_steps}
-    rec = {"phase": "train", "config": CFG, "batch": TRAIN_BATCH,
-           "epochs": TRAIN_EPOCHS, "train_steps": n_steps,
-           "data": {"sims": TRAIN_SIMS, "nt": TRAIN_NT, "grid": [NX1, NX2],
-                    "channels": 1, "cut": "--dataset.c_filter=[0]",
-                    "generate_seconds": gen_s},
+    cpu = build_trainer(cfg, argv, "cpu")
+    cpu.ensure_initialized()  # builds its optimizer
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               trainer.model.state_dict().items()})
+    small = tuple(t[:2] for t in batch)
+    steps0 = torch.randint(TW, TRAIN_NT - 2 * TW + 1, (2,),
+                           generator=torch.Generator().manual_seed(seed))
+    loss_gpu, _ = trainer.train_step(small, 0, 0, unrolled=1, steps0=steps0)
+    loss_cpu, _ = cpu.train_step(tuple(t.cpu() for t in small), 0, 0,
+                                 unrolled=1, steps0=steps0)
+    loss_err = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    grad_err, grad_worst = _grad_errors(
+        {k: p.grad for k, p in trainer.model.named_parameters()},
+        {k: p.grad for k, p in cpu.model.named_parameters()})
+    return ({"depth": 1, "batch": 2, "loss_gpu": float(loss_gpu),
+             "loss_cpu": float(loss_cpu), "loss_rel_err": loss_err,
+             "grad_rel_err": grad_err, "worst_grad": grad_worst},
+            loss_err, grad_err)
+
+
+def family_cfg(name):
+    return f"nps_tpu_torch/configs/train/cfg_twophase_{name}.py"
+
+
+def family_launches(gn, spec, applies, backward):
+    """The launch counts of ``applies`` model applies (and one backward)
+    of a family with ``gn`` GN+GELU and ``spec`` spectral calls each."""
+    want = {}
+    if gn:
+        want["gn1_gelu_fwd"] = gn * applies
+        if backward:
+            want["gn1_gelu_bwd"] = gn
+    if spec:
+        want["spectral_dft2d_fwd"] = spec * applies
+        if backward:
+            want["spectral_dft2d_bwd"] = want["spectral_dw2d"] = spec
+    return want
+
+
+def family_serve(name, seed):
+    """Serve ROLLOUTS 19-bundled-step rollouts of batch 4 (after a warm-up
+    step; the rate is their median) with the family's full-width model
+    built by SurrogateEngine.from_config, random weights from the seed,
+    each with the launch counts set to 0 just before it and read just
+    after; one step against the same step by the port on the CPU; where
+    the family runs GN+GELU, the shapes gn1_gelu_fwd sees in one step and
+    those calls timed (gn_step_time). Returns (record, the first rollout's
+    launches, failures)."""
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.pde import PDE2D
+
+    gn_calls, spec_calls = FAMILIES[name][:2]
+    pde = PDE2D(tmin=0.0, tmax=10.0, nt=501, L1=1.0, L2=NX2 / NX1, nx1=NX1,
+                nx2=NX2, x=None, name="twophase", n_cond_static=N_STATIC,
+                n_cond_spatial=N_SPATIAL)
+    eng = SurrogateEngine.from_config(family_cfg(name), pde=pde,
+                                      device="cuda")
+    eng.init_params(seed=seed)
+    rng = np.random.default_rng(seed)
+    u0 = (0.1 + 0.8 * rng.random((BATCH, 1, TW, NX1, NX2))).astype(np.float32)
+    cond = rng.random((BATCH, N_STATIC)).astype(np.float32)
+    sc = (rng.random((BATCH, N_SPATIAL, NX1, NX2)) > 0.9).astype(np.float32)
+    step_gpu = eng.step(u0, cond=cond, spatial_cond=sc)   # also warms up
+    torch.cuda.reset_peak_memory_stats()
+    # the host clock's spread between runs is a few percent
+    seconds, launches = [], []
+    for _ in range(ROLLOUTS):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.rollout(u0, N_STEPS, cond=cond, spatial_cond=sc)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(dict(kernels.launches))
+    median = sorted(seconds)[len(seconds) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cpu = SurrogateEngine.from_config(family_cfg(name), pde=pde, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in eng.model.state_dict().items()})
+    step_cpu = cpu.step(u0[:1], cond=cond[:1], spatial_cond=sc[:1])
+    step_err = float(np.abs(step_gpu[:1] - step_cpu).max()
+                     / np.abs(step_cpu).max())
+    want = family_launches(gn_calls, spec_calls, N_STEPS, False)
+    rec = {"batch": BATCH, "bundled_steps": N_STEPS,
+           "parameters": sum(p.numel() for p in eng.model.parameters()),
+           "out_shape": list(out.shape),
+           "finite": bool(np.isfinite(out).all()),
+           "launches": launches[0], "launches_expected": want,
+           "step_rel_err_vs_cpu": step_err, "rollout_seconds": seconds,
+           "bundled_steps_per_s": N_STEPS / median,
+           "samples_steps_per_s": BATCH * N_STEPS / median,
+           "peak_mem_gib": peak}
+    if gn_calls:
+        rec["gn1_gelu_step"] = gn_step_time(eng, u0, cond, sc)
+    failures = []
+    if tuple(out.shape) != (BATCH, 1, N_STEPS * TW, NX1, NX2):
+        failures.append(f"rollout shape {out.shape}")
+    if not rec["finite"]:
+        failures.append("rollout has non-finite values")
+    if any(n != want for n in launches):
+        failures.append(f"serving launches {launches} != {want}")
+    if not step_err < REL_TOL_STEP:
+        failures.append(f"card vs CPU step differs: {step_err}")
+    return rec, launches[0], failures
+
+
+def family_train(name, seed, out_dir, tmp):
+    """Train the family's full-width model (built by the CLI's
+    get_config_static) its epochs at the config's batch 16 on the split in
+    ``tmp`` (stdout to ``train_<name>.log`` in ``out_dir``); time steps at
+    the depths TRAIN_DEPTHS (median of its timed steps after a warm-up);
+    hold a depth-1 step at batch 2 against the CPU, and both kernel ops at
+    every input shape its train step gives them. Returns (record, the
+    training run's launches, failures)."""
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.data.pipeline import prefetch_to_device
+    from nps_tpu_torch.inference import autotuned_convs
+
+    gn_calls, spec_calls, epochs, n_timed = FAMILIES[name]
+    argv = train_argv(tmp, seed, epochs, f"train_{name}")
+    trainer = build_trainer(family_cfg(name), argv, "cuda")
+    failures = []
+    if trainer.config.batch_size != TRAIN_BATCH:
+        failures.append(f"config batch {trainer.config.batch_size}")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(out_dir / f"train_{name}.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        train_losses, val_losses, _ = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    save = trainer.config.save_path
+    with open(save + "_metrics.jsonl") as f:
+        metrics = [json.loads(line) for line in f]
+    files = {suffix: Path(save + suffix).exists()
+             for suffix in ("_default.pt", "_checkpoint.pt", "_final.pt")}
+    n_steps = epochs * len(trainer.get_dataloaders()[0])
+
+    # single steps at injected depths, on one batch of the split
+    batches = prefetch_to_device(iter(trainer.get_dataloaders()[0]),
+                                 trainer.device)
+    batch = next(batches)
+    batches.close()
+    with autotuned_convs():
+        with kernel_shapes() as seen:   # also a first warm-up
+            trainer.train_step(batch, 0, 0, unrolled=1)
+        # K1: per forward its launches, per backward one adjoint launch on
+        # dy and one weight gradient
+        steps = {d: timed_steps(trainer, batch, d,
+                                family_launches(gn_calls, spec_calls, d + 1,
+                                                True), n_timed)
+                 for d in TRAIN_DEPTHS}
+        # one depth-1 step at batch 2, card against CPU
+        vs_cpu, loss_err, grad_err = step_vs_cpu(family_cfg(name), argv,
+                                                 trainer, batch, seed)
+    shape_checks = check_shapes(
+        seen, torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    # the run's steps are at depth 0 (the ramp admits more from epoch 25)
+    per_step = family_launches(gn_calls, spec_calls, 1, True)
+    want_run = {k: v * n_steps for k, v in per_step.items()
+                if k.endswith(("_bwd", "_dw2d"))}
+    rec = {"batch": TRAIN_BATCH, "epochs": epochs, "train_steps": n_steps,
            "train_seconds": train_s, "train_losses": train_losses,
            "val_losses": val_losses["default"],
            "metrics_lines": len(metrics), "files": files,
            "launches": launches, "launches_expected": want_run,
            "steps": {str(d): v for d, v in steps.items()},
-           "step_vs_cpu": {"depth": 1, "batch": 2, "loss_gpu": float(loss_gpu),
-                           "loss_cpu": float(loss_cpu),
-                           "loss_rel_err": loss_err, "grad_rel_err": grad_err,
-                           "worst_grad": grad_worst},
-           "kernels_at_train_shapes": shape_checks,
-           "card": card, "tf32": False}
-    emit(rec)
+           "step_vs_cpu": vs_cpu, "kernels_at_train_shapes": shape_checks}
     if not (np.isfinite(train_losses).all()
             and np.isfinite(val_losses["default"]).all()
-            and len(val_losses["default"]) == TRAIN_EPOCHS):
-        raise AssertionError("training losses are not finite")
-    if len(metrics) != TRAIN_EPOCHS or not all(files.values()):
-        raise AssertionError(f"missing outputs: {len(metrics)} metric "
-                             f"lines, files {files}")
+            and len(val_losses["default"]) == epochs):
+        failures.append("training losses are not finite")
+    if len(metrics) != epochs or not all(files.values()):
+        failures.append(f"missing outputs: {len(metrics)} metric lines, "
+                        f"files {files}")
     if any(launches.get(k) != v for k, v in want_run.items()) or not all(
-            launches.get(k) for k in ("gn1_gelu_fwd", "spectral_dft2d_fwd")):
-        raise AssertionError(f"training launches {launches}, want {want_run}")
+            launches.get(k) for k in per_step if k.endswith("_fwd")):
+        failures.append(f"training launches {launches}, want {want_run}")
     if not all(v["launches_ok"] for v in steps.values()):
-        raise AssertionError("train-step launch counts differ from the "
-                             "expected ones")
+        failures.append("train-step launch counts differ from the expected")
+    ops = {op for op, n in (("GNGeluFn", gn_calls),
+                            ("SpectralConv2dFn", spec_calls)) if n}
     bad = [r for r in shape_checks
            if not (r["rel_err_y"] < REL_TOL_F32
                    and r["rel_err_grad"] < REL_TOL_GRAD)]
-    if bad or {r["op"] for r in shape_checks} != {"GNGeluFn",
-                                                  "SpectralConv2dFn"}:
-        raise AssertionError(f"kernels at the train step's shapes: {bad}, "
-                             f"{len(shape_checks)} checked")
+    if bad or {r["op"] for r in shape_checks} != ops:
+        failures.append(f"kernels at the train step's shapes: {bad}, "
+                        f"{len(shape_checks)} checked")
     if not (loss_err < REL_TOL_STEP and grad_err < REL_TOL_STEP_GRAD):
-        raise AssertionError(f"card vs CPU train step: loss {loss_err}, "
-                             f"gradient {grad_err} ({grad_worst})")
+        failures.append(f"card vs CPU train step: {vs_cpu}")
+    return rec, launches, failures
+
+
+def phase_slice(seed, card):
+    """Serve the main path, the U-FNO (family_serve). Returns the first
+    rollout's launches."""
+    rec, launches, failures = family_serve("ufno", seed)
+    emit({"phase": "slice", "config": family_cfg("ufno"), **rec,
+          "card": card, "tf32": False})
+    if failures:
+        raise AssertionError("; ".join(failures))
     return launches
+
+
+def phase_train(seed, card, out_dir, tmp, gen_s):
+    """Train the main path, the U-FNO (family_train), on the split made in
+    ``gen_s`` seconds. Returns the training run's launches."""
+    rec, launches, failures = family_train("ufno", seed, out_dir, tmp)
+    emit({"phase": "train", "config": family_cfg("ufno"),
+          "data": {"sims": TRAIN_SIMS, "nt": TRAIN_NT, "grid": [NX1, NX2],
+                   "channels": 1, "cut": "--dataset.c_filter=[0]",
+                   "generate_seconds": gen_s},
+          **rec, "card": card, "tf32": False})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def phase_families(seed, card, out_dir, tmp):
+    """The other three twophase families (Dilated ResNet, U-Net, FNO ->
+    U-FNO) at full width, each served and trained on the card (one record
+    each). Returns each path's launches, by "<family>_serve" and
+    "<family>_train"."""
+    import torch
+
+    paths, failures = {}, []
+    for name in FAMILIES:
+        if name == "ufno":
+            continue
+        serve, paths[f"{name}_serve"], bad_serve = family_serve(name, seed)
+        train, paths[f"{name}_train"], bad_train = family_train(
+            name, seed, out_dir, tmp)
+        emit({"phase": "family", "family": name, "config": family_cfg(name),
+              "serve": serve, "train": train, "card": card, "tf32": False})
+        failures += [f"{name}: {f}" for f in bad_serve + bad_train]
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
 
 
 def main():
@@ -882,7 +1115,10 @@ def main():
     phase_build(out_dir)
     kern = phase_kernels(gen)
     serve = phase_slice(args.seed, card)
-    train = phase_train(args.seed, card, out_dir)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        gen_s = make_split(tmp, args.seed)
+        train = phase_train(args.seed, card, out_dir, tmp, gen_s)
+        families = phase_families(args.seed, card, out_dir, tmp)
 
     # name -> (source, TPU kernel replaced, the path whose run gives
     # "launches"); the forward kernels keep the serving path's count
@@ -910,8 +1146,10 @@ def main():
         r = kern[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": path.get(name, 0),
-                     "launches_by_path": {"serve": serve.get(name, 0),
-                                          "train": train.get(name, 0)},
+                     "launches_by_path": {
+                         "serve": serve.get(name, 0),
+                         "train": train.get(name, 0),
+                         **{p: n.get(name, 0) for p, n in families.items()}},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -921,7 +1159,7 @@ def main():
                                + ("; plain and library: eager calls between "
                                   "CUDA events" if name.endswith("_bwd")
                                   else "")})
-        for key in ("timing_refused", "same_bits"):
+        for key in ("timing_refused", "same_bits", "film", "unet_shapes"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

@@ -10,6 +10,8 @@ names and layouts:
 - Dense kernel           [I, O]     -> weight [O, I]
 - GroupNorm scale                    -> weight
 - a path segment ``name_N``          -> ``name.N`` (list and Sequential slots)
+- a Dilated ResNet conv ``block_B/conv_L`` -> ``processor.B.layers.2L`` (the
+  reference's block list and its Sequential, activations at the odd slots)
 
 Spectral weights stay split real ``[2, i, o, *modes]``.
 """
@@ -21,6 +23,7 @@ import torch
 
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 _TRANSPOSE_CONV = re.compile(r"(^|/)up_\d+/conv$")
+_DRN_CONV = re.compile(r"(^|/)block_(\d+)/conv_(\d+)(?=/|$)")
 
 
 def _leaves(tree, path=()):
@@ -53,6 +56,10 @@ def from_jax_params(tree):
                 arr = np.transpose(arr, order + tuple(range(nd)))
         elif leaf == "scale":
             leaf = "weight"
+        if mods:
+            mods = _DRN_CONV.sub(
+                lambda m: f"{m.group(1)}processor_{m.group(2)}/layers_"
+                          f"{2 * int(m.group(3))}", mod_path).split("/")
         key = ".".join([_INDEXED.sub(r"\1.\2", m) for m in mods] + [leaf])
         state[key] = torch.tensor(arr)
     return state

@@ -67,7 +67,8 @@
 // [2*m1*m2, 2, ci, co] with mode index k*m2 + m (row modes low then high);
 // film f32 [b, co, 2*m1, m2] or null; tables f32: c2,s2 [n2, m2],
 // c1,s1 [n1, 2m1], ic2,is2 [m2, n2], ic1,is1 [2m1, n1]; scratch xr,xi
-// [modes, b, ci] and yr,yi [modes, b, co]; out f32 [b, co, n1, n2].
+// [modes, b, ci] and yr,yi [modes, b, co]; out f32 [b, co, n1, n2]; with
+// FiLM and a gradient to come, ur,ui [modes, b, co] keep the pre-FiLM Y.
 //
 // spectral_dft2d_bwd and spectral_dw2d: the backward. They replace
 // _pallas_bwd (nps_tpu/ops/pallas/spectral_dft.py:175 at git 92d7866^), a
@@ -114,6 +115,15 @@
 //      more than the sums; a CTA that owned whole rows (all m1*m2 modes)
 //      would write contiguous runs, but its stage no longer fits at 8 ci
 //      x 64 co (a cluster sharing the stage is the next design to try).
+// FiLM: with Y scaled by f, the backward's DFT of dy is followed by
+// film_bwd_kernel, which writes dfilm = h(m)/(n1 n2) Re(conj(U) G) from the
+// forward's pre-FiLM Y (U) and scales G by f in place; the adjoint mix and
+// the weight gradient then read G f. Its bytes (~20 MB at the train shape,
+// b=16 and 192 outputs) take ~6 us at 3.35 TB/s. It is a pass of its own,
+// not folded into mix_adj_kernel where that stages G: spectral_dw_kernel
+// needs G f too, so the scaled G is written once for both, and the
+// FiLM-free kernels stay as they are. CUDA rather than Triton: it shares
+// this source's build, scratch layout and stream.
 // Backward scratch: gr,gi [modes, b, co] (G, kept for the weight gradient)
 // and hr,hi [modes, b, ci]; dx f32 [b, ci, n1, n2]; dw1, dw2 f32
 // [2, ci, co, m1, m2]; scale f32 [modes], h(m)/(n1 n2).
@@ -291,8 +301,8 @@ template <int BT, bool VEC>
 __global__ void __launch_bounds__(kMixThreads)
 mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ w, const float* __restrict__ film, int film_mode,
-           float* __restrict__ yr, float* __restrict__ yi, int b, int ci, int co, int K,
-           int m2) {
+           float* __restrict__ yr, float* __restrict__ yi, float* __restrict__ ur,
+           float* __restrict__ ui, int b, int ci, int co, int K, int m2) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kStageFloats = kCiChunk * 2 * kCoTile;
   float* sw = smem;                                             // [stage][ci][re/im][co]
@@ -409,6 +419,10 @@ mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         const int64_t dst = (static_cast<int64_t>(mode) * b + s) * co + o;
         yr[dst] = acc.x * f;
         yi[dst] = acc.y * f;
+        if (ur != nullptr) {  // the pre-FiLM Y, for the FiLM gradient
+          ur[dst] = acc.x;
+          ui[dst] = acc.y;
+        }
       }
     }
     __syncthreads();  // sw and sx are reused by the next batch tile
@@ -423,9 +437,8 @@ mix_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // l and l + 32 for BT samples; warp w reads o 4w..4w+3 of a chunk as one
 // float4 per row (8 lanes of a phase hit 8 different 16-byte bank groups).
 // The four warps' shares are summed in a fixed order.
-// FiLM (not ported with gradients): the real factor f[b, o, mode] would
-// scale G where it is staged into sg, and its own gradient Re(conj(Y) G)
-// would need the forward's unscaled Y.
+// With FiLM, G arrives already scaled by the real factor f[b, o, mode]
+// (film_bwd_kernel, launched between the DFT and this kernel).
 // VEC: co % 4 == 0, so a float4 of weights is wholly inside or outside [0, co).
 template <int BT, bool VEC>
 __global__ void __launch_bounds__(kMixThreads)
@@ -548,6 +561,60 @@ mix_adj_kernel(const float* __restrict__ gr, const float* __restrict__ gi,
       }
     }
     __syncthreads();  // sw and sg are reused by the next batch tile
+  }
+}
+
+// ---- the FiLM gradient ----------------------------------------------------------
+// Between the backward's DFT of dy and its adjoint mix, when the forward
+// applied FiLM (Y *= f per [b, o, mode], f = film or 1 + film). Per mode and
+// (sample, output) pair p = s * co + o:
+//   dfilm[p, mode] = scale[mode] (U_re G_re + U_im G_im)   (U: pre-FiLM Y)
+//   G[mode, p]     = f G[mode, p]                          (in place)
+// so that the adjoint mix and the weight gradient both read G f. Where
+// film needs no gradient, dfilm, ur and ui are null and only G is scaled.
+// G and U are [mode][p], film and dfilm [p][mode]: a CTA takes a 32 x 32 tile and
+// transposes the FiLM side through shared memory (rows padded to 33), so
+// every global access is a coalesced row. No sums across threads: the same
+// bits on every call.
+constexpr int kFilmTile = 32;
+constexpr int kFilmRows = 8;  // threads along the tile's rows
+
+__global__ void __launch_bounds__(kFilmTile * kFilmRows)
+film_bwd_kernel(float* __restrict__ gr, float* __restrict__ gi, const float* __restrict__ ur,
+                const float* __restrict__ ui, const float* __restrict__ film, int film_mode,
+                const float* __restrict__ scale, float* __restrict__ dfilm, int modes,
+                int pairs) {
+  __shared__ float sf[kFilmTile][kFilmTile + 1];  // [p][mode]
+  __shared__ float sd[kFilmTile][kFilmTile + 1];
+  const int m0 = blockIdx.x * kFilmTile, p0 = blockIdx.y * kFilmTile;
+  const int tx = threadIdx.x % kFilmTile, ty = threadIdx.x / kFilmTile;
+  for (int r = ty; r < kFilmTile; r += kFilmRows) {
+    const int p = p0 + r, m = m0 + tx;
+    float f = 0.f;
+    if (p < pairs && m < modes) {
+      f = film[static_cast<int64_t>(p) * modes + m];
+      if (film_mode == 0) f += 1.f;
+    }
+    sf[r][tx] = f;
+  }
+  __syncthreads();
+  for (int r = ty; r < kFilmTile; r += kFilmRows) {
+    const int m = m0 + r, p = p0 + tx;
+    float d = 0.f;
+    if (m < modes && p < pairs) {
+      const int64_t o = static_cast<int64_t>(m) * pairs + p;
+      const float f = sf[tx][r], g_r = gr[o], g_i = gi[o];
+      if (dfilm != nullptr) d = __ldg(scale + m) * fmaf(ur[o], g_r, ui[o] * g_i);
+      gr[o] = g_r * f;
+      gi[o] = g_i * f;
+    }
+    sd[tx][r] = d;
+  }
+  if (dfilm == nullptr) return;  // uniform across the CTA
+  __syncthreads();
+  for (int r = ty; r < kFilmTile; r += kFilmRows) {
+    const int p = p0 + r, m = m0 + tx;
+    if (p < pairs && m < modes) dfilm[static_cast<int64_t>(p) * modes + m] = sd[r][tx];
   }
 }
 
@@ -798,6 +865,17 @@ struct Dims {
   int b, ci, co, n1, n2, K, m2;
 };
 
+// FiLM of one call: the factor (null: none) and its mode; ur, ui: the
+// pre-FiLM Y, written by the forward (null: not kept) and read by the
+// backward, which also takes the per-mode scale and writes dfilm (df).
+struct Film {
+  const float* f;
+  int mode;
+  float *ur, *ui;
+  const float* scale;
+  float* df;
+};
+
 size_t fwd_smem(const Dims& d, int M2, int V) {
   const int ld = d.n2 + (V == 4 ? 4 : 1);
   return sizeof(float) * (fwd_plane_floats(d.n1, ld) + 2 * (d.n2 * M2 + d.n1 * d.K + d.n1 * M2));
@@ -862,9 +940,8 @@ cudaError_t opt_in_once() {
 // the same pack (d.ci, d.co are the spectrum's and the output's channels, so
 // the pack is [mode, 2, d.co, d.ci] there).
 template <bool ADJ, int BT, bool VEC>
-cudaError_t launch_mix(const Dims& d, const float* w, const float* film, int film_mode,
-                       const float* xr, const float* xi, float* yr, float* yi,
-                       cudaStream_t st) {
+cudaError_t launch_mix(const Dims& d, const float* w, const Film& film, const float* xr,
+                       const float* xi, float* yr, float* yi, cudaStream_t st) {
   const dim3 grid(d.K * d.m2, (d.co + kCoTile - 1) / kCoTile);
   if constexpr (ADJ) {
     cudaError_t err = opt_in_once<mix_adj_kernel<BT, VEC>>();
@@ -875,17 +952,16 @@ cudaError_t launch_mix(const Dims& d, const float* w, const float* film, int fil
     cudaError_t err = opt_in_once<mix_kernel<BT, VEC>>();
     if (err != cudaSuccess) return err;
     return launch_after_previous(mix_kernel<BT, VEC>, grid, dim3(kMixThreads), mix_smem(d, BT),
-                                 st, xr, xi, w, film, film_mode, yr, yi, d.b, d.ci, d.co, d.K,
-                                 d.m2);
+                                 st, xr, xi, w, film.f, film.mode, yr, yi, film.ur, film.ui, d.b,
+                                 d.ci, d.co, d.K, d.m2);
   }
 }
 
 template <int M2, int V, bool ADJ>
 int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
             const float* s1, const float* ic2, const float* is2, const float* ic1,
-            const float* is1, const float* w, const float* film, int film_mode, float* xr,
-            float* xi, float* yr, float* yi, float* out, const Dims& d, bool w_vec,
-            cudaStream_t st) {
+            const float* is1, const float* w, const Film& film, float* xr, float* xi,
+            float* yr, float* yi, float* out, const Dims& d, bool w_vec, cudaStream_t st) {
   cudaError_t err = opt_in_once<dft_fwd_kernel<M2, V>>();
   if (err == cudaSuccess) err = opt_in_once<dft_inv_kernel<M2, V>>();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -894,10 +970,19 @@ int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
   dft_fwd_kernel<M2, V><<<fwd_grid, kFwdThreads, fs, st>>>(
       x, c2, s2, c1, s1, xr, xi, d.b, d.ci, d.n1, d.n2, d.K, d.m2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (ADJ && film.f != nullptr) {  // G *= f in place, and dfilm
+    const int modes = d.K * d.m2, pairs = d.b * d.ci;  // d.ci: the forward's co
+    film_bwd_kernel<<<dim3((modes + kFilmTile - 1) / kFilmTile,
+                           (pairs + kFilmTile - 1) / kFilmTile),
+                      kFilmTile * kFilmRows, 0, st>>>(xr, xi, film.ur, film.ui, film.f,
+                                                      film.mode, film.scale, film.df, modes,
+                                                      pairs);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
 
   const int bt = d.b > 4 ? 8 : d.b > 2 ? 4 : d.b;  // register tile in samples
 #define NPS_MIX(BT, VEC) \
-  err = launch_mix<ADJ, BT, VEC>(d, w, film, film_mode, xr, xi, yr, yi, st)
+  err = launch_mix<ADJ, BT, VEC>(d, w, film, xr, xi, yr, yi, st)
   switch (bt * 2 + (w_vec ? 1 : 0)) {
     case 2: NPS_MIX(1, false); break;
     case 3: NPS_MIX(1, true); break;
@@ -922,11 +1007,10 @@ int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
 // the three stages at the unrolled m2 bound and row width that fit; d.ci and
 // d.co are the input's and the output's channels; w_co: the pack's last dim
 template <bool ADJ>
-int dispatch_dft(const float* x, const float* w_packed, const float* film, int film_mode,
-                 const float* c2, const float* s2, const float* c1, const float* s1,
-                 const float* ic2, const float* is2, const float* ic1, const float* is1,
-                 float* xr, float* xi, float* yr, float* yi, float* out, const Dims& d,
-                 int w_co, void* stream) {
+int dispatch_dft(const float* x, const float* w_packed, const Film& film, const float* c2,
+                 const float* s2, const float* c1, const float* s1, const float* ic2,
+                 const float* is2, const float* ic1, const float* is1, float* xr, float* xi,
+                 float* yr, float* yi, float* out, const Dims& d, int w_co, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // 16-byte rows need n2 % 4 == 0 and aligned planes (the wrapper passes
   // fresh contiguous tensors)
@@ -934,8 +1018,8 @@ int dispatch_dft(const float* x, const float* w_packed, const float* film, int f
                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   const bool w_vec = w_co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
 #define NPS_DFT(M2, V)                                                                 \
-  return run_dft<M2, V, ADJ>(x, c2, s2, c1, s1, ic2, is2, ic1, is1, w_packed, film,    \
-                             film_mode, xr, xi, yr, yi, out, d, w_vec, st)
+  return run_dft<M2, V, ADJ>(x, c2, s2, c1, s1, ic2, is2, ic1, is1, w_packed, film, xr, \
+                             xi, yr, yi, out, d, w_vec, st)
   if (d.m2 <= 4) {
     if (v4) NPS_DFT(4, 4); else NPS_DFT(4, 1);
   } else if (d.m2 <= 8) {
@@ -950,29 +1034,37 @@ int dispatch_dft(const float* x, const float* w_packed, const float* film, int f
 
 }  // namespace
 
+// ur, ui [modes, b, co] (null: not kept) receive the pre-FiLM Y when film is
+// given, for the FiLM gradient.
 extern "C" int spectral_dft2d_fwd(
     const float* x, const float* w_packed, const float* film, int film_mode,
     const float* c2, const float* s2, const float* c1, const float* s1,
     const float* ic2, const float* is2, const float* ic1, const float* is1,
-    float* xr, float* xi, float* yr, float* yi, float* out, int b, int ci,
-    int co, int n1, int n2, int m1, int m2, void* stream) {
-  return dispatch_dft<false>(x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
-                             xr, xi, yr, yi, out, Dims{b, ci, co, n1, n2, 2 * m1, m2}, co,
-                             stream);
+    float* xr, float* xi, float* yr, float* yi, float* ur, float* ui, float* out, int b,
+    int ci, int co, int n1, int n2, int m1, int m2, void* stream) {
+  const Film f{film, film_mode, film ? ur : nullptr, film ? ui : nullptr, nullptr, nullptr};
+  return dispatch_dft<false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, xr, xi, yr, yi,
+                             out, Dims{b, ci, co, n1, n2, 2 * m1, m2}, co, stream);
 }
 
 // The input gradient: dy [b, co, n1, n2] -> dx [b, ci, n1, n2] through the
 // forward's pack [2*m1*m2, 2, ci, co] (ci, co are the forward's); gr, gi
 // [modes, b, co] receive dy's spectrum G, hr, hi [modes, b, ci] the mix's.
+// With film [b, co, 2*m1, m2] (null: none): ur, ui [modes, b, co] are the
+// forward's pre-FiLM Y and scale [modes] the inverse's per-mode factor;
+// dfilm [b, co, 2*m1, m2] receives the FiLM gradient, and gr, gi hold G f.
+// With film but a null dfilm (film needs no gradient), ur, ui and scale
+// are not read and only G is scaled.
 extern "C" int spectral_dft2d_bwd(
-    const float* dy, const float* w_packed,
+    const float* dy, const float* w_packed, const float* film, int film_mode,
+    float* ur, float* ui, const float* scale, float* dfilm,
     const float* c2, const float* s2, const float* c1, const float* s1,
     const float* ic2, const float* is2, const float* ic1, const float* is1,
     float* gr, float* gi, float* hr, float* hi, float* dx, int b, int ci,
     int co, int n1, int n2, int m1, int m2, void* stream) {
-  return dispatch_dft<true>(dy, w_packed, nullptr, 1, c2, s2, c1, s1, ic2, is2, ic1, is1,
-                            gr, gi, hr, hi, dx, Dims{b, co, ci, n1, n2, 2 * m1, m2}, co,
-                            stream);
+  const Film f{film, film_mode, ur, ui, scale, dfilm};
+  return dispatch_dft<true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, gr, gi, hr,
+                            hi, dx, Dims{b, co, ci, n1, n2, 2 * m1, m2}, co, stream);
 }
 
 // The weight gradient into dw1, dw2 [2, ci, co, m1, m2] from X [modes, b, ci]

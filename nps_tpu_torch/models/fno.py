@@ -2,8 +2,10 @@
 
 ``SpectralConvND`` holds the split-complex weights ``weights1``/``weights2``
 (real ``[2, ci, co, m1, m2]``) and calls ``ops.spectral.spectral_conv_nd``.
-``FNO_Layer`` adds the pointwise-conv bypass. The ``FNO`` processor is not
-ported yet.
+``FNO_Layer`` adds the pointwise-conv bypass, and the ``FNO`` processor
+stacks ``hidden_blocks`` of them, conditioned by channel concat of the
+broadcast grid (``cond_mode='concat'``) or by FiLM on the spectrum
+(``cond_mode='film'``).
 
 Each call packs the weights into the CUDA kernel's layout, inside the
 autograd Function where a gradient is wanted. A caller that applies the
@@ -17,6 +19,7 @@ from contextlib import contextmanager
 import torch
 from torch import nn
 
+from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.common import ConvND, Dense
@@ -131,3 +134,43 @@ class FNO_Layer(nn.Module):
         if self.activation is not None:
             y = resolve_activation(self.activation)(y)
         return y
+
+
+class FNO(nn.Module):
+    """FNO processor: ``hidden_blocks`` x :class:`FNO_Layer`, h [b, hidden,
+    *sp] in and out. It has no ``activation`` field: its layers always apply
+    the default exact GELU. ``padding_mode='ones'`` maps to zero padding.
+    ``remat`` is accepted and not applied (see ``dilated_resnet.py``)."""
+
+    model_interface = M.AR_TB
+    data_interface = (D.sim1d, D.sim1d_var_t, D.sim2d)
+
+    def __init__(self, pde=None, num_spatial_dims=1, n_cond=0,
+                 hidden_features=128, fno_modes=48, hidden_blocks=4,
+                 cond_mode="concat", fno_kernel_size=1,
+                 fno_conv_mode="single", padding_mode="circular",
+                 remat=True):
+        super().__init__()
+        assert cond_mode in ("film", "concat", None), \
+            "Incorrect conditioning mode supplied"
+        self.cond_mode = cond_mode
+        film = cond_mode == "film" and n_cond > 0
+        hidden_in = (hidden_features + n_cond if cond_mode == "concat"
+                     else hidden_features)
+        pm = padding_mode if padding_mode != "ones" else "zeros"
+        self.fno_layers = nn.ModuleList(
+            FNO_Layer(hidden_dim=hidden_in, hidden_dim_out=hidden_features,
+                      num_spatial_dims=num_spatial_dims, modes=fno_modes,
+                      feature_transform=film, feature_transform_dim=n_cond,
+                      kernel_size=fno_kernel_size, conv_mode=fno_conv_mode,
+                      padding_mode=pm)
+            for _ in range(hidden_blocks))
+
+    def forward(self, h, variables=None, variables_broadcast=None, pos=None):
+        for layer in self.fno_layers:
+            if self.cond_mode == "film":
+                h = layer(h, p=variables)
+            else:
+                h = layer(torch.cat([h, variables_broadcast], dim=1)
+                          if variables_broadcast is not None else h)
+        return h

@@ -25,8 +25,12 @@ scratch holds ``dy``'s truncated spectrum G. The weight gradient per mode is
 h(m)/(n1 n2) * sum_b conj(X_i) G_o, with X the forward's saved spectrum: the
 kernel ``spectral_dw2d``, which writes it in the parameters' layout. Their
 plain versions are :func:`spectral_dft2d_bwd_plain` and
-:func:`spectral_weight_grad`. FiLM gradients on CUDA are not ported and
-raise. On the CPU, autograd runs through the plain version.
+:func:`spectral_weight_grad`. With FiLM (Y scaled by the real f per
+[b, co, mode]) the forward also keeps the pre-FiLM spectrum U, and the
+input-gradient launch scales G by f before its adjoint mix (so both
+gradients read G f) and writes the FiLM gradient scale * Re(conj(U) G):
+plain version :func:`film_grad_plain`. On the CPU, autograd runs through
+the plain version.
 """
 
 import numpy as np
@@ -224,10 +228,13 @@ def _check_launch(x, w_packed, modes, name, chan):
                          f"{x.device}")
 
 
-def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1):
+def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
+                                keep_y=False):
     """:func:`spectral_dft2d_fwd` that also returns the kernel's scratch
     copy of ``x``'s truncated spectrum: (out, xr, xi), xr and xi the real and
-    imaginary parts, f32 [2*m1*m2, b, ci] (mode k*m2 + m)."""
+    imaginary parts, f32 [2*m1*m2, b, ci] (mode k*m2 + m). With ``film`` and
+    ``keep_y`` it returns (out, xr, xi, ur, ui): also the mix's pre-FiLM
+    spectrum U, f32 [2*m1*m2, b, co], which the FiLM gradient needs."""
     m1, m2 = modes
     _check_launch(x, w_packed, modes, "spectral_dft2d_fwd", 2)
     b, ci, n1, n2 = x.shape
@@ -247,34 +254,70 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1):
     xi = torch.empty_like(xr)
     yr = torch.empty((k * m2, b, co), **f32)
     yi = torch.empty_like(yr)
+    keep = film is not None and keep_y
+    ur, ui = ((torch.empty_like(yr), torch.empty_like(yr)) if keep
+              else (None, None))
     out = torch.empty((b, co, n1, n2), **f32)
     rc = kernels.library().spectral_dft2d_fwd(
         x.data_ptr(), w_packed.data_ptr(), film_ptr, int(film_mode),
         *(t.data_ptr() for t in tables),
         xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-        out.data_ptr(), b, ci, co, n1, n2, m1, m2,
+        _ptr(ur), _ptr(ui), out.data_ptr(), b, ci, co, n1, n2, m1, m2,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "spectral_dft2d_fwd")
     kernels.launches["spectral_dft2d_fwd"] += 1
-    return out, xr, xi
+    return (out, xr, xi, ur, ui) if keep else (out, xr, xi)
 
 
-def spectral_dft2d_fwd_spectrum_plain(x, w_packed, modes):
-    """Plain version of :func:`spectral_dft2d_fwd_spectrum` without FiLM,
-    same inputs and outputs: (out, xr, xi)."""
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def spectral_dft2d_fwd_spectrum_plain(x, w_packed, modes, film=None,
+                                      film_mode=1, keep_y=False):
+    """Plain version of :func:`spectral_dft2d_fwd_spectrum`, same inputs
+    and outputs."""
     m1, m2 = modes
     ci, co = w_packed.shape[2:]
     w = w_packed.reshape(2 * m1, m2, 2, ci, co).permute(2, 3, 4, 0, 1)
-    out = spectral_conv_2d_plain(x, [w[:, :, :, :m1], w[:, :, :, m1:]], modes)
+    out = spectral_conv_2d_plain(x, [w[:, :, :, :m1], w[:, :, :, m1:]], modes,
+                                 film, film_mode)
     x_re, x_im = _spectrum_plain(x, modes)
-    return out, _modes_first(x_re), _modes_first(x_im)
+    xr, xi = _modes_first(x_re), _modes_first(x_im)
+    if film is None or not keep_y:
+        return out, xr, xi
+    wr, wi = w_packed[:, 0], w_packed[:, 1]
+    ein = torch.einsum
+    ur = ein("mbi,mio->mbo", xr, wr) - ein("mbi,mio->mbo", xi, wi)
+    ui = ein("mbi,mio->mbo", xr, wi) + ein("mbi,mio->mbo", xi, wr)
+    return out, xr, xi, ur, ui
 
 
-def spectral_dft2d_bwd(dy, w_packed, modes):
+def _check_film_bwd(film, u, scale, b, co, modes, device):
+    m1, m2 = modes
+    n = 2 * m1 * m2
+    checks = [("film", film, (b, co, 2 * m1, m2))]
+    if u is not None:
+        checks += [("ur", u[0], (n, b, co)), ("ui", u[1], (n, b, co)),
+                   ("scale", scale, (n,))]
+    for name, t, shape in checks:
+        if (t.device != device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"spectral_dft2d_bwd: {name} must be a "
+                             f"contiguous f32 {list(shape)} tensor on "
+                             f"{device}")
+
+
+def spectral_dft2d_bwd(dy, w_packed, modes, film=None, film_mode=1, u=None,
+                       scale=None):
     """Launch the input-gradient kernel on CUDA tensors: dy [b, co, n1, n2]
     and the forward's pack ``w_packed`` [2*m1*m2, 2, ci, co] (read as it is)
     -> (dx [b, ci, n1, n2], gr, gi), gr and gi dy's truncated spectrum G,
-    f32 [2*m1*m2, b, co]."""
+    f32 [2*m1*m2, b, co]. With the forward's ``film`` [b, co, 2*m1, m2]
+    (and ``film_mode``), its pre-FiLM spectrum ``u`` = (ur, ui) and the
+    per-mode :func:`mode_scale`, it returns (dx, gr, gi, dfilm): G scaled by
+    the FiLM factor, and dfilm [b, co, 2*m1, m2]. Without ``u`` (film needs
+    no gradient) dfilm is None and only G is scaled."""
     m1, m2 = modes
     _check_launch(dy, w_packed, modes, "spectral_dft2d_bwd", 3)
     b, co, n1, n2 = dy.shape
@@ -287,14 +330,22 @@ def spectral_dft2d_bwd(dy, w_packed, modes):
     hr = torch.empty((2 * m1 * m2, b, ci), **f32)
     hi = torch.empty_like(hr)
     dx = torch.empty((b, ci, n1, n2), **f32)
+    dfilm = ur = ui = None
+    if film is not None:
+        _check_film_bwd(film, u, scale, b, co, modes, dy.device)
+        if u is not None:
+            ur, ui = u
+            dfilm = torch.empty_like(film)
     rc = kernels.library().spectral_dft2d_bwd(
-        dy.data_ptr(), w_packed.data_ptr(), *(t.data_ptr() for t in tables),
+        dy.data_ptr(), w_packed.data_ptr(), _ptr(film), int(film_mode),
+        _ptr(ur), _ptr(ui), _ptr(scale), _ptr(dfilm),
+        *(t.data_ptr() for t in tables),
         gr.data_ptr(), gi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
         dx.data_ptr(), b, ci, co, n1, n2, m1, m2,
         kernels.stream_ptr(dy.device))
     kernels.check(rc, "spectral_dft2d_bwd")
     kernels.launches["spectral_dft2d_bwd"] += 1
-    return dx, gr, gi
+    return (dx, gr, gi) if film is None else (dx, gr, gi, dfilm)
 
 
 def adjoint_mix_plain(w_packed, gr, gi):
@@ -314,19 +365,41 @@ def _modes_first(t):
     return t.permute(2, 3, 0, 1).reshape(k * m2, b, c)
 
 
-def spectral_dft2d_bwd_plain(dy, w_packed, modes):
+def film_grad_plain(gr, gi, ur, ui, film, film_mode, scale):
+    """Plain version of the backward's FiLM stage (``film_bwd_kernel``):
+    from G and the pre-FiLM U ([modes, b, co], real and imaginary parts),
+    the forward's film [b, co, 2*m1, m2] and :func:`mode_scale`, return
+    (G f, dfilm), with f = film (mode 1) or 1 + film (mode 0) and
+    dfilm = scale * (U_re G_re + U_im G_im) in film's layout; dfilm is None
+    without U."""
+    f = _modes_first(_film_factor(film, film.shape[2], film.shape[3],
+                                  film_mode))
+    if ur is None:
+        return gr * f, gi * f, None
+    d = (ur * gr + ui * gi) * scale[:, None, None]
+    b, co, k, m2 = film.shape
+    dfilm = d.reshape(k, m2, b, co).permute(2, 3, 0, 1).contiguous()
+    return gr * f, gi * f, dfilm
+
+
+def spectral_dft2d_bwd_plain(dy, w_packed, modes, film=None, film_mode=1,
+                             u=None, scale=None):
     """Plain version of :func:`spectral_dft2d_bwd`, same inputs and
-    outputs: dy's spectrum G, :func:`adjoint_mix_plain` on the forward's
-    pack, and the inverse DFT."""
+    outputs: dy's spectrum G, with FiLM :func:`film_grad_plain`,
+    :func:`adjoint_mix_plain` on the forward's pack, and the inverse DFT."""
     m1, m2 = modes
     b = dy.shape[0]
     g_re, g_im = _spectrum_plain(dy, modes)
     gr, gi = _modes_first(g_re), _modes_first(g_im)
+    if film is not None:
+        gr, gi, dfilm = film_grad_plain(gr, gi, *(u or (None, None)), film,
+                                        film_mode, scale)
     hr, hi = adjoint_mix_plain(w_packed, gr, gi)
     ci = hr.shape[2]
     h_re, h_im = (h.reshape(2 * m1, m2, b, ci).permute(2, 3, 0, 1)
                   for h in (hr, hi))
-    return _inverse_plain(h_re, h_im, dy.shape[2:], modes), gr, gi
+    dx = _inverse_plain(h_re, h_im, dy.shape[2:], modes)
+    return (dx, gr, gi) if film is None else (dx, gr, gi, dfilm)
 
 
 def mode_scale(n1, n2, m1, m2, device):
@@ -397,26 +470,39 @@ class SpectralConv2dFn(torch.autograd.Function):
     kernel, then ``spectral_dft2d_bwd`` on ``dy`` for the input gradient and
     ``spectral_dw2d`` for the weight gradient. The weights are packed here
     on every call, so they stay in the graph; the forward keeps that pack
-    (not the weights) for the backward's adjoint mix."""
+    (not the weights) for the backward's adjoint mix. With ``film``
+    ([b, co, 2*m1, m2], contiguous f32) the backward reads G scaled by the
+    FiLM factor; where film requires a gradient, the forward also keeps the
+    pre-FiLM spectrum, and the input-gradient launch returns the FiLM
+    gradient too."""
 
     @staticmethod
-    def forward(ctx, x, weights1, weights2, modes):
+    def forward(ctx, x, weights1, weights2, modes, film=None, film_mode=1):
         w_packed = pack_weights_2d((weights1, weights2))
-        out, xr, xi = spectral_dft2d_fwd_spectrum(x, w_packed, modes)
-        ctx.save_for_backward(xr, xi, w_packed)
+        keep_y = film is not None and film.requires_grad
+        out, xr, xi, *u = spectral_dft2d_fwd_spectrum(
+            x, w_packed, modes, film, film_mode, keep_y=keep_y)
+        ctx.save_for_backward(xr, xi, w_packed,
+                              *([] if film is None else [film, *u]))
         ctx.modes, ctx.grid = modes, tuple(x.shape[2:])
+        ctx.film_mode = film_mode
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        xr, xi, w_packed = ctx.saved_tensors
+        xr, xi, w_packed, *film_u = ctx.saved_tensors
         (m1, m2), (n1, n2) = ctx.modes, ctx.grid
-        dx, gr, gi = spectral_dft2d_bwd(dy.contiguous(), w_packed, ctx.modes)
+        scale = mode_scale(n1, n2, m1, m2, dy.device)
+        film_args = ((film_u[0], ctx.film_mode, tuple(film_u[1:]) or None,
+                      scale) if film_u else ())
+        dx, gr, gi, *dfilm = spectral_dft2d_bwd(dy.contiguous(), w_packed,
+                                                ctx.modes, *film_args)
         dw1 = dw2 = None
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw1, dw2 = spectral_dw2d(
-                xr, xi, gr, gi, mode_scale(n1, n2, m1, m2, dy.device), m1)
-        return (dx if ctx.needs_input_grad[0] else None), dw1, dw2, None
+            dw1, dw2 = spectral_dw2d(xr, xi, gr, gi, scale, m1)
+        needs = ctx.needs_input_grad
+        return ((dx if needs[0] else None), dw1, dw2, None,
+                (dfilm[0] if dfilm else None), None)
 
 
 def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
@@ -437,12 +523,11 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     if x.device.type == "cpu":
         return spectral_conv_2d_plain(x, weights, modes, film, film_mode)
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *weights)):
+            t is not None and t.requires_grad for t in (x, *weights, film)):
         if film is not None:
-            raise NotImplementedError(
-                "FiLM gradients of the CUDA spectral conv are not ported "
-                "yet (ROADMAP.md section 1, 'Left from P5/P6')")
-        return SpectralConv2dFn.apply(x, weights[0], weights[1], modes)
+            film = film[:, :, :2 * modes[0], :modes[1]].float().contiguous()
+        return SpectralConv2dFn.apply(x, weights[0], weights[1], modes, film,
+                                      film_mode)
     if w_packed is None:
         w_packed = pack_weights_2d(weights)
     return spectral_dft2d_fwd(x, w_packed, modes, film, film_mode)

@@ -1,12 +1,14 @@
-"""Where one bundled rollout step, or one train step, of the full-width
-U-FNO spends its time.
+"""Where one bundled rollout step, or one train step, of a full-width
+twophase model spends its time.
 
-    python -m nps_tpu_torch.trace_step [--batch 4] [--steps 3] [--tf32]
-        [--out results/trace]
-    python -m nps_tpu_torch.trace_step --train [--depth 0] [--batch 16]
-        [--steps 2] [--tf32] [--out results/trace]
+    python -m nps_tpu_torch.trace_step [--config CFG] [--batch 4]
+        [--steps 3] [--tf32] [--out results/trace]
+    python -m nps_tpu_torch.trace_step --train [--config CFG] [--depth 0]
+        [--batch 16] [--steps 2] [--tf32] [--out results/trace]
 
-Builds ``cfg_twophase_ufno`` on the GPU as ``chip_smoke.py`` does, warms up
+Builds the config (default ``cfg_twophase_ufno``; any of the four
+``nps_tpu_torch/configs/train/cfg_twophase_*.py``) on the GPU as
+``chip_smoke.py`` does, warms up
 with one step, then traces ``--steps`` steps with ``torch.profiler``. Prints
 one JSON line: the host time per step, the device-busy share of the traced
 window, the device time of the kernels summed by name (top 25, and every
@@ -50,7 +52,7 @@ PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
 # the device kernels of the port's hand-written CUDA sources, by name
 PORTED_KERNELS = ("gn1_gelu_kernel", "gn1_bwd_", "dft_fwd_kernel",
                   "mix_kernel", "mix_adj_kernel", "dft_inv_kernel",
-                  "spectral_dw_kernel")
+                  "spectral_dw_kernel", "film_bwd_kernel")
 PHASES = ("pushforward", "forward", "backward", "optimizer")
 
 
@@ -146,7 +148,7 @@ def _rollout_runner(args):
     pde = PDE2D(tmin=0.0, tmax=10.0, nt=501, L1=1.0, L2=64 / 96, nx1=96,
                 nx2=64, x=None, name="twophase", n_cond_static=2,
                 n_cond_spatial=2)
-    eng = SurrogateEngine.from_config(CFG, pde=pde, device="cuda")
+    eng = SurrogateEngine.from_config(args.config, pde=pde, device="cuda")
     eng.init_params(seed=args.seed)
     rng = np.random.default_rng(args.seed)
     b = args.batch
@@ -177,7 +179,7 @@ def _train_runner(args):
                         f"--batch_size={args.batch}",
                         f"--experiment_path={tmp}/out"]
             with redirect_stdout(sys.stderr):
-                cfg = parse_args(CFG)
+                cfg = parse_args(args.config)
         finally:
             sys.argv = saved
         trainer = train_cli.get_config_static(cfg, device="cuda")[4]
@@ -207,6 +209,8 @@ def main():
                     help="default: 4 for a rollout, 16 (the config's) to train")
     ap.add_argument("--steps", type=int, default=None,
                     help="default: 3 for a rollout, 2 to train")
+    ap.add_argument("--config", default=CFG,
+                    help="a twophase config file (default: the U-FNO's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tf32", action="store_true")
     ap.add_argument("--out", default="results/trace")
@@ -233,7 +237,8 @@ def main():
             window_s = time.perf_counter() - t0
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    name = f"train_d{args.depth}" if args.train else "rollout"
+    name = Path(args.config).stem + (f"_train_d{args.depth}" if args.train
+                                      else "_rollout")
     prof.export_chrome_trace(str(out / f"{name}_trace.json"))
 
     events = _device_events(prof)
@@ -251,7 +256,8 @@ def main():
                 "share": us / total_dev_us, "calls_per_step": n / args.steps}
 
     rec = {
-        "card": card, "mode": "train" if args.train else "rollout",
+        "card": card, "config": args.config,
+        "mode": "train" if args.train else "rollout",
         "batch": args.batch, "steps": args.steps, "tf32": args.tf32,
         "host_ms_per_step": 1e3 * window_s / args.steps,
         "device_ms_per_step": total_dev_us / 1e3 / args.steps,

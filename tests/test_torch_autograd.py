@@ -35,18 +35,19 @@ def _rel(a, ref):
 
 
 # ---- K1 ---------------------------------------------------------------------
-def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1):
+def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1,
+                          keep_y=False):
     """What ``spectral_dft2d_fwd_spectrum`` returns, in plain PyTorch: the
     output, and X = sum u e^{-i theta} at the retained modes as [modes, b, c]
-    real and imaginary parts."""
-    assert film is None
+    real and imaginary parts; with FiLM kept for a gradient, also the
+    pre-FiLM U = X W per mode [modes, b, co]."""
     m1, m2 = modes
     b, ci, n1, n2 = x.shape
     k = 2 * m1
     co = w_packed.shape[3]
     w = w_packed.reshape(k, m2, 2, ci, co).permute(2, 3, 4, 0, 1)
     out = sp.spectral_conv_2d_plain(x, [w[:, :, :, :m1], w[:, :, :, m1:]],
-                                    modes)
+                                    modes, film, film_mode)
     ang_y = 2 * np.pi * np.outer(np.arange(n2), np.arange(m2)) / n2
     rows = np.concatenate([np.arange(m1), np.arange(n1 - m1, n1)])
     ang_x = 2 * np.pi * np.outer(np.arange(n1), rows) / n1
@@ -54,8 +55,13 @@ def _fake_spectral_launch(x, w_packed, modes, film=None, film_mode=1):
     xd = x.double()
     re = torch.einsum("bcxy,xykm->kmbc", xd, torch.cos(phase))
     im = -torch.einsum("bcxy,xykm->kmbc", xd, torch.sin(phase))
-    return (out, re.reshape(k * m2, b, ci).float(),
-            im.reshape(k * m2, b, ci).float())
+    re, im = re.reshape(k * m2, b, ci), im.reshape(k * m2, b, ci)
+    if film is None or not keep_y:
+        return out, re.float(), im.float()
+    wr, wi = w_packed[:, 0].double(), w_packed[:, 1].double()
+    ur = torch.bmm(re, wr) - torch.bmm(im, wi)
+    ui = torch.bmm(re, wi) + torch.bmm(im, wr)
+    return out, re.float(), im.float(), ur.float(), ui.float()
 
 
 def _fake_spectral_launches(monkeypatch):
@@ -93,6 +99,80 @@ def test_spectral_fn_gradient_matches_plain_autograd(monkeypatch, b, ci, co,
     for got, ref, name in zip(grads, refs, ("dx", "dw1", "dw2")):
         assert got.shape == ref.shape, name
         assert _rel(got, ref) < REL, name
+
+
+@pytest.mark.parametrize("film_mode", [0, 1])
+@pytest.mark.parametrize("b,ci,co,grid,modes", SPECTRAL_CASES)
+def test_spectral_fn_film_gradient_matches_plain_autograd(
+        monkeypatch, film_mode, b, ci, co, grid, modes):
+    """With FiLM: dx, both weight gradients and dfilm. The cases include
+    the Nyquist column (m2 = n2//2 + 1, h = 1) and 2*m1 = n1, where the
+    per-mode scale of dfilm and dW differs from 2/(n1 n2)."""
+    _fake_spectral_launches(monkeypatch)
+    g = torch.Generator().manual_seed(6)
+    m1, m2 = modes
+    x = torch.randn((b, ci) + grid, generator=g, requires_grad=True)
+    ws = [torch.rand((2, ci, co) + modes, generator=g).requires_grad_()
+          for _ in range(2)]
+    film = torch.randn((b, co, 2 * m1, m2), generator=g, requires_grad=True)
+    dy = torch.randn((b, co) + grid, generator=g)
+
+    out = sp.SpectralConv2dFn.apply(x, ws[0], ws[1], modes, film, film_mode)
+    grads = torch.autograd.grad(out, [x, *ws, film], dy)
+    ref_out = sp.spectral_conv_2d_plain(x, ws, modes, film, film_mode)
+    refs = torch.autograd.grad(ref_out, [x, *ws, film], dy)
+    assert _rel(out, ref_out) < REL
+    for got, ref, name in zip(grads, refs, ("dx", "dw1", "dw2", "dfilm")):
+        assert got.shape == ref.shape, name
+        assert _rel(got, ref) < REL, name
+
+
+@pytest.mark.parametrize("film_mode", [0, 1])
+def test_spectral_fn_film_without_gradient_keeps_no_spectrum(monkeypatch,
+                                                             film_mode):
+    """FiLM that needs no gradient: the forward keeps film but not the
+    pre-FiLM spectrum, and dx and both weight gradients still see G scaled
+    by the FiLM factor."""
+    _fake_spectral_launches(monkeypatch)
+    b, ci, co, grid, modes = SPECTRAL_CASES[1]
+    m1, m2 = modes
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((b, ci) + grid, generator=g, requires_grad=True)
+    ws = [torch.rand((2, ci, co) + modes, generator=g).requires_grad_()
+          for _ in range(2)]
+    film = torch.randn((b, co, 2 * m1, m2), generator=g)
+    dy = torch.randn((b, co) + grid, generator=g)
+
+    out = sp.SpectralConv2dFn.apply(x, ws[0], ws[1], modes, film, film_mode)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 4 and torch.equal(saved[3], film)
+    grads = torch.autograd.grad(out, [x, *ws], dy)
+    ref_out = sp.spectral_conv_2d_plain(x, ws, modes, film, film_mode)
+    refs = torch.autograd.grad(ref_out, [x, *ws], dy)
+    for got, ref, name in zip(grads, refs, ("dx", "dw1", "dw2")):
+        assert _rel(got, ref) < REL, name
+
+
+def test_film_grad_plain_reads_film_in_its_layout():
+    """film_grad_plain takes G and U in the scratch layout [modes, b, co]
+    and film, dfilm in [b, co, 2*m1, m2]: mode k*m2 + m of pair (s, o) is
+    film[s, o, k, m]; f = 1 + film in mode 0."""
+    g = torch.Generator().manual_seed(7)
+    b, co, k, m2 = 2, 3, 4, 5
+    film = torch.randn((b, co, k, m2), generator=g)
+    gr, gi, ur, ui = (torch.randn((k * m2, b, co), generator=g)
+                      for _ in range(4))
+    scale = torch.rand(k * m2, generator=g)
+    fr, fi, dfilm = sp.film_grad_plain(gr, gi, ur, ui, film, 0, scale)
+    for s_, o, kk, m in ((0, 0, 0, 0), (1, 2, 3, 4), (1, 0, 2, 1)):
+        mode = kk * m2 + m
+        f = 1 + film[s_, o, kk, m]
+        torch.testing.assert_close(fr[mode, s_, o], gr[mode, s_, o] * f)
+        torch.testing.assert_close(fi[mode, s_, o], gi[mode, s_, o] * f)
+        torch.testing.assert_close(
+            dfilm[s_, o, kk, m],
+            scale[mode] * (ur[mode, s_, o] * gr[mode, s_, o]
+                           + ui[mode, s_, o] * gi[mode, s_, o]))
 
 
 def test_adjoint_read_of_the_pack_is_the_conjugate_transpose():

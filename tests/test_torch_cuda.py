@@ -2,8 +2,9 @@
 main path does not reach (scalar and vector paths, bf16, several rounds of
 the persistent GroupNorm grid, a batch above the mix kernel's 8-sample
 register tile, channel counts that are not multiples of its tiles, every
-unrolled m2 bound, FiLM), and the engine on the card against the engine on
-the CPU.
+unrolled m2 bound, FiLM and its gradient, the U-Net's GroupNorm shapes),
+and the engine on the card against the engine on the CPU, for each
+twophase family.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine, which
 has no JAX, run it without the repo's conftest:
@@ -355,13 +356,200 @@ def test_kernel_outputs_carry_gradients_in_a_model():
 
 
 def test_film_with_gradients_raises_on_cuda():
-    """No silent route to the plain version: FiLM gradients are not ported."""
+    """The name is older than FiLM's gradient kernel; what it now holds:
+    FiLM with gradients on CUDA no longer raises: spectral_conv_nd takes
+    SpectralConv2dFn, whose three launches give the FiLM gradient, and
+    without gradients the forward kernel alone runs. No route to the plain
+    version."""
+    from nps_tpu_torch import kernels
     from nps_tpu_torch.ops import spectral as sp
 
     x = torch.randn((2, 4, 12, 10), device="cuda", requires_grad=True)
     ws = [torch.rand((2, 4, 3, 3, 4), device="cuda") for _ in range(2)]
-    film = torch.randn((2, 3, 6, 4), device="cuda")
-    with pytest.raises(NotImplementedError, match="FiLM"):
-        sp.spectral_conv_nd(x, ws, (3, 4), film=film)
+    film = torch.randn((2, 3, 6, 4), device="cuda", requires_grad=True)
+    kernels.reset_launches()
+    sp.spectral_conv_nd(x, ws, (3, 4), film=film).sum().backward()
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 1,
+                                      "spectral_dft2d_bwd": 1}
+    assert film.grad is not None and x.grad is not None
     with torch.no_grad():
         sp.spectral_conv_nd(x, ws, (3, 4), film=film)
+    assert kernels.launches["spectral_dft2d_fwd"] == 2
+
+
+# the FiLM gradient: the train shape, the Nyquist column kept, 2*m1 = n1
+# with m2 = n2//2 + 1 on an odd n2 (the per-mode scale is 1/(n1 n2) on
+# column 0, 2/(n1 n2) elsewhere), b above the 8-sample tile with b*co not
+# a multiple of the 32-pair tile
+FILM_CASES = [
+    (16, 196, 192, (96, 64), (10, 10)),
+    (3, 7, 6, (12, 10), (3, 6)),
+    (2, 5, 9, (10, 9), (5, 5)),
+    (10, 5, 130, (16, 12), (4, 4)),
+]
+
+
+@pytest.mark.parametrize("film_mode", [0, 1])
+@pytest.mark.parametrize("b,ci,co,grid,modes", FILM_CASES)
+def test_spectral_fn_film_gradient_matches_plain_autograd(film_mode, b, ci,
+                                                          co, grid, modes):
+    """SpectralConv2dFn with FiLM: y, dx, dW and dfilm against autograd
+    through the plain version (bar 1e-4)."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    m1, m2 = modes
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((b, ci) + grid, device="cuda", generator=g)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    film = torch.randn((b, co, 2 * m1, m2), device="cuda", generator=g)
+    dy = torch.randn((b, co) + grid, device="cuda", generator=g)
+    kernels.reset_launches()
+    got = _grads(lambda x, w1, w2, f: sp.SpectralConv2dFn.apply(
+        x, w1, w2, modes, f, film_mode), (x, *ws, film), dy)
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 1,
+                                      "spectral_dft2d_bwd": 1,
+                                      "spectral_dw2d": 1}
+    ref = _grads(lambda x, w1, w2, f: sp.spectral_conv_2d_plain(
+        x, [w1, w2], modes, f, film_mode), (x, *ws, film), dy)
+    for a, r, name in zip(got, ref, ("y", "dx", "dw1", "dw2", "dfilm")):
+        assert a.shape == r.shape, name
+        assert _rel(a, r) < 1e-4, name
+
+
+@pytest.mark.parametrize("film_mode", [0, 1])
+@pytest.mark.parametrize("b,ci,co,grid,modes", FILM_CASES)
+def test_spectral_bwd_kernel_with_film_matches_plain(film_mode, b, ci, co,
+                                                     grid, modes):
+    """The input-gradient launch with FiLM against its plain version on the
+    forward's pack and pre-FiLM spectrum: dx, G f and dfilm (bar 1e-5); a
+    second call gives the same bits."""
+    from nps_tpu_torch.ops import spectral as sp
+
+    m1, m2 = modes
+    n1, n2 = grid
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((b, ci) + grid, device="cuda", generator=g)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          for _ in range(2)]
+    film = torch.randn((b, co, 2 * m1, m2), device="cuda", generator=g)
+    dy = torch.randn((b, co) + grid, device="cuda", generator=g)
+    packed = sp.pack_weights_2d(ws)
+    _, _, _, ur, ui = sp.spectral_dft2d_fwd_spectrum(x, packed, modes, film,
+                                                     film_mode, keep_y=True)
+    u_ref = sp.spectral_dft2d_fwd_spectrum_plain(x, packed, modes, film,
+                                                 film_mode, keep_y=True)[3:]
+    assert _rel(ur, u_ref[0]) < 1e-5 and _rel(ui, u_ref[1]) < 1e-5
+    scale = sp.mode_scale(n1, n2, m1, m2, "cuda")
+    args = (dy, packed, modes, film, film_mode, (ur, ui), scale)
+    got = sp.spectral_dft2d_bwd(*args)
+    ref = sp.spectral_dft2d_bwd_plain(*args)
+    for a, r, name in zip(got, ref, ("dx", "gr", "gi", "dfilm")):
+        assert a.shape == r.shape, name
+        assert _rel(a, r) < 1e-5, name
+    again = sp.spectral_dft2d_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("film_mode", [0, 1])
+@pytest.mark.parametrize("b,ci,co,grid,modes", FILM_CASES[1:3])
+def test_spectral_fn_film_without_gradient_matches_plain(film_mode, b, ci,
+                                                         co, grid, modes):
+    """FiLM that needs no gradient: the forward keeps no pre-FiLM spectrum,
+    the input-gradient launch scales G and writes no dfilm, and y, dx and
+    dW match autograd through the plain version (bar 1e-4)."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    m1, m2 = modes
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((b, ci) + grid, device="cuda", generator=g)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    film = torch.randn((b, co, 2 * m1, m2), device="cuda", generator=g)
+    dy = torch.randn((b, co) + grid, device="cuda", generator=g)
+    kernels.reset_launches()
+    got = _grads(lambda x, w1, w2: sp.SpectralConv2dFn.apply(
+        x, w1, w2, modes, film, film_mode), (x, *ws), dy)
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 1,
+                                      "spectral_dft2d_bwd": 1,
+                                      "spectral_dw2d": 1}
+    ref = _grads(lambda x, w1, w2: sp.spectral_conv_2d_plain(
+        x, [w1, w2], modes, film, film_mode), (x, *ws), dy)
+    for a, r, name in zip(got, ref, ("y", "dx", "dw1", "dw2")):
+        assert _rel(a, r) < 1e-4, name
+    packed = sp.pack_weights_2d(ws)
+    args = (dy, packed, modes, film, film_mode)
+    dx, gr, gi, dfilm = sp.spectral_dft2d_bwd(*args)
+    ref = sp.spectral_dft2d_bwd_plain(*args)
+    assert dfilm is None and ref[3] is None
+    for a, r, name in zip((dx, gr, gi), ref, ("dx", "gr", "gi")):
+        assert _rel(a, r) < 1e-5, name
+
+
+# K2 at the U-Net's shapes (cfg_twophase_unet at batch 16): the largest
+# input, a wide one with odd h*w, the tiny 9x5 sample, the 47x31 level
+UNET_GN_SHAPES = [(16, 132, 130, 98), (16, 516, 11, 7), (16, 256, 9, 5),
+                  (16, 132, 47, 31), (16, 36, 96, 64)]
+
+
+@pytest.mark.parametrize("shape", UNET_GN_SHAPES)
+def test_gn_gelu_fn_at_unet_shapes(shape):
+    """GNGeluFn, output and gradients, against autograd through the plain
+    version (bar 1e-4)."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    c = shape[1]
+    x = torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(shape, device="cuda", generator=g)
+    got = _grads(lambda *t: gn.GNGeluFn.apply(*t, True, gn.EPS), (x, w, b),
+                 dy)
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, True), (x, w, b), dy)
+    for a, r, name in zip(got, ref, ("y", "dx", "dgamma", "dbeta")):
+        assert _rel(a, r) < 1e-4, name
+
+
+# the families at small widths (as tests/test_torch_families.py): the
+# kernels each family's serving step launches
+FAMILY_OVERRIDES = {
+    "drn": (["--model.hidden_features=16", "--model.hidden_blocks=1"], set()),
+    "unet": (["--model.hidden_features=8", "--model.ch_mults=[2,1]"],
+             {"gn1_gelu_fwd"}),
+    "ufno_fno": (["--model.hidden_features=16", "--model.fno_modes=4"],
+                 {"gn1_gelu_fwd", "spectral_dft2d_fwd"}),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_OVERRIDES))
+def test_family_engine_on_card_matches_cpu(family):
+    """One serving step of each family on the card against the same step
+    on the CPU, same weights (bar 1e-4), through the family's kernels."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.pde import PDE2D
+
+    cfg = f"nps_tpu_torch/configs/train/cfg_twophase_{family}.py"
+    over, want = FAMILY_OVERRIDES[family]
+    over = over + ["--time_window=5"]
+    pde = PDE2D(tmin=0, tmax=10, nt=51, L1=1.0, L2=0.7, nx1=24, nx2=16,
+                x=None, name="twophase", n_cond_static=2, n_cond_spatial=2)
+    gpu = SurrogateEngine.from_config(cfg, pde=pde, overrides=over)
+    cpu = SurrogateEngine.from_config(cfg, pde=pde, overrides=over,
+                                      device="cpu")
+    gpu.init_params(seed=0)
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in gpu.model.state_dict().items()})
+    rng = np.random.default_rng(1)
+    u0 = (0.1 + 0.8 * rng.random((2, 1, 5, 24, 16))).astype(np.float32)
+    cond = rng.random((2, 2)).astype(np.float32)
+    sc = (rng.random((2, 2, 24, 16)) > 0.8).astype(np.float32)
+    kernels.reset_launches()
+    out = gpu.step(u0, cond=cond, spatial_cond=sc)
+    assert set(kernels.launches) == want
+    ref = cpu.step(u0, cond=cond, spatial_cond=sc)
+    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-4

@@ -64,6 +64,10 @@ def _x(seed, shape):
     dict(kernel_size=3, padding="valid"),
     dict(kernel_size=3, padding="valid", strides=2),
     dict(kernel_size=1, padding="valid"),
+    # the Dilated ResNet's widest conv: a wrap of 16 cells per side, wider
+    # than both axes (it wraps around more than once), and a narrower one
+    dict(kernel_size=5, padding="same", padding_mode="circular", dilation=8),
+    dict(kernel_size=5, padding="same", padding_mode="circular", dilation=2),
 ])
 def test_convnd(kw):
     x = _x(0, (2, 11, 9, 5))
@@ -124,6 +128,24 @@ def test_unet_modern(mode):
               activation="gelu", norm=True, ch_mults=(1, 1),
               is_attn=(False, False), n_blocks=1, use1x1=True,
               padding_mode=mode)
+    ref = _transplant(junet.UNetModern(**kw), t := tunet.UNetModern(**kw), x,
+                      variables_broadcast=vb)
+    out = _cl(t(_nchw(x), variables_broadcast=_nchw(vb)))
+    assert out.shape == ref.shape and _rel(out, ref) < REL
+
+
+def test_unet_modern_config_levels():
+    """cfg_twophase_unet's geometry at a small width: ch_mults [2, 2, 1, 2]
+    with two blocks per level on the 96x64 grid (96x64 -> 47x31 -> 23x15
+    -> 11x7, valid convs down to 9x5, transposed convs growing the up path
+    past the skips): crop_nd's tie-breaks and the circular-pad-then-valid
+    convs at the small levels, which a smaller grid cannot reach."""
+    x = _x(10, (1, 96, 64, 8))
+    vb = _x(11, (1, 96, 64, 4))
+    kw = dict(num_spatial_dims=2, n_cond=4, hidden_features=8,
+              activation="gelu", norm=True, ch_mults=(2, 2, 1, 2),
+              is_attn=(False,) * 4, n_blocks=2, use1x1=True,
+              padding_mode="circular")
     ref = _transplant(junet.UNetModern(**kw), t := tunet.UNetModern(**kw), x,
                       variables_broadcast=vb)
     out = _cl(t(_nchw(x), variables_broadcast=_nchw(vb)))

@@ -154,3 +154,39 @@ def test_spectral_cuda_tensor_never_takes_plain_path(monkeypatch):
     w = [torch.zeros(2, 2, 2, 2, 2)] * 2
     port.spectral_conv_nd(x, w, (2, 2), w_packed=torch.zeros(1))
     assert calls == ["kernel"]
+
+
+@pytest.mark.parametrize("film_mode", [0, 1])
+@pytest.mark.parametrize("b,ci,co,grid,modes", [
+    (2, 5, 3, (12, 10), (3, 4)),
+    (1, 3, 4, (10, 9), (5, 5)),      # odd n2, 2*m1 = n1, m2 = n2//2 + 1
+])
+def test_spectral_fn_film_gradient_matches_jax_vjp(monkeypatch, film_mode,
+                                                   b, ci, co, grid, modes):
+    """SpectralConv2dFn with FiLM (the backward's FiLM stage, adjoint launch
+    and weight gradient through their plain versions in the launches'
+    place) against ``jax.vjp`` of the reference: dx, dW and dfilm < 5e-3."""
+    monkeypatch.setattr(port, "spectral_dft2d_fwd_spectrum",
+                        port.spectral_dft2d_fwd_spectrum_plain)
+    monkeypatch.setattr(port, "spectral_dft2d_bwd",
+                        port.spectral_dft2d_bwd_plain)
+    monkeypatch.setattr(port, "spectral_dw2d", port.spectral_weight_grad)
+    rng = np.random.default_rng(6)
+    x, ws, f = _inputs(rng, b, *grid, ci=ci, co=co, modes=modes, film=True)
+    dy = rng.standard_normal((b, *grid, co)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda x, w1, w2, f: jax_spectral(
+            x, [w1, w2], modes, film=f, film_mode=film_mode,
+            precision="highest"), x, *ws, f)
+        refs = [np.asarray(t) for t in vjp(dy)]
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    wt = [torch.from_numpy(w).requires_grad_() for w in ws]
+    ft = torch.from_numpy(f).requires_grad_()
+    out = port.SpectralConv2dFn.apply(xt, wt[0], wt[1], modes, ft, film_mode)
+    got = torch.autograd.grad(
+        out, [xt, *wt, ft],
+        torch.from_numpy(dy).permute(0, 3, 1, 2).contiguous())
+    got = [got[0].permute(0, 2, 3, 1).numpy()] + [g.numpy() for g in got[1:]]
+    for g, ref, name in zip(got, refs, ("dx", "dw1", "dw2", "dfilm")):
+        assert g.shape == ref.shape, name
+        assert _rel(g, ref) < 5e-3, name
