@@ -11,7 +11,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              inputs at the main path's shapes, TF32 off: error, kernel time,
              plain-version time, one PyTorch library call's time as a
              yardstick, and the least time the card could take (bound);
-             for gn1_gelu_fwd also a device copy of its input. All
+             for gn1_gelu_fwd also a device copy of its input; for both
+             forward kernels the host cost per call of the wrapper and of
+             its custom op (toy shapes, alternated twice). All
              times are device time: 20 calls captured in one CUDA graph,
              replayed and timed with CUDA events, so the wrapper's host cost
              is not in them;
@@ -21,9 +23,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the seed, serves three 19-bundled-step rollouts of batch 4
              (the rate is their median); checks shape, finiteness, each
              rollout's kernel launch counts, and one step
-             against the same step run by the port on the CPU; then records
-             the shapes gn1_gelu_fwd sees in one step and times those calls
-             (graph replay) beside their summed bound;
+             against the same step run by the port on the CPU (with a
+             module-by-module comparison of that step by forward hooks on
+             both devices, and the step again with cuDNN's algorithm
+             timing off and deterministic algorithms on); then serves the
+             same rollouts captured in one CUDA graph (the rate is the
+             median of three replays) against the eager output (1e-6),
+             with the launches counted at capture; then records the shapes
+             gn1_gelu_fwd sees in one step and times those calls (graph
+             replay) beside their summed bound;
 5. train   - the same model built by the training CLI's
              get_config_static and trained on the card: a synthetic
              split from the port's generator (20
@@ -39,15 +47,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (GNGeluFn, SpectralConv2dFn), output and gradients, at every
              input shape one train step at batch 16 gave them, against
              autograd through their plain versions;
-6. family  - the other three twophase families at full width, one line
+6. family  - the other four twophase families at full width, one line
              each: cfg_twophase_drn (Dilated ResNet, 2 blocks x 128
              features, kernel 5; no hand kernel), cfg_twophase_unet
              (U-Net, 32 features, ch_mults [2, 2, 1, 2]; 44 GN+GELU calls
-             per apply) and cfg_twophase_ufno_fno (an FNO and a U-FNO block
-             of 192 features, 10 modes; 16 GN+GELU and 2 spectral calls).
-             Each goes through the same serving and training code as the
-             two phases before (family_serve, family_train), with one
-             training epoch and the median of 3 timed steps per depth.
+             per apply), cfg_twophase_ufno_fno (an FNO and a U-FNO block
+             of 192 features, 10 modes; 16 GN+GELU and 2 spectral calls)
+             and cfg_twophase_gnn (MP-GNN, 6 blocks x 128 features over the
+             24-offset grid graph; no hand kernel). Each goes through the
+             same serving (eager and captured) and training code as the
+             U-FNO's phases (family_serve, family_train), with one
+             training epoch and the median of 3 timed steps per depth;
+7. export  - the slice's U-FNO exported on the card (torch.export of one
+             bundled step, symbolic batch, 19 steps; the kernels stay the
+             custom ops nps_torch::gn1_gelu_fwd and
+             nps_torch::spectral_dft2d_fwd), reloaded, serving batches of
+             4 and 2 against the engine (rtol 1e-5, atol 1e-6): rate,
+             launches, artifact size, export and load seconds;
+8. profile - last, as a profiler session slows the host's launch path
+             for the rest of the process: per family an eager rollout and
+             a replay of the captured one, and the artifact's rollouts,
+             each under torch.profiler: K1 and K2 counted by kernel name
+             (a CUDA graph's replay makes no Python launch, so the
+             wrappers' counters cannot see it) and the device-busy share.
 
 In the kernels phase the spectral conv runs at the serving batch (4) and
 the train batch (16), and the backward ops join the forward kernels at the
@@ -97,6 +119,8 @@ REL_TOL_BF16 = 1e-2   # bf16 output: one rounding of an 8-bit mantissa
 REL_TOL_STEP = 1e-4   # card vs CPU step, the ROADMAP forward bar
 REL_TOL_GRAD = 1e-4   # backward kernels vs plain autograd, f32: more terms
 REL_TOL_STEP_GRAD = 5e-3  # card vs CPU gradients, the ROADMAP gradient bar
+CAPTURED_TOL = 1e-6   # captured rollout vs eager: the same kernels
+EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6   # artifact vs engine (JAX's bar)
 # the train step's largest GroupNorm input at the config's batch 16
 GN_BWD_SHAPE = (16, 2 * HIDDEN + N_STATIC + N_SPATIAL, 100, 68)
 # GN+GELU backward flops per element: x-hat, the pre-activation, GELU' around
@@ -111,14 +135,16 @@ TRAIN_BATCH, TRAIN_SIMS, TRAIN_NT, TRAIN_EPOCHS = 16, 20, 501, 2
 # mix runs two 8-sample tiles there); the backward runs only in training
 SPEC_SHAPES = [(b, SPEC_CI, NX1, NX2) for b in (BATCH, TRAIN_BATCH)]
 TRAIN_DEPTHS = (0, 8)
-# the four twophase families at full width: per model apply, the GN+GELU
+# the five twophase families at full width: per model apply, the GN+GELU
 # calls (every U-Net ResidualBlock norm) and the spectral-conv calls (one
 # per FNO layer), then the training epochs and the timed steps per depth;
-# the Dilated ResNet runs neither kernel (its convs go to cuDNN). The
+# the Dilated ResNet and the MP-GNN run neither kernel (cuDNN convs; dense
+# layers and shifted-grid messages in plain PyTorch). The
 # U-FNO is the main path: its serving and training lines are the "slice"
 # and "train" phases, the others' the "family" phase
 FAMILIES = {"ufno": (48, 3, TRAIN_EPOCHS, 5), "drn": (0, 0, 1, 3),
-            "unet": (44, 0, 1, 3), "ufno_fno": (16, 2, 1, 3)}
+            "unet": (44, 0, 1, 3), "ufno_fno": (16, 2, 1, 3),
+            "gnn": (0, 0, 1, 3)}
 
 
 def emit(obj):
@@ -179,6 +205,55 @@ def event_ms(fn, calls=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def host_us(fn, calls=2000, warmup=50):
+    """Host microseconds per call of ``fn`` over ``calls`` calls ended by
+    one synchronise: at a toy size, where the device work is shorter than
+    the host's, this is the launch path's cost."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def dispatch_us(gen):
+    """What the no-grad path pays per kernel call for going through the
+    custom op: host us per call of each forward wrapper and of its op
+    (``torch.ops.nps_torch.*``), alternated twice, at toy shapes."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+    from nps_tpu_torch.ops import spectral as sp
+
+    x = torch.randn((2, 36, 8, 8), device="cuda", generator=gen)
+    w, b = torch.ones(36, device="cuda"), torch.zeros(36, device="cuda")
+    xs = torch.randn((2, 20, 24, 16), device="cuda", generator=gen)
+    wp = sp.pack_weights_2d([torch.rand((2, 20, 12, 4, 5), device="cuda",
+                                        generator=gen) for _ in range(2)])
+    calls = {
+        "gn1_gelu_fwd": (lambda: gn.gn1_gelu_fwd(x, w, b, True, gn.EPS),
+                         lambda: torch.ops.nps_torch.gn1_gelu_fwd(
+                             x, w, b, True, gn.EPS)),
+        "spectral_dft2d_fwd": (
+            lambda: sp.spectral_dft2d_fwd(xs, wp, (4, 5)),
+            lambda: torch.ops.nps_torch.spectral_dft2d_fwd(xs, wp, 4, 5,
+                                                           None, 1))}
+    out = {}
+    with torch.inference_mode():
+        for name, (wrapper, op) in calls.items():
+            runs = [(host_us(wrapper), host_us(op)) for _ in range(2)]
+            out[name] = {"wrapper_us": [r[0] for r in runs],
+                         "op_us": [r[1] for r in runs],
+                         "shape": list((x if name.startswith("gn")
+                                        else xs).shape)}
+    return out
 
 
 def timed(rec, fn, key):
@@ -287,6 +362,9 @@ def phase_kernels(gen):
     # ---- spectral_dft2d_fwd (K1) --------------------------------------------
     recs = [spectral_fwd_record(gen, shape) for shape in SPEC_SHAPES]
     results["spectral_dft2d_fwd"] = recs[0]   # the serving shape's
+    dispatch = dispatch_us(gen)
+    for name in ("gn1_gelu_fwd", "spectral_dft2d_fwd"):
+        results[name]["dispatch_host_us"] = dispatch[name]
     results["gn1_gelu_bwd"] = gn_bwd_record(gen)
     results["spectral_dft2d_bwd"], results["spectral_dw2d"] = (
         spectral_bwd_records(gen))
@@ -879,33 +957,193 @@ def family_launches(gn, spec, applies, backward):
     return want
 
 
+def twophase_pde():
+    from nps_tpu_torch.pde import PDE2D
+
+    return PDE2D(tmin=0.0, tmax=10.0, nt=501, L1=1.0, L2=NX2 / NX1, nx1=NX1,
+                 nx2=NX2, x=None, name="twophase", n_cond_static=N_STATIC,
+                 n_cond_spatial=N_SPATIAL)
+
+
+def serving_inputs(seed):
+    """The seed window, static and spatial conditioning of a serving batch
+    of BATCH, from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u0 = (0.1 + 0.8 * rng.random((BATCH, 1, TW, NX1, NX2))).astype(np.float32)
+    cond = rng.random((BATCH, N_STATIC)).astype(np.float32)
+    sc = (rng.random((BATCH, N_SPATIAL, NX1, NX2)) > 0.9).astype(np.float32)
+    return u0, cond, sc
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler: the device kernels of the
+    port's two forward ops counted by name (K2: gn1_gelu_kernel; K1: its
+    mix stage, one per call), the device-busy share of the window, and the
+    window's host ms. This counts what a CUDA graph's replay launches, which
+    the wrappers' Python counters do not see."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nps_tpu_torch.trace_step import _busy_share, _device_events
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a first few kernels and a pause before the window, so that the
+        # tracer is running when the first kernel of ``fn`` starts
+        for _ in range(20):
+            torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    events = _device_events(prof)
+    counts = {"gn1_gelu_fwd": sum("gn1_gelu_kernel" in e.name
+                                  for e in events),
+              "spectral_dft2d_fwd": sum("mix_kernel" in e.name
+                                        for e in events)}
+    return ({k: v for k, v in counts.items() if v},
+            _busy_share(events, window * 1e6), 1e3 * window)
+
+
+def _first_sample(t, b):
+    """The first sample of a module output whose leading dim is the batch
+    (grid tensors) or b node blocks (graph tensors), flattened on the
+    host."""
+    t = t.detach().float()
+    return t.reshape(b, -1)[0].cpu() if t.shape[0] % b == 0 else None
+
+
+def _hooked(model, nb, fn):
+    """Run ``fn`` with a forward hook on every leaf module of ``model``:
+    (result, [(module name, first sample of its input, of its output)] in
+    execution order)."""
+    import torch
+
+    calls, handles = [], []
+    for name, m in model.named_modules():
+        if next(m.children(), None) is not None:
+            continue
+
+        def hook(mod, args, out, name=name):
+            if torch.is_tensor(out) and args and torch.is_tensor(args[0]):
+                calls.append((name, _first_sample(args[0], nb),
+                              _first_sample(out, nb)))
+        handles.append(m.register_forward_hook(hook))
+    try:
+        return fn(), calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _rel(g, c):
+    if g is None or c is None or g.shape != c.shape:
+        return None
+    return float((g - c).abs().max() / c.abs().max().clamp_min(1e-30))
+
+
+def diagnose_step(eng, cpu, u0, cond, sc):
+    """Where a serving step's card-against-CPU error arises. The step runs
+    on the card twice with cuDNN timing any algorithm (the engine's choice
+    before it took deterministic ones only), with forward hooks on every
+    leaf module, and once on the CPU (its first sample): the modules whose
+    output differs between the two
+    card runs while their input does not (a nondeterministic algorithm),
+    and the module whose card-vs-CPU error jumps most above its input's
+    (floored at f32's epsilon). Then the step's error against the CPU with
+    the engine's choice (timing among deterministic algorithms) and with
+    cuDNN's heuristics and deterministic algorithms."""
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch.inference import autotuned_convs
+    from nps_tpu_torch.models.fno import packed_spectral_weights
+
+    b = u0.shape[0]
+
+    def card_step(timed=True):
+        prev = (torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.deterministic)
+        try:
+            if not timed:
+                torch.backends.cudnn.benchmark = False
+                torch.backends.cudnn.deterministic = True
+            with torch.inference_mode(), (autotuned_convs() if timed else
+                                          contextlib.nullcontext()), \
+                    packed_spectral_weights(eng.model):
+                return eng._apply(eng._tensor(u0), eng._tensor(cond),
+                                  eng._pos(b), eng._tensor(sc)).cpu().numpy()
+        finally:
+            (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic) = prev
+
+    run_a, calls_a = _hooked(eng.model, b, card_step)
+    run_b, calls_b = _hooked(eng.model, b, card_step)
+    step_cpu, calls_c = _hooked(cpu.model, 1, lambda: cpu.step(
+        u0[:1], cond=cond[:1], spatial_cond=sc[:1]))
+
+    def vs_cpu(out):
+        return float(np.abs(out[:1] - step_cpu).max()
+                     / np.abs(step_cpu).max())
+
+    nondet, jumps = [], []
+    for (name, a_in, a_out), (_, b_in, b_out), (_, c_in, c_out) in zip(
+            calls_a, calls_b, calls_c):
+        if _rel(a_in, b_in) == 0.0 and (_rel(a_out, b_out) or 0.0) > 0.0:
+            nondet.append({"module": name, "repeat_rel_diff":
+                           _rel(a_out, b_out)})
+        err, err_in = _rel(a_out, c_out), _rel(a_in, c_in)
+        if err is not None and err_in is not None:
+            jumps.append({"module": name, "rel_err": err,
+                          "input_rel_err": err_in,
+                          "jump": err / max(err_in, 1.2e-7)})
+    return {
+        "any_algorithm": {
+            "step_rel_err_vs_cpu": vs_cpu(run_a),
+            "repeat_step_rel_diff": float(np.abs(run_a - run_b).max()
+                                          / np.abs(run_b).max()),
+            "nondeterministic_modules": nondet,
+            "modules_compared": len(jumps),
+            "largest_jump": max(jumps, key=lambda r: r["jump"], default=None)},
+        "deterministic_timed_step_rel_err_vs_cpu": vs_cpu(
+            eng.step(u0, cond=cond, spatial_cond=sc)),
+        "deterministic_heuristic_step_rel_err_vs_cpu": vs_cpu(
+            card_step(timed=False))}
+
+
 def family_serve(name, seed):
     """Serve ROLLOUTS 19-bundled-step rollouts of batch 4 (after a warm-up
     step; the rate is their median) with the family's full-width model
     built by SurrogateEngine.from_config, random weights from the seed,
     each with the launch counts set to 0 just before it and read just
-    after; one step against the same step by the port on the CPU; where
-    the family runs GN+GELU, the shapes gn1_gelu_fwd sees in one step and
-    those calls timed (gn_step_time). Returns (record, the first rollout's
-    launches, failures)."""
+    after; then the same rollouts captured in one CUDA graph (the first
+    call captures; the rate is the median of ROLLOUTS replays), held
+    against the eager output (CAPTURED_TOL), with the launches the wrappers
+    counted at capture (the warm-up step's and the graph's); one step
+    against the same step by the port on the CPU, with diagnose_step's
+    module-by-module comparison; where the family runs GN+GELU, the shapes
+    gn1_gelu_fwd sees in one step and those calls timed (gn_step_time).
+    Returns (record, the first rollout's launches, failures)."""
+    import warnings
+
     import numpy as np
     import torch
 
     from nps_tpu_torch import kernels
     from nps_tpu_torch.inference import SurrogateEngine
-    from nps_tpu_torch.pde import PDE2D
 
+    warnings.filterwarnings("ignore", message="spatial conditioning")
     gn_calls, spec_calls = FAMILIES[name][:2]
-    pde = PDE2D(tmin=0.0, tmax=10.0, nt=501, L1=1.0, L2=NX2 / NX1, nx1=NX1,
-                nx2=NX2, x=None, name="twophase", n_cond_static=N_STATIC,
-                n_cond_spatial=N_SPATIAL)
+    pde = twophase_pde()
     eng = SurrogateEngine.from_config(family_cfg(name), pde=pde,
                                       device="cuda")
     eng.init_params(seed=seed)
-    rng = np.random.default_rng(seed)
-    u0 = (0.1 + 0.8 * rng.random((BATCH, 1, TW, NX1, NX2))).astype(np.float32)
-    cond = rng.random((BATCH, N_STATIC)).astype(np.float32)
-    sc = (rng.random((BATCH, N_SPATIAL, NX1, NX2)) > 0.9).astype(np.float32)
+    u0, cond, sc = serving_inputs(seed)
     step_gpu = eng.step(u0, cond=cond, spatial_cond=sc)   # also warms up
     torch.cuda.reset_peak_memory_stats()
     # the host clock's spread between runs is a few percent
@@ -920,6 +1158,29 @@ def family_serve(name, seed):
         launches.append(dict(kernels.launches))
     median = sorted(seconds)[len(seconds) // 2]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def captured():
+        return eng.rollout(u0, N_STEPS, cond=cond, spatial_cond=sc,
+                           captured=True)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out_c = captured()          # eager warm-up step, capture, first replay
+    capture_s = time.perf_counter() - t0
+    capture_launches = dict(kernels.launches)
+    # the wrappers count at capture: the warm-up step's and the graph's
+    want_capture = family_launches(gn_calls, spec_calls, N_STEPS + 1, False)
+    c_seconds = []
+    for _ in range(ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_c = captured()
+        torch.cuda.synchronize()
+        c_seconds.append(time.perf_counter() - t0)
+    c_median = sorted(c_seconds)[len(c_seconds) // 2]
+    captured_err = float(np.abs(out_c - out).max() / np.abs(out).max())
+    eng.clear_captured()
+
     cpu = SurrogateEngine.from_config(family_cfg(name), pde=pde, device="cpu")
     cpu.model.load_state_dict({k: v.cpu()
                                for k, v in eng.model.state_dict().items()})
@@ -932,10 +1193,18 @@ def family_serve(name, seed):
            "out_shape": list(out.shape),
            "finite": bool(np.isfinite(out).all()),
            "launches": launches[0], "launches_expected": want,
-           "step_rel_err_vs_cpu": step_err, "rollout_seconds": seconds,
+           "step_rel_err_vs_cpu": step_err,
+           "step_diagnosis": diagnose_step(eng, cpu, u0, cond, sc),
+           "rollout_seconds": seconds,
            "bundled_steps_per_s": N_STEPS / median,
            "samples_steps_per_s": BATCH * N_STEPS / median,
-           "peak_mem_gib": peak}
+           "peak_mem_gib": peak,
+           "captured": {"bundled_steps_per_s": N_STEPS / c_median,
+                        "rollout_seconds": c_seconds,
+                        "capture_seconds": capture_s,
+                        "rel_err_vs_eager": captured_err,
+                        "launches_at_capture": capture_launches,
+                        "launches_at_capture_expected": want_capture}}
     if gn_calls:
         rec["gn1_gelu_step"] = gn_step_time(eng, u0, cond, sc)
     failures = []
@@ -947,6 +1216,11 @@ def family_serve(name, seed):
         failures.append(f"serving launches {launches} != {want}")
     if not step_err < REL_TOL_STEP:
         failures.append(f"card vs CPU step differs: {step_err}")
+    if not captured_err <= CAPTURED_TOL:
+        failures.append(f"captured rollout vs eager: {captured_err}")
+    if capture_launches != want_capture:
+        failures.append(f"launches at capture {capture_launches} != "
+                        f"{want_capture}")
     return rec, launches[0], failures
 
 
@@ -1045,13 +1319,170 @@ def family_train(name, seed, out_dir, tmp):
 
 def phase_slice(seed, card):
     """Serve the main path, the U-FNO (family_serve). Returns the first
-    rollout's launches."""
+    eager rollout's launches."""
+    import gc
+
     rec, launches, failures = family_serve("ufno", seed)
+    gc.collect()   # the engines and their captured graph, before training
     emit({"phase": "slice", "config": family_cfg("ufno"), **rec,
           "card": card, "tf32": False})
     if failures:
         raise AssertionError("; ".join(failures))
     return launches
+
+
+def phase_export(seed, card, tmp):
+    """Export the full-width U-FNO (the slice's weights) with a symbolic
+    batch and N_STEPS steps on the card, reload the artifact and serve
+    batches of BATCH and 2: each against the engine's eager rollout
+    (EXPORT_RTOL, EXPORT_ATOL), ROLLOUTS timed rollouts (the rate is their
+    median) and the wrappers' launch counts of each. Returns the launches
+    of the first timed rollout at BATCH, and the artifact's path (kept for
+    phase_profile)."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine, load_exported
+
+    eng = SurrogateEngine.from_config(family_cfg("ufno"), pde=twophase_pde(),
+                                      device="cuda")
+    eng.init_params(seed=seed)
+    u0, cond, sc = serving_inputs(seed)
+    path = f"{tmp}/ufno.npst"
+    t0 = time.perf_counter()
+    eng.export_rollout(path, N_STEPS, u0, cond=cond, spatial_cond=sc)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load_exported(path)
+    load_s = time.perf_counter() - t0
+    want = family_launches(*FAMILIES["ufno"][:2], N_STEPS, False)
+    rec = {"phase": "export", "config": family_cfg("ufno"),
+           "n_steps": N_STEPS, "u0_shape": art.meta["u0_shape"],
+           "artifact_bytes": os.path.getsize(path),
+           "export_seconds": export_s, "load_seconds": load_s,
+           "launches_expected": want, "batches": {}}
+    failures, first = [], None
+    for b in (BATCH, 2):
+        args = dict(cond=cond[:b], spatial_cond=sc[:b])
+        ref = eng.rollout(u0[:b], N_STEPS, **args)
+        art.rollout(u0[:b], **args)          # warm-up: cuDNN's timing
+        seconds, launches = [], []
+        for _ in range(ROLLOUTS):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = art.rollout(u0[:b], **args)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            launches.append(dict(kernels.launches))
+        first = first or launches[0]
+        median = sorted(seconds)[len(seconds) // 2]
+        close = bool(np.allclose(out, ref, rtol=EXPORT_RTOL,
+                                 atol=EXPORT_ATOL))
+        rec["batches"][str(b)] = {
+            "out_shape": list(out.shape), "allclose_to_engine": close,
+            "max_abs_err": float(np.abs(out - ref).max()),
+            "rollout_seconds": seconds,
+            "bundled_steps_per_s": N_STEPS / median,
+            "launches": launches[0]}
+        if not close or out.shape != ref.shape:
+            failures.append(f"artifact vs engine at batch {b}: "
+                            f"{rec['batches'][str(b)]['max_abs_err']}")
+        if any(n != want for n in launches):
+            failures.append(f"artifact launches at batch {b}: {launches}, "
+                            f"want {want}")
+    emit({**rec, "card": card, "tf32": False})
+    del eng, art
+    gc.collect()   # the loaded program holds reference cycles
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return first, path
+
+
+def profiled_counts(fn, want, tries=3):
+    """``profiled(fn)`` until its kernel counts equal ``want``, at most
+    ``tries`` times: the tracer now and then drops a kernel's record (one
+    or two of a rollout's 912 K2 launches in some windows), while a kernel
+    that does not run is missing every time. Returns (counts, busy share,
+    ms, every attempt's counts)."""
+    attempts = []
+    for _ in range(tries):
+        counts, busy, ms = profiled(fn)
+        attempts.append(counts)
+        if counts == want:
+            break
+    return counts, busy, ms, attempts
+
+
+def phase_profile(seed, card, artifact):
+    """Last, since a profiler session leaves the host slower for the rest
+    of the process: for every family (its engine built again from the
+    seed), the median of ROLLOUTS eager rollouts' rates before its own
+    profiled windows (the first family's before any; set beside the family
+    line's to show the slowdown), then an eager rollout and a replay of the
+    captured one, and at the end the artifact's rollouts at BATCH and 2
+    (the file at ``artifact`` loaded again), each under torch.profiler (``profiled_counts``): the K1 and K2 kernels
+    counted by name against the launches expected, and the device-busy
+    share. Returns each family's replay counts, by family name."""
+    import torch
+
+    from nps_tpu_torch.inference import SurrogateEngine, load_exported
+
+    u0, cond, sc = serving_inputs(seed)
+    args = dict(cond=cond, spatial_cond=sc)
+    rec, replays, failures = {"phase": "profile", "families": {}}, {}, []
+    for name in FAMILIES:
+        eng = SurrogateEngine.from_config(family_cfg(name),
+                                          pde=twophase_pde(), device="cuda")
+        eng.init_params(seed=seed)
+        want = family_launches(*FAMILIES[name][:2], N_STEPS, False)
+        eng.rollout(u0, N_STEPS, **args)                 # warm-up
+        eng.rollout(u0, N_STEPS, captured=True, **args)  # capture
+        seconds = []
+        for _ in range(ROLLOUTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.rollout(u0, N_STEPS, **args)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        fam = {"eager_bundled_steps_per_s":
+               N_STEPS / sorted(seconds)[len(seconds) // 2],
+               "after_profiler_sessions": list(rec["families"])}
+        for mode, fn in (
+                ("eager", lambda: eng.rollout(u0, N_STEPS, **args)),
+                ("captured", lambda: eng.rollout(u0, N_STEPS, captured=True,
+                                                 **args))):
+            counts, busy, ms, tries = profiled_counts(fn, want)
+            fam[mode] = {"kernels": counts, "busy_share": busy, "ms": ms,
+                         "attempts": tries}
+            if counts != want:
+                failures.append(f"{name} {mode}: profiled {counts}, want "
+                                f"{want}")
+        rec["families"][name] = fam
+        replays[name] = fam["captured"]["kernels"]
+        del eng
+        torch.cuda.empty_cache()
+    want = family_launches(*FAMILIES["ufno"][:2], N_STEPS, False)
+    rec["export"] = {}
+    art = load_exported(artifact)
+    art.rollout(u0, **args)   # warm-up: cuDNN's timing
+    for b in (BATCH, 2):
+        counts, busy, ms, tries = profiled_counts(lambda: art.rollout(
+            u0[:b], cond=cond[:b], spatial_cond=sc[:b]), want)
+        rec["export"][str(b)] = {"kernels": counts, "busy_share": busy,
+                                 "ms": ms, "attempts": tries}
+        if counts != want:
+            failures.append(f"artifact at batch {b}: profiled {counts}, "
+                            f"want {want}")
+    emit({**rec, "card": card})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return replays
 
 
 def phase_train(seed, card, out_dir, tmp, gen_s):
@@ -1069,10 +1500,12 @@ def phase_train(seed, card, out_dir, tmp, gen_s):
 
 
 def phase_families(seed, card, out_dir, tmp):
-    """The other three twophase families (Dilated ResNet, U-Net, FNO ->
-    U-FNO) at full width, each served and trained on the card (one record
-    each). Returns each path's launches, by "<family>_serve" and
-    "<family>_train"."""
+    """The other four twophase families (Dilated ResNet, U-Net, FNO ->
+    U-FNO, MP-GNN) at full width, each served (eager and captured) and
+    trained on the card (one record each). Returns each path's launches, by
+    "<family>_serve" and "<family>_train"."""
+    import gc
+
     import torch
 
     paths, failures = {}, []
@@ -1085,6 +1518,7 @@ def phase_families(seed, card, out_dir, tmp):
         emit({"phase": "family", "family": name, "config": family_cfg(name),
               "serve": serve, "train": train, "card": card, "tf32": False})
         failures += [f"{name}: {f}" for f in bad_serve + bad_train]
+        gc.collect()
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
@@ -1119,6 +1553,10 @@ def main():
         gen_s = make_split(tmp, args.seed)
         train = phase_train(args.seed, card, out_dir, tmp, gen_s)
         families = phase_families(args.seed, card, out_dir, tmp)
+        # after training: torch.export keeps the constants it traced (the
+        # spectral packs) alive for the rest of the process
+        export, artifact = phase_export(args.seed, card, tmp)
+        replays = phase_profile(args.seed, card, artifact)
 
     # name -> (source, TPU kernel replaced, the path whose run gives
     # "launches"); the forward kernels keep the serving path's count
@@ -1148,8 +1586,15 @@ def main():
                      "replaces": replaces, "launches": path.get(name, 0),
                      "launches_by_path": {
                          "serve": serve.get(name, 0),
+                         "captured": replays["ufno"].get(name, 0),
+                         "export": export.get(name, 0),
                          "train": train.get(name, 0),
-                         **{p: n.get(name, 0) for p, n in families.items()}},
+                         **{p: n.get(name, 0) for p, n in families.items()},
+                         **{f"{f}_captured": n.get(name, 0)
+                            for f, n in replays.items() if f != "ufno"},
+                         "gnn": sum(n.get(name, 0) for p, n in
+                                    families.items()
+                                    if p.startswith("gnn_"))},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -1159,7 +1604,8 @@ def main():
                                + ("; plain and library: eager calls between "
                                   "CUDA events" if name.endswith("_bwd")
                                   else "")})
-        for key in ("timing_refused", "same_bits", "film", "unet_shapes"):
+        for key in ("timing_refused", "same_bits", "film", "unet_shapes",
+                    "dispatch_host_us"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

@@ -1,36 +1,68 @@
 """Serving API (counterpart of ``nps_tpu/inference.py``): build a surrogate
-from a training config, load weights, run autoregressive rollouts.
+from a training config, load weights, run autoregressive rollouts, and
+export a rollout as a self-contained artifact.
 
-    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.inference import SurrogateEngine, load_exported
     eng = SurrogateEngine.from_config(
         "nps_tpu_torch/configs/train/cfg_twophase_ufno.py", pde=my_pde)
     eng.init_params(seed=0)                 # or eng.load("weights.pt")
     frames = eng.rollout(u0, n_steps=19, cond=cond, spatial_cond=sc)
+    frames = eng.rollout(u0, 19, cond=cond, spatial_cond=sc, captured=True)
+    eng.export_rollout("surrogate.npst", 19, u0, cond=cond, spatial_cond=sc)
+    frames = load_exported("surrogate.npst").rollout(u0, cond, sc)
 
 The engine runs on ``device`` ("cuda" unless the caller asks for "cpu"); on
-the GPU the model goes through the hand-written kernels. The rollout is a
-Python loop of model applications under ``torch.inference_mode()``, with
-cuDNN choosing each convolution's algorithm by timing (see
-:func:`autotuned_convs`) and the spectral weights packed once per call of
-``step`` or ``rollout``. Inputs
-and outputs are numpy arrays in the JAX package's layout: ``u`` is
+the GPU the model goes through the hand-written kernels. Three ways to
+serve a rollout:
+
+- eager (the default): a Python loop of model applications under
+  ``torch.inference_mode()``, with cuDNN choosing each convolution's
+  algorithm by timing among its deterministic ones (see
+  :func:`autotuned_convs`), so a rollout gives the same bits every call,
+  and the spectral weights packed once per call of ``step`` or ``rollout``;
+- captured (``captured=True``, CUDA only): the whole ``n_steps`` rollout
+  captured once in one CUDA graph per (n_steps, shapes), after an eager
+  warm-up step that lets cuDNN time its algorithms; later calls copy their
+  inputs into the graph's and replay it. The graph keeps the spectral packs
+  it was captured with, so ``load``, ``load_jax_params`` and
+  ``init_params`` drop the captured graphs; weights changed in place by
+  other means need :meth:`SurrogateEngine.clear_captured`. The counterpart
+  of the JAX package's one jitted ``lax.scan`` per shape;
+- exported (:meth:`SurrogateEngine.export_rollout`, :func:`load_exported`):
+  ``torch.export`` of one bundled step, the weights, the spectral packs and
+  the position grid baked in, the kernels kept as the custom ops
+  ``nps_torch::gn1_gelu_fwd`` and ``nps_torch::spectral_dft2d_fwd``. It
+  serves without the config system, the model code or the checkpoint.
+
+Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, c, tw, *sp]``, ``cond`` ``[b, n_static]``, ``spatial_cond``
-``[b, n_spatial, *sp]``. Sharding, export and the GNN path are not ported
-yet.
+``[b, n_spatial, *sp]``. GNN configs (``data_structure="graph"``) convert
+grid windows to node space at the model boundary over a static graph built
+once per batch size; they serve eagerly and captured, and refuse export.
+Sharding is not ported yet (ROADMAP P9).
 """
 
+import io
+import json
 import sys
 from contextlib import contextmanager
 
 import numpy as np
 import torch
+from torch import nn
 
 import nps_tpu_torch.models as models
+from nps_tpu_torch.common import graph as G
+from nps_tpu_torch.common.interfaces import M
 from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.configs.parse import parse_args
-from nps_tpu_torch.models.fno import packed_spectral_weights
+from nps_tpu_torch.models.fno import SpectralConvND, packed_spectral_weights
 from nps_tpu_torch.models.initializers import reset_parameters
 from nps_tpu_torch.pde import PDE2D
+
+# the port's artifact magic (the JAX package's NPSX0001 names a jax.export
+# artifact)
+ARTIFACT_MAGIC = b"NPSTX001"
 
 
 def resolve_device(device):
@@ -44,28 +76,50 @@ def resolve_device(device):
 
 
 @contextmanager
-def autotuned_convs():
+def autotuned_convs(deterministic=False):
     """Let cuDNN time its candidate algorithms once per conv shape
-    (``cudnn.benchmark``) and restore the caller's setting after. A rollout
+    (``cudnn.benchmark``) and restore the caller's settings after. A rollout
     repeats the same shapes, so the timing is paid once, in the first step.
     Left to its heuristics, cuDNN picks an FFT algorithm for the U-Net's f32
     convs with TF32 off, which on an H100 made a bundled step of the
     full-width U-FNO about 65x slower (``python -m nps_tpu_torch.trace_step``,
-    PERF.md)."""
-    prev = torch.backends.cudnn.benchmark
+    PERF.md).
+
+    With ``deterministic`` the timing considers only cuDNN's deterministic
+    algorithms (``cudnn.deterministic``), as the serving engine asks: the
+    fastest candidates for the U-Net up path's transposed convs sum in no
+    fixed order, so two eager rollouts differed, a captured one could not
+    be held to the eager one, and a serving step against the CPU read up
+    to 4.9e-5 in some processes (PERF.md)."""
+    prev = (torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.deterministic)
     torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = deterministic or prev[1]
     try:
         yield
     finally:
-        torch.backends.cudnn.benchmark = prev
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = prev
+
+
+def _frames(frames, u0, include_init):
+    """Concatenate bundled-step outputs [b, c, tw, *sp] along time (with
+    the seed window first when ``include_init``): numpy."""
+    if include_init:
+        frames = [u0, *frames]
+    return torch.cat(frames, dim=2).cpu().numpy()
 
 
 class SurrogateEngine:
-    def __init__(self, model, pde, time_window, device="cuda"):
+    def __init__(self, model, pde, time_window, device="cuda", neighbors=3):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.pde = pde
         self.tw = time_window
+        self.neighbors = neighbors  # GNN edge rule (trainer.neighbors)
+        self._graph_cache = {}
+        self._captured = {}
+        self._pos_grid = None
 
     @classmethod
     def from_config(cls, config_file, checkpoint=None, overrides=(),
@@ -95,7 +149,8 @@ class SurrogateEngine:
         model_args = dict(args["model"])
         obj = model_args.pop("object", "activation_wrapper")
         model = getattr(models, obj)(**model_args, pde=pde)
-        eng = cls(model, pde, args["trainer"]["time_window"], device=device)
+        eng = cls(model, pde, args["trainer"]["time_window"], device=device,
+                  neighbors=args["trainer"].get("neighbors", 3))
         if checkpoint is not None:
             eng.load(checkpoint)
         return eng
@@ -105,20 +160,39 @@ class SurrogateEngine:
         """Draw fresh torch-default weights from ``torch.Generator(seed)``
         (on the host, so a seed gives the same weights on any device)."""
         reset_parameters(self.model, torch.Generator().manual_seed(seed))
+        self.clear_captured()
         return self.model.state_dict()
 
     def load(self, path):
         """Load a port or PyTorch-reference ``state_dict`` file (``.pt``)."""
         state = torch.load(path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(state)
+        self.clear_captured()
         return self
 
     def load_jax_params(self, tree):
         """Load an ``nps_tpu`` parameter tree (nested dicts of arrays)."""
         self.model.load_state_dict(from_jax_params(tree))
+        self.clear_captured()
         return self
 
+    def clear_captured(self):
+        """Drop the captured rollouts (they hold the weights' packs)."""
+        self._captured.clear()
+
     # ------------------------------------------------------------------
+    def _is_gnn(self):
+        return self.model.model_interface == M.AR_TB_GNN
+
+    def _ensure_graph(self, batch_size):
+        """The static graph structure for GNN models on the device: (edges,
+        node pos, batch ids, grid_meta), built once per batch size."""
+        key = int(batch_size)
+        if key not in self._graph_cache:
+            self._graph_cache[key] = G.structure_on(
+                self.device, self.pde, self.pde.x, self.neighbors, key)
+        return self._graph_cache[key]
+
     def _tensor(self, a):
         if a is None:
             return None
@@ -126,16 +200,26 @@ class SurrogateEngine:
         return None if t.numel() == 0 else t
 
     def _pos(self, batch):
-        x = torch.as_tensor(np.asarray(self.pde.x, np.float32),
-                            device=self.device)
+        """The position grid [batch, *sp, nd] on the device (an expanded
+        view of one copy, made once)."""
+        if self._pos_grid is None:
+            with torch.inference_mode(False):
+                self._pos_grid = torch.as_tensor(
+                    np.asarray(self.pde.x, np.float32), device=self.device)
+        x = self._pos_grid
         return x[None].expand((batch,) + tuple(x.shape))
 
     def _apply(self, u, cond, pos, spatial_cond):
+        """Model apply, with grid <-> node conversion for GNN models."""
+        if self._is_gnn():
+            return G.apply_on_grid(self.model, u,
+                                   self._ensure_graph(u.shape[0]), cond=cond,
+                                   pos=pos, spatial_cond=spatial_cond)
         return self.model(u, cond=cond, pos=pos, spatial_cond=spatial_cond)
 
     def step(self, u, cond=None, spatial_cond=None):
         """One bundled step: [b, c, tw, *sp] -> the next tw frames."""
-        with torch.inference_mode(), autotuned_convs(), \
+        with torch.inference_mode(), autotuned_convs(deterministic=True), \
                 packed_spectral_weights(self.model):
             u = self._tensor(u)
             out = self._apply(u, self._tensor(cond), self._pos(u.shape[0]),
@@ -143,18 +227,223 @@ class SurrogateEngine:
             return out.cpu().numpy()
 
     def rollout(self, u0, n_steps, cond=None, spatial_cond=None,
-                include_init=False):
+                include_init=False, captured=False):
         """Autoregressive rollout from a [b, c, tw, *sp] seed window.
 
-        Returns [b, c, n_steps*tw(+tw), *sp] predicted frames (numpy).
+        Returns [b, c, n_steps*tw(+tw), *sp] predicted frames (numpy). With
+        ``captured=True`` (CUDA only) the rollout replays one CUDA graph
+        per (n_steps, input shapes), captured at its first call.
         """
-        with torch.inference_mode(), autotuned_convs(), \
+        if captured:
+            return self._captured_rollout(u0, n_steps, cond, spatial_cond,
+                                          include_init)
+        with torch.inference_mode(), autotuned_convs(deterministic=True), \
                 packed_spectral_weights(self.model):
             pred = self._tensor(u0)
             cond, spatial_cond = self._tensor(cond), self._tensor(spatial_cond)
             pos = self._pos(pred.shape[0])
-            frames = [pred] if include_init else []
+            u0, frames = pred, []
             for _ in range(n_steps):
                 pred = self._apply(pred, cond, pos, spatial_cond)
                 frames.append(pred)
-            return torch.cat(frames, dim=2).cpu().numpy()
+            return _frames(frames, u0, include_init)
+
+    # ------------------------------------------------------------------
+    def _captured_rollout(self, u0, n_steps, cond, spatial_cond,
+                          include_init):
+        if self.device.type != "cuda":
+            raise RuntimeError("captured=True replays a CUDA graph: it needs "
+                               "an engine on a CUDA device")
+        inputs = [self._tensor(a) for a in (u0, cond, spatial_cond)]
+        key = (int(n_steps),) + tuple(
+            None if t is None else tuple(t.shape) for t in inputs)
+        if key not in self._captured:
+            self._captured[key] = self._capture(int(n_steps), inputs)
+        static, out, graph, _ = self._captured[key]
+        for dst, src in zip(static, inputs):
+            if dst is not None:
+                dst.copy_(src)
+        graph.replay()
+        return _frames([out], inputs[0], include_init)
+
+    def _capture(self, n_steps, inputs):
+        """Capture an ``n_steps`` rollout from static copies of ``inputs``
+        (u0, cond, spatial_cond) in one CUDA graph. One eager step first,
+        on a side stream: cuDNN times its algorithms there (timing inside a
+        capture fails), and the graph structure, the position grid, the DFT
+        tables and the GNN's shifted-path constants reach the device, so the
+        capture copies nothing from the host. Returns (static inputs,
+        static output, graph, what the graph reads that must stay alive)."""
+        static = [None if t is None else t.clone() for t in inputs]
+        u, cond, sc = static
+        with torch.inference_mode(), autotuned_convs(deterministic=True), \
+                packed_spectral_weights(self.model):
+            packs = [m.w_packed for m in self.model.modules()
+                     if isinstance(m, SpectralConvND)]
+            pos = self._pos(u.shape[0])
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._apply(u, cond, pos, sc)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                pred, frames = u, []
+                for _ in range(n_steps):
+                    pred = self._apply(pred, cond, pos, sc)
+                    frames.append(pred)
+                out = torch.cat(frames, dim=2)
+        return static, out, graph, (packs, pos)
+
+    # ------------------------------------------------------------------
+    def export_rollout(self, path, n_steps, example_u0, cond=None,
+                       spatial_cond=None, batch_poly=True):
+        """Export one bundled step with ``torch.export`` and save it, behind
+        the port's magic and a JSON header, as an artifact that rolls out
+        ``n_steps`` steps: the weights, each spectral layer's weight pack
+        and the position grid are constants of the artifact, and the
+        kernels stay custom-op nodes. With ``batch_poly`` the batch is a
+        symbolic dimension (an example batch of 1 is traced as 2). Reload
+        with :func:`load_exported` on the export's device type. Returns
+        ``path``. (``torch.export`` keeps the tensor constants it traced,
+        here the spectral packs, alive after the program is freed.)"""
+        if self._is_gnn():
+            raise NotImplementedError(
+                "export_rollout supports grid models; the GNN rollout "
+                "closes over a batch-size-specialized static graph")
+        args = [self._tensor(a) for a in (example_u0, cond, spatial_cond)]
+        has_cond, has_sc = args[1] is not None, args[2] is not None
+        args = [a for a in args if a is not None]
+        if batch_poly and args[0].shape[0] < 2:
+            # a traced batch of 1 would be specialised to 1
+            args = [torch.cat([a, a]) for a in args]
+        step = _ExportStep(self.model, self._pos(1)[0], has_cond, has_sc)
+        dynamic = None
+        if batch_poly:
+            b = torch.export.Dim("b")
+            # (u, rest): the step's signature is (u, *rest)
+            dynamic = ({0: b}, tuple({0: b} for _ in args[1:]))
+        with torch.no_grad(), packed_spectral_weights(self.model), \
+                _spectral_weights_hidden(self.model):
+            program = torch.export.export(step, tuple(args),
+                                          dynamic_shapes=dynamic)
+        payload = io.BytesIO()
+        torch.export.save(program, payload)
+        header = json.dumps({
+            "format": "torch.export",
+            "n_steps": int(n_steps),
+            "time_window": int(self.tw),
+            "has_cond": has_cond,
+            "has_spatial_cond": has_sc,
+            "u0_shape": ["b" if batch_poly else int(args[0].shape[0]),
+                         *map(int, args[0].shape[1:])],
+            "pde_name": getattr(self.pde, "name", ""),
+            "device": self.device.type,
+        }).encode()
+        with open(path, "wb") as f:
+            f.write(ARTIFACT_MAGIC)
+            f.write(len(header).to_bytes(8, "little"))
+            f.write(header)
+            f.write(payload.getvalue())
+        return path
+
+
+@contextmanager
+def _spectral_weights_hidden(model):
+    """Unregister each spectral layer's ``weights1``/``weights2`` inside the
+    block (their packs serve the no-grad path), so an export does not carry
+    them as unused parameters beside the packs; restored in order after."""
+    layers = [m for m in model.modules() if isinstance(m, SpectralConvND)]
+    saved = [(m, m._parameters.pop("weights1"), m._parameters.pop("weights2"))
+             for m in layers]
+    try:
+        for m in layers:
+            m.weights1 = m.weights2 = None
+        yield
+    finally:
+        for m, w1, w2 in saved:
+            del m.weights1, m.weights2
+            m.weights1, m.weights2 = w1, w2
+
+
+class _ExportStep(nn.Module):
+    """One bundled step of ``model`` for export: the position grid ``pos1``
+    [*sp, nd] is a constant broadcast to the (symbolic) batch, and the
+    conditioning inputs are positional, present as exported."""
+
+    def __init__(self, model, pos1, has_cond, has_spatial_cond):
+        super().__init__()
+        self.model = model
+        self.pos1 = pos1
+        self.has_cond = has_cond
+        self.has_spatial_cond = has_spatial_cond
+
+    def forward(self, u, *rest):
+        rest = list(rest)
+        cond = rest.pop(0) if self.has_cond else None
+        sc = rest.pop(0) if self.has_spatial_cond else None
+        pos = self.pos1[None].expand((u.shape[0],) + tuple(self.pos1.shape))
+        return self.model(u, cond=cond, pos=pos, spatial_cond=sc)
+
+
+class ExportedSurrogate:
+    """A loaded serving artifact (see :meth:`SurrogateEngine.export_rollout`):
+    the exported step's module, looped ``n_steps`` times. Only the seed
+    window and the conditioning it was exported with are inputs."""
+
+    def __init__(self, module, meta, device):
+        self._module = module
+        self.meta = meta
+        self.device = device
+        self.tw = int(meta["time_window"])
+        self.n_steps = int(meta["n_steps"])
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def rollout(self, u0, cond=None, spatial_cond=None, include_init=False):
+        """[b, c, tw, *sp] seed -> [b, c, n_steps*tw(+tw), *sp] frames."""
+        u0 = self._tensor(u0)
+        args = [u0]
+        for name, val in (("has_cond", cond),
+                          ("has_spatial_cond", spatial_cond)):
+            if self.meta[name]:
+                if val is None:
+                    raise ValueError(
+                        f"artifact was exported with {name[4:]}; pass it")
+                args.append(self._tensor(val))
+            elif val is not None:
+                raise ValueError(
+                    f"artifact was exported without {name[4:]}")
+        with torch.inference_mode(), autotuned_convs(deterministic=True):
+            pred, frames = u0, []
+            for _ in range(self.n_steps):
+                pred = self._module(pred, *args[1:])
+                frames.append(pred)
+            return _frames(frames, u0, include_init)
+
+
+def load_exported(path, device=None):
+    """Load a :meth:`SurrogateEngine.export_rollout` artifact for serving.
+    It needs the port's op registrations (imported here) and nothing of the
+    model code. ``device`` (default: the export's device type) must be the
+    device type it was exported on."""
+    # the custom ops the artifact's graph calls
+    import nps_tpu_torch.ops.library  # noqa: F401
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:len(ARTIFACT_MAGIC)] != ARTIFACT_MAGIC:
+        raise ValueError(f"{path} is not an nps_tpu_torch export artifact")
+    off = len(ARTIFACT_MAGIC)
+    hlen = int.from_bytes(data[off:off + 8], "little")
+    off += 8
+    meta = json.loads(data[off:off + hlen].decode())
+    device = torch.device(device or meta["device"])
+    if device.type != meta["device"]:
+        raise ValueError(f"the artifact was exported on {meta['device']}; "
+                         f"it cannot be loaded on {device.type}")
+    device = resolve_device(device)
+    program = torch.export.load(io.BytesIO(data[off + hlen:]))
+    return ExportedSurrogate(program.module(), meta, device)

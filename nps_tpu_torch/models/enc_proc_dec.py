@@ -6,11 +6,20 @@ Components are given as a module instance, a dict / Namespace with an
 ``[models.enc_proc_dec_components, models, models.common]``; the kwargs each
 component does not declare are dropped. Public layout: ``u [b, c, tw, *sp]``
 in and out, ``cond [b, n_static]``, ``spatial_cond [b, n_spatial, *sp]``,
-``pos [b, *sp, nd]``. The GNN branch and the boundary-condition encoder are
-not ported yet.
+``pos [b, *sp, nd]``.
+
+With ``data_structure="graph"`` (the MP-GNN, ``models/gnn.py``) ``u`` is a
+:class:`~nps_tpu_torch.common.graph.GridGraph` of node tensors and the
+output is ``[N, c, tw]``: the static conditioning is gathered to the nodes
+by ``batch``, node positions (time column dropped) and the shifted path's
+``grid_meta`` deltas are divided by the domain extent, and spatial
+conditioning is warned about and ignored, as in the reference. The
+components' ``n_cond`` is then the static conditioning's width. The
+boundary-condition encoder is not ported yet.
 """
 
 import inspect
+import warnings
 from argparse import Namespace
 from collections.abc import Mapping
 from functools import reduce
@@ -78,15 +87,18 @@ class EncProcDec(nn.Module):
                  data_structure="grid", processor_residual=False,
                  **base_args):
         super().__init__()
-        if data_structure != "grid":
-            raise NotImplementedError(
-                f"data_structure={data_structure!r} is not ported yet")
+        if data_structure not in ("grid", "graph"):
+            raise ValueError(f"data_structure must be 'grid' or 'graph', got "
+                             f"{data_structure!r}")
         if bc_encoder is not None:
             raise NotImplementedError("the BC encoder is not ported yet")
         self.pde = pde
         self.num_spatial_dims = num_spatial_dims
+        self.data_structure = data_structure
         self.processor_residual = processor_residual
-        self.n_cond = pde.n_cond_static + pde.n_cond_spatial
+        # graph nodes get the static conditioning only (spatial is ignored)
+        self.n_cond = (pde.n_cond_static if data_structure == "graph"
+                       else pde.n_cond_static + pde.n_cond_spatial)
         base = dict(base_args, num_c=num_c, num_spatial_dims=num_spatial_dims,
                     time_window=time_window, n_cond=self.n_cond)
         specs = (list(processor) if isinstance(processor, (list, tuple))
@@ -112,7 +124,10 @@ class EncProcDec(nn.Module):
                       [set(p.data_interface) for p in self.processor])
 
     def forward(self, u, cond=None, bc=None, pos=None, t_cond=None,
-                spatial_cond=None):
+                spatial_cond=None, grid_meta=None):
+        """``grid_meta``: for the graph branch, the host-side regular-grid
+        structure of ``common.graph.grid_offset_structure`` (or None), which
+        selects the MP-GNN's shifted path."""
         def check_none(x):
             return None if (x is None or x.numel() == 0) else x
 
@@ -121,20 +136,53 @@ class EncProcDec(nn.Module):
         if check_none(bc) is not None or check_none(t_cond) is not None:
             raise NotImplementedError("boundary / time conditioning is not "
                                       "ported yet")
-        sp = tuple(u.shape[3:])
-        # conditioning broadcast to the grid, channel-first [b, n_cond, *sp]
-        vb = broadcast_to_grid(cond, sp) if cond is not None else None
-        if spatial_cond is not None:
-            vb = (spatial_cond if vb is None
-                  else torch.cat([vb, spatial_cond], dim=1))
+        extra = {}
+        if self.data_structure == "graph":
+            u, vb, pos, extra = self._graph_inputs(u, cond, spatial_cond,
+                                                   grid_meta)
+        else:
+            # conditioning broadcast to the grid, channel-first
+            # [b, n_cond, *sp]
+            sp = tuple(u.shape[3:])
+            vb = broadcast_to_grid(cond, sp) if cond is not None else None
+            if spatial_cond is not None:
+                vb = (spatial_cond if vb is None
+                      else torch.cat([vb, spatial_cond], dim=1))
 
-        h = self.encoder(u=u, variables_broadcast=vb, pos=pos)
+        h = self.encoder(u=u, variables_broadcast=vb, pos=pos, **extra)
         for i, (proc, takes_vars) in enumerate(zip(self.processor,
                                                    self._takes_variables)):
-            kwargs = dict(variables_broadcast=vb, pos=pos)
+            kwargs = dict(variables_broadcast=vb, pos=pos, **extra)
             if takes_vars:
                 kwargs["variables"] = cond
             h_next = proc(h, **kwargs)
             h = h_next + h if (self.processor_residual and i > 0) else h_next
         return self.decoder(h, u, variables=cond, variables_broadcast=vb,
-                            pos=pos)
+                            pos=pos, **extra)
+
+    def _graph_inputs(self, graph, cond, spatial_cond, grid_meta):
+        """The graph branch's (nodes, node conditioning, normalised node
+        positions, graph kwargs for the components)."""
+        if spatial_cond is not None:
+            warnings.warn("spatial conditioning is not supported for "
+                          "data_structure == 'graph'; ignoring it")
+        nd = self.num_spatial_dims
+        vb = cond[graph.batch] if cond is not None else None
+        pos = graph.pos[:, 1:]   # drop the time column
+        if pos.shape[-1] != nd:
+            raise ValueError(f"graph pos has {pos.shape[-1]} spatial dims, "
+                             f"the model expects {nd}")
+        extent = [float(v) for v in (self.pde.L if nd > 1
+                                     else [self.pde.L])]
+        # per column by a host scalar: no host-to-device copy (CUDA graphs)
+        pos = torch.stack([pos[:, d] / e for d, e in enumerate(extent)],
+                          dim=-1)
+        if grid_meta is not None:
+            # the per-offset deltas are normalised like pos, on the host
+            sp, offsets, deltas = grid_meta
+            grid_meta = (tuple(sp), offsets, tuple(
+                tuple(float(d) / s for d, s in zip(dd, extent))
+                for dd in deltas))
+        return graph.nodes, vb, pos, dict(
+            edge_index=graph.edge_index, batch=graph.batch,
+            grid_meta=grid_meta)

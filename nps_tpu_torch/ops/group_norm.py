@@ -12,9 +12,12 @@ statistics and f32 arithmetic, rounded once on output. A CPU tensor takes
 the plain version, a CUDA tensor the kernel ``gn1_gelu_fwd``
 (``csrc/gn1_gelu.cu``); there is no fallback between them.
 
-Gradients: on CUDA, :class:`GNGeluFn` pairs the forward kernel with the
-hand-written backward ``gn1_gelu_bwd`` (f32 only; a bf16 input raises in the
-backward). On the CPU, autograd runs through the plain version.
+Without gradients, :func:`gn_gelu` calls the custom op
+``nps_torch::gn1_gelu_fwd`` (:mod:`nps_tpu_torch.ops.library`) on both
+devices: the kernel on CUDA, the plain version on the CPU. Gradients: on
+CUDA, :class:`GNGeluFn` pairs the forward kernel with the hand-written
+backward ``gn1_gelu_bwd`` (f32 only; a bf16 input raises in the backward).
+On the CPU, autograd runs through the plain version.
 """
 
 import ctypes
@@ -182,11 +185,13 @@ class GNGeluFn(torch.autograd.Function):
 
 
 def gn_gelu(x, weight, bias, gelu=True, eps=EPS):
-    """GroupNorm(1 group) [+ exact GELU]: plain on CPU, the kernels on CUDA
-    (:class:`GNGeluFn` where a gradient is wanted)."""
-    if x.device.type == "cpu":
-        return gn_gelu_plain(x, weight, bias, gelu, eps)
+    """GroupNorm(1 group) [+ exact GELU]. Where a gradient is wanted: plain
+    autograd on the CPU, :class:`GNGeluFn` on CUDA; otherwise the custom op
+    ``nps_torch::gn1_gelu_fwd`` on either device."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, weight, bias)):
+        if x.device.type == "cpu":
+            return gn_gelu_plain(x, weight, bias, gelu, eps)
         return GNGeluFn.apply(x, weight, bias, bool(gelu), eps)
-    return gn1_gelu_fwd(x, weight, bias, gelu, eps)
+    return torch.ops.nps_torch.gn1_gelu_fwd(x, weight, bias, bool(gelu),
+                                            float(eps))

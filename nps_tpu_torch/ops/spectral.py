@@ -11,9 +11,11 @@ Layout: x ``[b, ci, n1, n2]`` -> ``[b, co, n1, n2]`` (NCHW). Weights are
 ``[weights1, weights2]``, each real ``[2, ci, co, m1, m2]`` (re, im), for
 the low and the high row modes. FiLM ``[b, co, 2*m1, m2]``.
 
-A CPU tensor takes the plain version; a CUDA tensor the kernel
-``spectral_dft2d_fwd`` (``csrc/spectral_dft2d.cu``, the port of the TPU
-kernel K1). The 1D and 3D paths are not ported yet and raise.
+Without gradients, a CPU tensor takes the plain version and a CUDA tensor
+the kernel ``spectral_dft2d_fwd`` (``csrc/spectral_dft2d.cu``, the port of
+the TPU kernel K1), both through the custom op
+``nps_torch::spectral_dft2d_fwd``. The 1D and 3D paths are not ported yet
+and raise.
 
 Gradients on CUDA go through :class:`SpectralConv2dFn`. The map is linear,
 and its adjoint is the same three stages with the conjugate-transposed
@@ -171,6 +173,17 @@ def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
     return _inverse_plain(y_re, y_im, x.shape[2:], modes)
 
 
+def spectral_conv_2d_packed_plain(x, w_packed, modes, film=None,
+                                  film_mode=1):
+    """:func:`spectral_conv_2d_plain` on the weight pack
+    [2*m1*m2, 2, ci, co] of :func:`pack_weights_2d`."""
+    m1, m2 = modes
+    ci, co = w_packed.shape[2:]
+    w = w_packed.reshape(2 * m1, m2, 2, ci, co).permute(2, 3, 4, 0, 1)
+    return spectral_conv_2d_plain(x, [w[:, :, :, :m1], w[:, :, :, m1:]],
+                                  modes, film, film_mode)
+
+
 def _check_kernel_fits(b, c_in, n1, n2, m1, m2, name="spectral_dft2d_fwd"):
     """Raise on a shape the kernel's design does not take: m2 above its
     largest unrolled bound (16), more threads per output row than a CTA
@@ -277,11 +290,7 @@ def spectral_dft2d_fwd_spectrum_plain(x, w_packed, modes, film=None,
                                       film_mode=1, keep_y=False):
     """Plain version of :func:`spectral_dft2d_fwd_spectrum`, same inputs
     and outputs."""
-    m1, m2 = modes
-    ci, co = w_packed.shape[2:]
-    w = w_packed.reshape(2 * m1, m2, 2, ci, co).permute(2, 3, 4, 0, 1)
-    out = spectral_conv_2d_plain(x, [w[:, :, :, :m1], w[:, :, :, m1:]], modes,
-                                 film, film_mode)
+    out = spectral_conv_2d_packed_plain(x, w_packed, modes, film, film_mode)
     x_re, x_im = _spectrum_plain(x, modes)
     xr, xi = _modes_first(x_re), _modes_first(x_im)
     if film is None or not keep_y:
@@ -509,10 +518,12 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
                      num_spatial_dims=None, w_packed=None):
     """Apply a mode-truncated spectral conv to ``x`` [b, ci, *sp].
 
-    ``w_packed`` optionally carries :func:`pack_weights_2d` of ``weights``
-    for the CUDA path without gradients, so a caller can pack once instead
-    of per call. Where a gradient is wanted the CUDA path takes
-    :class:`SpectralConv2dFn` and ignores ``w_packed``.
+    Without gradients it calls the custom op ``nps_torch::spectral_dft2d_fwd``
+    (:mod:`nps_tpu_torch.ops.library`) on either device, on the pack
+    ``w_packed`` (:func:`pack_weights_2d` of ``weights``; packed here when
+    the caller has none), so a caller can pack once instead of per call.
+    Where a gradient is wanted the CUDA path takes :class:`SpectralConv2dFn`
+    and the CPU path plain autograd; both ignore ``w_packed``.
     """
     nd = num_spatial_dims or (x.ndim - 2)
     modes = tuple(int(m) for m in modes)
@@ -520,14 +531,15 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     if nd != 2:
         raise NotImplementedError(
             f"the {nd}D spectral conv is not ported yet (2D only)")
-    if x.device.type == "cpu":
-        return spectral_conv_2d_plain(x, weights, modes, film, film_mode)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, *weights, film)):
+        if x.device.type == "cpu":
+            return spectral_conv_2d_plain(x, weights, modes, film, film_mode)
         if film is not None:
             film = film[:, :, :2 * modes[0], :modes[1]].float().contiguous()
         return SpectralConv2dFn.apply(x, weights[0], weights[1], modes, film,
                                       film_mode)
     if w_packed is None:
         w_packed = pack_weights_2d(weights)
-    return spectral_dft2d_fwd(x, w_packed, modes, film, film_mode)
+    return torch.ops.nps_torch.spectral_dft2d_fwd(x, w_packed, *modes, film,
+                                                  film_mode)

@@ -22,8 +22,13 @@ Randomness comes from two ``torch.Generator``s seeded from the config's
 seed: the depth choice and the start steps; ``train_step`` also takes an
 injected ``unrolled`` and ``steps0``. The JAX package's compile-ahead,
 ``_jit_cache`` and ``dynamic_unroll`` machinery has no counterpart: PyTorch
-runs each depth eagerly, with nothing to compile. GNN models (ROADMAP P10)
-and variable-time data (P11) raise.
+runs each depth eagerly, with nothing to compile. Variable-time data
+(P11) raises.
+
+GNN models (``M.AR_TB_GNN``) take the same steps: at the model boundary the
+grid window goes to node space and back (two reshapes) over a static graph
+structure built once per (grid, batch size) on the host and kept on the
+device; a grid of other content under the same key rebuilds it.
 """
 
 import math
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from nps_tpu_torch.common import graph as G
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.train.base import TrainInterface
 from nps_tpu_torch.utils.process_output import process_step
@@ -61,9 +67,6 @@ class AutoregressivePushforwardTrainer(TrainInterface):
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
-        if self.model.model_interface == M.AR_TB_GNN:
-            raise NotImplementedError("GNN training is not ported yet "
-                                      "(ROADMAP P10)")
         self.tw = self.config.time_window
         self.t_res = self.config.base_resolution[0]
         if not hasattr(self.config, "process_settings"):
@@ -71,6 +74,9 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         seed = get_seed()
         self.depth_rng = torch.Generator().manual_seed(seed)
         self.start_rng = torch.Generator().manual_seed(seed + 1)
+        self.neighbors = getattr(self.config, "neighbors", 3)
+        self._graph_cache = {}
+        self._graph_hash = {}
 
     def _rng_states(self):
         return {"depth": self.depth_rng.get_state(),
@@ -81,7 +87,32 @@ class AutoregressivePushforwardTrainer(TrainInterface):
             self.depth_rng.set_state(states["depth"])
             self.start_rng.set_state(states["start"])
 
+    def _is_gnn(self):
+        return self.model.model_interface == M.AR_TB_GNN
+
+    def _ensure_graph_static(self, x, batch_size):
+        """GNN models: build the static (edges, pos, batch, grid_meta)
+        structure for the dataset grid ``x`` [b, *sp, nd] once per (spatial
+        shape, batch size), on the device. Checked against the grid's
+        content: a same-shape grid with other coordinates rebuilds it."""
+        if not self._is_gnn():
+            return
+        x0 = x[0].detach().cpu().numpy()
+        key = (tuple(x0.shape[:-1]), int(batch_size))
+        chash = hash(x0.astype(np.float64).tobytes())
+        if self._graph_hash.get(key) == chash:
+            return
+        self._graph_cache[key] = G.structure_on(
+            x.device, self.data.pde, x0, self.neighbors, int(batch_size))
+        self._graph_hash[key] = chash
+
     def _apply(self, data, cond, bc, x, t_cond, spatial_cond):
+        if self._is_gnn():
+            structure = self._graph_cache[(tuple(data.shape[3:]),
+                                           data.shape[0])]
+            return G.apply_on_grid(self.model, data, structure, cond=cond,
+                                   bc=bc, pos=x, t_cond=t_cond,
+                                   spatial_cond=spatial_cond)
         return self.model(data, cond=cond, bc=bc, pos=x, t_cond=t_cond,
                           spatial_cond=spatial_cond)
 
@@ -120,6 +151,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
             steps0 = torch.randint(tw, hi, (b,), generator=self.start_rng)
         steps = torch.as_tensor(steps0, dtype=torch.long).cpu()
         cond_, t_cond_, sc_ = _opt(cond), _opt(t_cond), _opt(spatial_cond)
+        self._ensure_graph_static(x, b)
 
         def t_window(steps):
             return (window(t_cond_, steps, tw, "labels")
@@ -172,6 +204,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                 f"t_res={t_res} < 2*time_window={2 * tw}. Use a dataset with "
                 f"nt >= 2*time_window or lower --time_window.")
         cond_, t_cond_, sc_ = _opt(cond), _opt(t_cond), _opt(spatial_cond)
+        self._ensure_graph_static(x, b)
         crit = self.criterion
 
         step_losses = []
@@ -237,6 +270,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                 f"lower --time_window.")
         if u_bc is None:
             u_bc = u
+        self._ensure_graph_static(x, batch_size)
         pred = u[:, :, tw * nr_gt_steps - tw: tw * nr_gt_steps]
         bc_prev = u_bc[:, :, tw * nr_gt_steps - tw: tw * nr_gt_steps]
         losses, preds, labels_seq = [], [], []

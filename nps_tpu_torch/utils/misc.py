@@ -1,6 +1,6 @@
 """Misc host-side utilities (counterpart of ``nps_tpu/utils/misc.py``):
-logging, metric formatting, batch sizing, parameter counts. The graph
-helpers wait for the GNN (ROADMAP P10)."""
+logging, metric formatting, batch sizing, parameter counts, and the graph
+helpers of the GNN path."""
 
 import random
 import string
@@ -89,6 +89,42 @@ def random_timestr(n=10):
     curr = str(round(time.time() * 1000))
     alphabet = string.ascii_uppercase + string.ascii_lowercase + string.digits
     return curr + "".join(random.choices(alphabet, k=n))
+
+
+def get_graph_from_batch(u, pos, batch, idx):
+    """Select one batch element's nodes from a flattened graph batch."""
+    u, pos, batch = (np.asarray(v) for v in (u, pos, batch))
+    sel = batch == idx
+    return u[sel], pos[sel]
+
+
+def grid_graph_to_array(u, pos, batch, dxs):
+    """Rasterize grid-structured graph nodes back into image arrays.
+
+    Node positions are assumed to lie on a regular grid with spacings
+    ``dxs`` per spatial dimension (``pos[:, 0]`` is time and is ignored
+    for placement). Returns ``[b, c, t, *dims]``.
+
+    u: [N, c, t] node values; pos: [N, 1+nd]; batch: [N] element ids.
+    """
+    u, pos, batch = (np.asarray(v) for v in (u, pos, batch))
+    batch_size = int(batch.max()) + 1
+    out = []
+    for b in range(batch_size):
+        u_b, pos_b = get_graph_from_batch(u, pos, batch, b)
+        sp = pos_b[:, 1:]  # spatial columns
+        idx = (sp - sp.min(axis=0)) / np.asarray(dxs, np.float64)
+        idx_int = np.rint(idx).astype(np.int64)
+        if not np.allclose(idx, idx_int):
+            raise ValueError("node positions do not lie on a regular grid "
+                             "with the given dxs")
+        dims = tuple(int(d) + 1 for d in idx_int.max(axis=0))
+        num_c, num_t = u_b.shape[1:]
+        img = np.zeros((num_c, num_t) + dims, u_b.dtype)
+        img[(slice(None), slice(None)) + tuple(idx_int.T)] = \
+            u_b.transpose(1, 2, 0)  # [c, t, nx] scatter into [c, t, *dims]
+        out.append(img)
+    return np.stack(out)
 
 
 def count_parameters(params):

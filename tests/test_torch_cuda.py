@@ -4,7 +4,10 @@ the persistent GroupNorm grid, a batch above the mix kernel's 8-sample
 register tile, channel counts that are not multiples of its tiles, every
 unrolled m2 bound, FiLM and its gradient, the U-Net's GroupNorm shapes),
 and the engine on the card against the engine on the CPU, for each
-twophase family.
+twophase family; the kernels' custom ops on the card, the captured rollout
+against the eager one (bar 1e-6) for all five families, the exported
+artifact on the card, and the GNN's step and train gradients against the
+CPU.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine, which
 has no JAX, run it without the repo's conftest:
@@ -553,3 +556,151 @@ def test_family_engine_on_card_matches_cpu(family):
     assert set(kernels.launches) == want
     ref = cpu.step(u0, cond=cond, spatial_cond=sc)
     assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-4
+
+
+# ---- the custom ops, the captured rollout, the artifact, the GNN -----------
+
+@pytest.mark.parametrize("gelu", [True, False])
+def test_gn_custom_op_on_card_matches_plain(gelu):
+    """nps_torch::gn1_gelu_fwd dispatches a CUDA tensor to the kernel."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((2, 36, 24, 16), device="cuda", generator=g) * 1.5 + 0.3
+    w = 1.0 + 0.2 * torch.randn(36, device="cuda", generator=g)
+    b = 0.1 * torch.randn(36, device="cuda", generator=g)
+    kernels.reset_launches()
+    y = torch.ops.nps_torch.gn1_gelu_fwd(x, w, b, gelu, gn.EPS)
+    assert dict(kernels.launches) == {"gn1_gelu_fwd": 1}
+    assert _rel(y, gn.gn_gelu_plain(x, w, b, gelu)) < 1e-5
+
+
+@pytest.mark.parametrize("film_mode", [None, 0, 1])
+def test_spectral_custom_op_on_card_matches_plain(film_mode):
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    b, ci, co, modes = 3, 20, 12, (4, 5)
+    x = torch.randn((b, ci, 24, 16), device="cuda", generator=g)
+    ws = [torch.rand((2, ci, co, *modes), device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    film = (None if film_mode is None else torch.randn(
+        (b, co, 2 * modes[0], modes[1]), device="cuda", generator=g))
+    mode = 1 if film_mode is None else film_mode
+    kernels.reset_launches()
+    y = torch.ops.nps_torch.spectral_dft2d_fwd(x, sp.pack_weights_2d(ws),
+                                               *modes, film, mode)
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 1}
+    assert _rel(y, sp.spectral_conv_2d_plain(x, ws, modes, film, mode)) < 1e-5
+
+
+CAPTURE_FAMILIES = dict(FAMILY_OVERRIDES, ufno=(
+    ["--model.hidden_features=16", "--model.hidden_blocks=2",
+     "--model.fno_modes=4"], {"gn1_gelu_fwd", "spectral_dft2d_fwd"}),
+    gnn=(["--model.hidden_features=16", "--model.hidden_blocks=2"], set()))
+
+
+def _small_engine(family, device="cuda"):
+    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.pde import PDE2D
+
+    cfg = f"nps_tpu_torch/configs/train/cfg_twophase_{family}.py"
+    pde = PDE2D(tmin=0, tmax=10, nt=51, L1=1.0, L2=0.7, nx1=24, nx2=16,
+                x=None, name="twophase", n_cond_static=2, n_cond_spatial=2)
+    eng = SurrogateEngine.from_config(
+        cfg, pde=pde, overrides=CAPTURE_FAMILIES[family][0]
+        + ["--time_window=5"], device=device)
+    eng.init_params(seed=0)
+    return eng
+
+
+def _small_inputs(b=2, seed=1):
+    rng = np.random.default_rng(seed)
+    u0 = (0.1 + 0.8 * rng.random((b, 1, 5, 24, 16))).astype(np.float32)
+    cond = rng.random((b, 2)).astype(np.float32)
+    sc = (rng.random((b, 2, 24, 16)) > 0.8).astype(np.float32)
+    return u0, cond, sc
+
+
+@pytest.mark.parametrize("family", sorted(CAPTURE_FAMILIES))
+def test_captured_rollout_matches_eager(family):
+    """The CUDA-graph rollout against the eager one (bar 1e-6), at its
+    capture and at a replay on new inputs; the capture launches each kernel
+    of the family once per model apply."""
+    import warnings
+
+    from nps_tpu_torch import kernels
+
+    eng = _small_engine(family)
+    u0, cond, sc = _small_inputs()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the GNN ignores spatial_cond
+        ref = eng.rollout(u0, 3, cond=cond, spatial_cond=sc)
+        kernels.reset_launches()
+        out = eng.rollout(u0, 3, cond=cond, spatial_cond=sc, captured=True)
+        assert set(kernels.launches) == CAPTURE_FAMILIES[family][1]
+        assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-6
+        u1, c1, s1 = _small_inputs(seed=2)
+        ref1 = eng.rollout(u1, 3, cond=c1, spatial_cond=s1)
+        kernels.reset_launches()
+        out1 = eng.rollout(u1, 3, cond=c1, spatial_cond=s1, captured=True)
+    assert not kernels.launches   # a replay makes no Python launch
+    assert np.abs(out1 - ref1).max() / np.abs(ref1).max() < 1e-6
+
+
+def test_artifact_on_card(tmp_path):
+    """Export on the card and serve: the engine's rollout (rtol 1e-5, atol
+    1e-6), at an unseen batch too, through both kernels."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import load_exported
+
+    eng = _small_engine("ufno")
+    u0, cond, sc = _small_inputs()
+    path = str(tmp_path / "a.npst")
+    eng.export_rollout(path, 2, u0, cond=cond, spatial_cond=sc)
+    art = load_exported(path)
+    assert art.meta["device"] == "cuda"
+    for b in (2, 3):
+        u, c, s = _small_inputs(b=b, seed=b)
+        ref = eng.rollout(u, 2, cond=c, spatial_cond=s)
+        kernels.reset_launches()
+        out = art.rollout(u, cond=c, spatial_cond=s)
+        assert dict(kernels.launches) == {"gn1_gelu_fwd": 2 * 2 * 16,
+                                          "spectral_dft2d_fwd": 2 * 2}
+        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="exported on cuda"):
+        load_exported(path, device="cpu")
+
+
+def test_gnn_engine_and_train_step_on_card_match_cpu():
+    """The GNN's serving step (shifted path, index_add_ degrees on the
+    card) and one depth-1 train step's loss and gradients against the CPU,
+    same weights: bars 1e-4 and 5e-3."""
+    import warnings
+
+    gpu, cpu = _small_engine("gnn"), _small_engine("gnn", "cpu")
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in gpu.model.state_dict().items()})
+    u0, cond, _ = _small_inputs()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out, ref = gpu.step(u0, cond=cond), cpu.step(u0, cond=cond)
+    assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-4
+    losses, grads = [], []
+    for eng in (gpu, cpu):
+        u = torch.from_numpy(u0).to(eng.device)
+        c = torch.from_numpy(cond).to(eng.device)
+        eng.model.zero_grad()
+        loss = eng._apply(eng._apply(u, c, eng._pos(2), None).detach(), c,
+                          eng._pos(2), None).square().mean()
+        loss.backward()
+        losses.append(float(loss))
+        grads.append({k: p.grad.cpu() for k, p in
+                      eng.model.named_parameters()})
+    assert abs(losses[0] - losses[1]) / abs(losses[1]) < 1e-4
+    floor = 1e-5 * max(float(g.abs().max()) for g in grads[1].values())
+    for k, g in grads[1].items():
+        scale = max(float(g.abs().max()), floor)
+        assert float((grads[0][k] - g).abs().max()) / scale < 5e-3, k

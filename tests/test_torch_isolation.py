@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -74,3 +75,41 @@ def test_train_cli_without_device_refuses_to_run_on_cpu(monkeypatch):
         train_cli.cli(argv)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cli.cli(argv + ["--device", "cuda"])
+
+
+# the modules the serving artifact, the captured rollout and the MP-GNN
+# added: each imports in a fresh process with no JAX and nothing of nps_tpu
+NEW_MODULES = ("nps_tpu_torch.ops.library", "nps_tpu_torch.export_artifact",
+               "nps_tpu_torch.common.graph",
+               "nps_tpu_torch.common.data_creator",
+               "nps_tpu_torch.models.gnn",
+               "nps_tpu_torch.configs.train.cfg_twophase_gnn")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_module_imports_alone_without_jax(module):
+    assert (PKG / (module.split(".", 1)[1].replace(".", "/") + ".py")
+            ).exists(), module
+    code = (f"import sys; import importlib; sys.argv = ['x']\n"
+            f"importlib.import_module({module!r})\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    bad = [m for m in res.stdout.split() if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_engine_refuses_a_captured_rollout_without_a_card():
+    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.pde import PDE2D
+
+    pde = PDE2D(tmin=0, tmax=10, nt=51, L1=1.0, L2=0.7, nx1=12, nx2=8,
+                x=None, name="twophase", n_cond_static=2, n_cond_spatial=2)
+    eng = SurrogateEngine.from_config(
+        "nps_tpu_torch/configs/train/cfg_twophase_gnn.py", pde=pde,
+        overrides=["--model.hidden_features=8", "--model.hidden_blocks=1",
+                   "--time_window=5"], device="cpu")
+    u0 = np.zeros((1, 1, 5, 12, 8), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        eng.rollout(u0, 1, cond=np.zeros((1, 2), np.float32), captured=True)

@@ -138,22 +138,28 @@ def test_pack_weights_layout():
 
 
 def test_spectral_cuda_tensor_never_takes_plain_path(monkeypatch):
-    """A CUDA tensor goes to the kernel wrapper, never to the plain op."""
+    """A CUDA tensor goes to the kernel wrapper, never to the plain op. The
+    no-grad path calls the custom op ``nps_torch::spectral_dft2d_fwd``,
+    which the dispatcher routes by the tensor's device: its CUDA key runs
+    the launch (here replaced by a recorder), its CPU key the plain
+    version."""
     calls = []
     monkeypatch.setattr(port, "spectral_dft2d_fwd",
-                        lambda *a, **k: calls.append("kernel"))
+                        lambda *a, **k: calls.append("kernel")
+                        or torch.zeros(1, 2, 8, 8))
     monkeypatch.setattr(port, "spectral_conv_2d_plain",
-                        lambda *a, **k: calls.append("plain"))
-
-    class FakeCuda(torch.Tensor):
-        @property
-        def device(self):
-            return torch.device("cuda", 0)
-
-    x = torch.zeros(1, 2, 8, 8).as_subclass(FakeCuda)
-    w = [torch.zeros(2, 2, 2, 2, 2)] * 2
-    port.spectral_conv_nd(x, w, (2, 2), w_packed=torch.zeros(1))
+                        lambda *a, **k: calls.append("plain")
+                        or torch.zeros(1, 2, 8, 8))
+    op = torch.ops.nps_torch.spectral_dft2d_fwd.default
+    x = torch.zeros(1, 2, 8, 8)
+    w_packed = port.pack_weights_2d([torch.zeros(2, 2, 2, 2, 2)] * 2)
+    cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+    op.redispatch(cuda, x, w_packed, 2, 2, None, 1)
     assert calls == ["kernel"]
+    with torch.no_grad():
+        port.spectral_conv_nd(x, [torch.zeros(2, 2, 2, 2, 2)] * 2, (2, 2),
+                              w_packed=w_packed)
+    assert calls == ["kernel", "plain"]
 
 
 @pytest.mark.parametrize("film_mode", [0, 1])

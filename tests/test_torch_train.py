@@ -211,6 +211,69 @@ def test_parameters_after_three_adam_steps_match_jax(trainers, monkeypatch):
         assert _rel(p.numpy(), ref[k].numpy()) < REL_PARAM, k
 
 
+@pytest.mark.parametrize("depth", [0, 1])
+def test_train_step_from_bf16_device_cache_matches_jax(trainers, depth):
+    """A train step from a ``device_cache_dtype="bfloat16"`` cache
+    (``nps_tpu/train/base.py:535-546``): both packages' device caches give
+    the same bf16 batch; the port's step, which widens it to the f32
+    compute dtype, against jax.grad of the JAX loss on the cached values in
+    f32 at an injected depth: loss rtol 2e-3, every gradient < 5e-3. (The
+    JAX trainer's shipped step refuses a bf16 batch under f32 compute: its
+    pushforward ``fori_loop`` carry turns from bf16 to f32.)"""
+    from nps_tpu.data.pipeline import DeviceCacheLoader as JaxCache
+    from nps_tpu.train.pushforward import window
+    from nps_tpu_torch.data.pipeline import DeviceCacheLoader
+
+    jt, pt, _, params0 = trainers
+    _reset(jt, pt, params0)
+    jbatch = next(iter(JaxCache(jt.data.train, B, seed=0,
+                                cache_dtype="bfloat16")))
+    batch = next(iter(DeviceCacheLoader(pt.data.train, B, seed=0,
+                                        cache_dtype="bfloat16")))
+    assert batch[1].dtype == torch.bfloat16
+    for a, ref in zip(batch, jbatch):
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      np.asarray(ref, np.float32))
+    steps0 = _steps0(jt, depth)
+    # the cache's values in the compute dtype, f32, as the port widens them
+    wide = tuple(jnp.asarray(a, jnp.float32) if jnp.issubdtype(
+        jnp.asarray(a).dtype, jnp.floating) else jnp.asarray(a)
+        for a in jbatch)
+    _, u, x, cond, _, sc = wide
+    pde, mi = jt.data.pde, jt.model.model_interface
+
+    def loss_fn(p):
+        def apply(d):
+            return jt.model.apply(p, d, cond=cond, bc=None, pos=x,
+                                  t_cond=None, spatial_cond=sc)
+
+        steps = jnp.asarray(steps0)
+        data, labels = window(u, steps, TW, "both")
+        for _ in range(depth):
+            pred = jax.lax.stop_gradient(apply(data))
+            labels_prev, steps = labels, steps + TW
+            labels = window(u, steps, TW, "labels")
+            data, _ = jax_process_step(pde, mi, pred, labels_prev, labels,
+                                       process_settings={})
+        pred, _ = jax_process_step(pde, mi, apply(data), labels, None,
+                                   get_bc=False, process_settings={})
+        return jnp.sqrt(jt.criterion(pred, labels))
+
+    with jax.default_matmul_precision("highest"):
+        loss_ref, grads = jax.jit(jax.value_and_grad(loss_fn))(jt.params)
+    loss, _ = pt.train_step(batch, EPOCH, BATCH_IDX, unrolled=depth,
+                            steps0=torch.from_numpy(steps0))
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=REL_LOSS)
+    ref = {k: v.numpy() for k, v in from_jax_params(
+        jax.tree_util.tree_map(np.asarray, grads)).items()}
+    got = {k: p.grad.numpy() for k, p in pt.model.named_parameters()}
+    assert set(got) == set(ref)
+    floor = 1e-5 * max(np.abs(r).max() for r in ref.values())
+    for k, g in got.items():
+        scale = max(np.abs(ref[k]).max(), floor)
+        assert np.abs(g - ref[k]).max() / scale < REL_GRAD, k
+
+
 def test_test_step_matches_jax(trainers):
     jt, pt, batch, params0 = trainers
     _reset(jt, pt, params0)
