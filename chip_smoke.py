@@ -58,13 +58,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              same serving (eager and captured) and training code as the
              U-FNO's phases (family_serve, family_train), with one
              training epoch and the median of 3 timed steps per depth;
-7. export  - the slice's U-FNO exported on the card (torch.export of one
+7. ns512   - cfg_ns512_ufno (512x512, 3 blocks x 128 features, 20x20
+             modes, tanh GELU, bf16) at full width from its config over a
+             split from the port's generator (4 simulations of 101 frames,
+             one channel) read through PDE2DDataset: 3 rollouts of the 3
+             bundled steps after the first window at batch 8 (each
+             simulation's first window and the one after it), eager and
+             captured (against eager, 1e-6), peak memory, one step in f32
+             against bf16 (nRMSE, a 5e-2 sanity bound); a narrow model (1
+             block x 16 features, f32, batch 2) whose step launches both
+             new kernel variants, against the port on the CPU (1e-4); then
+             the
+             large-plane spectral conv at [8, 132, 512, 512] -> 128 in bf16
+             and f32, and GN+GELU at the largest and smallest ns512
+             GroupNorm inputs (bf16 and f32), each against its plain
+             version, twice for the same bits, beside its bound, its plain
+             version and one PyTorch call;
+8. export  - the slice's U-FNO exported on the card (torch.export of one
              bundled step, symbolic batch, 19 steps; the kernels stay the
              custom ops nps_torch::gn1_gelu_fwd and
              nps_torch::spectral_dft2d_fwd), reloaded, serving batches of
              4 and 2 against the engine (rtol 1e-5, atol 1e-6): rate,
              launches, artifact size, export and load seconds;
-8. profile - last, as a profiler session slows the host's launch path
+9. profile - last, as a profiler session slows the host's launch path
              for the rest of the process: per family an eager rollout and
              a replay of the captured one, and the artifact's rollouts,
              each under torch.profiler: K1 and K2 counted by kernel name
@@ -145,6 +161,28 @@ TRAIN_DEPTHS = (0, 8)
 FAMILIES = {"ufno": (48, 3, TRAIN_EPOCHS, 5), "drn": (0, 0, 1, 3),
             "unet": (44, 0, 1, 3), "ufno_fno": (16, 2, 1, 3),
             "gnn": (0, 0, 1, 3)}
+# cfg_ns512_ufno: 512x512, 3 blocks x 128 features, 20x20 modes, bf16,
+# batch 8; the spectral conv's input [8, 132, 512, 512] -> 128 (128
+# features + 2 static + 2 spatial conditioning channels). A split of NS_SIMS
+# generated simulations of 101 frames; the batch is their first window and
+# the window after it; a rollout is the 3 bundled steps that follow the
+# first window (frames 25-99)
+NS_CFG = "nps_tpu_torch/configs/train/cfg_ns512_ufno.py"
+NS_BATCH, NS_N, NS_NT, NS_TW, NS_SIMS = 8, 512, 101, 25, 4
+NS_STEPS = (NS_NT - NS_TW) // NS_TW
+NS_HIDDEN, NS_BLOCKS, NS_MODES = 128, 3, 20   # one spectral conv a block
+NS_SPEC_SHAPE = (NS_BATCH, NS_HIDDEN + 4, NS_N, NS_N)
+# the narrow model through the new kernel paths, card against CPU: 1 block
+# x 16 features at 512x512, 20 modes, batch 2, f32
+NS_NARROW = ["--model.hidden_features=16", "--model.hidden_blocks=1"]
+# bf16 against f32 on the card, one step of the first NS_F32_BATCH samples:
+# a sanity bound on the nRMSE (with random weights the largest deviation
+# sits in the decoder's delta, at bf16's own level: PERF.md section 6)
+NS_F32_TOL, NS_F32_BATCH = 5e-2, 2
+# bf16 dense products on the tensor cores (NVIDIA's data sheet)
+PEAK_BF16 = 989e12
+# graph replay for calls of about a millisecond and more
+FEW_CALLS = dict(calls=5, replays=5, warmup=2)
 
 
 def emit(obj):
@@ -256,10 +294,11 @@ def dispatch_us(gen):
     return out
 
 
-def timed(rec, fn, key):
+def timed(rec, fn, key, **graph):
     """Put ``fn``'s graph-replay time under ``rec[key]`` (None and the
-    reason under ``rec["timing_refused"]`` if capture is refused)."""
-    ms, why = graph_ms(fn)
+    reason under ``rec["timing_refused"]`` if capture is refused);
+    ``graph``: :func:`graph_ms`'s calls, replays and warm-up."""
+    ms, why = graph_ms(fn, **graph)
     rec[key] = ms
     if why:
         rec.setdefault("timing_refused", {})[key] = why
@@ -273,15 +312,18 @@ def gn_bound(shapes, itemsize=4):
 
 
 def spectral_flops(b, ci, co, n1, n2, m1, m2):
-    """Flops of one truncated-DFT spectral conv, [b, ci] -> [b, co]."""
+    """Flops of one truncated-DFT spectral conv, [b, ci] -> [b, co], in the
+    order that needs fewest: the forward along y (the half spectrum) first,
+    the inverse along x (rows) first, so that only m2 column modes meet a
+    whole plane each way."""
     k = 2 * m1
     return (b * ci * (n1 * n2 * m2 * 4 + n1 * k * m2 * 8)   # forward DFT
             + k * m2 * b * ci * co * 8                      # complex mix
-            + b * co * (k * n2 * m2 * 8 + n1 * n2 * k * 4))  # inverse DFT
+            + b * co * (k * n1 * m2 * 8 + n1 * n2 * m2 * 4))  # inverse DFT
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+def bound(nbytes, flops, peak_ops=PEAK_F32):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_ops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -641,10 +683,21 @@ def spectral_bwd_records(gen):
               "bound_ms": dw_bound, "bound_by": dw_by,
               "bound_how": f"X + G read, dW written once, f32, at 3.35 TB/s "
                            f"({dw_bytes} B)",
-              "library_ms": None}
+              "library_how": "torch.einsum('mbi,mbo->mio') over the complex "
+                             "spectra, X conjugated and scaled beforehand; "
+                             "its output [modes, ci, co] complex"}
     timed(rec_dw, lambda: sp.spectral_dw2d(xr, xi, gr, gi, scale, m1), "ms")
     timed(rec_dw, lambda: sp.spectral_weight_grad(xr, xi, gr, gi, scale, m1),
           "plain_ms")
+    xs = torch.complex(xr, xi).conj() * scale[:, None, None]
+    g_c = torch.complex(gr, gi)
+    lib = torch.einsum("mbi,mbo->mio", xs, g_c)
+    lib = torch.stack([lib.real, lib.imag]).reshape(2, 2 * m1, m2, ci, co)
+    lib = lib.permute(0, 3, 4, 1, 2)
+    rec_dw["rel_err_library_vs_plain"] = _errors(
+        (lib[:, :, :, :m1], lib[:, :, :, m1:]), dw_ref)[0]
+    timed(rec_dw, lambda: torch.einsum("mbi,mbo->mio", xs, g_c),
+          "library_ms")
     rec_dw["bound_share"] = dw_bound / rec_dw["ms"] if rec_dw["ms"] else None
     emit(rec_dw)
     if not (err < REL_TOL_GRAD and adj_err < REL_TOL_F32):
@@ -1525,6 +1578,377 @@ def phase_families(seed, card, out_dir, tmp):
     return paths
 
 
+def ns512_split(tmp, seed):
+    """The ns512 split (NS_SIMS simulations of NS_NT frames at 512x512, one
+    channel, from the port's generator) read through PDE2DDataset: the
+    dataset, the serving batch (each simulation's first window, then the
+    window after it), and the seconds the split took to write."""
+    import numpy as np
+
+    from nps_tpu_torch.data.pde2d import PDE2DDataset
+    from nps_tpu_torch.data.synthetic import generate
+
+    t0 = time.perf_counter()
+    generate(f"{tmp}/ns512/ns512", n_sims=NS_SIMS, n_channels=1, nt=NS_NT,
+             nx1=NS_N, nx2=NS_N, seed=seed)
+    gen_s = time.perf_counter() - t0
+    ds = PDE2DDataset(f"{tmp}/ns512", "ns512", "memmap", "snapshots",
+                      conditioning="conditioning",
+                      spatial_conditioning="spatial_conditioning",
+                      c_filter=[0], split_file="split", name="ns512")
+    u0, cond, sc = [], [], []
+    for i in range(NS_BATCH):
+        _, u, _, c, _, s = ds.dataset[i % NS_SIMS]
+        t = NS_TW * (i // NS_SIMS)
+        u0.append(np.asarray(u[:, t:t + NS_TW]))
+        cond.append(np.asarray(c))
+        sc.append(np.asarray(s))
+    return ds, (np.stack(u0), np.stack(cond), np.stack(sc)), gen_s
+
+
+@contextlib.contextmanager
+def gn_inputs_seen():
+    """The (shape, dtype, gelu) of every gn1_gelu_fwd_stats call inside the
+    block (the persistent and the streaming variant's wrapper), in order."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    seen, wrapped = [], gn.gn1_gelu_fwd_stats
+
+    def record(x, weight, bias, gelu=True, eps=gn.EPS):
+        seen.append((tuple(x.shape), str(x.dtype), bool(gelu)))
+        return wrapped(x, weight, bias, gelu, eps)
+
+    gn.gn1_gelu_fwd_stats = record
+    try:
+        yield seen
+    finally:
+        gn.gn1_gelu_fwd_stats = wrapped
+
+
+def ns512_serve(seed, ds, batch):
+    """The full-width cfg_ns512_ufno (bf16, from its config) built by
+    SurrogateEngine.from_config over the split's PDE, random weights from
+    the seed: ROLLOUTS eager rollouts of NS_STEPS bundled steps at batch 8
+    (the rate is their median; launch counts set to 0 just before each and
+    read just after), the same rollouts captured (the first call captures;
+    the rate is the median of ROLLOUTS replays; against eager, CAPTURED_TOL),
+    peak memory, the GN+GELU inputs of one step, and one step of the same
+    weights served in f32 on the card (its nRMSE against bf16 under
+    NS_F32_TOL; the largest relative deviation beside it). Returns (record,
+    the first rollout's launches, failures)."""
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
+
+    u0, cond, sc = batch
+    eng = SurrogateEngine.from_config(NS_CFG, pde=ds.pde, device="cuda")
+    eng.init_params(seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with gn_inputs_seen() as seen:
+        step = eng.step(u0, cond=cond, spatial_cond=sc)   # also warms up
+    warm_s = time.perf_counter() - t0
+    seconds, launches = [], []
+    for _ in range(ROLLOUTS):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.rollout(u0, NS_STEPS, cond=cond, spatial_cond=sc)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(dict(kernels.launches))
+    median = sorted(seconds)[len(seconds) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def captured():
+        return eng.rollout(u0, NS_STEPS, cond=cond, spatial_cond=sc,
+                           captured=True)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out_c = captured()
+    capture_s = time.perf_counter() - t0
+    capture_launches = dict(kernels.launches)
+    c_seconds = []
+    for _ in range(ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_c = captured()
+        torch.cuda.synchronize()
+        c_seconds.append(time.perf_counter() - t0)
+    c_median = sorted(c_seconds)[len(c_seconds) // 2]
+    captured_err = float(np.abs(out_c - out).max() / np.abs(out).max())
+    eng.clear_captured()
+    peak_captured = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the first NS_F32_BATCH samples in f32 (cuDNN times its f32 algorithms
+    # at 512x512 for ~16 s at batch 8)
+    f32 = SurrogateEngine.from_config(NS_CFG, pde=ds.pde, device="cuda",
+                                      compute_dtype="float32")
+    f32.model.load_state_dict(eng.model.state_dict())
+    nb = NS_F32_BATCH
+    t0 = time.perf_counter()
+    step_f32 = f32.step(u0[:nb], cond=cond[:nb], spatial_cond=sc[:nb])
+    f32_s = time.perf_counter() - t0
+    diff = step[:nb] - step_f32
+    f32_max = float(np.abs(diff).max() / np.abs(step_f32).max())
+    f32_nrmse = float(np.sqrt(np.mean(diff ** 2) / np.mean(step_f32 ** 2)))
+    del f32
+    shapes = {}
+    for shape, dtype, gelu in seen:
+        key = (shape, dtype, gelu)
+        shapes[key] = shapes.get(key, 0) + 1
+    want = {"spectral_dft2d_fwd_large": NS_BLOCKS * NS_STEPS,
+            "gn1_gelu_fwd": sum(n for (s, _, _), n in shapes.items()
+                                if not _streams(s)) * NS_STEPS,
+            "gn1_gelu_fwd_stream": sum(n for (s, _, _), n in shapes.items()
+                                       if _streams(s)) * NS_STEPS}
+    want = {k: v for k, v in want.items() if v}
+    rec = {"config": NS_CFG, "batch": NS_BATCH, "bundled_steps": NS_STEPS,
+           "compute_dtype": str(eng.compute_dtype),
+           "parameters": sum(p.numel() for p in eng.model.parameters()),
+           "out_shape": list(out.shape),
+           "finite": bool(np.isfinite(out).all()),
+           "launches": launches[0], "launches_expected": want,
+           "first_step_seconds": warm_s,
+           "rollout_seconds": seconds,
+           "bundled_steps_per_s": NS_STEPS / median,
+           "samples_steps_per_s": NS_BATCH * NS_STEPS / median,
+           "peak_mem_gib": peak,
+           "captured": {"bundled_steps_per_s": NS_STEPS / c_median,
+                        "rollout_seconds": c_seconds,
+                        "capture_seconds": capture_s,
+                        "rel_err_vs_eager": captured_err,
+                        "launches_at_capture": capture_launches,
+                        "peak_mem_gib": peak_captured},
+           "f32_step": {"batch": nb, "nrmse_bf16_vs_f32": f32_nrmse,
+                        "max_rel_dev_bf16_vs_f32": f32_max,
+                        "seconds": f32_s},
+           "gn_inputs": [[list(s), d, g, n]
+                         for (s, d, g), n in sorted(shapes.items())]}
+    failures = []
+    if tuple(out.shape) != (NS_BATCH, 1, NS_STEPS * NS_TW, NS_N, NS_N):
+        failures.append(f"ns512 rollout shape {out.shape}")
+    if not rec["finite"]:
+        failures.append("ns512 rollout has non-finite values")
+    if any(n != want for n in launches):
+        failures.append(f"ns512 serving launches {launches} != {want}")
+    if not captured_err <= CAPTURED_TOL:
+        failures.append(f"ns512 captured rollout vs eager: {captured_err}")
+    if not f32_nrmse < NS_F32_TOL:
+        failures.append(f"ns512 bf16 vs f32 step: nRMSE {f32_nrmse}")
+    del eng
+    return rec, launches[0], failures
+
+
+def _streams(shape, itemsize=2):
+    """Whether gn1_gelu_fwd takes ``shape`` (bf16 unless ``itemsize``)
+    with its streaming variant."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    return gn._plan(shape[0], math.prod(shape[1:]), itemsize == 2) is None
+
+
+def ns512_narrow(seed, ds, batch):
+    """A narrow model (NS_NARROW: 1 block x 16 features, 20 modes, f32) at
+    512x512, batch 2: one step on the card (its K1 planes take the
+    large-plane variant, its top GroupNorm inputs the streaming one) against
+    the port on the CPU (REL_TOL_STEP). Returns (record, failures)."""
+    import numpy as np
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
+
+    u0, cond, sc = (a[:2] for a in batch)
+    kw = dict(pde=ds.pde, overrides=NS_NARROW, compute_dtype="float32")
+    card = SurrogateEngine.from_config(NS_CFG, device="cuda", **kw)
+    card.init_params(seed=seed)
+    cpu = SurrogateEngine.from_config(NS_CFG, device="cpu", **kw)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    card.step(u0, cond=cond, spatial_cond=sc)   # cuDNN's timing
+    kernels.reset_launches()
+    with gn_inputs_seen() as seen:
+        got = card.step(u0, cond=cond, spatial_cond=sc)
+    launches = dict(kernels.launches)
+    t0 = time.perf_counter()
+    ref = cpu.step(u0, cond=cond, spatial_cond=sc)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    rec = {"overrides": NS_NARROW, "batch": 2, "compute_dtype": "float32",
+           "step_rel_err_vs_cpu": err, "cpu_step_seconds": cpu_s,
+           "launches": launches,
+           "largest_gn_input": max((s for s, _, _ in seen), key=math.prod,
+                                   default=None)}
+    failures = []
+    if not err < REL_TOL_STEP:
+        failures.append(f"ns512 narrow step card vs CPU: {err}")
+    for name in ("spectral_dft2d_fwd_large", "gn1_gelu_fwd_stream"):
+        if not launches.get(name):
+            failures.append(f"ns512 narrow step launched no {name}: "
+                            f"{launches}")
+    return rec, failures
+
+
+def spectral_large_record(gen, dtype):
+    """spectral_dft2d_fwd at the ns512 call (NS_SPEC_SHAPE -> NS_HIDDEN,
+    NS_MODES x NS_MODES) in ``dtype``: its large-plane variant against the
+    plain version, twice for the same bits, timed (graph replay) beside the
+    plain version, rfft2 + einsum + irfft2 (on x in f32) and the bound (the
+    operations at the input type's peak; the f32 CUDA-core bound apart)."""
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    b, ci, n1, n2 = NS_SPEC_SHAPE
+    co, m = NS_HIDDEN, (NS_MODES, NS_MODES)
+    x = torch.randn(NS_SPEC_SHAPE, device="cuda", generator=gen).to(dtype)
+    ws = [torch.rand((2, ci, co, *m), device="cuda", generator=gen)
+          / (ci * co) for _ in range(2)]
+    packed = sp.pack_weights_2d(ws)
+    kernels.reset_launches()
+    y_k = sp.spectral_dft2d_fwd(x, packed, m)
+    launched = dict(kernels.launches)
+    y_again = sp.spectral_dft2d_fwd(x, packed, m)
+    y_p = sp.spectral_conv_2d_plain(x, ws, m)
+    torch.cuda.synchronize()
+    err = rel_err(y_k, y_p)
+    w_c = complex_weights(*ws)
+    err_library = rel_err(rfft_conv(x.float(), w_c, m), y_p)
+    flops = spectral_flops(b, ci, co, n1, n2, *m)
+    nbytes = (x.element_size() * (x.numel() + b * co * n1 * n2)
+              + 4 * packed.numel())
+    bf16 = dtype == torch.bfloat16
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16 if bf16 else PEAK_F32)
+    rec = {"phase": "kernel", "name": "spectral_dft2d_fwd_large",
+           "dtype": str(dtype), "shape": [list(NS_SPEC_SHAPE), co, list(m)],
+           "launched": launched, "rel_err": err,
+           "same_bits": bool(torch.equal(y_k, y_again)),
+           "rel_err_library_vs_plain": err_library,
+           "max_abs_err": float((y_k.float() - y_p.float()).abs().max()),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_f32_ops_ms": flops / PEAK_F32 * 1e3,
+           "bound_how": f"x + out in {dtype}, f32 weights once at 3.35 TB/s "
+                        f"({nbytes} B); {flops} flop at "
+                        f"{'989 TFLOP/s bf16' if bf16 else '67 TFLOP/s f32'}"}
+    for key, fn in (("ms", lambda: sp.spectral_dft2d_fwd(x, packed, m)),
+                    ("plain_ms", lambda: sp.spectral_conv_2d_plain(x, ws, m)),
+                    ("library_ms", lambda: rfft_conv(x.float(), w_c, m))):
+        timed(rec, fn, key, **FEW_CALLS)
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    rec["f32_ops_share"] = (rec["bound_f32_ops_ms"] / rec["ms"] if rec["ms"]
+                            else None)
+    emit(rec)
+    tol = REL_TOL_BF16 if bf16 else REL_TOL_F32
+    if not (err < tol and rec["same_bits"]
+            and launched == {"spectral_dft2d_fwd_large": 1}):
+        raise AssertionError(f"spectral_dft2d_fwd_large ({dtype}): {err}, "
+                             f"same bits {rec['same_bits']}, {launched}")
+    return rec
+
+
+def gn_stream_record(gen, shape, dtype, gelu):
+    """gn1_gelu_fwd at an ns512 GroupNorm input in ``dtype`` (the variant
+    its size selects) against the plain version, twice for the same bits,
+    timed beside the plain version, F.group_norm (+ F.gelu) and two bounds:
+    x read once and y written once (the bound), and the streaming design's
+    two reads of x and one write."""
+    import torch
+    import torch.nn.functional as F
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    c, n = shape[1], math.prod(shape)
+    x = (torch.randn(shape, device="cuda", generator=gen) * 1.5
+         + 0.3).to(dtype)
+    gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    kernels.reset_launches()
+    y = gn.gn1_gelu_fwd(x, gamma, beta, gelu)
+    launched = dict(kernels.launches)
+    again = gn.gn1_gelu_fwd(x, gamma, beta, gelu)
+    y_p = gn.gn_gelu_plain(x, gamma, beta, gelu)
+    torch.cuda.synchronize()
+    err = rel_err(y, y_p)
+    size = x.element_size()
+    bound_ms, bound_by = gn_bound([shape], size)
+    rec = {"phase": "kernel", "name": "gn1_gelu (ns512 shape)",
+           "shape": list(shape), "dtype": str(dtype), "gelu": gelu,
+           "launched": launched, "rel_err": err,
+           "same_bits": bool(torch.equal(y, again)),
+           "max_abs_err": float((y.float() - y_p.float()).abs().max()),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "two_pass_floor_ms": 3 * size * n / PEAK_BYTES * 1e3}
+
+    def library():
+        z = F.group_norm(x, 1, gamma.to(dtype), beta.to(dtype))
+        return F.gelu(z) if gelu else z
+
+    for key, fn in (("ms", lambda: gn.gn1_gelu_fwd(x, gamma, beta, gelu)),
+                    ("plain_ms", lambda: gn.gn_gelu_plain(x, gamma, beta,
+                                                          gelu)),
+                    ("library_ms", library)):
+        timed(rec, fn, key, **FEW_CALLS)
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    emit(rec)
+    tol = REL_TOL_BF16 if dtype == torch.bfloat16 else REL_TOL_F32
+    if not (err < tol and rec["same_bits"]):
+        raise AssertionError(f"gn1_gelu_fwd at {shape} {dtype}: {err}, "
+                             f"same bits {rec['same_bits']}")
+    return rec
+
+
+def phase_ns512(seed, card, gen, tmp):
+    """The ns512 slice: the split, the full-width bf16 serving (ns512_serve),
+    the narrow model card against CPU (ns512_narrow), then the kernels at
+    the ns512 shapes: the large-plane spectral conv in f32 and bf16, and
+    GN+GELU at the largest and smallest GroupNorm inputs one step gave (f32
+    and bf16). Returns (the first eager rollout's launches, the kernel
+    records by name)."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    ds, batch, gen_s = ns512_split(tmp, seed)
+    serve, launches, failures = ns512_serve(seed, ds, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    narrow, bad = ns512_narrow(seed, ds, batch)
+    failures += bad
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "ns512", "data": {"sims": NS_SIMS, "nt": NS_NT,
+                                     "grid": [NS_N, NS_N], "channels": 1,
+                                     "generate_seconds": gen_s},
+          "serve": serve, "narrow": narrow, "card": card, "tf32": False})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    recs = {"spectral_dft2d_fwd_large": spectral_large_record(
+        gen, torch.bfloat16)}
+    recs["spectral_dft2d_fwd_large"]["f32"] = spectral_large_record(
+        gen, torch.float32)
+    gn_shapes = [tuple(s) for s, _, _, _ in serve["gn_inputs"]]
+    gelu = serve["gn_inputs"][0][2]
+    records = [gn_stream_record(gen, shape, dtype, gelu)
+               for shape in (max(gn_shapes, key=math.prod),
+                             min(gn_shapes, key=math.prod))
+               for dtype in (torch.bfloat16, torch.float32)]
+    recs["gn1_gelu_fwd_stream"] = dict(records[0], shapes=[
+        {k: r[k] for k in ("shape", "dtype", "launched", "rel_err",
+                           "same_bits", "ms", "plain_ms", "library_ms",
+                           "bound_ms", "two_pass_floor_ms", "bound_share")}
+        for r in records])
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs["seconds"] = time.perf_counter() - t0
+    return launches, recs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1553,6 +1977,8 @@ def main():
         gen_s = make_split(tmp, args.seed)
         train = phase_train(args.seed, card, out_dir, tmp, gen_s)
         families = phase_families(args.seed, card, out_dir, tmp)
+        ns512, ns_kern = phase_ns512(args.seed, card, gen, tmp)
+        kern.update(ns_kern)
         # after training: torch.export keeps the constants it traced (the
         # spectral packs) alive for the rest of the process
         export, artifact = phase_export(args.seed, card, tmp)
@@ -1578,7 +2004,18 @@ def main():
         "spectral_dw2d": (
             "nps_tpu_torch/csrc/spectral_dft2d.cu",
             "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
-            "_pallas_bwd, XLA: its weight gradient)", train)}
+            "_pallas_bwd, XLA: its weight gradient)", train),
+        "spectral_dft2d_fwd_large": (
+            "nps_tpu_torch/csrc/spectral_dft2d.cu (large-plane variant: "
+            "dft_fwd_big_kernel, mix_kernel, dft_inv_big_kernel; at the "
+            "ns512 call in bf16, its f32 record under f32)",
+            "nps_tpu/ops/pallas/spectral_dft.py:144 (git 92d7866^)", ns512),
+        "gn1_gelu_fwd_stream": (
+            "nps_tpu_torch/csrc/gn1_gelu.cu (streaming variant: "
+            "gn1_stream_sums, gn1_stream_stats, gn1_stream_apply; at the "
+            "largest ns512 GroupNorm input in bf16, every shape under "
+            "shapes)",
+            "tools/pallas_group_norm_evidence.py:61", ns512)}
     line = []
     for name, (src, replaces, path) in sources.items():
         r = kern[name]
@@ -1589,6 +2026,7 @@ def main():
                          "captured": replays["ufno"].get(name, 0),
                          "export": export.get(name, 0),
                          "train": train.get(name, 0),
+                         "ns512": ns512.get(name, 0),
                          **{p: n.get(name, 0) for p, n in families.items()},
                          **{f"{f}_captured": n.get(name, 0)
                             for f, n in replays.items() if f != "ufno"},
@@ -1600,12 +2038,16 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "bound_share": r["bound_share"], "parity": "ok",
-                     "timing": "device: CUDA graph of 20 calls, replayed"
+                     "timing": "device: CUDA graph of "
+                               + ("5" if path is ns512 else "20")
+                               + " calls, replayed"
                                + ("; plain and library: eager calls between "
                                   "CUDA events" if name.endswith("_bwd")
                                   else "")})
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
-                    "dispatch_host_us"):
+                    "dispatch_host_us", "library_how", "dtype", "shape",
+                    "bound_f32_ops_ms", "two_pass_floor_ms", "f32",
+                    "shapes"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

@@ -21,6 +21,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// 8-byte copy with the same zero fill (dst and src 8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes = 8) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 // 4-byte copy with the same zero fill.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes = 4) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),

@@ -81,6 +81,21 @@
 // No atomics: every sum runs in the same order on every call, so the result
 // is deterministic. Planes of a multiple of 4 elements use 16-byte vectors.
 
+// gn1_gelu_fwd_stream: the same forward for a sample larger than the
+// resident grid's shared memory holds (about 29.8 MB f32 on an H100; a
+// top-level U-Net norm of cfg_ns512_ufno is 260 x 516^2 values, 138 MB per
+// sample in bf16). The persistent kernel's one read is not possible there,
+// so it streams x twice: the ceiling is 2/3 of the one-read bound. Three
+// launches, no atomics, so two calls give the same bits:
+//   1. gn1_stream_sums: CTAs take fixed chunks of each sample (`chunk`
+//      elements, 16-byte loads where the sample allows) and write f32
+//      (sum x, sum x^2) partials [b, chunks], each reduced inside its CTA in
+//      a fixed order;
+//   2. gn1_stream_stats: one CTA per sample sums its partials in a fixed
+//      order into (mean, inv) with the same variance clamp;
+//   3. gn1_stream_apply: reads x again, normalises, applies gamma/beta and
+//      the GELU, and writes y in x's type with streaming stores.
+
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -568,6 +583,124 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_apply(BwdArgs a) {
   }
 }
 
+// ---- streaming forward ----------------------------------------------------------
+struct StreamArgs {
+  const void* x;
+  const float* gamma;
+  const float* beta;
+  void* y;
+  float* stats;       // [b, 2] (mean, inv)
+  float2* partials;   // [b, chunks] (sum x, sum x^2)
+  int n, hw, chunk, chunks, gelu;
+  float eps;
+};
+
+// the units (16-byte vectors, or single elements) of this CTA's chunk
+template <typename T, bool VEC>
+__device__ __forceinline__ void chunk_units(const StreamArgs& a, int& lo, int& hi) {
+  constexpr int V = VEC ? Vec16<T>::N : 1;
+  const int e0 = blockIdx.x * a.chunk;  // chunk % V == 0
+  lo = e0 / V;
+  hi = min(a.n, e0 + a.chunk) / V;      // VEC: n % V == 0
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads) gn1_stream_sums(StreamArgs a) {
+  const int s = blockIdx.y;
+  const T* x = static_cast<const T*>(a.x) + static_cast<int64_t>(s) * a.n;
+  int lo, hi;
+  chunk_units<T, VEC>(a, lo, hi);
+  float2 acc = make_float2(0.f, 0.f);
+  for (int i = lo + threadIdx.x; i < hi; i += kBwdThreads) {
+    if constexpr (VEC) {
+      constexpr int V = Vec16<T>::N;
+      float v[V];
+      load16(x + static_cast<int64_t>(i) * V, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        acc.x += v[k];
+        acc.y = fmaf(v[k], v[k], acc.y);
+      }
+    } else {
+      const float v = to_f(x[i]);
+      acc.x += v;
+      acc.y = fmaf(v, v, acc.y);
+    }
+  }
+  acc = bwd_block_sum2(acc);
+  if (threadIdx.x == 0) a.partials[static_cast<int64_t>(s) * a.chunks + blockIdx.x] = acc;
+}
+
+__global__ void __launch_bounds__(kBwdThreads) gn1_stream_stats(StreamArgs a) {
+  const int s = blockIdx.x;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int j = threadIdx.x; j < a.chunks; j += kBwdThreads) {
+    const float2 p = a.partials[static_cast<int64_t>(s) * a.chunks + j];
+    acc.x += p.x;
+    acc.y += p.y;
+  }
+  acc = bwd_block_sum2(acc);
+  if (threadIdx.x == 0) {
+    const float inv_n = 1.0f / static_cast<float>(a.n);
+    const float mean = acc.x * inv_n;
+    const float var = fmaxf(acc.y * inv_n - mean * mean, 0.0f);
+    a.stats[2 * s] = mean;
+    a.stats[2 * s + 1] = rsqrtf(var + a.eps);
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBwdThreads) gn1_stream_apply(StreamArgs a) {
+  constexpr int V = VEC ? Vec16<T>::N : 1;
+  const int s = blockIdx.y;
+  const int64_t off = static_cast<int64_t>(s) * a.n;
+  const T* x = static_cast<const T*>(a.x) + off;
+  T* y = static_cast<T*>(a.y) + off;
+  const float mean = __ldg(a.stats + 2 * s), inv = __ldg(a.stats + 2 * s + 1);
+  const float inv_hw = 1.0f / static_cast<float>(a.hw);
+  int lo, hi;
+  chunk_units<T, VEC>(a, lo, hi);
+  for (int i = lo + threadIdx.x; i < hi; i += kBwdThreads) {
+    float v[V];
+    if constexpr (VEC)
+      load16(x + static_cast<int64_t>(i) * V, v);
+    else
+      v[0] = to_f(x[i]);
+    // the unit's channel, stepped inside it where it crosses into the next
+    int c = div_hw(i * V, a.hw, inv_hw);
+    int r = i * V - c * a.hw;
+    float g = __ldg(a.gamma + c) * inv, bb = __ldg(a.beta + c);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (r == a.hw) {
+        r = 0;
+        ++c;
+        g = __ldg(a.gamma + c) * inv;
+        bb = __ldg(a.beta + c);
+      }
+      const float t = fmaf(v[k] - mean, g, bb);
+      v[k] = a.gelu ? gelu_erf(t) : t;
+      ++r;
+    }
+    if constexpr (VEC)
+      store16(y + static_cast<int64_t>(i) * V, v);
+    else
+      put(y + i, v[0]);
+  }
+}
+
+template <typename T, bool VEC>
+int launch_stream(const StreamArgs& a, int b, cudaStream_t st) {
+  const dim3 grid(a.chunks, b);
+  gn1_stream_sums<T, VEC><<<grid, kBwdThreads, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn1_stream_stats<<<b, kBwdThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  gn1_stream_apply<T, VEC><<<grid, kBwdThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // out = [grid, samples per round, CTAs per sample, slice length, rounds,
@@ -639,4 +772,32 @@ extern "C" int gn1_gelu_bwd(const float* x, const float* dy, const float* gamma,
   else
     gn1_bwd_apply<false><<<planes, kBwdThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The streaming forward (see the note at the top) for samples that do not
+// fit the persistent grid: chunk elements per CTA (a multiple of 8), chunks
+// = ceil(c * hw / chunk); partials f32 [b, chunks, 2] scratch; vec: the
+// sample length a multiple of a 16-byte vector and x, y 16-byte aligned.
+extern "C" int gn1_gelu_fwd_stream(const void* x, const float* gamma, const float* beta,
+                                   void* y, float* stats, float* partials, int b, int c,
+                                   long long hw, float eps, int apply_gelu, int is_bf16,
+                                   int chunk, int chunks, int vec, void* stream) {
+  StreamArgs a;
+  a.x = x;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.y = y;
+  a.stats = stats;
+  a.partials = reinterpret_cast<float2*>(partials);
+  a.n = static_cast<int>(c * hw);  // the wrapper keeps n below 2^31 - 2^20
+  a.hw = static_cast<int>(hw);
+  a.chunk = chunk;
+  a.chunks = chunks;
+  a.gelu = apply_gelu;
+  a.eps = eps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return vec ? launch_stream<__nv_bfloat16, true>(a, b, st)
+               : launch_stream<__nv_bfloat16, false>(a, b, st);
+  return vec ? launch_stream<float, true>(a, b, st) : launch_stream<float, false>(a, b, st);
 }

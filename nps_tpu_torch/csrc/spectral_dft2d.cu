@@ -128,6 +128,7 @@
 // and hr,hi [modes, b, ci]; dx f32 [b, ci, n1, n2]; dw1, dw2 f32
 // [2, ci, co, m1, m2]; scale f32 [modes], h(m)/(n1 n2).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -860,6 +861,325 @@ dft_inv_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
   }
 }
 
+// ---- the large-plane variant ---------------------------------------------------
+// For planes whose rows, tables and modes do not fit the kernels above (a
+// 512x512 plane is 1 MB in f32 against the 227 KB a CTA may use, and m2 = 20
+// is above their largest unrolled bound), and for bf16 input and output at
+// any plane size (the kernels above take f32). The same three stages, tiled
+// so that no stage holds a whole plane or a whole table:
+//   1. dft_fwd_big_kernel: one CTA per (plane, tile of kBigRows rows). The y
+//      pass is a register-tiled [rows x n2] x [n2 x 2 m2] product: x and the
+//      (cos, sin) table come into shared memory kBigYc columns at a time
+//      through a 2-stage cp.async ring; a thread owns 2 rows and half of the
+//      M2 column modes (4*M2/2 accumulators), reading each 4 x values once
+//      (conflict-free, rows padded by 4 elements) against broadcast table
+//      reads. Its [rows, m2] half-spectrum then goes to shared memory, and
+//      the x pass of the resident kernel (4 row modes a warp, 8 lanes per
+//      row mode summing by shuffles in a fixed order) contracts the tile's
+//      rows to the 2*m1 row modes, tables read from L1/L2. With one row tile
+//      the result is the spectrum X; with more, each tile writes its partial
+//      sum and sum_tiles_kernel adds them in tile order (no atomics).
+//   2. the mix: mix_kernel as above (it tiles the batch and takes any m2).
+//   3. dft_inv_big_kernel: one CTA per (plane, block of kBigInvRows rows).
+//      Rows first on the plane's retained spectrum (staged in shared memory)
+//      for the block's rows -> Z [rows, m2] in shared memory, then the column
+//      pass: a thread owns 4 adjacent outputs of kBigInvR rows, reads its 4
+//      (cos, sin) factors per mode from L1 (float4), Z by broadcast, and
+//      writes 16-byte (f32) or 8-byte (bf16) streaming stores.
+// x and out may be f32 or bf16; the spectrum scratch, the weights and every
+// sum are f32 (one rounding to bf16, on output). Bound on the H100 at the
+// ns512 shape (b=8, 132 -> 128 channels, 512x512, 20x20 modes): operations
+// on the CUDA cores, ~51 GFLOP at 67 TFLOP/s (0.77 ms) against 1.2 GB of
+// bf16 activations and f32 weights at 3.35 TB/s (0.36 ms); the DFT stages
+// as bf16 tensor-core products would leave the bytes as the bound (a later
+// design; the tables would have to be split into two bf16 terms to hold the
+// f32 plain version's 1e-2 bf16 bar).
+constexpr int kBigThreads = 256;
+constexpr int kBigRows = 256;     // rows per forward CTA: 2 per thread
+constexpr int kBigYc = 32;        // y columns per staged chunk
+constexpr int kBigStages = 2;
+constexpr int kBigLd = kBigYc + 4;  // staged row pitch in elements
+constexpr int kBigInvRows = 128;  // rows per inverse CTA
+constexpr int kBigInvR = 16;      // rows a thread holds per column pass
+
+// 4 consecutive elements from shared memory as floats (16 or 8 bytes)
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  v[0] = __low2float(a); v[1] = __high2float(a);
+  v[2] = __low2float(b); v[3] = __high2float(b);
+}
+// 4 consecutive floats to global memory as T (16 or 8 bytes, streaming)
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<uint32_t*>(&a);
+  t.y = *reinterpret_cast<uint32_t*>(&b);
+  __stcs(reinterpret_cast<uint2*>(p), t);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename T>
+__host__ __device__ constexpr size_t big_stage_bytes() {
+  return static_cast<size_t>(kBigStages) * kBigRows * kBigLd * sizeof(T);
+}
+
+// VEC: n2 % 4 == 0 and x aligned to 4 elements, so each row's 4-element
+// pieces are copied with one cp.async each (16 bytes f32, 8 bytes bf16).
+template <typename T, int M2, bool VEC>
+__global__ void __launch_bounds__(kBigThreads, 2)
+dft_fwd_big_kernel(const T* __restrict__ x, const float* __restrict__ c2,
+                   const float* __restrict__ s2, const float* __restrict__ c1,
+                   const float* __restrict__ s1, float* __restrict__ pr,
+                   float* __restrict__ pi, int planes, int n1, int n2, int K, int m2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int MH = M2 / 2;
+  static_assert(MH % 2 == 0, "modes are read from the table in pairs");
+  T* sx = reinterpret_cast<T*>(smem_raw);                                 // [stage][row][kBigLd]
+  float2* st = reinterpret_cast<float2*>(smem_raw + big_stage_bytes<T>());  // [stage][kBigYc][M2]
+  float2* sT = reinterpret_cast<float2*>(smem_raw);  // after the y pass: [row][M2]
+  const int tile = blockIdx.x, plane = blockIdx.y;
+  const int r0 = tile * kBigRows;
+  const int rows = min(kBigRows, n1 - r0);
+  const T* src = x + (static_cast<int64_t>(plane) * n1 + r0) * n2;
+  const int nchunks = (n2 + kBigYc - 1) / kBigYc;
+
+  auto load_chunk = [&](int c, int s) {
+    T* dst = sx + s * kBigRows * kBigLd;
+    const int y0 = c * kBigYc;
+    if constexpr (VEC) {
+      constexpr int Q = kBigYc / 4;
+      for (int i = threadIdx.x; i < kBigRows * Q; i += kBigThreads) {
+        const int r = i / Q, q = i % Q, y = y0 + 4 * q;
+        const bool ok = r < rows && y < n2;
+        const T* p = ok ? src + static_cast<int64_t>(r) * n2 + y : src;
+        if constexpr (sizeof(T) == 4)
+          nps::cp_async16(dst + r * kBigLd + 4 * q, p, ok ? 16 : 0);
+        else
+          nps::cp_async8(dst + r * kBigLd + 4 * q, p, ok ? 8 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < kBigRows * kBigYc; i += kBigThreads) {
+        const int r = i / kBigYc, q = i % kBigYc, y = y0 + q;
+        dst[r * kBigLd + q] =
+            (r < rows && y < n2) ? src[static_cast<int64_t>(r) * n2 + y] : T(0.f);
+      }
+    }
+    float2* tdst = st + s * kBigYc * M2;
+    for (int i = threadIdx.x; i < kBigYc * M2; i += kBigThreads) {
+      const int q = i / M2, m = i % M2, y = y0 + q;
+      tdst[i] = (m < m2 && y < n2) ? make_float2(__ldg(c2 + y * m2 + m), __ldg(s2 + y * m2 + m))
+                                   : make_float2(0.f, 0.f);
+    }
+    nps::cp_async_commit();
+  };
+
+  // along y: T[x, m] = sum_y u[x, y] (cos - i sin)(2 pi m y / n2); thread
+  // (h, p) owns rows p and p + kBigRows/2 and modes [h MH, (h+1) MH)
+  const int h = threadIdx.x / (kBigThreads / 2), p = threadIdx.x % (kBigThreads / 2);
+  float re[2][MH], im[2][MH];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int m = 0; m < MH; ++m) re[j][m] = im[j][m] = 0.f;
+  load_chunk(0, 0);
+  for (int c = 0; c < nchunks; ++c) {
+    if (c + 1 < nchunks)
+      load_chunk(c + 1, (c + 1) % kBigStages);
+    else
+      nps::cp_async_commit();
+    nps::cp_async_wait<1>();
+    __syncthreads();  // chunk c is in
+    const T* xs = sx + (c % kBigStages) * kBigRows * kBigLd;
+    const float2* ts = st + (c % kBigStages) * kBigYc * M2 + h * MH;
+#pragma unroll 2
+    for (int q0 = 0; q0 < kBigYc; q0 += 4) {
+      float v[2][4];
+      load4(xs + p * kBigLd + q0, v[0]);
+      load4(xs + (p + kBigRows / 2) * kBigLd + q0, v[1]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4* t = reinterpret_cast<const float4*>(ts + (q0 + k) * M2);
+#pragma unroll
+        for (int mm = 0; mm < MH / 2; ++mm) {
+          const float4 cs = t[mm];  // (cos, sin) of modes 2 mm and 2 mm + 1
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            re[j][2 * mm] = fmaf(v[j][k], cs.x, re[j][2 * mm]);
+            im[j][2 * mm] = fmaf(v[j][k], cs.y, im[j][2 * mm]);
+            re[j][2 * mm + 1] = fmaf(v[j][k], cs.z, re[j][2 * mm + 1]);
+            im[j][2 * mm + 1] = fmaf(v[j][k], cs.w, im[j][2 * mm + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with stage c % kBigStages
+  }
+  nps::cp_async_wait_all();
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int m = 0; m < MH; ++m)
+      sT[(p + j * (kBigRows / 2)) * M2 + h * MH + m] = make_float2(re[j][m], -im[j][m]);
+  __syncthreads();
+
+  // along x over this tile's rows: X[k, m] = sum_x T[x, m] (cos - i sin)(2 pi kx x / n1)
+  constexpr int KW = 32 / kRowGroups;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / KW;
+  const int64_t out0 = static_cast<int64_t>(tile) * K * m2;
+  for (int k0 = warp * KW; k0 < K; k0 += kBigThreads / kRowGroups) {
+    const int k = k0 + lane % KW;
+    const bool has = k < K;
+    float ar[M2], ai[M2];
+#pragma unroll
+    for (int m = 0; m < M2; ++m) ar[m] = ai[m] = 0.f;
+    for (int r = g; has && r < rows; r += kRowGroups) {
+      const int64_t xi_ = static_cast<int64_t>(r0 + r) * K + k;
+      const float2 cs = make_float2(__ldg(c1 + xi_), __ldg(s1 + xi_));
+      const float2* t = sT + r * M2;
+#pragma unroll
+      for (int m = 0; m < M2; ++m) {
+        const float2 a = t[m];
+        ar[m] = fmaf(a.x, cs.x, fmaf(a.y, cs.y, ar[m]));
+        ai[m] = fmaf(a.y, cs.x, fmaf(-a.x, cs.y, ai[m]));
+      }
+    }
+#pragma unroll
+    for (int off = KW; off < 32; off *= 2) {
+#pragma unroll
+      for (int m = 0; m < M2; ++m) {
+        ar[m] += __shfl_xor_sync(0xffffffffu, ar[m], off);
+        ai[m] += __shfl_xor_sync(0xffffffffu, ai[m], off);
+      }
+    }
+    if (has && g == 0) {
+#pragma unroll
+      for (int m = 0; m < M2; ++m) {
+        if (m < m2) {
+          const int64_t o = (out0 + k * m2 + m) * planes + plane;  // [tile][mode][b][ci]
+          pr[o] = ar[m];
+          pi[o] = ai[m];
+        }
+      }
+    }
+  }
+}
+
+// X = the tiles' partial spectra [tiles][n] summed in tile order
+__global__ void __launch_bounds__(kBigThreads)
+sum_tiles_kernel(const float* __restrict__ pr, const float* __restrict__ pi,
+                 float* __restrict__ xr, float* __restrict__ xi, int tiles, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kBigThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kBigThreads) {
+    float a = 0.f, b = 0.f;
+    for (int t = 0; t < tiles; ++t) {
+      a += pr[t * n + i];
+      b += pi[t * n + i];
+    }
+    xr[i] = a;
+    xi[i] = b;
+  }
+}
+
+// VEC: n2 % 4 == 0 and out aligned to 4 elements (16- or 8-byte stores).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kBigThreads, 2)
+dft_inv_big_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                   const float* __restrict__ ic2, const float* __restrict__ is2,
+                   const float* __restrict__ ic1, const float* __restrict__ is1,
+                   T* __restrict__ out, int planes, int n1, int n2, int K, int m2, float scale) {
+  extern __shared__ __align__(16) float2 sm2[];
+  float2* sy = sm2;             // [K][m2]
+  float2* sz = sy + K * m2;     // [kBigInvRows][m2]
+  const int plane = blockIdx.y, r0 = blockIdx.x * kBigInvRows;
+  const int rows = min(kBigInvRows, n1 - r0);
+  nps::wait_for_previous_kernel();  // the mix's Y is written
+  for (int i = threadIdx.x; i < K * m2; i += kBigThreads) {
+    const int64_t s = static_cast<int64_t>(i) * planes + plane;  // mode i = k * m2 + m
+    sy[i] = make_float2(yr[s], yi[s]);
+  }
+  __syncthreads();
+  // rows first: Z[x, m] = sum_k Y[k, m] (cos + i sin)(2 pi kx x / n1)
+  for (int i = threadIdx.x; i < kBigInvRows * m2; i += kBigThreads) {
+    const int r = i / m2, m = i % m2;
+    float zr = 0.f, zi = 0.f;
+    if (r < rows) {
+      const int xg = r0 + r;
+      for (int k = 0; k < K; ++k) {
+        const float c = __ldg(ic1 + static_cast<int64_t>(k) * n1 + xg);
+        const float s = __ldg(is1 + static_cast<int64_t>(k) * n1 + xg);
+        const float2 a = sy[k * m2 + m];
+        zr = fmaf(a.x, c, fmaf(-a.y, s, zr));
+        zi = fmaf(a.x, s, fmaf(a.y, c, zi));
+      }
+    }
+    sz[i] = make_float2(zr, zi);
+  }
+  __syncthreads();
+  // then the columns, real part only, Hermitian doubling folded into ic2/is2
+  const int cg = (n2 + 3) / 4;  // threads per output row; the wrapper keeps cg <= kBigThreads
+  const int j = threadIdx.x % cg, grp = threadIdx.x / cg, ngrp = kBigThreads / cg;
+  if (grp >= ngrp) return;
+  const int y0 = 4 * j;
+  T* dst = out + (static_cast<int64_t>(plane) * n1 + r0) * n2 + y0;
+  for (int rb = grp * kBigInvR; rb < rows; rb += ngrp * kBigInvR) {
+    float acc[kBigInvR][4];
+#pragma unroll
+    for (int r = 0; r < kBigInvR; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+#pragma unroll 2
+    for (int m = 0; m < m2; ++m) {
+      float tc[4], ts[4];
+      if constexpr (VEC) {
+        const float4 c = __ldg(reinterpret_cast<const float4*>(ic2 + m * n2 + y0));
+        const float4 s = __ldg(reinterpret_cast<const float4*>(is2 + m * n2 + y0));
+        tc[0] = c.x; tc[1] = c.y; tc[2] = c.z; tc[3] = c.w;
+        ts[0] = s.x; ts[1] = s.y; ts[2] = s.z; ts[3] = s.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = y0 + q < n2;
+          tc[q] = ok ? __ldg(ic2 + m * n2 + y0 + q) : 0.f;
+          ts[q] = ok ? __ldg(is2 + m * n2 + y0 + q) : 0.f;
+        }
+      }
+      const float2* z = sz + rb * m2 + m;
+#pragma unroll
+      for (int r = 0; r < kBigInvR; ++r) {
+        const float2 a = z[r * m2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(a.x, tc[q], fmaf(-a.y, ts[q], acc[r][q]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBigInvR; ++r) {
+      if (rb + r >= rows) break;
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = acc[r][q] * scale;
+      T* o = dst + static_cast<int64_t>(rb + r) * n2;
+      if constexpr (VEC) {
+        store4(o, v);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (y0 + q < n2) store1(o + q, v[q]);
+      }
+    }
+  }
+}
+
 // ---- host ---------------------------------------------------------------------
 struct Dims {
   int b, ci, co, n1, n2, K, m2;
@@ -957,6 +1277,24 @@ cudaError_t launch_mix(const Dims& d, const float* w, const Film& film, const fl
   }
 }
 
+// The mix at the batch tile that fits b (BT 1, 2, 4 or 8), vector weight
+// reads where the pack's rows allow.
+template <bool ADJ>
+cudaError_t mix_stage(const Dims& d, const float* w, const Film& film, const float* xr,
+                      const float* xi, float* yr, float* yi, bool w_vec, cudaStream_t st) {
+  const int bt = d.b > 4 ? 8 : d.b > 2 ? 4 : d.b;  // register tile in samples
+  switch (bt * 2 + (w_vec ? 1 : 0)) {
+    case 2: return launch_mix<ADJ, 1, false>(d, w, film, xr, xi, yr, yi, st);
+    case 3: return launch_mix<ADJ, 1, true>(d, w, film, xr, xi, yr, yi, st);
+    case 4: return launch_mix<ADJ, 2, false>(d, w, film, xr, xi, yr, yi, st);
+    case 5: return launch_mix<ADJ, 2, true>(d, w, film, xr, xi, yr, yi, st);
+    case 8: return launch_mix<ADJ, 4, false>(d, w, film, xr, xi, yr, yi, st);
+    case 9: return launch_mix<ADJ, 4, true>(d, w, film, xr, xi, yr, yi, st);
+    case 16: return launch_mix<ADJ, 8, false>(d, w, film, xr, xi, yr, yi, st);
+    default: return launch_mix<ADJ, 8, true>(d, w, film, xr, xi, yr, yi, st);
+  }
+}
+
 template <int M2, int V, bool ADJ>
 int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
             const float* s1, const float* ic2, const float* is2, const float* ic1,
@@ -979,22 +1317,8 @@ int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
                                                       pairs);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-
-  const int bt = d.b > 4 ? 8 : d.b > 2 ? 4 : d.b;  // register tile in samples
-#define NPS_MIX(BT, VEC) \
-  err = launch_mix<ADJ, BT, VEC>(d, w, film, xr, xi, yr, yi, st)
-  switch (bt * 2 + (w_vec ? 1 : 0)) {
-    case 2: NPS_MIX(1, false); break;
-    case 3: NPS_MIX(1, true); break;
-    case 4: NPS_MIX(2, false); break;
-    case 5: NPS_MIX(2, true); break;
-    case 8: NPS_MIX(4, false); break;
-    case 9: NPS_MIX(4, true); break;
-    case 16: NPS_MIX(8, false); break;
-    default: NPS_MIX(8, true); break;
-  }
-#undef NPS_MIX
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = mix_stage<ADJ>(d, w, film, xr, xi, yr, yi, w_vec, st)) != cudaSuccess)
+    return static_cast<int>(err);
 
   const size_t is = inv_smem(d, M2);
   const int inv_grid = resident_grid(dft_inv_kernel<M2, V>, kThreads, is, d.b * d.co);
@@ -1002,6 +1326,83 @@ int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
       dft_inv_kernel<M2, V>, dim3(inv_grid), dim3(kThreads), is, st, yr, yi, ic2, is2, ic1, is1,
       out, d.b, d.co, d.n1, d.n2, d.K, d.m2,
       1.0f / (static_cast<float>(d.n1) * static_cast<float>(d.n2))));
+}
+
+// shared memory of the large-plane kernels
+template <typename T, int M2>
+size_t big_fwd_smem() {
+  const size_t ring = big_stage_bytes<T>() + sizeof(float2) * kBigStages * kBigYc * M2;
+  const size_t spectrum = sizeof(float2) * kBigRows * M2;
+  return ring > spectrum ? ring : spectrum;
+}
+size_t big_inv_smem(const Dims& d) {
+  return sizeof(float2) * static_cast<size_t>(d.K + kBigInvRows) * d.m2;
+}
+
+// The large-plane forward: dft_fwd_big_kernel (and sum_tiles_kernel when the
+// rows take more than one tile; pr, pi [tiles, modes, b, ci] hold the
+// partial spectra), the mix, dft_inv_big_kernel.
+template <typename T, int M2, bool VEC>
+int run_big(const T* x, const float* c2, const float* s2, const float* c1, const float* s1,
+            const float* ic2, const float* is2, const float* ic1, const float* is1,
+            const float* w, const Film& film, float* pr, float* pi, float* xr, float* xi,
+            float* yr, float* yi, T* out, const Dims& d, bool w_vec, bool out_vec,
+            cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_fwd_big_kernel<T, M2, VEC>>();
+  if (err == cudaSuccess) err = opt_in_once<dft_inv_big_kernel<T, true>>();
+  if (err == cudaSuccess) err = opt_in_once<dft_inv_big_kernel<T, false>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (d.n1 + kBigRows - 1) / kBigRows;
+  const int planes_in = d.b * d.ci;
+  dft_fwd_big_kernel<T, M2, VEC><<<dim3(tiles, planes_in), kBigThreads,
+                                   big_fwd_smem<T, M2>(), st>>>(
+      x, c2, s2, c1, s1, tiles == 1 ? xr : pr, tiles == 1 ? xi : pi, planes_in, d.n1, d.n2,
+      d.K, d.m2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (tiles > 1) {
+    const int64_t n = static_cast<int64_t>(d.K) * d.m2 * planes_in;
+    const int64_t blocks = (n + kBigThreads - 1) / kBigThreads;
+    sum_tiles_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kBigThreads, 0,
+                       st>>>(pr, pi, xr, xi, tiles, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if ((err = mix_stage<false>(d, w, film, xr, xi, yr, yi, w_vec, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  const dim3 grid((d.n1 + kBigInvRows - 1) / kBigInvRows, d.b * d.co);
+  const float scale = 1.0f / (static_cast<float>(d.n1) * static_cast<float>(d.n2));
+  if (out_vec)
+    return static_cast<int>(launch_after_previous(
+        dft_inv_big_kernel<T, true>, grid, dim3(kBigThreads), big_inv_smem(d), st, yr, yi, ic2,
+        is2, ic1, is1, out, d.b * d.co, d.n1, d.n2, d.K, d.m2, scale));
+  return static_cast<int>(launch_after_previous(
+      dft_inv_big_kernel<T, false>, grid, dim3(kBigThreads), big_inv_smem(d), st, yr, yi, ic2,
+      is2, ic1, is1, out, d.b * d.co, d.n1, d.n2, d.K, d.m2, scale));
+}
+
+template <typename T>
+int dispatch_big(const void* x, const float* w_packed, const Film& film, const float* c2,
+                 const float* s2, const float* c1, const float* s1, const float* ic2,
+                 const float* is2, const float* ic1, const float* is1, float* pr, float* pi,
+                 float* xr, float* xi, float* yr, float* yi, void* out, const Dims& d,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  constexpr uintptr_t kAlign = 4 * sizeof(T);
+  const bool in_vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(x) % kAlign) == 0;
+  const bool out_vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(out) % kAlign) == 0;
+  const bool w_vec = d.co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
+#define NPS_BIG(M2, VEC)                                                                      \
+  return run_big<T, M2, VEC>(xt, c2, s2, c1, s1, ic2, is2, ic1, is1, w_packed, film, pr, pi, \
+                             xr, xi, yr, yi, ot, d, w_vec, out_vec, st)
+  if (d.m2 <= 12) {
+    if (in_vec) NPS_BIG(12, true); else NPS_BIG(12, false);
+  } else if (d.m2 <= 20) {
+    if (in_vec) NPS_BIG(20, true); else NPS_BIG(20, false);
+  } else {  // the wrapper keeps m2 <= 32
+    if (in_vec) NPS_BIG(32, true); else NPS_BIG(32, false);
+  }
+#undef NPS_BIG
 }
 
 // the three stages at the unrolled m2 bound and row width that fit; d.ci and
@@ -1045,6 +1446,26 @@ extern "C" int spectral_dft2d_fwd(
   const Film f{film, film_mode, film ? ur : nullptr, film ? ui : nullptr, nullptr, nullptr};
   return dispatch_dft<false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, xr, xi, yr, yi,
                              out, Dims{b, ci, co, n1, n2, 2 * m1, m2}, co, stream);
+}
+
+// The large-plane variant of spectral_dft2d_fwd (see the note above the
+// large-plane kernels): x and out f32 or (is_bf16) bf16, everything else as
+// there; pr, pi [ceil(n1 / 256), modes, b, ci] receive the row tiles' partial
+// spectra (unused, and may be null, when n1 <= 256).
+extern "C" int spectral_dft2d_fwd_large(
+    const void* x, const float* w_packed, const float* film, int film_mode,
+    const float* c2, const float* s2, const float* c1, const float* s1,
+    const float* ic2, const float* is2, const float* ic1, const float* is1,
+    float* pr, float* pi, float* xr, float* xi, float* yr, float* yi, float* ur, float* ui,
+    void* out, int b, int ci, int co, int n1, int n2, int m1, int m2, int is_bf16,
+    void* stream) {
+  const Film f{film, film_mode, film ? ur : nullptr, film ? ui : nullptr, nullptr, nullptr};
+  const Dims d{b, ci, co, n1, n2, 2 * m1, m2};
+  if (is_bf16)
+    return dispatch_big<__nv_bfloat16>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr,
+                                       pi, xr, xi, yr, yi, out, d, stream);
+  return dispatch_big<float>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr, pi, xr,
+                             xi, yr, yi, out, d, stream);
 }
 
 // The input gradient: dy [b, co, n1, n2] -> dx [b, ci, n1, n2] through the

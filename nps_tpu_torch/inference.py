@@ -34,6 +34,14 @@ serve a rollout:
   ``nps_torch::gn1_gelu_fwd`` and ``nps_torch::spectral_dft2d_fwd``. It
   serves without the config system, the model code or the checkpoint.
 
+The engine has a compute dtype (``compute_dtype``: its argument, else its
+config's ``trainer.compute_dtype``; f32 when neither sets one, as in the
+JAX package's ``from_config``) and runs every model apply, capture and
+export inside :func:`~nps_tpu_torch.models.config.compute_dtype_scope`: in
+bf16 the activations flow in bf16 through the convs and both kernels, with
+f32 weights, f32 sums and an f32 physics wrapper, so the frames it returns
+are f32 either way. The MP-GNN refuses bf16 (ROADMAP P12b).
+
 Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, c, tw, *sp]``, ``cond`` ``[b, n_static]``, ``spatial_cond``
 ``[b, n_spatial, *sp]``. GNN configs (``data_structure="graph"``) convert
@@ -56,6 +64,8 @@ from nps_tpu_torch.common import graph as G
 from nps_tpu_torch.common.interfaces import M
 from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.configs.parse import parse_args
+from nps_tpu_torch.models.config import (compute_dtype_scope,
+                                         resolve_compute_dtype)
 from nps_tpu_torch.models.fno import SpectralConvND, packed_spectral_weights
 from nps_tpu_torch.models.initializers import reset_parameters
 from nps_tpu_torch.pde import PDE2D
@@ -111,8 +121,10 @@ def _frames(frames, u0, include_init):
 
 
 class SurrogateEngine:
-    def __init__(self, model, pde, time_window, device="cuda", neighbors=3):
+    def __init__(self, model, pde, time_window, device="cuda", neighbors=3,
+                 compute_dtype=None):
         self.device = resolve_device(device)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.model = model.to(self.device).eval()
         self.pde = pde
         self.tw = time_window
@@ -123,11 +135,12 @@ class SurrogateEngine:
 
     @classmethod
     def from_config(cls, config_file, checkpoint=None, overrides=(),
-                    pde=None, device="cuda"):
+                    pde=None, device="cuda", compute_dtype=None):
         """Build from a training config file (same override semantics as the
         JAX package's CLI). The PDE metadata comes from ``pde``, else from
         the config's ``base_resolution``. The config's ``trainer.device`` is
-        not read: ``device`` decides."""
+        not read: ``device`` decides. The compute dtype is ``compute_dtype``,
+        else the config's ``trainer.compute_dtype``."""
         device = resolve_device(device)
         argv = sys.argv
         try:
@@ -135,8 +148,7 @@ class SurrogateEngine:
             args = parse_args(config_file)
         finally:
             sys.argv = argv
-        if args["trainer"].get("compute_dtype") not in (None, "float32"):
-            raise NotImplementedError("compute_dtype is not ported yet")
+        dtype = compute_dtype or args["trainer"].get("compute_dtype")
 
         if pde is None:
             t_res, nx1, nx2 = args["trainer"]["base_resolution"]
@@ -150,7 +162,8 @@ class SurrogateEngine:
         obj = model_args.pop("object", "activation_wrapper")
         model = getattr(models, obj)(**model_args, pde=pde)
         eng = cls(model, pde, args["trainer"]["time_window"], device=device,
-                  neighbors=args["trainer"].get("neighbors", 3))
+                  neighbors=args["trainer"].get("neighbors", 3),
+                  compute_dtype=dtype)
         if checkpoint is not None:
             eng.load(checkpoint)
         return eng
@@ -217,10 +230,19 @@ class SurrogateEngine:
                                    pos=pos, spatial_cond=spatial_cond)
         return self.model(u, cond=cond, pos=pos, spatial_cond=spatial_cond)
 
+    @contextmanager
+    def _serving(self):
+        """What every serving apply runs inside: inference mode, cuDNN
+        timing among its deterministic algorithms, the spectral weights
+        packed once, and the engine's compute dtype."""
+        with torch.inference_mode(), autotuned_convs(deterministic=True), \
+                packed_spectral_weights(self.model), \
+                compute_dtype_scope(self.compute_dtype):
+            yield
+
     def step(self, u, cond=None, spatial_cond=None):
         """One bundled step: [b, c, tw, *sp] -> the next tw frames."""
-        with torch.inference_mode(), autotuned_convs(deterministic=True), \
-                packed_spectral_weights(self.model):
+        with self._serving():
             u = self._tensor(u)
             out = self._apply(u, self._tensor(cond), self._pos(u.shape[0]),
                               self._tensor(spatial_cond))
@@ -237,8 +259,7 @@ class SurrogateEngine:
         if captured:
             return self._captured_rollout(u0, n_steps, cond, spatial_cond,
                                           include_init)
-        with torch.inference_mode(), autotuned_convs(deterministic=True), \
-                packed_spectral_weights(self.model):
+        with self._serving():
             pred = self._tensor(u0)
             cond, spatial_cond = self._tensor(cond), self._tensor(spatial_cond)
             pos = self._pos(pred.shape[0])
@@ -276,8 +297,7 @@ class SurrogateEngine:
         static output, graph, what the graph reads that must stay alive)."""
         static = [None if t is None else t.clone() for t in inputs]
         u, cond, sc = static
-        with torch.inference_mode(), autotuned_convs(deterministic=True), \
-                packed_spectral_weights(self.model):
+        with self._serving():
             packs = [m.w_packed for m in self.model.modules()
                      if isinstance(m, SpectralConvND)]
             pos = self._pos(u.shape[0])
@@ -325,7 +345,8 @@ class SurrogateEngine:
             # (u, rest): the step's signature is (u, *rest)
             dynamic = ({0: b}, tuple({0: b} for _ in args[1:]))
         with torch.no_grad(), packed_spectral_weights(self.model), \
-                _spectral_weights_hidden(self.model):
+                _spectral_weights_hidden(self.model), \
+                compute_dtype_scope(self.compute_dtype):
             program = torch.export.export(step, tuple(args),
                                           dynamic_shapes=dynamic)
         payload = io.BytesIO()
@@ -339,6 +360,7 @@ class SurrogateEngine:
             "u0_shape": ["b" if batch_poly else int(args[0].shape[0]),
                          *map(int, args[0].shape[1:])],
             "pde_name": getattr(self.pde, "name", ""),
+            "compute_dtype": str(self.compute_dtype or torch.float32),
             "device": self.device.type,
         }).encode()
         with open(path, "wb") as f:

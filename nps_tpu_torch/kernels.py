@@ -37,6 +37,9 @@ SIGNATURES = {
     # the plan (grid, samples per round, CTAs per sample, slice, rounds,
     # vec), stream
     "gn1_gelu_fwd": [P] * 6 + [I, I, I64, F32, I, I] + [I] * 6 + [P],
+    # x, gamma, beta, y, stats, partials, b, c, hw, eps, gelu, bf16, chunk,
+    # chunks, vec, stream
+    "gn1_gelu_fwd_stream": [P] * 6 + [I, I, I64, F32, I, I, I, I, I] + [P],
     # x, dy, gamma, beta, stats, ws, coef, dx, dgamma, dbeta, b, c, hw,
     # gelu, vec, stream
     "gn1_gelu_bwd": [P] * 10 + [I, I, I64, I, I] + [P],
@@ -44,6 +47,11 @@ SIGNATURES = {
     # xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2, m1, m2, stream
     "spectral_dft2d_fwd": [P, P, P, I] + [P] * 8 + [P] * 7
                           + [I] * 7 + [P],
+    # x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
+    # pr, pi, xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2, m1, m2, bf16,
+    # stream
+    "spectral_dft2d_fwd_large": [P, P, P, I] + [P] * 8 + [P] * 9
+                                + [I] * 8 + [P],
     # dy, w_packed, film, film_mode, ur, ui, scale, dfilm, c2, s2, c1, s1,
     # ic2, is2, ic1, is1, gr, gi, hr, hi, dx, b, ci, co, n1, n2, m1, m2,
     # stream

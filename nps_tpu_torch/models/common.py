@@ -13,6 +13,13 @@ Parameters keep the PyTorch reference's names and layouts (conv
 ``weight [O, I, *k]``, transposed conv ``[I, O, *k]``, linear ``[O, I]``,
 GroupNorm ``weight``/``bias``), so ``nps_tpu.compat.convert_state_dict``
 maps a port ``state_dict`` onto the ``nps_tpu`` tree.
+
+Under a bf16 compute dtype (:mod:`nps_tpu_torch.models.config`) the convs,
+transposed convs and dense layers cast their input and their f32 weights
+to it and produce their output in it (cuDNN and cuBLAS accumulate in f32);
+the bias is added in the output's type. With no compute dtype set they run
+in the input's type, as the JAX package does. The GroupNorms keep f32
+statistics and return the input's type.
 """
 
 import math
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nps_tpu_torch.models import initializers as init
+from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.ops.group_norm import gn_gelu, group_norm_plain  # noqa: F401
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -34,6 +42,18 @@ def _tuple(v, n):
         assert len(v) == n
         return tuple(int(x) for x in v)
     return (int(v),) * n
+
+
+def _cast(x, weight, bias):
+    """``x``, ``weight`` and ``bias`` in the compute dtype, else in x's.
+    Where nothing changes type (f32 throughout) it returns them untouched:
+    three no-op ``.to`` calls per conv cost the host-bound U-Net train step
+    3-5% on an H100 (PERF.md)."""
+    dt = compute_dtype() or x.dtype
+    if x.dtype == dt and weight.dtype == dt:
+        return x, weight, bias
+    return (x.to(dt), weight.to(dt),
+            None if bias is None else bias.to(dt))
 
 
 def _torch_pad(pads):
@@ -143,8 +163,8 @@ class ConvND(nn.Module):
             x = (circular_pad(x, self.pads, self.nd)
                  if self.padding_mode == "circular"
                  else F.pad(x, _torch_pad(self.pads)))
-        return _CONV[self.nd](x, self.weight, self.bias, stride=self.strides,
-                              dilation=self.dilation)
+        return _CONV[self.nd](*_cast(x, self.weight, self.bias),
+                              stride=self.strides, dilation=self.dilation)
 
 
 class ConvTransposeND(nn.Module):
@@ -174,7 +194,7 @@ class ConvTransposeND(nn.Module):
         if self.pre_pad > 0:
             x = circular_pad(x, [(self.pre_pad, self.pre_pad)] * self.nd,
                              self.nd)
-        return _CONV_T[self.nd](x, self.weight, self.bias,
+        return _CONV_T[self.nd](*_cast(x, self.weight, self.bias),
                                 stride=self.strides)
 
 
@@ -195,7 +215,7 @@ class Dense(nn.Module):
             init.fan_in_uniform_(self.bias, fan_in, generator)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(*_cast(x, self.weight, self.bias))
 
 
 class GroupNorm(nn.Module):

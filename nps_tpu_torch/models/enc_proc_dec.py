@@ -27,6 +27,7 @@ from functools import reduce
 import torch
 from torch import nn
 
+from nps_tpu_torch.models.config import cast_compute
 from nps_tpu_torch.utils.attr import getattr_nested
 from nps_tpu_torch.utils.broadcast import broadcast_to_grid
 
@@ -148,6 +149,10 @@ class EncProcDec(nn.Module):
             if spatial_cond is not None:
                 vb = (spatial_cond if vb is None
                       else torch.cat([vb, spatial_cond], dim=1))
+        if vb is not None:
+            # in the compute dtype, so that the concats downstream do not
+            # promote bf16 activations back to f32
+            vb = cast_compute(vb)
 
         h = self.encoder(u=u, variables_broadcast=vb, pos=pos, **extra)
         for i, (proc, takes_vars) in enumerate(zip(self.processor,

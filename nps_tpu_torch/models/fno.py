@@ -7,9 +7,11 @@ stacks ``hidden_blocks`` of them, conditioned by channel concat of the
 broadcast grid (``cond_mode='concat'``) or by FiLM on the spectrum
 (``cond_mode='film'``).
 
-Each call packs the weights into the CUDA kernel's layout, inside the
-autograd Function where a gradient is wanted. A caller that applies the
-model many times with fixed weights (a serving rollout) wraps the calls in
+The spectral conv runs in the compute dtype (:mod:`.config`; f32 when none
+is set) with its weights and their pack in f32. Each call packs the weights
+into the CUDA kernel's layout, inside the autograd Function where a
+gradient is wanted. A caller that applies the model many times with fixed
+weights (a serving rollout) wraps the calls in
 :func:`packed_spectral_weights`, which packs once for the whole block.
 """
 
@@ -23,6 +25,7 @@ from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.common import ConvND, Dense
+from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.ops.spectral import pack_weights_2d, spectral_conv_nd
 
 
@@ -89,6 +92,11 @@ class SpectralConvND(nn.Module):
         if self.weights_feat is not None:
             assert p is not None, "FiLM conditioning requires the cond vector"
             film = self.weights_feat(p).reshape((p.shape[0],) + self.film_grid)
+        # in the compute dtype (f32 when none is set), as the JAX package
+        # casts x to f32 and then to the compute dtype; the output has it
+        dt = compute_dtype() or torch.float32
+        if x.dtype != dt:
+            x = x.to(dt)
         # with gradients the CUDA path packs inside SpectralConv2dFn, so the
         # weights stay in the graph; there it ignores w_packed
         return spectral_conv_nd(x, [self.weights1, self.weights2], self.modes,

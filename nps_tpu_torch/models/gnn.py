@@ -46,6 +46,7 @@ from torch import nn
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import Swish, resolve_activation
 from nps_tpu_torch.models.common import ConvND, Dense
+from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.models.dec_grid import add_delta
 
 
@@ -164,7 +165,8 @@ class MPGNN(nn.Module):
     [h, conditioning] back to ``hidden_features`` first. The mean
     aggregate divides by each receiver's in-degree, counted exactly in f32.
     ``remat=True`` (recompute each layer in the backward) is not ported
-    (ROADMAP P12) and raises."""
+    (ROADMAP P12b) and raises, and so does a compute dtype other than f32:
+    the JAX package's bf16 casts in its layers are ROADMAP P12b too."""
 
     model_interface = M.AR_TB_GNN
     data_interface = (D.sim1d, D.sim2d)
@@ -175,7 +177,7 @@ class MPGNN(nn.Module):
         super().__init__()
         if remat:
             raise NotImplementedError(
-                "MPGNN(remat=True) is not ported yet (ROADMAP P12)")
+                "MPGNN(remat=True) is not ported yet (ROADMAP P12b)")
         if aggregate not in ("mean", "sum"):
             raise ValueError(f"aggregate must be 'mean' or 'sum', got "
                              f"{aggregate!r}")
@@ -210,6 +212,10 @@ class MPGNN(nn.Module):
                 batch=None, grid_meta=None):
         if edge_index is None:
             raise ValueError("MPGNN needs graph edges")
+        if compute_dtype() is not None:
+            raise NotImplementedError(
+                f"MPGNN under compute dtype {compute_dtype()} is not ported "
+                "yet (ROADMAP P12b: the MP-GNN's bf16 casts)")
         degree_inv = None
         if self.aggregate == "mean":
             recv = edge_index[1]

@@ -1,6 +1,13 @@
 """U-FNO processor (counterpart of ``nps_tpu/models/ufno.py``): per block, a
 spectral FNO layer and a full mini-U-Net run on the same input, are summed,
-then activated. The FNO layer has no activation of its own."""
+then activated. The FNO layer has no activation of its own.
+
+``remat`` and ``remat_policy`` take the JAX package's values (a policy is
+None or ``"save_conv_outputs"``; any other raises ``ValueError``). They
+change what a backward pass keeps, so they do nothing without a gradient:
+serving runs the same with or without them. Applying them in training
+(``torch.utils.checkpoint`` per block, keeping the conv outputs under
+``"save_conv_outputs"``) is ROADMAP P12b."""
 
 import torch
 from torch import nn
@@ -9,6 +16,10 @@ from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.fno import FNO_Layer
 from nps_tpu_torch.models.unet_modern import UNetModern
+
+# the JAX package's policies (nps_tpu/models/common.py:resolve_remat_policy):
+# None recomputes the whole block, "save_conv_outputs" keeps the conv outputs
+REMAT_POLICIES = (None, "save_conv_outputs")
 
 
 class UFNO(nn.Module):
@@ -20,8 +31,12 @@ class UFNO(nn.Module):
                  padding_mode="circular", fno_modes=48, fno_kernel_size=1,
                  fno_conv_mode="single", activation="gelu", norm=False,
                  ch_mults=(1, 1, 1), is_attn=(False, False, False),
-                 mid_attn=False, n_blocks=1, use1x1=True):
+                 mid_attn=False, n_blocks=1, use1x1=True, remat=False,
+                 remat_policy=None):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"Unknown remat policy {remat_policy!r}")
+        self.remat, self.remat_policy = bool(remat), remat_policy
         assert cond_mode in ("film", "concat", None), \
             "Incorrect conditioning mode supplied"
         if cond_mode == "film":

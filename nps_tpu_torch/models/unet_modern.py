@@ -7,7 +7,9 @@ lockstep, a MiddleBlock, UpBlocks that take skip connections re-aligned by
 block input, and a final GroupNorm(8)+act+conv+crop. NCHW throughout.
 
 In every ResidualBlock with one norm group, GroupNorm and the activation
-after it run as one fused op (the GN+GELU kernel for CUDA tensors).
+after it run as one fused op (the GN+GELU kernel for CUDA tensors) when the
+activation is the exact GELU; with another one (the tanh-approximate GELU
+of ``cfg_ns512_ufno``) the kernel normalises and the activation follows.
 ``AttentionBlock`` is not ported yet: ``is_attn``/``mid_attn`` must be off.
 """
 

@@ -12,6 +12,13 @@ statistics and f32 arithmetic, rounded once on output. A CPU tensor takes
 the plain version, a CUDA tensor the kernel ``gn1_gelu_fwd``
 (``csrc/gn1_gelu.cu``); there is no fallback between them.
 
+The kernel has two variants, chosen by the sample's size alone: the
+persistent one (one read of x) for a sample that the resident grid's shared
+memory holds, and ``gn1_gelu_fwd_stream`` (two reads of x, three launches)
+for a larger one, such as a top-level U-Net norm of ``cfg_ns512_ufno``.
+They count their launches under ``gn1_gelu_fwd`` and
+``gn1_gelu_fwd_stream``.
+
 Without gradients, :func:`gn_gelu` calls the custom op
 ``nps_torch::gn1_gelu_fwd`` (:mod:`nps_tpu_torch.ops.library`) on both
 devices: the kernel on CUDA, the plain version on the CPU. Gradients: on
@@ -55,22 +62,21 @@ def gn_gelu_plain(x, weight, bias, gelu=True, eps=EPS):
 
 
 _PLANS = {}
+# elements per CTA of the streaming variant (a multiple of 8)
+STREAM_CHUNK = 32768
 
 
 def _plan(b, n, is_bf16):
     """The persistent kernel's launch plan for ``b`` samples of ``n``
     elements: (grid, samples per round, CTAs per sample, slice length,
-    rounds, vector path). Cached per shape; raises when a sample does not
-    fit the grid's shared memory."""
+    rounds, vector path), or None when a sample does not fit the grid's
+    shared memory (the streaming variant takes it). Cached per shape."""
     key = (b, n, is_bf16)
     if key not in _PLANS:
         out = (ctypes.c_int * 6)()
         kernels.check(kernels.library().gn1_gelu_plan(b, n, int(is_bf16), out),
                       "gn1_gelu_plan")
-        if out[0] == 0:
-            raise ValueError(f"gn1_gelu_fwd: a sample of {n} elements does not "
-                             "fit the shared memory of the resident grid")
-        _PLANS[key] = tuple(out)
+        _PLANS[key] = tuple(out) if out[0] else None
     return _PLANS[key]
 
 
@@ -112,11 +118,15 @@ def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS):
     hw = x[0, 0].numel()
     n = _check_sample_size(x)
     bf16 = x.dtype == torch.bfloat16
-    grid, spr, ctas, per, rounds, vec = _plan(b, n, bf16)
+    plan = _plan(b, n, bf16)
     y = torch.empty_like(x)
+    stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    if plan is None:
+        _launch_stream(x, weight, bias, y, stats, gelu, eps)
+        return y, stats
+    grid, spr, ctas, per, rounds, vec = plan
     # 16-byte copies need 16-byte aligned samples in and out
     vec = int(vec and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     partials = torch.empty((b, ctas, 2), dtype=torch.float32, device=x.device)
     rc = kernels.library().gn1_gelu_fwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
@@ -126,6 +136,27 @@ def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS):
     kernels.check(rc, "gn1_gelu_fwd")
     kernels.launches["gn1_gelu_fwd"] += 1
     return y, stats
+
+
+def _launch_stream(x, weight, bias, y, stats, gelu, eps):
+    """The streaming variant into ``y`` and ``stats``: f32 partial sums over
+    fixed chunks of each sample, their sum per sample in a fixed order,
+    then the normalisation (x read twice)."""
+    b, c = x.shape[:2]
+    hw, n = x[0, 0].numel(), x[0].numel()
+    chunks = -(-n // STREAM_CHUNK)
+    per_vec = 16 // x.element_size()
+    vec = int(n % per_vec == 0 and x.data_ptr() % 16 == 0
+              and y.data_ptr() % 16 == 0)
+    partials = torch.empty((b, chunks, 2), dtype=torch.float32,
+                           device=x.device)
+    rc = kernels.library().gn1_gelu_fwd_stream(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        stats.data_ptr(), partials.data_ptr(), b, c, hw, float(eps),
+        int(bool(gelu)), int(x.dtype == torch.bfloat16), STREAM_CHUNK,
+        chunks, vec, kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_gelu_fwd_stream")
+    kernels.launches["gn1_gelu_fwd_stream"] += 1
 
 
 def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):

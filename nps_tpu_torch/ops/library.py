@@ -9,8 +9,9 @@ has three implementations:
   kernel launched on the current stream, a failed build or launch raises;
 - CPU: the plain version (:func:`group_norm.gn_gelu_plain`,
   :func:`spectral.spectral_conv_2d_packed_plain`);
-- fake: output shape and dtype only, with no guard on the batch, so a
-  symbolic batch passes through ``torch.export``.
+- fake: output shape and dtype only (the input's type, f32 or bf16), with
+  no guard on the batch, so a symbolic batch passes through
+  ``torch.export``.
 
 The no-grad serving path of ``gn_gelu`` and ``spectral_conv_nd`` calls these
 ops on both devices, so an exported graph holds them as nodes and a CUDA
@@ -52,9 +53,10 @@ def _gn1_gelu_fwd_fake(x, weight, bias, gelu, eps):
 def spectral_dft2d_fwd(x: torch.Tensor, w_packed: torch.Tensor, m1: int,
                        m2: int, film: Optional[torch.Tensor],
                        film_mode: int) -> torch.Tensor:
-    """The truncated-DFT spectral conv of x [b, ci, n1, n2] with the weight
-    pack [2*m1*m2, 2, ci, co] (:func:`spectral.pack_weights_2d`): the
-    kernel."""
+    """The truncated-DFT spectral conv of x [b, ci, n1, n2] (f32 or bf16)
+    with the f32 weight pack [2*m1*m2, 2, ci, co]
+    (:func:`spectral.pack_weights_2d`), in x's type: the kernel (its
+    resident or its large-plane variant)."""
     return sp.spectral_dft2d_fwd(x, w_packed, (m1, m2), film, film_mode)
 
 
@@ -67,5 +69,6 @@ def _spectral_dft2d_fwd_cpu(x, w_packed, m1, m2, film, film_mode):
 
 @spectral_dft2d_fwd.register_fake
 def _spectral_dft2d_fwd_fake(x, w_packed, m1, m2, film, film_mode):
-    return x.new_empty((x.shape[0], w_packed.shape[3]) + tuple(x.shape[2:]),
-                       dtype=torch.float32)
+    # the output has x's type (f32 or bf16), as the kernel and the plain
+    # version give it
+    return x.new_empty((x.shape[0], w_packed.shape[3]) + tuple(x.shape[2:]))

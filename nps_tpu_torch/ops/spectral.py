@@ -157,7 +157,9 @@ def _inverse_plain(y_re, y_im, grid, modes):
 
 
 def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
-    """Plain PyTorch version of K1 (``_spectral_conv_2d_dft``)."""
+    """Plain PyTorch version of K1 (``_spectral_conv_2d_dft``): every stage
+    in f32, the result in ``x``'s type (f32 or bf16), as the kernel
+    rounds it."""
     m1, m2 = modes
     x_re, x_im = _spectrum_plain(x, modes)
     ein = torch.einsum
@@ -170,7 +172,7 @@ def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
         f = _film_factor(film, 2 * m1, m2, film_mode)
         y_re = y_re * f
         y_im = y_im * f
-    return _inverse_plain(y_re, y_im, x.shape[2:], modes)
+    return _inverse_plain(y_re, y_im, x.shape[2:], modes).to(x.dtype)
 
 
 def spectral_conv_2d_packed_plain(x, w_packed, modes, film=None,
@@ -184,33 +186,68 @@ def spectral_conv_2d_packed_plain(x, w_packed, modes, film=None,
                                   modes, film, film_mode)
 
 
-def _check_kernel_fits(b, c_in, n1, n2, m1, m2, name="spectral_dft2d_fwd"):
-    """Raise on a shape the kernel's design does not take: m2 above its
-    largest unrolled bound (16), more threads per output row than a CTA
-    has, or more shared memory per CTA than the H100 gives. ``c_in``: the
-    input's channels, whose spectrum the mix stages; the backward's
-    adjoint mix pads its weight rows from 16 to 20 floats. Mirrors the
-    sizes in ``csrc/spectral_dft2d.cu``."""
-    if m2 > 16:
-        raise ValueError(f"{name} takes m2 <= 16, got {m2}")
-    bound = next(v for v in (4, 8, 10, 16) if m2 <= v)
-    vec = 4 if n2 % 4 == 0 else 1
-    if n2 // vec > 256:
-        raise ValueError(f"{name} takes rows of at most {256 * vec} points, "
-                         f"got {n2}")
+# the large-plane variant's limits, as ``csrc/spectral_dft2d.cu`` sizes it:
+# rows per forward CTA, rows per inverse CTA, the largest m2 bound, the
+# threads of an inverse CTA (4 outputs of a row each)
+_LARGE_ROWS, _LARGE_INV_ROWS, _LARGE_M2, _LARGE_THREADS = 256, 128, 32, 256
+
+
+def _check_kernel_fits(b, c_in, n1, n2, m1, m2, name="spectral_dft2d_fwd",
+                       bf16=False, c_out=None):
+    """The forward kernel variant that takes this shape, "resident" or
+    "large"; raise on a shape that neither takes. ``c_in``: the input's
+    channels, whose spectrum the mix stages (``c_out``: the output's, for
+    the large variant's grid). The resident kernels (f32) hold a plane and
+    its tables in shared memory and unroll m2 up to 16; the large-plane
+    variant (f32 or bf16) tiles rows, columns and tables and takes m2 up to
+    32 and rows up to 1024 points. The choice depends only on the shape and
+    the type, never on a failure. The backward (``spectral_dft2d_bwd``)
+    has only the resident design: its adjoint mix pads its weight rows from
+    16 to 20 floats. Mirrors the sizes in ``csrc/spectral_dft2d.cu``."""
     k = 2 * m1
-    ld = n2 + (4 if vec == 4 else 1)
     tile = 8 if b > 4 else 4 if b > 2 else b
     c_pad = -(-c_in // 16) * 16
     row = 20 if name == "spectral_dft2d_bwd" else 16
-    need = 4 * max(
-        -(-n1 * ld // 4) * 4                                 # forward DFT
-        + 2 * (n2 * bound + n1 * k + n1 * bound),
-        4 * 2 * 64 * row + 2 * c_pad * tile,                 # mix
-        2 * (k * bound + k * n1 + n1 * bound))                # inverse DFT
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"{name} needs {need} B of shared memory per CTA at "
-                         f"this shape; the H100 gives {_SMEM_LIMIT}")
+    mix = 4 * (4 * 2 * 64 * row + 2 * c_pad * tile)
+    if mix > _SMEM_LIMIT:
+        raise ValueError(f"{name}'s mix needs {mix} B of shared memory per "
+                         f"CTA for {c_in} channels; the H100 gives "
+                         f"{_SMEM_LIMIT}")
+    why = None
+    if bf16:
+        why = "bf16 input"
+    elif m2 > 16:
+        why = f"m2 = {m2} > 16"
+    else:
+        bound = next(v for v in (4, 8, 10, 16) if m2 <= v)
+        vec = 4 if n2 % 4 == 0 else 1
+        ld = n2 + (4 if vec == 4 else 1)
+        need = 4 * max(
+            -(-n1 * ld // 4) * 4                              # forward DFT
+            + 2 * (n2 * bound + n1 * k + n1 * bound),
+            2 * (k * bound + k * n1 + n1 * bound))             # inverse DFT
+        if n2 // vec > 256:
+            why = f"rows of {n2} points"
+        elif need > _SMEM_LIMIT:
+            why = f"{need} B of shared memory per CTA"
+    if why is None:
+        return "resident"
+    if name == "spectral_dft2d_bwd":
+        raise ValueError(f"{name} has no variant for {why} (the backward "
+                         f"at such shapes is ROADMAP P12b)")
+    if m2 > _LARGE_M2:
+        raise ValueError(f"{name} takes m2 <= {_LARGE_M2}, got {m2}")
+    if -(-n2 // 4) > _LARGE_THREADS:
+        raise ValueError(f"{name} takes rows of at most "
+                         f"{4 * _LARGE_THREADS} points, got {n2}")
+    inv = 8 * (k + _LARGE_INV_ROWS) * m2
+    if inv > _SMEM_LIMIT:
+        raise ValueError(f"{name}'s inverse needs {inv} B of shared memory "
+                         f"per CTA at {k} row modes")
+    if b * max(c_in, c_out or 0) > 65535:
+        raise ValueError(f"{name} takes at most 65535 planes a call, got "
+                         f"{b} x {max(c_in, c_out or 0)}")
+    return "large"
 
 
 def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
@@ -220,15 +257,17 @@ def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
                                        film_mode)[0]
 
 
-def _check_launch(x, w_packed, modes, name, chan):
-    """Raise unless ``x`` is a contiguous f32 CUDA [b, c, n1, n2] tensor and
-    ``w_packed`` the contiguous f32 pack [2*m1*m2, 2, ci, co] on its device
-    whose dim ``chan`` (2: ci, 3: co) is c."""
+def _check_launch(x, w_packed, modes, name, chan, types=(torch.float32,)):
+    """Raise unless ``x`` is a contiguous [b, c, n1, n2] CUDA tensor of one
+    of ``types`` and ``w_packed`` the contiguous f32 pack
+    [2*m1*m2, 2, ci, co] on its device whose dim ``chan`` (2: ci, 3: co) is
+    c."""
     m1, m2 = modes
     if x.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError(f"{name} takes a contiguous f32 [b, c, n1, n2] "
+    if x.dtype not in types or x.ndim != 4 or not x.is_contiguous():
+        kinds = " or ".join(str(t).replace("torch.", "") for t in types)
+        raise ValueError(f"{name} takes a contiguous {kinds} [b, c, n1, n2] "
                          "tensor")
     if (w_packed.device != x.device or w_packed.dtype != torch.float32
             or w_packed.ndim != 4 or not w_packed.is_contiguous()
@@ -247,9 +286,16 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
     copy of ``x``'s truncated spectrum: (out, xr, xi), xr and xi the real and
     imaginary parts, f32 [2*m1*m2, b, ci] (mode k*m2 + m). With ``film`` and
     ``keep_y`` it returns (out, xr, xi, ur, ui): also the mix's pre-FiLM
-    spectrum U, f32 [2*m1*m2, b, co], which the FiLM gradient needs."""
+    spectrum U, f32 [2*m1*m2, b, co], which the FiLM gradient needs.
+
+    ``x`` is f32 or bf16, and ``out`` has its type; the spectra, the pack
+    and every sum are f32. The variant follows :func:`_check_kernel_fits`:
+    the resident kernels count their launches under
+    ``spectral_dft2d_fwd``, the large-plane variant under
+    ``spectral_dft2d_fwd_large``."""
     m1, m2 = modes
-    _check_launch(x, w_packed, modes, "spectral_dft2d_fwd", 2)
+    _check_launch(x, w_packed, modes, "spectral_dft2d_fwd", 2,
+                  (torch.float32, torch.bfloat16))
     b, ci, n1, n2 = x.shape
     k = 2 * m1
     co = w_packed.shape[3]
@@ -260,7 +306,8 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
             raise ValueError(f"film must be [{b}, {co}, >={k}, >={m2}] on "
                              f"{x.device}")
         film_ptr = film.data_ptr()
-    _check_kernel_fits(b, ci, n1, n2, m1, m2)
+    bf16 = x.dtype == torch.bfloat16
+    variant = _check_kernel_fits(b, ci, n1, n2, m1, m2, bf16=bf16, c_out=co)
     tables = dft_tables(n1, n2, m1, m2, x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     xr = torch.empty((k * m2, b, ci), **f32)
@@ -270,15 +317,31 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
     keep = film is not None and keep_y
     ur, ui = ((torch.empty_like(yr), torch.empty_like(yr)) if keep
               else (None, None))
-    out = torch.empty((b, co, n1, n2), **f32)
-    rc = kernels.library().spectral_dft2d_fwd(
-        x.data_ptr(), w_packed.data_ptr(), film_ptr, int(film_mode),
-        *(t.data_ptr() for t in tables),
-        xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-        _ptr(ur), _ptr(ui), out.data_ptr(), b, ci, co, n1, n2, m1, m2,
-        kernels.stream_ptr(x.device))
-    kernels.check(rc, "spectral_dft2d_fwd")
-    kernels.launches["spectral_dft2d_fwd"] += 1
+    out = torch.empty((b, co, n1, n2), dtype=x.dtype, device=x.device)
+    lib = kernels.library()
+    if variant == "resident":
+        rc = lib.spectral_dft2d_fwd(
+            x.data_ptr(), w_packed.data_ptr(), film_ptr, int(film_mode),
+            *(t.data_ptr() for t in tables),
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            _ptr(ur), _ptr(ui), out.data_ptr(), b, ci, co, n1, n2, m1, m2,
+            kernels.stream_ptr(x.device))
+        kernels.check(rc, "spectral_dft2d_fwd")
+        kernels.launches["spectral_dft2d_fwd"] += 1
+    else:
+        tiles = -(-n1 // _LARGE_ROWS)
+        pr = pi = None
+        if tiles > 1:   # the row tiles' partial spectra
+            pr = torch.empty((tiles, k * m2, b, ci), **f32)
+            pi = torch.empty_like(pr)
+        rc = lib.spectral_dft2d_fwd_large(
+            x.data_ptr(), w_packed.data_ptr(), film_ptr, int(film_mode),
+            *(t.data_ptr() for t in tables), _ptr(pr), _ptr(pi),
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            _ptr(ur), _ptr(ui), out.data_ptr(), b, ci, co, n1, n2, m1, m2,
+            int(bf16), kernels.stream_ptr(x.device))
+        kernels.check(rc, "spectral_dft2d_fwd_large")
+        kernels.launches["spectral_dft2d_fwd_large"] += 1
     return (out, xr, xi, ur, ui) if keep else (out, xr, xi)
 
 
@@ -487,6 +550,14 @@ class SpectralConv2dFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weights1, weights2, modes, film=None, film_mode=1):
+        # the backward takes f32 at the resident kernels' shapes: refuse the
+        # rest before the forward runs (ROADMAP P12b)
+        if x.dtype != torch.float32:
+            raise TypeError(f"the spectral conv's gradient takes f32, got "
+                            f"{x.dtype} (ROADMAP P12b)")
+        b, ci, n1, n2 = x.shape
+        _check_kernel_fits(b, weights1.shape[2], n1, n2, *modes,
+                           "spectral_dft2d_bwd")
         w_packed = pack_weights_2d((weights1, weights2))
         keep_y = film is not None and film.requires_grad
         out, xr, xi, *u = spectral_dft2d_fwd_spectrum(
@@ -523,7 +594,8 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     ``w_packed`` (:func:`pack_weights_2d` of ``weights``; packed here when
     the caller has none), so a caller can pack once instead of per call.
     Where a gradient is wanted the CUDA path takes :class:`SpectralConv2dFn`
-    and the CPU path plain autograd; both ignore ``w_packed``.
+    and the CPU path plain autograd; both ignore ``w_packed``. ``x`` is f32 or
+    bf16 (:class:`SpectralConv2dFn` takes f32), and the output has its type.
     """
     nd = num_spatial_dims or (x.ndim - 2)
     modes = tuple(int(m) for m in modes)

@@ -1,13 +1,14 @@
 """Where one bundled rollout step, or one train step, of a full-width
-twophase model spends its time.
+model spends its time.
 
     python -m nps_tpu_torch.trace_step [--config CFG] [--batch 4]
         [--steps 3] [--tf32] [--out results/trace]
     python -m nps_tpu_torch.trace_step --train [--config CFG] [--depth 0]
         [--batch 16] [--steps 2] [--tf32] [--out results/trace]
 
-Builds the config (default ``cfg_twophase_ufno``; any of the four
-``nps_tpu_torch/configs/train/cfg_twophase_*.py``) on the GPU as
+Builds the config (default ``cfg_twophase_ufno``; any of the
+``nps_tpu_torch/configs/train/cfg_twophase_*.py``, and for a rollout
+``cfg_ns512_ufno.py``, on its 512x512 grid in bf16) on the GPU as
 ``chip_smoke.py`` does, warms up
 with one step, then traces ``--steps`` steps with ``torch.profiler``. Prints
 one JSON line: the host time per step, the device-busy share of the traced
@@ -50,9 +51,11 @@ CFG = "nps_tpu_torch/configs/train/cfg_twophase_ufno.py"
 # device-side records of the profiler's own work, not kernels of the step
 PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
 # the device kernels of the port's hand-written CUDA sources, by name
-PORTED_KERNELS = ("gn1_gelu_kernel", "gn1_bwd_", "dft_fwd_kernel",
+PORTED_KERNELS = ("gn1_gelu_kernel", "gn1_stream_", "gn1_bwd_",
+                  "dft_fwd_kernel", "dft_fwd_big_kernel", "sum_tiles_kernel",
                   "mix_kernel", "mix_adj_kernel", "dft_inv_kernel",
-                  "spectral_dw_kernel", "film_bwd_kernel")
+                  "dft_inv_big_kernel", "spectral_dw_kernel",
+                  "film_bwd_kernel")
 PHASES = ("pushforward", "forward", "backward", "optimizer")
 
 
@@ -145,16 +148,31 @@ def _card():
 
 
 def _rollout_runner(args):
-    pde = PDE2D(tmin=0.0, tmax=10.0, nt=501, L1=1.0, L2=64 / 96, nx1=96,
-                nx2=64, x=None, name="twophase", n_cond_static=2,
-                n_cond_spatial=2)
+    """The config's full-width engine (its compute dtype) on its
+    ``base_resolution`` grid, random weights and inputs from the seed, with
+    static and spatial conditioning (2 channels each, as the synthetic
+    generator writes); returns the traced work: ``--steps`` bundled steps."""
+    from nps_tpu_torch.configs.parse import parse_args
+
+    saved = sys.argv
+    try:
+        sys.argv = ["trace_step"]
+        with redirect_stdout(sys.stderr):
+            cfg = parse_args(args.config)
+    finally:
+        sys.argv = saved
+    nt, nx1, nx2 = cfg["trainer"]["base_resolution"]
+    tw = cfg["trainer"]["time_window"]
+    pde = PDE2D(tmin=0.0, tmax=10.0, nt=nt, L1=1.0, L2=nx2 / nx1, nx1=nx1,
+                nx2=nx2, x=None, name=cfg["dataset"].get("name", "pde"),
+                n_cond_static=2, n_cond_spatial=2)
     eng = SurrogateEngine.from_config(args.config, pde=pde, device="cuda")
     eng.init_params(seed=args.seed)
     rng = np.random.default_rng(args.seed)
     b = args.batch
-    u0 = (0.1 + 0.8 * rng.random((b, 1, 25, 96, 64))).astype(np.float32)
+    u0 = (0.1 + 0.8 * rng.random((b, 1, tw, nx1, nx2))).astype(np.float32)
     cond = rng.random((b, 2)).astype(np.float32)
-    sc = (rng.random((b, 2, 96, 64)) > 0.9).astype(np.float32)
+    sc = (rng.random((b, 2, nx1, nx2)) > 0.9).astype(np.float32)
     eng.rollout(u0, 1, cond=cond, spatial_cond=sc)          # warm-up
     return lambda: eng.rollout(u0, args.steps, cond=cond, spatial_cond=sc)
 
@@ -210,7 +228,7 @@ def main():
     ap.add_argument("--steps", type=int, default=None,
                     help="default: 3 for a rollout, 2 to train")
     ap.add_argument("--config", default=CFG,
-                    help="a twophase config file (default: the U-FNO's)")
+                    help="a config file (default: the twophase U-FNO's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tf32", action="store_true")
     ap.add_argument("--out", default="results/trace")
@@ -249,7 +267,9 @@ def main():
     rows = sorted(((us, k, n) for k, (us, n) in by_name.items()),
                   reverse=True)
     total_dev_us = sum(r[0] for r in rows)
-    spans = sorted(_call_spans_us(events, "dft_fwd_kernel", "dft_inv_kernel"))
+    spans = sorted(
+        _call_spans_us(events, "dft_fwd_kernel", "dft_inv_kernel")
+        + _call_spans_us(events, "dft_fwd_big_kernel", "dft_inv_big_kernel"))
 
     def row(us, k, n):
         return {"name": k[:90], "ms_per_step": us / 1e3 / args.steps,

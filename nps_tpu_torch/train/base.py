@@ -12,9 +12,10 @@ the full-width U-FNO about 65x slower on an H100 (PERF.md).
 
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
 item: the parallel regimes and gradient accumulation (P9), a compute dtype
-other than f32 (P3), variable-time data (P11), the cheaper pushforward
-forward (P13). Parameters are a ``state_dict`` of the PyTorch reference's
-key names (``.pt``), which ``nps_tpu.compat.convert_state_dict`` reads.
+other than f32 (P12b, training at 512²), variable-time data (P11), the
+cheaper pushforward forward (P13). Parameters are a ``state_dict`` of the
+PyTorch reference's key names (``.pt``), which
+``nps_tpu.compat.convert_state_dict`` reads.
 """
 
 import json
@@ -53,7 +54,8 @@ _UNPORTED = (
     ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9"),
     ("expert_parallel", lambda v: int(v or 0) > 1, "P9"),
     ("grad_accum", lambda v: int(v or 0) > 1, "P9"),
-    ("compute_dtype", lambda v: v not in (None, "float32"), "P3"),
+    ("compute_dtype", lambda v: v not in (None, "float32"),
+     "P12b (training at 512²)"),
     ("variable_time", bool, "P11"),
     ("pushforward_fast", bool, "P13"),
 )

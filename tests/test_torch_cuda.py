@@ -7,7 +7,10 @@ and the engine on the card against the engine on the CPU, for each
 twophase family; the kernels' custom ops on the card, the captured rollout
 against the eager one (bar 1e-6) for all five families, the exported
 artifact on the card, and the GNN's step and train gradients against the
-CPU.
+CPU. The variants for shapes the resident kernels do not take (the
+large-plane spectral conv, f32 and bf16; the streaming GN+GELU), the
+twophase shapes still on the resident kernels, and a bf16 engine on the
+card against the CPU.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine, which
 has no JAX, run it without the repo's conftest:
@@ -113,11 +116,16 @@ def test_gn1_gelu_kernel_refuses_bad_input():
         gn.gn1_gelu_fwd(x.double(), w, b)
     with pytest.raises(ValueError):
         gn.gn1_gelu_fwd(x, w[:3], b)
-    # one f32 sample of 55.7 MB: more than the resident grid's shared memory
-    big = torch.zeros((1, 2048, 100, 68), device="cuda")
+    # one f32 sample of 55.7 MB, more than the resident grid's shared memory:
+    # refused before the streaming variant existed, now taken by it
+    from nps_tpu_torch import kernels
+
+    big = torch.randn((1, 2048, 100, 68), device="cuda")
     w, b = torch.ones(2048, device="cuda"), torch.zeros(2048, device="cuda")
-    with pytest.raises(ValueError, match="does not fit"):
-        gn.gn1_gelu_fwd(big, w, b)
+    kernels.reset_launches()
+    y = gn.gn1_gelu_fwd(big, w, b)
+    assert dict(kernels.launches) == {"gn1_gelu_fwd_stream": 1}
+    assert _rel(y, gn.gn_gelu_plain(big, w, b)) < 1e-5
 
 
 @pytest.mark.parametrize("b,ci,co,grid,modes", [
@@ -704,3 +712,166 @@ def test_gnn_engine_and_train_step_on_card_match_cpu():
     for k, g in grads[1].items():
         scale = max(float(g.abs().max()), floor)
         assert float((grads[0][k] - g).abs().max()) / scale < 5e-3, k
+
+
+# ---- the large-plane spectral conv and the streaming GN+GELU ----------------
+# (b, ci, co, grid, modes, the variant that takes it in f32; bf16 always
+# takes the large-plane one)
+@pytest.mark.parametrize("b,ci,co,grid,modes,f32_variant", [
+    (2, 6, 5, (512, 512), (20, 20), "large"),  # the ns512 plane: 2 row tiles
+    (3, 5, 7, (300, 200), (20, 17), "large"),  # a partial row tile
+    (1, 3, 4, (1024, 1024), (32, 32), "large"),  # largest rows and m2 bound
+    (2, 4, 6, (130, 98), (20, 20), "large"),   # n2 % 4 != 0: scalar paths
+    (10, 9, 66, (96, 64), (10, 10), "resident"),  # a twophase plane
+    (2, 3, 5, (40, 36), (4, 6), "resident"),   # one row tile, m2 <= 12
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("film_mode", [None, 1])
+def test_spectral_large_variant_matches_plain(b, ci, co, grid, modes,
+                                              f32_variant, dtype, tol,
+                                              film_mode):
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((b, ci) + grid, device="cuda", generator=g).to(dtype)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    film = (None if film_mode is None else
+            torch.randn((b, co, 2 * modes[0], modes[1]), device="cuda",
+                        generator=g))
+    fm = 1 if film_mode is None else film_mode
+    variant = sp._check_kernel_fits(b, ci, *grid, *modes,
+                                    bf16=dtype == torch.bfloat16, c_out=co)
+    kernels.reset_launches()
+    y = sp.spectral_dft2d_fwd(x, sp.pack_weights_2d(ws), modes, film, fm)
+    torch.cuda.synchronize()
+    name = ("spectral_dft2d_fwd" if variant == "resident"
+            else "spectral_dft2d_fwd_large")
+    assert dict(kernels.launches) == {name: 1}
+    assert variant == ("large" if dtype == torch.bfloat16 else f32_variant)
+    assert y.dtype == dtype
+    assert _rel(y, sp.spectral_conv_2d_plain(x, ws, modes, film, fm)) < tol
+
+
+def test_spectral_large_variant_same_bits_at_ns512_shape():
+    """The ns512 call ([8, 132, 512, 512] -> 128, 20 x 20 modes, bf16): the
+    plain version's bar, and two calls give the same bits (the row tiles'
+    partial spectra are summed in a fixed order)."""
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((8, 132, 512, 512), device="cuda", generator=g)
+    ws = [torch.rand((2, 132, 128, 20, 20), device="cuda", generator=g)
+          / (132 * 128) for _ in range(2)]
+    wp = sp.pack_weights_2d(ws)
+    xb = x.to(torch.bfloat16)
+    y = sp.spectral_dft2d_fwd(xb, wp, (20, 20))
+    again = sp.spectral_dft2d_fwd(xb, wp, (20, 20))
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert _rel(y, sp.spectral_conv_2d_plain(xb, ws, (20, 20))) < 1e-2
+
+
+def test_twophase_shapes_keep_the_resident_kernels():
+    """Every spectral and GN+GELU shape of the twophase serving and train
+    paths (f32) still takes the resident kernels."""
+    from nps_tpu_torch.ops import group_norm as gn
+    from nps_tpu_torch.ops import spectral as sp
+
+    for b in (4, 16):
+        assert sp._check_kernel_fits(b, 196, 96, 64, 10, 10,
+                                     c_out=192) == "resident"
+        assert sp._check_kernel_fits(b, 196, 96, 64, 10, 10,
+                                     "spectral_dft2d_bwd") == "resident"
+    for shape in ((4, 388, 100, 68), (16, 388, 100, 68), (16, 132, 130, 98),
+                  (16, 256, 9, 5), (4, 192, 47, 31)):
+        assert gn._plan(shape[0], int(np.prod(shape[1:])), False) is not None
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((1, 2048, 100, 68), torch.float32, 1e-5),   # 55.7 MB a sample
+    ((2, 36, 516, 516), torch.float32, 1e-5),    # the narrow ns512 model's
+    ((2, 260, 516, 516), torch.bfloat16, 1e-2),  # ns512's largest norm input
+    ((2, 3001, 101, 103), torch.float32, 1e-5),  # odd hw: scalar path
+    ((1, 4099, 131, 129), torch.bfloat16, 1e-2),
+])
+@pytest.mark.parametrize("gelu", [True, False])
+def test_gn1_gelu_stream_matches_plain(shape, dtype, tol, gelu):
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    c = shape[1]
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    kernels.reset_launches()
+    y, stats = gn.gn1_gelu_fwd_stats(x, w, b, gelu)
+    again = gn.gn1_gelu_fwd(x, w, b, gelu)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"gn1_gelu_fwd_stream": 2}
+    assert y.dtype == dtype
+    assert torch.equal(y, again)
+    assert _rel(y, gn.gn_gelu_plain(x, w, b, gelu)) < tol
+    xf = x.float().reshape(shape[0], -1)
+    mean = xf.mean(1)
+    inv = torch.rsqrt(xf.var(1, unbiased=False) + gn.EPS)
+    assert _rel(stats[:, 0], mean) < 1e-5
+    assert _rel(stats[:, 1], inv) < 1e-4
+
+
+def test_gn1_gelu_stream_constant_sample_clamps_variance():
+    """The streaming variant's clamp: a constant sample of 777.7, whose f32
+    E[x^2] - E[x]^2 may round below 0, gives a finite inv no larger than
+    1/sqrt(eps), and y is the normalisation by the kernel's own (mean, inv)
+    (their f32 rounding over 13.9 M elements, times 1/sqrt(eps), is what
+    separates y from GELU(beta))."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    x = torch.full((1, 2048, 100, 68), 777.7, device="cuda")
+    w = torch.ones(2048, device="cuda")
+    b = torch.linspace(-1.0, 1.0, 2048, device="cuda")
+    kernels.reset_launches()
+    y, stats = gn.gn1_gelu_fwd_stats(x, w, b)
+    assert dict(kernels.launches) == {"gn1_gelu_fwd_stream": 1}
+    mean, inv = (float(v) for v in stats[0])
+    assert torch.isfinite(y).all() and np.isfinite(inv)
+    assert abs(mean - 777.7) < 1e-3 and 0 < inv <= (1 + 1e-6) / gn.EPS ** 0.5
+    ref = torch.nn.functional.gelu((x - stats[0, 0]) * stats[0, 1]
+                                   * w.reshape(1, -1, 1, 1)
+                                   + b.reshape(1, -1, 1, 1))
+    assert float((y - ref).abs().max()) < 1e-5
+
+
+def test_bf16_engine_on_card_matches_cpu():
+    """The ns512 config at a narrow width on a 32 x 32 grid in bf16 (every
+    spectral call takes the large-plane variant in bf16): one step on the
+    card against the port in bf16 on the CPU, and against the card in f32
+    (a sanity bound on bf16, not a parity bar)."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.pde import PDE2D
+
+    cfg = "nps_tpu_torch/configs/train/cfg_ns512_ufno.py"
+    pde = PDE2D(tmin=0, tmax=1, nt=21, L1=1.0, L2=1.0, nx1=32, nx2=32,
+                x=None, name="ns512", n_cond_static=0, n_cond_spatial=0)
+    over = ["--model.hidden_features=16", "--model.hidden_blocks=2",
+            "--model.fno_modes=4", "--time_window=5"]
+    engines = {(dev, dt): SurrogateEngine.from_config(
+        cfg, pde=pde, overrides=over, device=dev, compute_dtype=dt)
+        for dev in ("cuda", "cpu") for dt in ("bfloat16", "float32")}
+    for eng in engines.values():
+        eng.init_params(seed=0)
+    u0 = np.random.default_rng(0).random((2, 1, 5, 32, 32)).astype(
+        np.float32)
+    kernels.reset_launches()
+    out = engines["cuda", "bfloat16"].step(u0)
+    assert kernels.launches["spectral_dft2d_fwd_large"] == 2
+    ref = engines["cpu", "bfloat16"].step(u0)
+    f32 = engines["cuda", "float32"].step(u0)
+    scale = np.abs(f32).max()
+    assert np.abs(out - ref).max() / scale < 2e-2
+    assert np.abs(out - f32).max() / scale < 5e-2

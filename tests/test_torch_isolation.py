@@ -77,13 +77,16 @@ def test_train_cli_without_device_refuses_to_run_on_cpu(monkeypatch):
         train_cli.cli(argv + ["--device", "cuda"])
 
 
-# the modules the serving artifact, the captured rollout and the MP-GNN
-# added: each imports in a fresh process with no JAX and nothing of nps_tpu
+# the modules the serving artifact, the captured rollout, the MP-GNN and
+# the ns512 serving slice added: each imports in a fresh process with no JAX
+# and nothing of nps_tpu
 NEW_MODULES = ("nps_tpu_torch.ops.library", "nps_tpu_torch.export_artifact",
                "nps_tpu_torch.common.graph",
                "nps_tpu_torch.common.data_creator",
                "nps_tpu_torch.models.gnn",
-               "nps_tpu_torch.configs.train.cfg_twophase_gnn")
+               "nps_tpu_torch.configs.train.cfg_twophase_gnn",
+               "nps_tpu_torch.models.config", "nps_tpu_torch.bf16_probe",
+               "nps_tpu_torch.configs.train.cfg_ns512_ufno")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -1,0 +1,313 @@
+"""The ns512 U-FNO (``cfg_ns512_ufno``) in the port against ``nps_tpu``, at
+a small width: 2 blocks x 16 features, ``ch_mults`` [1, 1, 1], 4 modes, a
+32 x 32 grid, tanh-approximate GELU, batch 2, with the static and spatial
+conditioning of the port's synthetic generator. Both engines are built from
+their own ``cfg_ns512_ufno.py`` with the same overrides, the JAX weights
+carried into the port.
+
+Also: the state dict mapped to the JAX tree and back; the engine built
+from the port's config over a synthetic 32 x 32
+split read through ``PDE2DDataset``; the bf16 model exported and reloaded;
+the U-FNO's ``remat`` fields; the trainer's refusal of bf16 compute; and
+which spectral kernel variant the ns512 and twophase shapes take.
+
+Bars: f32, forward max|d| / max|ref| < 1e-4 and 3-step rollout nRMSE <
+1e-3 (ROADMAP "How a part is held"). bf16 (see ``test_torch_dtype.py``):
+with d_jax the JAX bf16 result's deviation from JAX f32 relative to
+max|JAX f32| (for the rollout, nRMSE in place of the max), the port in
+bf16 against JAX in bf16 is within max(2 d_jax, 8e-3). The artifact
+against the engine: rtol 1e-5, atol 1e-6.
+"""
+
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from nps_tpu.compat import convert_state_dict
+from nps_tpu.compat.torch_weights import assert_params_match_structure
+from nps_tpu.configs.parse import parse_args as jax_parse_args
+from nps_tpu.inference import SurrogateEngine as JaxEngine
+from nps_tpu.models import config as jconfig
+from nps_tpu.pde import PDE2D as JaxPDE2D
+from nps_tpu_torch import train_cli
+from nps_tpu_torch.configs.parse import parse_args as port_parse_args
+from nps_tpu_torch.data.pde2d import PDE2DDataset
+from nps_tpu_torch.data.synthetic import generate
+from nps_tpu_torch.inference import SurrogateEngine, load_exported
+from nps_tpu_torch.models import config as tconfig
+from nps_tpu_torch.models.ufno import UFNO
+from nps_tpu_torch.ops import spectral as tsp
+from nps_tpu_torch.pde import PDE2D
+
+JAX_CFG = "nps_tpu/configs/train/cfg_ns512_ufno.py"
+PORT_CFG = "nps_tpu_torch/configs/train/cfg_ns512_ufno.py"
+NT, N, TW, B, STEPS = 21, 32, 5, 2, 3
+OVERRIDES = ["--model.hidden_features=16", "--model.hidden_blocks=2",
+             "--model.fno_modes=4", f"--time_window={TW}",
+             f"--base_resolution=[{NT},{N},{N}]",
+             f"--super_resolution=[{NT},{N},{N}]", f"--batch_size={B}"]
+PDE_KW = dict(tmin=0, tmax=1, nt=NT, L1=1.0, L2=1.0, nx1=N, nx2=N, x=None,
+              name="ns512", n_cond_static=2, n_cond_spatial=2)
+REL_FWD, NRMSE, BF16_FLOOR = 1e-4, 1e-3, 8e-3
+BF16 = "bfloat16"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+    jconfig.set_compute_dtype(None)
+    tconfig.set_compute_dtype(None)
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    u0 = (0.1 + 0.8 * rng.random((B, 1, TW, N, N))).astype(np.float32)
+    cond = rng.random((B, 2)).astype(np.float32)
+    sc = (rng.random((B, 2, N, N)) > 0.8).astype(np.float32)
+    return u0, cond, sc
+
+
+def _nrmse(a, ref):
+    return float(np.sqrt(np.mean((a - ref) ** 2) / np.mean(ref ** 2)))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """3-step rollouts of both packages in f32 and bf16 from one seed
+    window, the same weights: {(package, dtype): frames}, and the port's
+    bf16 engine."""
+    u0, cond, sc = _inputs()
+    out, params = {}, None
+    try:
+        for dtype in (None, BF16):
+            # the config's compute dtype is bf16: f32 is asked for by name
+            jeng = JaxEngine.from_config(JAX_CFG, pde=JaxPDE2D(**PDE_KW),
+                                         overrides=OVERRIDES,
+                                         compute_dtype=dtype or "float32")
+            with jax.default_matmul_precision("highest"):
+                if params is None:
+                    jeng.init_params(u0, cond=cond, spatial_cond=sc, seed=0)
+                    params = jeng.params
+                jeng.params = params
+                out["jax", dtype] = jeng.rollout(u0, STEPS, cond=cond,
+                                                 spatial_cond=sc)
+    finally:
+        jconfig.set_compute_dtype(None)
+    host = out["params"] = jax.tree_util.tree_map(np.asarray, params)
+    engines = {}
+    for dtype in (None, BF16):
+        eng = SurrogateEngine.from_config(PORT_CFG, pde=PDE2D(**PDE_KW),
+                                          overrides=OVERRIDES, device="cpu",
+                                          compute_dtype=dtype or "float32")
+        eng.load_jax_params(host)
+        engines[dtype] = eng
+        out["port_step", dtype] = eng.step(u0, cond=cond, spatial_cond=sc)
+        out["port", dtype] = eng.rollout(u0, STEPS, cond=cond,
+                                         spatial_cond=sc)
+    return out, engines
+
+
+def test_config_parses_to_the_jax_dict():
+    """The port's config is the JAX config's, key for key (activation
+    objects by class name)."""
+    def parse(fn, cfg):
+        saved = sys.argv
+        try:
+            sys.argv = ["prog"]
+            args = fn(cfg)
+        finally:
+            sys.argv = saved
+        return {g: {k: (type(v).__name__ if hasattr(v, "_parse_override")
+                        else v) for k, v in args[g].items()}
+                if isinstance(args[g], dict) else args[g] for g in args}
+
+    assert parse(port_parse_args, PORT_CFG) == parse(jax_parse_args, JAX_CFG)
+
+
+@pytest.mark.parametrize("dtype", [None, BF16])
+def test_forward_matches_jax(runs, dtype):
+    """One serving step against the first bundled step of the JAX
+    rollout."""
+    out, _ = runs
+    ref32 = out["jax", None][:, :, :TW]
+    step = out["port_step", dtype]
+    assert step.shape == (B, 1, TW, N, N) and step.dtype == np.float32
+    scale = np.abs(ref32).max()
+    if dtype is None:
+        assert np.abs(step - ref32).max() / scale < REL_FWD
+    else:
+        ref = out["jax", BF16][:, :, :TW]
+        d_jax = np.abs(ref - ref32).max() / scale
+        err = np.abs(step - ref).max() / scale
+        assert err <= max(2 * d_jax, BF16_FLOOR), (err, d_jax)
+
+
+@pytest.mark.parametrize("dtype", [None, BF16])
+def test_rollout_matches_jax(runs, dtype):
+    out, _ = runs
+    roll, ref32 = out["port", dtype], out["jax", None]
+    assert roll.shape == ref32.shape == (B, 1, STEPS * TW, N, N)
+    assert np.isfinite(roll).all()
+    if dtype is None:
+        assert _nrmse(roll, ref32) < NRMSE
+    else:
+        d_jax = _nrmse(out["jax", BF16], ref32)
+        err = _nrmse(roll, out["jax", BF16])
+        assert err <= max(2 * d_jax, BF16_FLOOR), (err, d_jax)
+
+
+def test_state_dict_round_trip(runs):
+    """The 3-level U-FNO with tanh GELU maps both ways:
+    ``convert_state_dict`` of the port's state_dict is the JAX tree the
+    port loaded, leaf for leaf."""
+    out, engines = runs
+    conv = {"params": {"inner": convert_state_dict(
+        engines[None].model.state_dict())["params"]}}
+    target = jax.tree_util.tree_map(np.asarray, out["params"])
+    assert_params_match_structure(conv, target)
+    for (p, a), (_, b) in zip(
+            jax.tree_util.tree_flatten_with_path(conv)[0],
+            jax.tree_util.tree_flatten_with_path(target)[0]):
+        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(p))
+
+
+def test_bf16_activations_flow_in_bf16(runs):
+    """Inside the bf16 engine the processor's blocks produce bf16 (the
+    concats do not promote back to f32); the physics wrapper's output is
+    f32."""
+    _, engines = runs
+    eng = engines[BF16]
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, o, name=name: seen.__setitem__(name, o.dtype))
+        for name, m in eng.model.named_modules()
+        if name.endswith(("fno_layers.0", "unet_layers.0", "encoder"))]
+    try:
+        u0, cond, sc = _inputs()
+        assert eng.step(u0, cond=cond, spatial_cond=sc).dtype == np.float32
+    finally:
+        for h in hooks:
+            h.remove()
+    assert seen and set(seen.values()) == {torch.bfloat16}, seen
+
+
+@pytest.fixture(scope="module")
+def split(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ns512")
+    generate(str(root / "ns512"), n_sims=4, n_channels=1, nt=NT, nx1=N,
+             nx2=N, seed=4)
+    return root
+
+
+def _dataset(root):
+    return PDE2DDataset(str(root), "ns512", "memmap", "snapshots",
+                        conditioning="conditioning",
+                        spatial_conditioning="spatial_conditioning",
+                        c_filter=[0], split_file="split", name="ns512")
+
+
+def test_engine_serves_the_first_window_of_a_split(split):
+    """``from_config`` on the port's config with narrowing overrides, on
+    the CPU, over the PDE of a synthetic split read through
+    ``PDE2DDataset``: its first window rolls out, finite, in bf16, and
+    within the bf16 sanity bound of the same weights in f32."""
+    ds = _dataset(split)
+    _, u, x, cond, _, sc = ds.train[0]
+    assert u.shape == (1, NT, N, N) and x.shape == (N, N, 2)
+    u0 = np.asarray(u)[None, :, :TW]
+    cond, sc = np.asarray(cond)[None], np.asarray(sc)[None]
+    roll = {}
+    for dtype in (None, BF16):
+        eng = SurrogateEngine.from_config(PORT_CFG, pde=ds.pde,
+                                          overrides=OVERRIDES, device="cpu",
+                                          compute_dtype=dtype or "float32")
+        eng.init_params(seed=0)
+        roll[dtype] = eng.rollout(u0, 2, cond=cond, spatial_cond=sc)
+    assert eng.compute_dtype == torch.bfloat16
+    assert SurrogateEngine.from_config(
+        PORT_CFG, pde=ds.pde, overrides=OVERRIDES,
+        device="cpu").compute_dtype == torch.bfloat16   # the config's
+    assert roll[BF16].shape == (1, 1, 2 * TW, N, N)
+    assert np.isfinite(roll[BF16]).all()
+    scale = np.abs(roll[None]).max()
+    assert np.abs(roll[BF16] - roll[None]).max() / scale < 5e-2
+
+
+def test_bf16_artifact_equals_the_engine(runs, tmp_path):
+    """The bf16 model exported (its spectral nodes carry bf16, as the op's
+    fake now says) and reloaded serves what the engine serves."""
+    _, engines = runs
+    eng = engines[BF16]
+    u0, cond, sc = _inputs()
+    path = str(tmp_path / "ns512.npst")
+    eng.export_rollout(path, STEPS, u0, cond=cond, spatial_cond=sc)
+    art = load_exported(path)
+    assert art.meta["compute_dtype"] == "torch.bfloat16"
+    spectral = [n for n in art._module.graph.nodes
+                if n.target == torch.ops.nps_torch.spectral_dft2d_fwd.default]
+    assert len(spectral) == 2
+    assert {n.meta["val"].dtype for n in spectral} == {torch.bfloat16}
+    got = art.rollout(u0, cond=cond, spatial_cond=sc)
+    want = eng.rollout(u0, STEPS, cond=cond, spatial_cond=sc)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("remat,policy", [(True, "save_conv_outputs"),
+                                          (True, None), (False, None)])
+def test_ufno_takes_the_jax_remat_values(remat, policy):
+    m = UFNO(num_spatial_dims=2, hidden_features=8, hidden_blocks=1,
+             fno_modes=2, ch_mults=(1,), is_attn=(False,), remat=remat,
+             remat_policy=policy)
+    assert (m.remat, m.remat_policy) == (remat, policy)
+
+
+def test_ufno_refuses_an_unknown_remat_policy():
+    with pytest.raises(ValueError, match="remat policy"):
+        UFNO(num_spatial_dims=2, hidden_features=8, hidden_blocks=1,
+             fno_modes=2, ch_mults=(1,), is_attn=(False,), remat=True,
+             remat_policy="save_everything")
+
+
+def test_trainer_refuses_bf16_naming_p12b(split, tmp_path):
+    """The config's compute dtype is the serving half's: the trainer
+    refuses it, naming ROADMAP P12b (``data_parallel`` set to false, as a
+    single-card user does, so that P9's refusal does not come first)."""
+    saved = sys.argv
+    try:
+        sys.argv = ["prog", *OVERRIDES, f"--dataset.base_path={split}",
+                    "--trainer.data_parallel=false",
+                    f"--experiment_path={tmp_path}"]
+        args = port_parse_args(PORT_CFG)
+    finally:
+        sys.argv = saved
+    with pytest.raises(NotImplementedError, match=r"P12b \(training at 512"):
+        train_cli.get_config_static(args, device="cpu")
+
+
+def test_kernel_variant_by_shape():
+    """The ns512 spectral call takes the large-plane variant; every twophase
+    call keeps the resident kernels; the backward has no large-plane
+    variant yet (ROADMAP P12b)."""
+    assert tsp._check_kernel_fits(8, 132, 512, 512, 20, 20,
+                                  c_out=128) == "large"
+    assert tsp._check_kernel_fits(2, 36, 512, 512, 20, 20, bf16=True,
+                                  c_out=32) == "large"
+    for b in (4, 16):   # the twophase U-FNO's serving and train batches
+        assert tsp._check_kernel_fits(b, 196, 96, 64, 10, 10,
+                                      c_out=192) == "resident"
+        assert tsp._check_kernel_fits(b, 196, 96, 64, 10, 10,
+                                      "spectral_dft2d_bwd") == "resident"
+    assert tsp._check_kernel_fits(4, 196, 96, 64, 10, 10, bf16=True) == \
+        "large"
+    with pytest.raises(ValueError, match="P12b"):
+        tsp._check_kernel_fits(8, 128, 512, 512, 20, 20, "spectral_dft2d_bwd")
+    with pytest.raises(ValueError, match="m2 <= 32"):
+        tsp._check_kernel_fits(1, 4, 512, 512, 20, 40)
+    with pytest.raises(ValueError, match="at most 1024 points"):
+        tsp._check_kernel_fits(1, 4, 64, 2048, 4, 20)
