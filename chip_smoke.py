@@ -60,7 +60,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              training epoch and the median of 3 timed steps per depth;
 7. ns512   - cfg_ns512_ufno (512x512, 3 blocks x 128 features, 20x20
              modes, tanh GELU, bf16) at full width from its config over a
-             split from the port's generator (4 simulations of 101 frames,
+             split from the port's generator (4 simulations of 151 frames,
              one channel) read through PDE2DDataset: 3 rollouts of the 3
              bundled steps after the first window at batch 8 (each
              simulation's first window and the one after it), eager and
@@ -74,13 +74,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              GroupNorm inputs (bf16 and f32), each against its plain
              version, twice for the same bits, beside its bound, its plain
              version and one PyTorch call;
-8. export  - the slice's U-FNO exported on the card (torch.export of one
+8. ns512_train - the same config trained on that split through the
+             training CLI's get_config_static (bf16, f32 parameters and
+             Adam, per-block remat with the save_conv_outputs policy,
+             --trainer.data_parallel=false): one epoch (one step: the
+             train split holds 2 simulations; stdout to train_ns512.log in
+             --out), then steps at batch 8 timed at depths 0 and 4 (median
+             of 3 after a warm-up) with peak memory, their launch counts
+             (the remat recomputes every K1 and K2 forward of the graded
+             apply) and no call of a plain version; a depth-0 step without
+             remat (its peak memory, or its out-of-memory error); one step
+             of the same weights in f32 against bf16 at batch 2 (a 5e-2
+             sanity bound on the loss); the narrow model (1 x 16, f32) at
+             depth 1 card against CPU; then the large-plane input gradient
+             at the ns512 call in bf16 and f32, spectral_dw2d at its 800
+             modes and gn1_gelu_bwd in bf16 at the largest and smallest
+             ns512 GroupNorm inputs, each against its plain version, twice
+             for the same bits, beside its bound, its plain version and one
+             PyTorch call;
+9. export  - the slice's U-FNO exported on the card (torch.export of one
              bundled step, symbolic batch, 19 steps; the kernels stay the
              custom ops nps_torch::gn1_gelu_fwd and
              nps_torch::spectral_dft2d_fwd), reloaded, serving batches of
              4 and 2 against the engine (rtol 1e-5, atol 1e-6): rate,
              launches, artifact size, export and load seconds;
-9. profile - last, as a profiler session slows the host's launch path
+10. profile - last, as a profiler session slows the host's launch path
              for the rest of the process: per family an eager rollout and
              a replay of the captured one, and the artifact's rollouts,
              each under torch.profiler: K1 and K2 counted by kernel name
@@ -161,15 +179,23 @@ TRAIN_DEPTHS = (0, 8)
 FAMILIES = {"ufno": (48, 3, TRAIN_EPOCHS, 5), "drn": (0, 0, 1, 3),
             "unet": (44, 0, 1, 3), "ufno_fno": (16, 2, 1, 3),
             "gnn": (0, 0, 1, 3)}
+# the forward launches a graded apply makes again in its backward where the
+# family's processor rematerializes its blocks (models/common.py:
+# remat_block): the FNO processor of cfg_twophase_ufno_fno (on by default,
+# as in the JAX package) recomputes its one spectral call; the DRN
+# recomputes too, with no hand kernel; the U-FNO configs of twophase leave
+# remat off
+RECOMPUTED = {"ufno_fno": {"spectral_dft2d_fwd": 1}}
 # cfg_ns512_ufno: 512x512, 3 blocks x 128 features, 20x20 modes, bf16,
 # batch 8; the spectral conv's input [8, 132, 512, 512] -> 128 (128
 # features + 2 static + 2 spatial conditioning channels). A split of NS_SIMS
-# generated simulations of 101 frames; the batch is their first window and
-# the window after it; a rollout is the 3 bundled steps that follow the
-# first window (frames 25-99)
+# generated simulations of NS_NT frames: 151, not the config's 101, since a
+# train step at the ramp's end (depth 4, tw 25) needs tw * (4 + 2) = 150
+# frames (the 101 of the config admit depth 2 at most, in nps_tpu too). The
+# serving batch is their first window and the window after it; a rollout is
+# the 3 bundled steps that follow the first window (frames 25-99)
 NS_CFG = "nps_tpu_torch/configs/train/cfg_ns512_ufno.py"
-NS_BATCH, NS_N, NS_NT, NS_TW, NS_SIMS = 8, 512, 101, 25, 4
-NS_STEPS = (NS_NT - NS_TW) // NS_TW
+NS_BATCH, NS_N, NS_NT, NS_TW, NS_SIMS, NS_STEPS = 8, 512, 151, 25, 4, 3
 NS_HIDDEN, NS_BLOCKS, NS_MODES = 128, 3, 20   # one spectral conv a block
 NS_SPEC_SHAPE = (NS_BATCH, NS_HIDDEN + 4, NS_N, NS_N)
 # the narrow model through the new kernel paths, card against CPU: 1 block
@@ -179,6 +205,15 @@ NS_NARROW = ["--model.hidden_features=16", "--model.hidden_blocks=1"]
 # a sanity bound on the nRMSE (with random weights the largest deviation
 # sits in the decoder's delta, at bf16's own level: PERF.md section 6)
 NS_F32_TOL, NS_F32_BATCH = 5e-2, 2
+# ns512 training (the ns512_train phase): the config's batch 8 in bf16 with
+# per-block remat (save_conv_outputs), one short epoch, then steps timed at
+# depths 0 and 4 (the ramp's end, `unrolling`); the narrow model's depth-1
+# step card against CPU at batch 2 in f32; one step of the same full-width
+# weights in f32 against bf16 at batch 2, a sanity bound on the loss (bf16
+# rounds each activation to 8 mantissa bits; the loss is a sum of squares
+# over the whole output, where those deviations average out far below it)
+NS_TRAIN_DEPTHS, NS_TRAIN_TIMED = (0, 4), 3
+NS_TRAIN_F32_TOL = 5e-2
 # bf16 dense products on the tensor cores (NVIDIA's data sheet)
 PEAK_BF16 = 989e12
 # graph replay for calls of about a millisecond and more
@@ -665,14 +700,32 @@ def spectral_bwd_records(gen):
                                      if rec["adjoint"]["ms"] else None)
     emit(rec)
 
+    if not (err < REL_TOL_GRAD and adj_err < REL_TOL_F32):
+        raise AssertionError(f"spectral_dft2d_bwd disagrees: {err} (adjoint "
+                             f"launch {adj_err})")
     # the weight gradient from the saved spectrum and the adjoint's G
-    gr, gi = adj[1:]
     scale = sp.mode_scale(n1, n2, m1, m2, "cuda")
+    return rec, dw2d_record(xr, xi, *adj[1:], scale, m1)
+
+
+def dw2d_record(xr, xi, gr, gi, scale, m1):
+    """spectral_dw2d on the spectra X [modes, b, ci] and G [modes, b, co]
+    against its plain version, twice for the same bits, timed beside the
+    plain version and one torch.einsum over the complex spectra, with its
+    bound."""
+    import torch
+
+    from nps_tpu_torch.ops import spectral as sp
+
+    modes_n, b, ci = xr.shape
+    co = gr.shape[2]
+    m2 = modes_n // (2 * m1)
     dw = sp.spectral_dw2d(xr, xi, gr, gi, scale, m1)
     dw_again = sp.spectral_dw2d(xr, xi, gr, gi, scale, m1)
     dw_ref = sp.spectral_weight_grad(xr, xi, gr, gi, scale, m1)
     torch.cuda.synchronize()
     dw_err, dw_abs = _errors(dw, dw_ref)
+    w_numel = 2 * dw[0].numel()
     dw_bytes = 4 * (2 * modes_n * b * (ci + co) + w_numel)
     dw_bound, dw_by = bound(dw_bytes, modes_n * b * ci * co * 8)
     rec_dw = {"phase": "kernel", "name": "spectral_dw2d",
@@ -700,13 +753,11 @@ def spectral_bwd_records(gen):
           "library_ms")
     rec_dw["bound_share"] = dw_bound / rec_dw["ms"] if rec_dw["ms"] else None
     emit(rec_dw)
-    if not (err < REL_TOL_GRAD and adj_err < REL_TOL_F32):
-        raise AssertionError(f"spectral_dft2d_bwd disagrees: {err} (adjoint "
-                             f"launch {adj_err})")
     if not (dw_err < REL_TOL_F32 and rec_dw["same_bits"]):
-        raise AssertionError(f"spectral_dw2d disagrees: {dw_err}, same bits "
+        raise AssertionError(f"spectral_dw2d disagrees at {[modes_n, b, ci]}"
+                             f" -> {co}: {dw_err}, same bits "
                              f"{rec_dw['same_bits']}")
-    return rec, rec_dw
+    return rec_dw
 
 
 def spectral_film_bwd_record(gen, film_mode):
@@ -935,7 +986,7 @@ def train_argv(tmp, seed, epochs, name):
             f"--experiment_path={tmp}/out", f"--experiment_name={name}"]
 
 
-def timed_steps(trainer, batch, depth, want, n_timed):
+def timed_steps(trainer, batch, depth, want, n_timed, batch_size=TRAIN_BATCH):
     """``n_timed`` train steps at an injected depth after a warm-up, each
     with the launch counts set to 0 just before it: host seconds around
     synchronised steps, their median, peak memory and the launch counts
@@ -958,17 +1009,17 @@ def timed_steps(trainer, batch, depth, want, n_timed):
         counts.append(dict(kernels.launches))
     median = sorted(seconds)[len(seconds) // 2]
     return {"step_seconds": seconds, "ms_per_step": 1e3 * median,
-            "samples_per_s": TRAIN_BATCH / median,
+            "samples_per_s": batch_size / median,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "loss": float(loss), "launches": counts[0],
             "launches_expected": want,
             "launches_ok": all(c == want for c in counts)}
 
 
-def step_vs_cpu(cfg, argv, trainer, batch, seed):
+def step_vs_cpu(cfg, argv, trainer, batch, seed, tw=TW, nt=TRAIN_NT):
     """One depth-1 train step at batch 2 on the card and by the port on the
-    CPU, same weights and start steps: (record, loss error, worst gradient
-    error)."""
+    CPU, same weights and start steps (windows of ``tw`` frames in ``nt``):
+    (record, loss error, worst gradient error)."""
     import torch
 
     cpu = build_trainer(cfg, argv, "cpu")
@@ -976,7 +1027,7 @@ def step_vs_cpu(cfg, argv, trainer, batch, seed):
     cpu.model.load_state_dict({k: v.cpu() for k, v in
                                trainer.model.state_dict().items()})
     small = tuple(t[:2] for t in batch)
-    steps0 = torch.randint(TW, TRAIN_NT - 2 * TW + 1, (2,),
+    steps0 = torch.randint(tw, nt - 2 * tw + 1, (2,),
                            generator=torch.Generator().manual_seed(seed))
     loss_gpu, _ = trainer.train_step(small, 0, 0, unrolled=1, steps0=steps0)
     loss_cpu, _ = cpu.train_step(tuple(t.cpu() for t in small), 0, 0,
@@ -995,9 +1046,11 @@ def family_cfg(name):
     return f"nps_tpu_torch/configs/train/cfg_twophase_{name}.py"
 
 
-def family_launches(gn, spec, applies, backward):
+def family_launches(gn, spec, applies, backward, recomputed=None):
     """The launch counts of ``applies`` model applies (and one backward)
-    of a family with ``gn`` GN+GELU and ``spec`` spectral calls each."""
+    of a family with ``gn`` GN+GELU and ``spec`` spectral calls each; the
+    backward adds the forward launches its remat runs again
+    (``recomputed``, by kernel)."""
     want = {}
     if gn:
         want["gn1_gelu_fwd"] = gn * applies
@@ -1007,6 +1060,9 @@ def family_launches(gn, spec, applies, backward):
         want["spectral_dft2d_fwd"] = spec * applies
         if backward:
             want["spectral_dft2d_bwd"] = want["spectral_dw2d"] = spec
+    if backward:
+        for name, n in (recomputed or {}).items():
+            want[name] += n
     return want
 
 
@@ -1326,7 +1382,8 @@ def family_train(name, seed, out_dir, tmp):
         # dy and one weight gradient
         steps = {d: timed_steps(trainer, batch, d,
                                 family_launches(gn_calls, spec_calls, d + 1,
-                                                True), n_timed)
+                                                True, RECOMPUTED.get(name)),
+                                n_timed)
                  for d in TRAIN_DEPTHS}
         # one depth-1 step at batch 2, card against CPU
         vs_cpu, loss_err, grad_err = step_vs_cpu(family_cfg(name), argv,
@@ -1335,7 +1392,8 @@ def family_train(name, seed, out_dir, tmp):
         seen, torch.Generator(device="cuda").manual_seed(seed + 1))
 
     # the run's steps are at depth 0 (the ramp admits more from epoch 25)
-    per_step = family_launches(gn_calls, spec_calls, 1, True)
+    per_step = family_launches(gn_calls, spec_calls, 1, True,
+                               RECOMPUTED.get(name))
     want_run = {k: v * n_steps for k, v in per_step.items()
                 if k.endswith(("_bwd", "_dw2d"))}
     rec = {"batch": TRAIN_BATCH, "epochs": epochs, "train_steps": n_steps,
@@ -1908,7 +1966,7 @@ def phase_ns512(seed, card, gen, tmp):
     the ns512 shapes: the large-plane spectral conv in f32 and bf16, and
     GN+GELU at the largest and smallest GroupNorm inputs one step gave (f32
     and bf16). Returns (the first eager rollout's launches, the kernel
-    records by name)."""
+    records by name, the serving step's GroupNorm inputs)."""
     import gc
 
     import torch
@@ -1946,6 +2004,415 @@ def phase_ns512(seed, card, gen, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     recs["seconds"] = time.perf_counter() - t0
+    return launches, recs, serve["gn_inputs"]
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the kernels' plain versions inside the block: the
+    card's training path makes none."""
+    from nps_tpu_torch.ops import group_norm as gn
+    from nps_tpu_torch.ops import spectral as sp
+
+    fns = [(gn, "gn_gelu_plain"), (sp, "spectral_conv_2d_plain"),
+           (sp, "spectral_conv_2d_packed_plain"),
+           (sp, "spectral_dft2d_fwd_spectrum_plain"),
+           (sp, "spectral_dft2d_bwd_plain"), (sp, "spectral_weight_grad"),
+           (sp, "film_grad_plain")]
+    counts = {name: 0 for _, name in fns}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in fns]
+
+    def counting(name, fn):
+        def run(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def ns512_train_launches(gn_inputs, depth):
+    """The launches of one ns512 train step at ``depth``: every forward call
+    of the depth + 1 applies, and each once more in the backward (the
+    per-block remat recomputes the K1 and K2 forwards, which are not
+    convs), then one backward per call. ``gn_inputs``: the serving step's
+    GroupNorm inputs, [shape, dtype, gelu, calls per apply]."""
+    stream = sum(n for s, _, _, n in gn_inputs if _streams(s))
+    persistent = sum(n for s, _, _, n in gn_inputs if not _streams(s))
+    want = {"spectral_dft2d_fwd_large": NS_BLOCKS * (depth + 2),
+            "gn1_gelu_fwd": persistent * (depth + 2),
+            "gn1_gelu_fwd_stream": stream * (depth + 2),
+            "spectral_dft2d_bwd_large": NS_BLOCKS,
+            "spectral_dw2d": NS_BLOCKS,
+            "gn1_gelu_bwd": persistent + stream}
+    return {k: v for k, v in want.items() if v}
+
+
+def ns512_train_argv(tmp, seed, extra=()):
+    return ["chip_smoke", f"--dataset.base_path={tmp}/ns512", f"--seed={seed}",
+            f"--base_resolution=[{NS_NT},{NS_N},{NS_N}]",
+            f"--super_resolution=[{NS_NT},{NS_N},{NS_N}]",
+            "--trainer.data_parallel=false", "--trainer.num_epochs=1",
+            "--trainer.test_interval=1", "--trainer.print_interval=1",
+            f"--experiment_path={tmp}/out", "--experiment_name=train_ns512",
+            *extra]
+
+
+def _grad_nrmse(got, ref):
+    """nRMSE of the gradients over all parameters, and the worst
+    parameter's (value, name)."""
+    num = sum(float(((got[k].float() - r) ** 2).sum()) for k, r in ref.items())
+    den = sum(float((r ** 2).sum()) for r in ref.values())
+    worst = max((float(((got[k].float() - r) ** 2).mean().sqrt()
+                       / (r ** 2).mean().sqrt().clamp_min(1e-30)), k)
+                for k, r in ref.items())
+    return math.sqrt(num / den), worst
+
+
+def ns512_train(seed, tmp, out_dir, gn_inputs):
+    """Train the full-width cfg_ns512_ufno (bf16, remat save_conv_outputs)
+    built by the training CLI's get_config_static on the ns512 split: one
+    epoch (its train split's 2 simulations: one step at batch 2; stdout to
+    train_ns512.log in ``out_dir``), then steps at batch 8 (the train
+    split's samples in turn, start steps drawn by the trainer) timed at
+    NS_TRAIN_DEPTHS, their launches against ns512_train_launches and the
+    plain versions' calls (none); one depth-0 step again with the U-FNO's
+    remat off (its peak memory, or the out-of-memory it raises); one step of
+    the same weights in f32 against bf16 at batch 2; the narrow model
+    (NS_NARROW, f32) depth-1 step card against CPU. Returns (record, the
+    epoch's launches, failures)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.data.pipeline import collate, prefetch_to_device
+    from nps_tpu_torch.inference import autotuned_convs
+    from nps_tpu_torch.models.ufno import UFNO
+
+    argv = ns512_train_argv(tmp, seed)
+    trainer = build_trainer(NS_CFG, argv, "cuda")
+    failures = []
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_calls() as plain, \
+            open(out_dir / "train_ns512.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        train_losses, val_losses, _ = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    n_steps = len(trainer.get_dataloaders()[0])
+    per_step = ns512_train_launches(gn_inputs, 0)
+    want_run = {k: v * n_steps for k, v in per_step.items()
+                if k.endswith(("_bwd", "_bwd_large", "_dw2d"))}
+    if any(launches.get(k) != v for k, v in want_run.items()) or not all(
+            launches.get(k) for k in per_step):
+        failures.append(f"ns512 training launches {launches}, want "
+                        f"{want_run} and every kernel of {sorted(per_step)}")
+    if not (np.isfinite(train_losses).all()
+            and np.isfinite(val_losses["default"]).all()):
+        failures.append("ns512 training losses are not finite")
+
+    ds = trainer.data.train
+    host = collate([ds[i % len(ds)] for i in range(NS_BATCH)])
+    batches = prefetch_to_device(iter([host]), trainer.device)
+    batch = next(batches)
+    batches.close()
+    with autotuned_convs(), plain_calls() as plain_steps:
+        steps = {d: timed_steps(trainer, batch, d,
+                                ns512_train_launches(gn_inputs, d),
+                                NS_TRAIN_TIMED, NS_BATCH)
+                 for d in NS_TRAIN_DEPTHS}
+    if not all(v["launches_ok"] for v in steps.values()):
+        failures.append("ns512 train-step launch counts differ from the "
+                        "expected")
+    if not all(np.isfinite(v["loss"]) for v in steps.values()):
+        failures.append("ns512 train-step losses are not finite")
+    if any(plain.values()) or any(plain_steps.values()):
+        failures.append(f"plain versions called on the card: {plain}, "
+                        f"{plain_steps}")
+
+    # the same depth-0 step without the U-FNO's remat
+    ufnos = [m for m in trainer.model.modules() if isinstance(m, UFNO)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    with autotuned_convs():
+        for m in ufnos:
+            m.remat = False
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_step(batch, 0, 0, unrolled=0)
+            torch.cuda.synchronize()
+            no_remat = {"peak_mem_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30, "out_of_memory": False}
+        except torch.cuda.OutOfMemoryError as e:
+            no_remat = {"peak_mem_gib": None, "out_of_memory": True,
+                        "error": str(e)[:300]}
+        finally:
+            for m in ufnos:
+                m.remat = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_peak = steps[0]["peak_mem_gib"]
+    if not (no_remat["out_of_memory"]
+            or remat_peak < no_remat["peak_mem_gib"]):
+        failures.append(f"remat peak {remat_peak} GiB not below "
+                        f"{no_remat['peak_mem_gib']} GiB without remat")
+
+    # the same weights in f32 and in bf16, one depth-0 step at batch 2
+    f32 = build_trainer(NS_CFG, ns512_train_argv(
+        tmp, seed, ["--trainer.compute_dtype=float32"]), "cuda")
+    f32.ensure_initialized()
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    f32.model.load_state_dict(state)
+    small = tuple(t[:2] for t in batch)
+    steps0 = torch.randint(NS_TW, NS_NT - 2 * NS_TW + 1, (2,),
+                           generator=torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    with autotuned_convs():
+        loss32, _ = f32.train_step(small, 0, 0, unrolled=0, steps0=steps0)
+        grads32 = {k: p.grad.float() for k, p in f32.model.named_parameters()}
+        loss16, _ = trainer.train_step(small, 0, 0, unrolled=0,
+                                       steps0=steps0)
+        grads16 = {k: p.grad for k, p in trainer.model.named_parameters()}
+        torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    loss_dev = abs(float(loss16) - float(loss32)) / abs(float(loss32))
+    g_nrmse, g_worst = _grad_nrmse(grads16, grads32)
+    vs_f32 = {"batch": 2, "depth": 0, "loss_bf16": float(loss16),
+              "loss_f32": float(loss32), "loss_rel_dev": loss_dev,
+              "grad_nrmse": g_nrmse, "worst_param_grad_nrmse": g_worst,
+              "seconds": f32_s}
+    if not loss_dev < NS_TRAIN_F32_TOL:
+        failures.append(f"ns512 train step bf16 vs f32: loss {loss_dev}")
+    del f32, grads32, grads16, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the narrow model, f32: its K1 backward takes the large-plane variant
+    narrow = build_trainer(NS_CFG, ns512_train_argv(
+        tmp, seed, [*NS_NARROW, "--trainer.compute_dtype=float32"]), "cuda")
+    narrow.ensure_initialized()
+    kernels.reset_launches()
+    with autotuned_convs():
+        vs_cpu, loss_err, grad_err = step_vs_cpu(
+            NS_CFG, ns512_train_argv(tmp, seed, [
+                *NS_NARROW, "--trainer.compute_dtype=float32"]),
+            narrow, batch, seed, tw=NS_TW, nt=NS_NT)
+    vs_cpu["launches"] = dict(kernels.launches)
+    if not (loss_err < REL_TOL_STEP and grad_err < REL_TOL_STEP_GRAD):
+        failures.append(f"ns512 narrow train step card vs CPU: {vs_cpu}")
+    if not vs_cpu["launches"].get("spectral_dft2d_bwd_large"):
+        failures.append(f"ns512 narrow train step launched no "
+                        f"spectral_dft2d_bwd_large: {vs_cpu['launches']}")
+    rec = {"config": NS_CFG, "batch": NS_BATCH,
+           "compute_dtype": str(trainer.compute_dtype),
+           "remat": [ufnos[0].remat, ufnos[0].remat_policy],
+           "epoch": {"train_steps": n_steps, "seconds": train_s,
+                     "train_losses": train_losses,
+                     "val_losses": val_losses["default"],
+                     "launches": launches, "launches_expected": want_run,
+                     "plain_calls": plain},
+           "steps": {str(d): v for d, v in steps.items()},
+           "plain_calls_in_steps": plain_steps,
+           "no_remat_step": no_remat, "remat_peak_mem_gib": remat_peak,
+           "bf16_vs_f32": vs_f32, "narrow_vs_cpu": vs_cpu}
+    del trainer, narrow, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, failures
+
+
+def spectral_bwd_large_record(gen, dtype):
+    """spectral_dft2d_bwd at the ns512 input gradient (dy [8, 128, 512,
+    512] -> dx [8, 132, 512, 512], NS_MODES x NS_MODES) in ``dtype``: its
+    large-plane variant against the plain version (dx at REL_TOL_BF16 in
+    bf16, REL_TOL_F32 in f32; G at REL_TOL_F32), twice for the same bits,
+    timed (graph replay) beside the plain version, autograd's input
+    gradient through rfft2 + einsum + irfft2 (on dy widened to f32), and
+    the bound (the operations at the input type's peak; the f32 CUDA-core
+    bound apart)."""
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    b, ci, n1, n2 = NS_SPEC_SHAPE
+    co, m = NS_HIDDEN, (NS_MODES, NS_MODES)
+    dy = torch.randn((b, co, n1, n2), device="cuda", generator=gen).to(dtype)
+    ws = [torch.rand((2, ci, co, *m), device="cuda", generator=gen)
+          / (ci * co) for _ in range(2)]
+    packed = sp.pack_weights_2d(ws)
+    kernels.reset_launches()
+    got = sp.spectral_dft2d_bwd(dy, packed, m)
+    launched = dict(kernels.launches)
+    again = sp.spectral_dft2d_bwd(dy, packed, m)
+    ref = sp.spectral_dft2d_bwd_plain(dy, packed, m)
+    torch.cuda.synchronize()
+    err = rel_err(got[0], ref[0])
+    err_g = max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2]))
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    x = torch.zeros(NS_SPEC_SHAPE, device="cuda", requires_grad=True)
+    w_c = complex_weights(*ws)
+    y_l = rfft_conv(x, w_c, m)
+    dyf = dy.float()
+    err_library = rel_err(torch.autograd.grad(y_l, x, dyf,
+                                              retain_graph=True)[0], ref[0])
+    flops = spectral_flops(b, co, ci, n1, n2, *m)
+    nbytes = (dy.element_size() * (dy.numel() + b * ci * n1 * n2)
+              + 4 * (packed.numel() + 2 * got[1].numel()))
+    bf16 = dtype == torch.bfloat16
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16 if bf16 else PEAK_F32)
+    rec = {"phase": "kernel", "name": "spectral_dft2d_bwd_large",
+           "dtype": str(dtype), "shape": [[b, co, n1, n2], ci, list(m)],
+           "launched": launched, "rel_err": err, "rel_err_spectrum": err_g,
+           "same_bits": same, "rel_err_library_vs_plain": err_library,
+           "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_f32_ops_ms": flops / PEAK_F32 * 1e3,
+           "bound_how": f"dy + dx in {dtype}, the f32 pack read once and G "
+                        f"written once at 3.35 TB/s ({nbytes} B); {flops} "
+                        f"flop at "
+                        f"{'989 TFLOP/s bf16' if bf16 else '67 TFLOP/s f32'}",
+           "library_how": "autograd's input gradient through rfft2 + einsum "
+                          "+ irfft2 on dy in f32: eager calls between CUDA "
+                          "events"}
+    del again, ref
+    timed(rec, lambda: sp.spectral_dft2d_bwd(dy, packed, m), "ms",
+          **FEW_CALLS)
+    timed(rec, lambda: sp.spectral_dft2d_bwd_plain(dy, packed, m),
+          "plain_ms", **FEW_CALLS)
+    rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_l, x, dyf, retain_graph=True), calls=5)
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    rec["f32_ops_share"] = (rec["bound_f32_ops_ms"] / rec["ms"] if rec["ms"]
+                            else None)
+    emit(rec)
+    tol = REL_TOL_BF16 if bf16 else REL_TOL_F32
+    if not (err < tol and err_g < REL_TOL_F32 and same
+            and launched == {"spectral_dft2d_bwd_large": 1}):
+        raise AssertionError(f"spectral_dft2d_bwd_large ({dtype}): dx {err}, "
+                             f"G {err_g}, same bits {same}, {launched}")
+    return rec
+
+
+def gn_bwd_bf16_record(gen, shape, gelu):
+    """gn1_gelu_bwd in bf16 at an ns512 GroupNorm input: dx (bf16) against
+    autograd through the plain version at REL_TOL_BF16, dgamma and dbeta
+    (f32) at REL_TOL_GRAD, twice for the same bits, timed (graph replay)
+    beside autograd through the plain version and through F.group_norm in
+    bf16 (eager calls between CUDA events), with the bound (x, dy read
+    once, dx written once) and the present design's floor (x and dy read
+    twice)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    c, n = shape[1], math.prod(shape)
+    bf = torch.bfloat16
+    x = (torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3).to(bf)
+    gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    dy = torch.randn(shape, device="cuda", generator=gen).to(bf)
+    _, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta, gelu)
+    kernels.reset_launches()
+    got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, gelu)
+    launched = dict(kernels.launches)
+    again = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, gelu)
+    y_p, leaves_p, ref = _grads(lambda *t: gn.gn_gelu_plain(*t, gelu),
+                                (x, gamma, beta), dy)
+    torch.cuda.synchronize()
+    err = rel_err(got[0], ref[0])
+    err_w = max(rel_err(got[1], ref[1]), rel_err(got[2], ref[2]))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    bound_ms, bound_by = bound(3 * 2 * n, GN_BWD_FLOPS_PER_ELEMENT * n)
+    rec = {"phase": "kernel", "name": "gn1_gelu_bwd (bf16, ns512 shape)",
+           "shape": list(shape), "dtype": str(bf), "gelu": gelu,
+           "launched": launched, "rel_err": err, "rel_err_dweight": err_w,
+           "same_bits": same,
+           "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "two_read_floor_ms": 5 * 2 * n / PEAK_BYTES * 1e3,
+           "bound_how": "x, dy read once + dx written once, bf16, at "
+                        "3.35 TB/s"}
+    del again
+    timed(rec, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, gelu),
+          "ms", **FEW_CALLS)
+    rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_p, leaves_p, dy, retain_graph=True), calls=3)
+    del y_p, leaves_p, ref
+
+    def library(x, w, b):
+        z = F.group_norm(x, 1, w.to(bf), b.to(bf))
+        return F.gelu(z) if gelu else z
+
+    y_l, leaves_l, _ = _grads(library, (x, gamma, beta), dy)
+    rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
+        y_l, leaves_l, dy, retain_graph=True), calls=3)
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    emit(rec)
+    if not (err < REL_TOL_BF16 and err_w < REL_TOL_GRAD and same
+            and launched == {"gn1_gelu_bwd": 1}):
+        raise AssertionError(f"gn1_gelu_bwd bf16 at {shape}: dx {err}, "
+                             f"dweight {err_w}, same bits {same}, {launched}")
+    return rec
+
+
+def phase_ns512_train(seed, card, gen, out_dir, tmp, gn_inputs):
+    """The ns512 training slice (ns512_train) on the split phase_ns512
+    wrote, then its kernels at the ns512 shapes: the large-plane input
+    gradient in bf16 and f32, spectral_dw2d at the ns512 modes, and
+    gn1_gelu_bwd in bf16 at the largest and smallest GroupNorm inputs, each
+    gelu setting. Returns (the epoch's launches, the kernel records by
+    name)."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch.ops import spectral as sp
+
+    t0 = time.perf_counter()
+    rec, launches, failures = ns512_train(seed, tmp, out_dir, gn_inputs)
+    emit({"phase": "ns512_train", **rec, "card": card, "tf32": False})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    recs = {"spectral_dft2d_bwd_large": spectral_bwd_large_record(
+        gen, torch.bfloat16)}
+    gc.collect()
+    recs["spectral_dft2d_bwd_large"]["f32"] = spectral_bwd_large_record(
+        gen, torch.float32)
+    gc.collect()
+    b, ci = NS_SPEC_SHAPE[:2]
+    modes = 2 * NS_MODES * NS_MODES
+    spectra = [torch.randn((modes, b, c), device="cuda", generator=gen)
+               for c in (ci, ci, NS_HIDDEN, NS_HIDDEN)]
+    scale = sp.mode_scale(NS_N, NS_N, NS_MODES, NS_MODES, "cuda")
+    recs["spectral_dw2d_ns512"] = dw2d_record(*spectra, scale, NS_MODES)
+    shapes = [tuple(s) for s, _, _, _ in gn_inputs]
+    records = [gn_bwd_bf16_record(gen, shape, gelu)
+               for shape in (max(shapes, key=math.prod),
+                             min(shapes, key=math.prod))
+               for gelu in (False, True)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs["gn1_gelu_bwd_bf16"] = dict(records[0], shapes=[
+        {k: r[k] for k in ("shape", "gelu", "launched", "rel_err",
+                           "rel_err_dweight", "same_bits", "ms", "plain_ms",
+                           "library_ms", "bound_ms", "two_read_floor_ms",
+                           "bound_share")}
+        for r in records])
+    recs["seconds"] = time.perf_counter() - t0
     return launches, recs
 
 
@@ -1977,15 +2444,20 @@ def main():
         gen_s = make_split(tmp, args.seed)
         train = phase_train(args.seed, card, out_dir, tmp, gen_s)
         families = phase_families(args.seed, card, out_dir, tmp)
-        ns512, ns_kern = phase_ns512(args.seed, card, gen, tmp)
+        ns512, ns_kern, gn_inputs = phase_ns512(args.seed, card, gen, tmp)
         kern.update(ns_kern)
+        ns512_train, ns_train_kern = phase_ns512_train(
+            args.seed, card, gen, out_dir, tmp, gn_inputs)
+        kern.update(ns_train_kern)
+        kern["spectral_dw2d"]["ns512"] = kern.pop("spectral_dw2d_ns512")
         # after training: torch.export keeps the constants it traced (the
         # spectral packs) alive for the rest of the process
         export, artifact = phase_export(args.seed, card, tmp)
         replays = phase_profile(args.seed, card, artifact)
 
     # name -> (source, TPU kernel replaced, the path whose run gives
-    # "launches"); the forward kernels keep the serving path's count
+    # "launches"[, the counter it reads when not its own name]); the forward
+    # kernels keep the serving path's count
     sources = {
         "gn1_gelu_fwd": ("nps_tpu_torch/csrc/gn1_gelu.cu",
                          "tools/pallas_group_norm_evidence.py:61", serve),
@@ -2015,22 +2487,41 @@ def main():
             "gn1_stream_sums, gn1_stream_stats, gn1_stream_apply; at the "
             "largest ns512 GroupNorm input in bf16, every shape under "
             "shapes)",
-            "tools/pallas_group_norm_evidence.py:61", ns512)}
+            "tools/pallas_group_norm_evidence.py:61", ns512),
+        "spectral_dft2d_bwd_large": (
+            "nps_tpu_torch/csrc/spectral_dft2d.cu (large-plane input "
+            "gradient: dft_fwd_big_kernel and sum_tiles_kernel on dy, "
+            "film_bwd_kernel with FiLM, mix_adj_kernel, dft_inv_big_kernel; "
+            "at the ns512 call in bf16, its f32 record under f32)",
+            "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
+            "_pallas_bwd, XLA)", ns512_train),
+        "gn1_gelu_bwd_bf16": (
+            "nps_tpu_torch/csrc/gn1_gelu.cu (gn1_bwd_sums, gn1_bwd_reduce, "
+            "gn1_bwd_apply on bf16 x and dy; at the largest ns512 GroupNorm "
+            "input, gelu off as ns512 runs it; every shape and gelu setting "
+            "under shapes)",
+            "tools/pallas_group_norm_evidence.py:106 (_gn_bwd, XLA)",
+            ns512_train, "gn1_gelu_bwd")}
     line = []
-    for name, (src, replaces, path) in sources.items():
+    eager = {"gn1_gelu_bwd": "plain and library", "spectral_dft2d_bwd":
+             "plain and library", "gn1_gelu_bwd_bf16": "plain and library",
+             "spectral_dft2d_bwd_large": "library"}
+    for name, (src, replaces, path, *counter) in sources.items():
         r = kern[name]
+        key = counter[0] if counter else name
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": path.get(name, 0),
+                     "replaces": replaces, "launches": path.get(key, 0),
                      "launches_by_path": {
-                         "serve": serve.get(name, 0),
-                         "captured": replays["ufno"].get(name, 0),
-                         "export": export.get(name, 0),
-                         "train": train.get(name, 0),
-                         "ns512": ns512.get(name, 0),
-                         **{p: n.get(name, 0) for p, n in families.items()},
-                         **{f"{f}_captured": n.get(name, 0)
+                         "serve": serve.get(key, 0),
+                         "captured": replays["ufno"].get(key, 0),
+                         "export": export.get(key, 0),
+                         "train": train.get(key, 0),
+                         "ns512": ns512.get(key, 0),
+                         "ns512_train": ns512_train.get(key, 0),
+                         **{p: n.get(key, 0) for p, n in families.items()},
+                         **{f"{f}_captured": n.get(key, 0)
                             for f, n in replays.items() if f != "ufno"},
-                         "gnn": sum(n.get(name, 0) for p, n in
+                         "gnn": sum(n.get(key, 0) for p, n in
                                     families.items()
                                     if p.startswith("gnn_"))},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2039,15 +2530,16 @@ def main():
                      "library_ms": r["library_ms"],
                      "bound_share": r["bound_share"], "parity": "ok",
                      "timing": "device: CUDA graph of "
-                               + ("5" if path is ns512 else "20")
+                               + ("5" if any(path is p for p in
+                                             (ns512, ns512_train))
+                                  else "20")
                                + " calls, replayed"
-                               + ("; plain and library: eager calls between "
-                                  "CUDA events" if name.endswith("_bwd")
-                                  else "")})
+                               + (f"; {eager[name]}: eager calls between "
+                                  "CUDA events" if name in eager else "")})
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
                     "dispatch_host_us", "library_how", "dtype", "shape",
-                    "bound_f32_ops_ms", "two_pass_floor_ms", "f32",
-                    "shapes"):
+                    "bound_f32_ops_ms", "two_pass_floor_ms",
+                    "two_read_floor_ms", "f32", "shapes", "ns512"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

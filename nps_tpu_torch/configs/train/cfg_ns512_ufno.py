@@ -4,12 +4,13 @@ compute, batch 8 (mirror of ``nps_tpu/configs/train/cfg_ns512_ufno.py``,
 key for key).
 
 Serve it on one card with ``SurrogateEngine.from_config`` (bf16 from
-``trainer.compute_dtype``). The trainer refuses two of its keys, naming
-their ROADMAP items: ``compute_dtype="bfloat16"`` (P12b, training at 512^2)
-and ``data_parallel=True`` (P9); ``remat`` is accepted by the U-FNO and
-applied by P12b. Neither the trainer nor the engine reads
-``trainer.device``. Generate a synthetic dataset at this shape with the
-port's generator:
+``trainer.compute_dtype``), and train it on one card with the training CLI
+and ``--trainer.data_parallel=false``: the trainer refuses
+``data_parallel=True``, naming ROADMAP P9. It trains in bf16 with f32
+parameters and Adam state, each block's FNO layer and U-Net rematerialized
+with the ``save_conv_outputs`` policy. Neither the trainer nor the engine
+reads ``trainer.device``. Generate a synthetic dataset at this shape with
+the port's generator:
 
     from nps_tpu_torch.data.synthetic import generate
     generate("$DATAROOT/ns512", n_sims=64, n_channels=1, nt=101,

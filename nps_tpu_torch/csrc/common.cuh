@@ -1,12 +1,41 @@
 // Helpers shared by the port's kernels: asynchronous global -> shared copies
-// (cp.async, sm_80 and later), programmatic dependent launch (sm_90) and the
-// one-time shared-memory opt-in.
+// (cp.async, sm_80 and later), programmatic dependent launch (sm_90), the
+// one-time shared-memory opt-in, and 4-element loads and stores of f32 or
+// bf16 as floats.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace nps {
+
+// 4 consecutive elements as floats (16 bytes f32, 8 bytes bf16; aligned to
+// that size)
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  v[0] = __low2float(a); v[1] = __high2float(a);
+  v[2] = __low2float(b); v[3] = __high2float(b);
+}
+// 4 consecutive floats to global memory as f32 or bf16 (16 or 8 bytes,
+// streaming stores; bf16 rounded to nearest)
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<uint32_t*>(&a);
+  t.y = *reinterpret_cast<uint32_t*>(&b);
+  __stcs(reinterpret_cast<uint2*>(p), t);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

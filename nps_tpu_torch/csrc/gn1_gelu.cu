@@ -58,7 +58,7 @@
 // are f32 [C]; y has x's shape and type; stats is f32 [b, 2]; partials is
 // f32 [b, G, 2] scratch.
 //
-// gn1_gelu_bwd: the backward of the same op, f32. The TPU side has no
+// gn1_gelu_bwd: the backward of the same op, f32 or bf16. The TPU side has no
 // Pallas backward: its _gn_bwd (tools/pallas_group_norm_evidence.py:106-127)
 // is one XLA fusion. With pre = xh * gamma + beta, xh = (x - mean) * inv,
 // g = dy * GELU'(pre) (GELU'(z) = Phi(z) + z phi(z), the forward's erf form
@@ -78,8 +78,13 @@
 //      sum ws over the batch per channel into dgamma and dbeta;
 //   3. gn1_bwd_apply: one CTA per plane recomputes g and writes dx with
 //      streaming stores.
+// bf16 x and dy (cfg_ns512_ufno's norms) are widened on load; g, xh, every
+// sum, (mean, inv), dgamma and dbeta stay f32, summed in the f32 kernels'
+// fixed order, and dx is rounded to bf16 once on store: half the bytes of
+// the f32 backward, and the same bits on every call. Planes of a multiple
+// of 4 elements load and store 4 elements at a time (16 bytes f32, 8 bf16).
 // No atomics: every sum runs in the same order on every call, so the result
-// is deterministic. Planes of a multiple of 4 elements use 16-byte vectors.
+// is deterministic.
 
 // gn1_gelu_fwd_stream: the same forward for a sample larger than the
 // resident grid's shared memory holds (about 29.8 MB f32 on an H100; a
@@ -461,14 +466,14 @@ __device__ __forceinline__ float2 bwd_block_sum2(float2 v) {
 }
 
 struct BwdArgs {
-  const float* x;
-  const float* dy;
+  const void* x;       // f32 or bf16, as dy and dx
+  const void* dy;
   const float* gamma;
   const float* beta;
   const float* stats;  // [b, 2] (mean, inv) from the forward
   float* ws;           // [b, C, 2] per-plane (sum g, sum g * xh)
   float* coef;         // [b, 2] (mean_n(t), mean_n(t * xh))
-  float* dx;
+  void* dx;
   float* dgamma;
   float* dbeta;
   int b, c, hw, gelu;
@@ -500,9 +505,12 @@ __device__ __forceinline__ void grad_in(const BwdArgs& a, const Plane& p, float 
   g = a.gelu ? dyv * gelu_erf_grad(fmaf(xh, p.g, p.bb)) : dyv;
 }
 
-template <bool VEC>
+// VEC: hw % 4 == 0 and x, dy, dx aligned to 4 elements
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_sums(BwdArgs a) {
   const Plane p = plane_of(a);
+  const T* x = static_cast<const T*>(a.x) + p.off;
+  const T* dy = static_cast<const T*>(a.dy) + p.off;
   float2 acc = make_float2(0.f, 0.f);
   auto fold = [&](float xv, float dyv) {
     float g, xh;
@@ -511,17 +519,15 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_sums(BwdArgs a) {
     acc.y = fmaf(g, xh, acc.y);
   };
   if constexpr (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(a.x + p.off);
-    const float4* d4 = reinterpret_cast<const float4*>(a.dy + p.off);
     for (int i = threadIdx.x; i < a.hw / 4; i += kBwdThreads) {
-      const float4 xv = x4[i], dv = d4[i];
-      fold(xv.x, dv.x);
-      fold(xv.y, dv.y);
-      fold(xv.z, dv.z);
-      fold(xv.w, dv.w);
+      float xv[4], dv[4];
+      nps::load4(x + 4 * i, xv);
+      nps::load4(dy + 4 * i, dv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fold(xv[k], dv[k]);
     }
   } else {
-    for (int i = threadIdx.x; i < a.hw; i += kBwdThreads) fold(a.x[p.off + i], a.dy[p.off + i]);
+    for (int i = threadIdx.x; i < a.hw; i += kBwdThreads) fold(to_f(x[i]), to_f(dy[i]));
   }
   acc = bwd_block_sum2(acc);
   if (threadIdx.x == 0) reinterpret_cast<float2*>(a.ws)[blockIdx.x] = acc;
@@ -559,9 +565,12 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_reduce(BwdArgs a) {
   a.dgamma[ch] = sgx;
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_apply(BwdArgs a) {
   const Plane p = plane_of(a);
+  const T* x = static_cast<const T*>(a.x) + p.off;
+  const T* dy = static_cast<const T*>(a.dy) + p.off;
+  T* dx = static_cast<T*>(a.dx) + p.off;
   const float ct = __ldg(a.coef + 2 * p.s), ctx = __ldg(a.coef + 2 * p.s + 1);
   auto dx_of = [&](float xv, float dyv) {
     float g, xh;
@@ -569,18 +578,30 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_apply(BwdArgs a) {
     return p.inv * (fmaf(g, p.g, -ct) - xh * ctx);
   };
   if constexpr (VEC) {
-    const float4* x4 = reinterpret_cast<const float4*>(a.x + p.off);
-    const float4* d4 = reinterpret_cast<const float4*>(a.dy + p.off);
-    float4* o4 = reinterpret_cast<float4*>(a.dx + p.off);
     for (int i = threadIdx.x; i < a.hw / 4; i += kBwdThreads) {
-      const float4 xv = x4[i], dv = d4[i];
-      __stcs(o4 + i, make_float4(dx_of(xv.x, dv.x), dx_of(xv.y, dv.y), dx_of(xv.z, dv.z),
-                                 dx_of(xv.w, dv.w)));
+      float xv[4], dv[4], v[4];
+      nps::load4(x + 4 * i, xv);
+      nps::load4(dy + 4 * i, dv);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = dx_of(xv[k], dv[k]);
+      nps::store4(dx + 4 * i, v);
     }
   } else {
     for (int i = threadIdx.x; i < a.hw; i += kBwdThreads)
-      a.dx[p.off + i] = dx_of(a.x[p.off + i], a.dy[p.off + i]);
+      put(dx + i, dx_of(to_f(x[i]), to_f(dy[i])));
   }
+}
+
+template <typename T, bool VEC>
+int launch_bwd(const BwdArgs& a, cudaStream_t st) {
+  const int planes = a.b * a.c;
+  gn1_bwd_sums<T, VEC><<<planes, kBwdThreads, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn1_bwd_reduce<<<a.b + (a.c + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  gn1_bwd_apply<T, VEC><<<planes, kBwdThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- streaming forward ----------------------------------------------------------
@@ -734,12 +755,13 @@ extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta
   return is_bf16 ? launch<__nv_bfloat16>(a, grid, s) : launch<float>(a, grid, s);
 }
 
-// f32 backward, three kernels (see the note at the top); vec: hw % 4 == 0
-// and every tensor 16-byte aligned. Returns the first CUDA error.
-extern "C" int gn1_gelu_bwd(const float* x, const float* dy, const float* gamma, const float* beta,
-                            const float* stats, float* ws, float* coef, float* dx, float* dgamma,
-                            float* dbeta, int b, int c, long long hw, int apply_gelu, int vec,
-                            void* stream) {
+// The backward, three kernels (see the note at the top): x, dy and dx f32 or
+// (is_bf16) bf16; vec: hw % 4 == 0 and x, dy, dx aligned to 4 elements.
+// Returns the first CUDA error.
+extern "C" int gn1_gelu_bwd(const void* x, const void* dy, const float* gamma, const float* beta,
+                            const float* stats, float* ws, float* coef, void* dx, float* dgamma,
+                            float* dbeta, int b, int c, long long hw, int apply_gelu, int is_bf16,
+                            int vec, void* stream) {
   BwdArgs a;
   a.x = x;
   a.dy = dy;
@@ -757,21 +779,9 @@ extern "C" int gn1_gelu_bwd(const float* x, const float* dy, const float* gamma,
   a.gelu = apply_gelu;
   a.inv_n = 1.0f / static_cast<float>(static_cast<double>(c) * hw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int planes = b * c;
-  if (vec)
-    gn1_bwd_sums<true><<<planes, kBwdThreads, 0, s>>>(a);
-  else
-    gn1_bwd_sums<false><<<planes, kBwdThreads, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gn1_bwd_reduce<<<b + (c + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (vec)
-    gn1_bwd_apply<true><<<planes, kBwdThreads, 0, s>>>(a);
-  else
-    gn1_bwd_apply<false><<<planes, kBwdThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (is_bf16)
+    return vec ? launch_bwd<__nv_bfloat16, true>(a, s) : launch_bwd<__nv_bfloat16, false>(a, s);
+  return vec ? launch_bwd<float, true>(a, s) : launch_bwd<float, false>(a, s);
 }
 
 // The streaming forward (see the note at the top) for samples that do not

@@ -894,6 +894,17 @@ dft_inv_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
 // as bf16 tensor-core products would leave the bytes as the bound (a later
 // design; the tables would have to be split into two bf16 terms to hold the
 // f32 plain version's 1e-2 bf16 bar).
+// spectral_dft2d_bwd_large: the input gradient on the same tiled stages,
+// replacing _pallas_bwd (spectral_dft.py:175 at git 92d7866^) where the
+// resident backward does not fit, as spectral_dft2d_bwd does on the resident
+// stages: dft_fwd_big_kernel on dy (b*co planes) and sum_tiles_kernel give
+// G; film_bwd_kernel when the forward applied FiLM; mix_adj_kernel on the
+// forward's pack as it is; dft_inv_big_kernel into dx (b*ci planes). dy and
+// dx are f32 or bf16 (dx in dy's type), G, H and every sum f32; G stays in
+// gr, gi for spectral_dw2d, which takes any plane size. Its bound at the
+// ns512 shape is the forward's: ~51 GFLOP on the CUDA cores (0.77 ms)
+// against ~1.2 GB moved in bf16 (0.36 ms). The choice between it and the
+// resident backward is the wrapper's, by shape and type alone.
 constexpr int kBigThreads = 256;
 constexpr int kBigRows = 256;     // rows per forward CTA: 2 per thread
 constexpr int kBigYc = 32;        // y columns per staged chunk
@@ -902,30 +913,8 @@ constexpr int kBigLd = kBigYc + 4;  // staged row pitch in elements
 constexpr int kBigInvRows = 128;  // rows per inverse CTA
 constexpr int kBigInvR = 16;      // rows a thread holds per column pass
 
-// 4 consecutive elements from shared memory as floats (16 or 8 bytes)
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
-}
-// 4 consecutive floats to global memory as T (16 or 8 bytes, streaming)
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 t;
-  t.x = *reinterpret_cast<uint32_t*>(&a);
-  t.y = *reinterpret_cast<uint32_t*>(&b);
-  __stcs(reinterpret_cast<uint2*>(p), t);
-}
+using nps::load4;
+using nps::store4;
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -1295,6 +1284,18 @@ cudaError_t mix_stage(const Dims& d, const float* w, const Film& film, const flo
   }
 }
 
+// The backward's FiLM stage, between the DFT of dy and the adjoint mix, when
+// the forward applied FiLM: G *= f in place, and dfilm (d.ci: the forward's
+// co, the spectrum's channels here).
+cudaError_t film_stage(const Dims& d, const Film& film, float* gr, float* gi, cudaStream_t st) {
+  if (film.f == nullptr) return cudaSuccess;
+  const int modes = d.K * d.m2, pairs = d.b * d.ci;
+  film_bwd_kernel<<<dim3((modes + kFilmTile - 1) / kFilmTile, (pairs + kFilmTile - 1) / kFilmTile),
+                    kFilmTile * kFilmRows, 0, st>>>(gr, gi, film.ur, film.ui, film.f, film.mode,
+                                                    film.scale, film.df, modes, pairs);
+  return cudaGetLastError();
+}
+
 template <int M2, int V, bool ADJ>
 int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
             const float* s1, const float* ic2, const float* is2, const float* ic1,
@@ -1308,15 +1309,8 @@ int run_dft(const float* x, const float* c2, const float* s2, const float* c1,
   dft_fwd_kernel<M2, V><<<fwd_grid, kFwdThreads, fs, st>>>(
       x, c2, s2, c1, s1, xr, xi, d.b, d.ci, d.n1, d.n2, d.K, d.m2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (ADJ && film.f != nullptr) {  // G *= f in place, and dfilm
-    const int modes = d.K * d.m2, pairs = d.b * d.ci;  // d.ci: the forward's co
-    film_bwd_kernel<<<dim3((modes + kFilmTile - 1) / kFilmTile,
-                           (pairs + kFilmTile - 1) / kFilmTile),
-                      kFilmTile * kFilmRows, 0, st>>>(xr, xi, film.ur, film.ui, film.f,
-                                                      film.mode, film.scale, film.df, modes,
-                                                      pairs);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
+  if (ADJ && (err = film_stage(d, film, xr, xi, st)) != cudaSuccess)
+    return static_cast<int>(err);
   if ((err = mix_stage<ADJ>(d, w, film, xr, xi, yr, yi, w_vec, st)) != cudaSuccess)
     return static_cast<int>(err);
 
@@ -1341,8 +1335,11 @@ size_t big_inv_smem(const Dims& d) {
 
 // The large-plane forward: dft_fwd_big_kernel (and sum_tiles_kernel when the
 // rows take more than one tile; pr, pi [tiles, modes, b, ci] hold the
-// partial spectra), the mix, dft_inv_big_kernel.
-template <typename T, int M2, bool VEC>
+// partial spectra), the mix, dft_inv_big_kernel. With ADJ the input gradient:
+// x is dy, d.ci and d.co are the spectrum's and the output's channels (the
+// forward's co and ci), the FiLM stage runs before the mix, and the mix is
+// the adjoint one on the forward's pack.
+template <typename T, int M2, bool VEC, bool ADJ>
 int run_big(const T* x, const float* c2, const float* s2, const float* c1, const float* s1,
             const float* ic2, const float* is2, const float* ic1, const float* is1,
             const float* w, const Film& film, float* pr, float* pi, float* xr, float* xi,
@@ -1366,7 +1363,9 @@ int run_big(const T* x, const float* c2, const float* s2, const float* c1, const
                        st>>>(pr, pi, xr, xi, tiles, n);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
-  if ((err = mix_stage<false>(d, w, film, xr, xi, yr, yi, w_vec, st)) != cudaSuccess)
+  if (ADJ && (err = film_stage(d, film, xr, xi, st)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = mix_stage<ADJ>(d, w, film, xr, xi, yr, yi, w_vec, st)) != cudaSuccess)
     return static_cast<int>(err);
   const dim3 grid((d.n1 + kBigInvRows - 1) / kBigInvRows, d.b * d.co);
   const float scale = 1.0f / (static_cast<float>(d.n1) * static_cast<float>(d.n2));
@@ -1379,21 +1378,23 @@ int run_big(const T* x, const float* c2, const float* s2, const float* c1, const
       is2, ic1, is1, out, d.b * d.co, d.n1, d.n2, d.K, d.m2, scale));
 }
 
-template <typename T>
+// the large-plane stages at the unrolled m2 bound that fits; w_co: the pack's
+// last dim
+template <typename T, bool ADJ>
 int dispatch_big(const void* x, const float* w_packed, const Film& film, const float* c2,
                  const float* s2, const float* c1, const float* s1, const float* ic2,
                  const float* is2, const float* ic1, const float* is1, float* pr, float* pi,
                  float* xr, float* xi, float* yr, float* yi, void* out, const Dims& d,
-                 void* stream) {
+                 int w_co, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   constexpr uintptr_t kAlign = 4 * sizeof(T);
   const bool in_vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(x) % kAlign) == 0;
   const bool out_vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(out) % kAlign) == 0;
-  const bool w_vec = d.co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
+  const bool w_vec = w_co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
 #define NPS_BIG(M2, VEC)                                                                      \
-  return run_big<T, M2, VEC>(xt, c2, s2, c1, s1, ic2, is2, ic1, is1, w_packed, film, pr, pi, \
+  return run_big<T, M2, VEC, ADJ>(xt, c2, s2, c1, s1, ic2, is2, ic1, is1, w_packed, film, pr, pi, \
                              xr, xi, yr, yi, ot, d, w_vec, out_vec, st)
   if (d.m2 <= 12) {
     if (in_vec) NPS_BIG(12, true); else NPS_BIG(12, false);
@@ -1462,10 +1463,10 @@ extern "C" int spectral_dft2d_fwd_large(
   const Film f{film, film_mode, film ? ur : nullptr, film ? ui : nullptr, nullptr, nullptr};
   const Dims d{b, ci, co, n1, n2, 2 * m1, m2};
   if (is_bf16)
-    return dispatch_big<__nv_bfloat16>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr,
-                                       pi, xr, xi, yr, yi, out, d, stream);
-  return dispatch_big<float>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr, pi, xr,
-                             xi, yr, yi, out, d, stream);
+    return dispatch_big<__nv_bfloat16, false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1,
+                                              is1, pr, pi, xr, xi, yr, yi, out, d, co, stream);
+  return dispatch_big<float, false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr, pi,
+                                    xr, xi, yr, yi, out, d, co, stream);
 }
 
 // The input gradient: dy [b, co, n1, n2] -> dx [b, ci, n1, n2] through the
@@ -1486,6 +1487,26 @@ extern "C" int spectral_dft2d_bwd(
   const Film f{film, film_mode, ur, ui, scale, dfilm};
   return dispatch_dft<true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, gr, gi, hr,
                             hi, dx, Dims{b, co, ci, n1, n2, 2 * m1, m2}, co, stream);
+}
+
+// The large-plane variant of spectral_dft2d_bwd (see the note above the
+// large-plane kernels): dy and dx f32 or (is_bf16) bf16, everything else as
+// there; pr, pi [ceil(n1 / 256), modes, b, co] receive the row tiles' partial
+// spectra of dy (unused, and may be null, when n1 <= 256).
+extern "C" int spectral_dft2d_bwd_large(
+    const void* dy, const float* w_packed, const float* film, int film_mode,
+    float* ur, float* ui, const float* scale, float* dfilm,
+    const float* c2, const float* s2, const float* c1, const float* s1,
+    const float* ic2, const float* is2, const float* ic1, const float* is1,
+    float* pr, float* pi, float* gr, float* gi, float* hr, float* hi, void* dx, int b, int ci,
+    int co, int n1, int n2, int m1, int m2, int is_bf16, void* stream) {
+  const Film f{film, film_mode, ur, ui, scale, dfilm};
+  const Dims d{b, co, ci, n1, n2, 2 * m1, m2};
+  if (is_bf16)
+    return dispatch_big<__nv_bfloat16, true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1,
+                                             is1, pr, pi, gr, gi, hr, hi, dx, d, co, stream);
+  return dispatch_big<float, true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr, pi,
+                                   gr, gi, hr, hi, dx, d, co, stream);
 }
 
 // The weight gradient into dw1, dw2 [2, ci, co, m1, m2] from X [modes, b, ci]

@@ -40,7 +40,7 @@ JAX package's ``from_config``) and runs every model apply, capture and
 export inside :func:`~nps_tpu_torch.models.config.compute_dtype_scope`: in
 bf16 the activations flow in bf16 through the convs and both kernels, with
 f32 weights, f32 sums and an f32 physics wrapper, so the frames it returns
-are f32 either way. The MP-GNN refuses bf16 (ROADMAP P12b).
+are f32 either way. The MP-GNN refuses bf16 (ROADMAP P12c).
 
 Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, c, tw, *sp]``, ``cond`` ``[b, n_static]``, ``spatial_cond``

@@ -41,8 +41,8 @@ SIGNATURES = {
     # chunks, vec, stream
     "gn1_gelu_fwd_stream": [P] * 6 + [I, I, I64, F32, I, I, I, I, I] + [P],
     # x, dy, gamma, beta, stats, ws, coef, dx, dgamma, dbeta, b, c, hw,
-    # gelu, vec, stream
-    "gn1_gelu_bwd": [P] * 10 + [I, I, I64, I, I] + [P],
+    # gelu, bf16, vec, stream
+    "gn1_gelu_bwd": [P] * 10 + [I, I, I64, I, I, I] + [P],
     # x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
     # xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2, m1, m2, stream
     "spectral_dft2d_fwd": [P, P, P, I] + [P] * 8 + [P] * 7
@@ -57,6 +57,11 @@ SIGNATURES = {
     # stream
     "spectral_dft2d_bwd": [P, P, P, I] + [P] * 4 + [P] * 8 + [P] * 5
                           + [I] * 7 + [P],
+    # dy, w_packed, film, film_mode, ur, ui, scale, dfilm, c2, s2, c1, s1,
+    # ic2, is2, ic1, is1, pr, pi, gr, gi, hr, hi, dx, b, ci, co, n1, n2, m1,
+    # m2, bf16, stream
+    "spectral_dft2d_bwd_large": [P, P, P, I] + [P] * 4 + [P] * 8 + [P] * 7
+                                + [I] * 8 + [P],
     # xr, xi, gr, gi, scale, dw1, dw2, b, ci, co, m1, m2, stream
     "spectral_dw2d": [P] * 7 + [I] * 5 + [P],
 }

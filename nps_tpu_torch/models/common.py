@@ -20,16 +20,24 @@ to it and produce their output in it (cuDNN and cuBLAS accumulate in f32);
 the bias is added in the output's type. With no compute dtype set they run
 in the input's type, as the JAX package does. The GroupNorms keep f32
 statistics and return the input's type.
+
+:func:`remat_block` is the counterpart of the JAX package's ``nn.remat``
+with ``resolve_remat_policy``: a processor wraps each block in it so that a
+backward pass recomputes the block instead of keeping its activations.
 """
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from nps_tpu_torch.models import initializers as init
-from nps_tpu_torch.models.config import compute_dtype
+from nps_tpu_torch.models.config import compute_dtype, compute_dtype_scope
 from nps_tpu_torch.ops.group_norm import gn_gelu, group_norm_plain  # noqa: F401
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -54,6 +62,54 @@ def _cast(x, weight, bias):
         return x, weight, bias
     return (x.to(dt), weight.to(dt),
             None if bias is None else bias.to(dt))
+
+
+# the JAX package's remat policies (nps_tpu/models/common.py:
+# resolve_remat_policy): None recomputes the whole block,
+# "save_conv_outputs" keeps the conv outputs and recomputes the rest
+REMAT_POLICIES = (None, "save_conv_outputs")
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """The "save_conv_outputs" policy: keep what ``aten.convolution``
+    returns (the outputs of :class:`ConvND` and :class:`ConvTransposeND`,
+    which the JAX package tags ``conv_out``) and recompute every other op.
+    Allocations are recomputed too, so a hand kernel that writes through
+    ``data_ptr()`` into a fresh ``torch.empty`` gets a fresh buffer again."""
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(fn, policy=None):
+    """``fn`` wrapped so that, where a gradient is wanted, the backward
+    pass recomputes it from its inputs instead of keeping its activations
+    (``torch.utils.checkpoint``, non-reentrant). ``policy`` is one of
+    :data:`REMAT_POLICIES`: None keeps nothing, ``"save_conv_outputs"``
+    keeps the conv outputs (selective checkpointing). The recompute runs in
+    the compute dtype the forward ran in, whatever is set when the backward
+    runs. Without gradients ``fn`` runs as it is. The blocks draw no random
+    numbers, so the RNG state is not saved."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat policy {policy!r}")
+    context_fn = (partial(create_selective_checkpoint_contexts,
+                          _save_conv_outputs)
+                  if policy == "save_conv_outputs" else noop_context_fn)
+
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        dtype = compute_dtype()
+
+        def block(*a, **kw):
+            with compute_dtype_scope(dtype):
+                return fn(*a, **kw)
+
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=context_fn, preserve_rng_state=False,
+                          **kwargs)
+
+    return run
 
 
 def _torch_pad(pads):

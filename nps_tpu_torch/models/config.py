@@ -19,7 +19,10 @@ It is read when a model runs, not when it is built:
 
 The serving engine keeps its own compute dtype (its config's
 ``trainer.compute_dtype`` or its ``compute_dtype`` argument) and runs every
-model apply inside :func:`compute_dtype_scope`. The JAX package's
+model apply inside :func:`compute_dtype_scope`; so does the trainer, for
+its steps (backward included), evaluations and rollouts. A block that
+:func:`~nps_tpu_torch.models.common.remat_block` rematerializes is
+recomputed in the dtype its forward ran in. The JAX package's
 ``gn_stats_impl`` and ``fast_forward_scope`` are not ported yet (ROADMAP
 P13).
 """

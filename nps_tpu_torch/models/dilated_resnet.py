@@ -13,9 +13,10 @@ Parameter names follow the PyTorch reference, so that
 is ``layers.{2l}`` (the activations sit at the odd slots of the reference's
 Sequential and hold no parameters).
 
-``remat`` is accepted and not applied: the JAX package rematerializes each
-block in the backward pass, which changes memory, not numbers; its
-counterpart here (``torch.utils.checkpoint``) is still to be ported.
+With ``remat`` (on by default, as in the JAX package) each block is
+rematerialized in the backward pass
+(:func:`~nps_tpu_torch.models.common.remat_block`, nothing kept): it
+changes memory, not numbers.
 """
 
 import torch
@@ -23,7 +24,7 @@ from torch import nn
 
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import resolve_activation
-from nps_tpu_torch.models.common import ConvND
+from nps_tpu_torch.models.common import ConvND, remat_block
 
 
 class DilatedResnetBlock(nn.Module):
@@ -60,6 +61,7 @@ class DilatedResnet(nn.Module):
                  hidden_blocks=4, activation="relu", padding_mode="zeros",
                  num_spatial_dims=1, n_cond=0, remat=True):
         super().__init__()
+        self.remat = bool(remat)
         self.processor = nn.ModuleList(
             DilatedResnetBlock(
                 num_spatial_dims=num_spatial_dims,
@@ -71,6 +73,8 @@ class DilatedResnet(nn.Module):
 
     def forward(self, h, variables_broadcast=None, pos=None):
         for block in self.processor:
+            if self.remat:
+                block = remat_block(block)
             enc_input = (torch.cat([h, variables_broadcast], dim=1)
                          if variables_broadcast is not None else h)
             h = h + block(enc_input)

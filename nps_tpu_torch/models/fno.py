@@ -24,7 +24,7 @@ from torch import nn
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.activations import resolve_activation
-from nps_tpu_torch.models.common import ConvND, Dense
+from nps_tpu_torch.models.common import ConvND, Dense, remat_block
 from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.ops.spectral import pack_weights_2d, spectral_conv_nd
 
@@ -148,7 +148,9 @@ class FNO(nn.Module):
     """FNO processor: ``hidden_blocks`` x :class:`FNO_Layer`, h [b, hidden,
     *sp] in and out. It has no ``activation`` field: its layers always apply
     the default exact GELU. ``padding_mode='ones'`` maps to zero padding.
-    ``remat`` is accepted and not applied (see ``dilated_resnet.py``)."""
+    With ``remat`` (on by default, as in the JAX package) each layer is
+    rematerialized in the backward pass, nothing kept
+    (:func:`~nps_tpu_torch.models.common.remat_block`)."""
 
     model_interface = M.AR_TB
     data_interface = (D.sim1d, D.sim1d_var_t, D.sim2d)
@@ -162,6 +164,7 @@ class FNO(nn.Module):
         assert cond_mode in ("film", "concat", None), \
             "Incorrect conditioning mode supplied"
         self.cond_mode = cond_mode
+        self.remat = bool(remat)
         film = cond_mode == "film" and n_cond > 0
         hidden_in = (hidden_features + n_cond if cond_mode == "concat"
                      else hidden_features)
@@ -176,6 +179,8 @@ class FNO(nn.Module):
 
     def forward(self, h, variables=None, variables_broadcast=None, pos=None):
         for layer in self.fno_layers:
+            if self.remat:
+                layer = remat_block(layer)
             if self.cond_mode == "film":
                 h = layer(h, p=variables)
             else:

@@ -25,7 +25,8 @@ term: ``W [h_i; h_j; p_i - p_j] + b = (Wr h)[recv] + (Ws h)[send] +
   the path ``cfg_twophase_gnn`` takes on the twophase grid;
 - gather: ``index_add_`` of the edge messages into their receivers (there is
   no ``torch_geometric``), optionally over ``edge_chunks`` receiver-sorted
-  slices whose sums add up.
+  slices whose sums add up; each slice is rematerialized in the backward,
+  as in the JAX package, so the edge activations held are one slice's.
 
 The dense layers are plain ``F.linear`` (the JAX package leaves them to XLA;
 no Pallas kernel is on this path). Parameters keep the flax module names
@@ -45,7 +46,7 @@ from torch import nn
 
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import Swish, resolve_activation
-from nps_tpu_torch.models.common import ConvND, Dense
+from nps_tpu_torch.models.common import ConvND, Dense, remat_block
 from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.models.dec_grid import add_delta
 
@@ -150,8 +151,9 @@ class MPGNNLayer(nn.Module):
                 agg = self._messages(hr, hs, pp, send, recv)
             else:
                 agg = torch.zeros_like(hr)
+                chunk = remat_block(self._messages)
                 for s, r in zip(send.reshape(k, -1), recv.reshape(k, -1)):
-                    agg = agg + self._messages(hr, hs, pp, s, r)
+                    agg = agg + chunk(hr, hs, pp, s, r)
         if self.aggregate == "mean" and degree_inv is not None:
             agg = agg * degree_inv[:, None]
         upd = self.act(self.node["0"](torch.cat([h, agg], dim=-1)))
@@ -164,9 +166,11 @@ class MPGNN(nn.Module):
     node conditioning (``n_cond`` > 0) a ``cond_proj`` dense maps
     [h, conditioning] back to ``hidden_features`` first. The mean
     aggregate divides by each receiver's in-degree, counted exactly in f32.
-    ``remat=True`` (recompute each layer in the backward) is not ported
-    (ROADMAP P12b) and raises, and so does a compute dtype other than f32:
-    the JAX package's bf16 casts in its layers are ROADMAP P12b too."""
+    ``remat=True`` recomputes each layer in the backward instead of keeping
+    its edge activations (:func:`~nps_tpu_torch.models.common.remat_block`,
+    nothing kept), as the JAX package does. A compute dtype other than f32
+    raises: the JAX package's bf16 casts in its layers are still to be
+    ported (ROADMAP P12c)."""
 
     model_interface = M.AR_TB_GNN
     data_interface = (D.sim1d, D.sim2d)
@@ -175,9 +179,7 @@ class MPGNN(nn.Module):
                  num_spatial_dims=1, n_cond=0, activation=Swish(),
                  aggregate="mean", remat=False, edge_chunks=1):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "MPGNN(remat=True) is not ported yet (ROADMAP P12b)")
+        self.remat = bool(remat)
         if aggregate not in ("mean", "sum"):
             raise ValueError(f"aggregate must be 'mean' or 'sum', got "
                              f"{aggregate!r}")
@@ -215,7 +217,7 @@ class MPGNN(nn.Module):
         if compute_dtype() is not None:
             raise NotImplementedError(
                 f"MPGNN under compute dtype {compute_dtype()} is not ported "
-                "yet (ROADMAP P12b: the MP-GNN's bf16 casts)")
+                "yet (ROADMAP P12c: the MP-GNN's bf16 casts)")
         degree_inv = None
         if self.aggregate == "mean":
             recv = edge_index[1]
@@ -233,6 +235,8 @@ class MPGNN(nn.Module):
         grid = (self._grid(grid_meta, h.device) if grid_meta is not None
                 else None)
         for layer in self.mp:
+            if self.remat:
+                layer = remat_block(layer)
             h = layer(h, pos, edge_index, degree_inv, grid)
         return h
 

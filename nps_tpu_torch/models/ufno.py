@@ -3,23 +3,22 @@ spectral FNO layer and a full mini-U-Net run on the same input, are summed,
 then activated. The FNO layer has no activation of its own.
 
 ``remat`` and ``remat_policy`` take the JAX package's values (a policy is
-None or ``"save_conv_outputs"``; any other raises ``ValueError``). They
-change what a backward pass keeps, so they do nothing without a gradient:
-serving runs the same with or without them. Applying them in training
-(``torch.utils.checkpoint`` per block, keeping the conv outputs under
-``"save_conv_outputs"``) is ROADMAP P12b."""
+None or ``"save_conv_outputs"``; any other raises ``ValueError``). With
+``remat`` each block's FNO layer and U-Net are rematerialized apart
+(:func:`~nps_tpu_torch.models.common.remat_block`), as the JAX package
+wraps ``FNO_Layer`` and ``UNetModern`` in ``nn.remat`` one by one: the
+backward recomputes them, keeping only their conv outputs under
+``"save_conv_outputs"``. They change what a backward pass keeps, so they do
+nothing without a gradient: serving runs the same with or without them."""
 
 import torch
 from torch import nn
 
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import resolve_activation
+from nps_tpu_torch.models.common import REMAT_POLICIES, remat_block
 from nps_tpu_torch.models.fno import FNO_Layer
 from nps_tpu_torch.models.unet_modern import UNetModern
-
-# the JAX package's policies (nps_tpu/models/common.py:resolve_remat_policy):
-# None recomputes the whole block, "save_conv_outputs" keeps the conv outputs
-REMAT_POLICIES = (None, "save_conv_outputs")
 
 
 class UFNO(nn.Module):
@@ -69,6 +68,9 @@ class UFNO(nn.Module):
 
     def forward(self, h, variables=None, variables_broadcast=None, pos=None):
         for fno_layer, unet in zip(self.fno_layers, self.unet_layers):
+            if self.remat:
+                fno_layer = remat_block(fno_layer, self.remat_policy)
+                unet = remat_block(unet, self.remat_policy)
             h_in = (torch.cat([h, variables_broadcast], dim=1)
                     if variables_broadcast is not None else h)
             h_unet = unet(h, variables_broadcast=variables_broadcast, pos=pos)

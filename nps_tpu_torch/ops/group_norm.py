@@ -23,8 +23,8 @@ Without gradients, :func:`gn_gelu` calls the custom op
 ``nps_torch::gn1_gelu_fwd`` (:mod:`nps_tpu_torch.ops.library`) on both
 devices: the kernel on CUDA, the plain version on the CPU. Gradients: on
 CUDA, :class:`GNGeluFn` pairs the forward kernel with the hand-written
-backward ``gn1_gelu_bwd`` (f32 only; a bf16 input raises in the backward).
-On the CPU, autograd runs through the plain version.
+backward ``gn1_gelu_bwd`` (f32 or bf16, with f32 sums and f32 weight
+gradients). On the CPU, autograd runs through the plain version.
 """
 
 import ctypes
@@ -162,12 +162,14 @@ def _launch_stream(x, weight, bias, y, stats, gelu, eps):
 def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
     """Launch the backward kernel: (dx, dweight, dbias) of the fused op at
     ``x`` for the output gradient ``dy``, from the forward's ``stats``.
-    f32, CUDA, contiguous."""
+    CUDA, contiguous; ``x`` and ``dy`` both f32 or both bf16, dx in their
+    type, dweight and dbias (and every sum) f32."""
     if x.device.type != "cuda":
         raise ValueError(f"gn1_gelu_bwd takes CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32 or dy.dtype != torch.float32:
-        raise TypeError(f"gn1_gelu_bwd takes f32, got {x.dtype} and "
-                        f"{dy.dtype}")
+    if (x.dtype not in (torch.float32, torch.bfloat16)
+            or dy.dtype != x.dtype):
+        raise TypeError(f"gn1_gelu_bwd takes f32 or bf16 x and dy of one "
+                        f"type, got {x.dtype} and {dy.dtype}")
     if x.ndim < 3 or dy.shape != x.shape:
         raise ValueError(f"expects x and dy of one [b, C, *sp] shape, got "
                          f"{tuple(x.shape)} and {tuple(dy.shape)}")
@@ -184,13 +186,15 @@ def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
     dw, db = torch.empty_like(weight), torch.empty_like(bias)
     ws = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
     coef = torch.empty((b, 2), dtype=torch.float32, device=x.device)
-    vec = int(hw % 4 == 0 and all(t.data_ptr() % 16 == 0
+    # 4 elements a load: 16 bytes f32, 8 bf16
+    align = 4 * x.element_size()
+    vec = int(hw % 4 == 0 and all(t.data_ptr() % align == 0
                                   for t in (x, dy, dx)))
     rc = kernels.library().gn1_gelu_bwd(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), b, c, hw, int(bool(gelu)), vec,
-        kernels.stream_ptr(x.device))
+        dw.data_ptr(), db.data_ptr(), b, c, hw, int(bool(gelu)),
+        int(x.dtype == torch.bfloat16), vec, kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_bwd")
     kernels.launches["gn1_gelu_bwd"] += 1
     return dx, dw, db

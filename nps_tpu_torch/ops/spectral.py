@@ -23,9 +23,12 @@ weights: the per-mode factor h(m)/(n1 n2) of the inverse is a real scalar
 per mode, so it commutes with the mix. So the input gradient is the kernel
 ``spectral_dft2d_bwd``: the forward's DFT stages around an adjoint mix that
 reads the forward's weight pack transposed and conjugated; its spectrum
-scratch holds ``dy``'s truncated spectrum G. The weight gradient per mode is
-h(m)/(n1 n2) * sum_b conj(X_i) G_o, with X the forward's saved spectrum: the
-kernel ``spectral_dw2d``, which writes it in the parameters' layout. Their
+scratch holds ``dy``'s truncated spectrum G. Like the forward it has a
+large-plane variant, ``spectral_dft2d_bwd_large``, for bf16 and for the
+planes and modes the resident kernels refuse (the 512² ns512 call). The
+weight gradient per mode is h(m)/(n1 n2) * sum_b conj(X_i) G_o, with X the
+forward's saved spectrum: the kernel ``spectral_dw2d``, which writes it in
+the parameters' layout (any plane size: it reads only the spectra). Their
 plain versions are :func:`spectral_dft2d_bwd_plain` and
 :func:`spectral_weight_grad`. With FiLM (Y scaled by the real f per
 [b, co, mode]) the forward also keeps the pre-FiLM spectrum U, and the
@@ -194,16 +197,18 @@ _LARGE_ROWS, _LARGE_INV_ROWS, _LARGE_M2, _LARGE_THREADS = 256, 128, 32, 256
 
 def _check_kernel_fits(b, c_in, n1, n2, m1, m2, name="spectral_dft2d_fwd",
                        bf16=False, c_out=None):
-    """The forward kernel variant that takes this shape, "resident" or
-    "large"; raise on a shape that neither takes. ``c_in``: the input's
-    channels, whose spectrum the mix stages (``c_out``: the output's, for
-    the large variant's grid). The resident kernels (f32) hold a plane and
-    its tables in shared memory and unroll m2 up to 16; the large-plane
-    variant (f32 or bf16) tiles rows, columns and tables and takes m2 up to
-    32 and rows up to 1024 points. The choice depends only on the shape and
-    the type, never on a failure. The backward (``spectral_dft2d_bwd``)
-    has only the resident design: its adjoint mix pads its weight rows from
-    16 to 20 floats. Mirrors the sizes in ``csrc/spectral_dft2d.cu``."""
+    """The kernel variant that takes this shape, "resident" or "large";
+    raise on a shape that neither takes. ``name`` is the forward
+    (``spectral_dft2d_fwd``) or the input gradient (``spectral_dft2d_bwd``).
+    ``c_in``: the channels whose spectrum the mix stages (the forward's
+    input, or for the backward dy's, the forward's output); ``c_out``: the
+    stage's output channels, for the large variant's grid. The resident
+    kernels (f32) hold a plane and its tables in shared memory and unroll m2
+    up to 16; the large-plane variant (f32 or bf16) tiles rows, columns and
+    tables and takes m2 up to 32 and rows up to 1024 points. The backward
+    chooses as the forward does; its adjoint mix pads its weight rows from
+    16 to 20 floats. The choice depends only on the shape and the type,
+    never on a failure. Mirrors the sizes in ``csrc/spectral_dft2d.cu``."""
     k = 2 * m1
     tile = 8 if b > 4 else 4 if b > 2 else b
     c_pad = -(-c_in // 16) * 16
@@ -232,9 +237,6 @@ def _check_kernel_fits(b, c_in, n1, n2, m1, m2, name="spectral_dft2d_fwd",
             why = f"{need} B of shared memory per CTA"
     if why is None:
         return "resident"
-    if name == "spectral_dft2d_bwd":
-        raise ValueError(f"{name} has no variant for {why} (the backward "
-                         f"at such shapes is ROADMAP P12b)")
     if m2 > _LARGE_M2:
         raise ValueError(f"{name} takes m2 <= {_LARGE_M2}, got {m2}")
     if -(-n2 // 4) > _LARGE_THREADS:
@@ -329,11 +331,7 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
         kernels.check(rc, "spectral_dft2d_fwd")
         kernels.launches["spectral_dft2d_fwd"] += 1
     else:
-        tiles = -(-n1 // _LARGE_ROWS)
-        pr = pi = None
-        if tiles > 1:   # the row tiles' partial spectra
-            pr = torch.empty((tiles, k * m2, b, ci), **f32)
-            pi = torch.empty_like(pr)
+        pr, pi = _row_tile_partials(n1, k * m2, b, ci, x.device)
         rc = lib.spectral_dft2d_fwd_large(
             x.data_ptr(), w_packed.data_ptr(), film_ptr, int(film_mode),
             *(t.data_ptr() for t in tables), _ptr(pr), _ptr(pi),
@@ -347,6 +345,18 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def _row_tile_partials(n1, modes, b, c, device):
+    """The large-plane DFT's scratch for its row tiles' partial spectra,
+    f32 [tiles, modes, b, c] (real and imaginary parts); (None, None) when
+    the rows take one tile."""
+    tiles = -(-n1 // _LARGE_ROWS)
+    if tiles == 1:
+        return None, None
+    pr = torch.empty((tiles, modes, b, c), dtype=torch.float32,
+                     device=device)
+    return pr, torch.empty_like(pr)
 
 
 def spectral_dft2d_fwd_spectrum_plain(x, w_packed, modes, film=None,
@@ -383,40 +393,59 @@ def _check_film_bwd(film, u, scale, b, co, modes, device):
 def spectral_dft2d_bwd(dy, w_packed, modes, film=None, film_mode=1, u=None,
                        scale=None):
     """Launch the input-gradient kernel on CUDA tensors: dy [b, co, n1, n2]
-    and the forward's pack ``w_packed`` [2*m1*m2, 2, ci, co] (read as it is)
-    -> (dx [b, ci, n1, n2], gr, gi), gr and gi dy's truncated spectrum G,
-    f32 [2*m1*m2, b, co]. With the forward's ``film`` [b, co, 2*m1, m2]
-    (and ``film_mode``), its pre-FiLM spectrum ``u`` = (ur, ui) and the
-    per-mode :func:`mode_scale`, it returns (dx, gr, gi, dfilm): G scaled by
-    the FiLM factor, and dfilm [b, co, 2*m1, m2]. Without ``u`` (film needs
-    no gradient) dfilm is None and only G is scaled."""
+    (f32 or bf16) and the forward's pack ``w_packed`` [2*m1*m2, 2, ci, co]
+    (read as it is) -> (dx [b, ci, n1, n2] in dy's type, gr, gi), gr and gi
+    dy's truncated spectrum G, f32 [2*m1*m2, b, co]. With the forward's
+    ``film`` [b, co, 2*m1, m2] (and ``film_mode``), its pre-FiLM spectrum
+    ``u`` = (ur, ui) and the per-mode :func:`mode_scale`, it returns (dx,
+    gr, gi, dfilm): G scaled by the FiLM factor, and dfilm [b, co, 2*m1,
+    m2]. Without ``u`` (film needs no gradient) dfilm is None and only G is
+    scaled. The variant follows :func:`_check_kernel_fits`: the resident
+    kernels count their launches under ``spectral_dft2d_bwd``, the
+    large-plane variant (every bf16 call, and the f32 planes and modes the
+    resident kernels refuse) under ``spectral_dft2d_bwd_large``."""
     m1, m2 = modes
-    _check_launch(dy, w_packed, modes, "spectral_dft2d_bwd", 3)
+    _check_launch(dy, w_packed, modes, "spectral_dft2d_bwd", 3,
+                  (torch.float32, torch.bfloat16))
     b, co, n1, n2 = dy.shape
     ci = w_packed.shape[2]
-    _check_kernel_fits(b, co, n1, n2, m1, m2, "spectral_dft2d_bwd")
+    bf16 = dy.dtype == torch.bfloat16
+    variant = _check_kernel_fits(b, co, n1, n2, m1, m2, "spectral_dft2d_bwd",
+                                 bf16=bf16, c_out=ci)
     tables = dft_tables(n1, n2, m1, m2, dy.device)
     f32 = dict(dtype=torch.float32, device=dy.device)
-    gr = torch.empty((2 * m1 * m2, b, co), **f32)
+    k = 2 * m1
+    gr = torch.empty((k * m2, b, co), **f32)
     gi = torch.empty_like(gr)
-    hr = torch.empty((2 * m1 * m2, b, ci), **f32)
+    hr = torch.empty((k * m2, b, ci), **f32)
     hi = torch.empty_like(hr)
-    dx = torch.empty((b, ci, n1, n2), **f32)
+    dx = torch.empty((b, ci, n1, n2), dtype=dy.dtype, device=dy.device)
     dfilm = ur = ui = None
     if film is not None:
         _check_film_bwd(film, u, scale, b, co, modes, dy.device)
         if u is not None:
             ur, ui = u
             dfilm = torch.empty_like(film)
-    rc = kernels.library().spectral_dft2d_bwd(
-        dy.data_ptr(), w_packed.data_ptr(), _ptr(film), int(film_mode),
-        _ptr(ur), _ptr(ui), _ptr(scale), _ptr(dfilm),
-        *(t.data_ptr() for t in tables),
-        gr.data_ptr(), gi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-        dx.data_ptr(), b, ci, co, n1, n2, m1, m2,
-        kernels.stream_ptr(dy.device))
-    kernels.check(rc, "spectral_dft2d_bwd")
-    kernels.launches["spectral_dft2d_bwd"] += 1
+    film_args = (_ptr(film), int(film_mode), _ptr(ur), _ptr(ui), _ptr(scale),
+                 _ptr(dfilm), *(t.data_ptr() for t in tables))
+    lib = kernels.library()
+    if variant == "resident":
+        rc = lib.spectral_dft2d_bwd(
+            dy.data_ptr(), w_packed.data_ptr(), *film_args,
+            gr.data_ptr(), gi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+            dx.data_ptr(), b, ci, co, n1, n2, m1, m2,
+            kernels.stream_ptr(dy.device))
+        kernels.check(rc, "spectral_dft2d_bwd")
+        kernels.launches["spectral_dft2d_bwd"] += 1
+    else:
+        pr, pi = _row_tile_partials(n1, k * m2, b, co, dy.device)
+        rc = lib.spectral_dft2d_bwd_large(
+            dy.data_ptr(), w_packed.data_ptr(), *film_args, _ptr(pr),
+            _ptr(pi), gr.data_ptr(), gi.data_ptr(), hr.data_ptr(),
+            hi.data_ptr(), dx.data_ptr(), b, ci, co, n1, n2, m1, m2,
+            int(bf16), kernels.stream_ptr(dy.device))
+        kernels.check(rc, "spectral_dft2d_bwd_large")
+        kernels.launches["spectral_dft2d_bwd_large"] += 1
     return (dx, gr, gi) if film is None else (dx, gr, gi, dfilm)
 
 
@@ -458,7 +487,8 @@ def spectral_dft2d_bwd_plain(dy, w_packed, modes, film=None, film_mode=1,
                              u=None, scale=None):
     """Plain version of :func:`spectral_dft2d_bwd`, same inputs and
     outputs: dy's spectrum G, with FiLM :func:`film_grad_plain`,
-    :func:`adjoint_mix_plain` on the forward's pack, and the inverse DFT."""
+    :func:`adjoint_mix_plain` on the forward's pack, and the inverse DFT,
+    all in f32; dx in dy's type."""
     m1, m2 = modes
     b = dy.shape[0]
     g_re, g_im = _spectrum_plain(dy, modes)
@@ -470,7 +500,7 @@ def spectral_dft2d_bwd_plain(dy, w_packed, modes, film=None, film_mode=1,
     ci = hr.shape[2]
     h_re, h_im = (h.reshape(2 * m1, m2, b, ci).permute(2, 3, 0, 1)
                   for h in (hr, hi))
-    dx = _inverse_plain(h_re, h_im, dy.shape[2:], modes)
+    dx = _inverse_plain(h_re, h_im, dy.shape[2:], modes).to(dy.dtype)
     return (dx, gr, gi) if film is None else (dx, gr, gi, dfilm)
 
 
@@ -540,24 +570,23 @@ def spectral_weight_grad(xr, xi, gr, gi, scale, m1):
 class SpectralConv2dFn(torch.autograd.Function):
     """The 2D spectral conv on CUDA tensors with its gradient: the forward
     kernel, then ``spectral_dft2d_bwd`` on ``dy`` for the input gradient and
-    ``spectral_dw2d`` for the weight gradient. The weights are packed here
-    on every call, so they stay in the graph; the forward keeps that pack
-    (not the weights) for the backward's adjoint mix. With ``film``
-    ([b, co, 2*m1, m2], contiguous f32) the backward reads G scaled by the
-    FiLM factor; where film requires a gradient, the forward also keeps the
-    pre-FiLM spectrum, and the input-gradient launch returns the FiLM
-    gradient too."""
+    ``spectral_dw2d`` for the weight gradient. ``x`` is f32 or bf16; the
+    output and dx have its type, the saved spectra and the weight gradients
+    are f32. The weights are packed here on every call, so they stay in
+    the graph; the forward keeps that pack (not the weights) for the
+    backward's adjoint mix. With ``film`` ([b, co, 2*m1, m2], contiguous
+    f32) the backward reads G scaled by the FiLM factor; where film requires
+    a gradient, the forward also keeps the pre-FiLM spectrum, and the
+    input-gradient launch returns the FiLM gradient too."""
 
     @staticmethod
     def forward(ctx, x, weights1, weights2, modes, film=None, film_mode=1):
-        # the backward takes f32 at the resident kernels' shapes: refuse the
-        # rest before the forward runs (ROADMAP P12b)
-        if x.dtype != torch.float32:
-            raise TypeError(f"the spectral conv's gradient takes f32, got "
-                            f"{x.dtype} (ROADMAP P12b)")
+        # a shape the backward takes in no variant is refused before the
+        # forward runs
         b, ci, n1, n2 = x.shape
         _check_kernel_fits(b, weights1.shape[2], n1, n2, *modes,
-                           "spectral_dft2d_bwd")
+                           "spectral_dft2d_bwd",
+                           bf16=x.dtype == torch.bfloat16, c_out=ci)
         w_packed = pack_weights_2d((weights1, weights2))
         keep_y = film is not None and film.requires_grad
         out, xr, xi, *u = spectral_dft2d_fwd_spectrum(
@@ -595,7 +624,7 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     the caller has none), so a caller can pack once instead of per call.
     Where a gradient is wanted the CUDA path takes :class:`SpectralConv2dFn`
     and the CPU path plain autograd; both ignore ``w_packed``. ``x`` is f32 or
-    bf16 (:class:`SpectralConv2dFn` takes f32), and the output has its type.
+    bf16, and the output has its type.
     """
     nd = num_spatial_dims or (x.ndim - 2)
     modes = tuple(int(m) for m in modes)

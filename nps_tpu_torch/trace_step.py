@@ -19,9 +19,11 @@ power limit. The Chrome trace goes to ``--out``.
 
 With ``--train`` the step is a train step at the injected pushforward
 depth ``--depth`` (the trainer built by the training CLI's
-``get_config_static`` on a synthetic split of the config's grid, made in a
-temporary directory), and the kernel time is also split by the step's
-phases: the no-grad pushforward, the forward, the backward and the
+``get_config_static`` on a synthetic split of the config's grid and frame
+count, made in a temporary directory, at the config's batch and compute
+dtype: ``cfg_ns512_ufno.py`` trains in bf16 with its remat, and
+``data_parallel`` is set to false), and the kernel time is also split by
+the step's phases: the no-grad pushforward, the forward, the backward and the
 optimizer. A kernel belongs to the phase whose profiler range
 (``train_step/...``) was open when the CUDA runtime call that launched it
 ran; the two are paired by CUPTI's correlation id. What no phase claims is
@@ -147,20 +149,25 @@ def _card():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+def _parse(config, argv=()):
+    """The parsed config, its messages on stderr."""
+    from nps_tpu_torch.configs.parse import parse_args
+
+    saved = sys.argv
+    try:
+        sys.argv = ["trace_step", *argv]
+        with redirect_stdout(sys.stderr):
+            return parse_args(config)
+    finally:
+        sys.argv = saved
+
+
 def _rollout_runner(args):
     """The config's full-width engine (its compute dtype) on its
     ``base_resolution`` grid, random weights and inputs from the seed, with
     static and spatial conditioning (2 channels each, as the synthetic
     generator writes); returns the traced work: ``--steps`` bundled steps."""
-    from nps_tpu_torch.configs.parse import parse_args
-
-    saved = sys.argv
-    try:
-        sys.argv = ["trace_step"]
-        with redirect_stdout(sys.stderr):
-            cfg = parse_args(args.config)
-    finally:
-        sys.argv = saved
+    cfg = _parse(args.config)
     nt, nx1, nx2 = cfg["trainer"]["base_resolution"]
     tw = cfg["trainer"]["time_window"]
     pde = PDE2D(tmin=0.0, tmax=10.0, nt=nt, L1=1.0, L2=nx2 / nx1, nx1=nx1,
@@ -182,24 +189,23 @@ def _train_runner(args):
     """A trainer on a synthetic split in a temporary directory; yields the
     traced work: ``--steps`` train steps at depth ``--depth``."""
     from nps_tpu_torch import train_cli
-    from nps_tpu_torch.configs.parse import parse_args
     from nps_tpu_torch.data.pipeline import prefetch_to_device
     from nps_tpu_torch.data.synthetic import generate
     from nps_tpu_torch.inference import autotuned_convs
 
     with tempfile.TemporaryDirectory(prefix="trace_step_") as tmp:
-        generate(f"{tmp}/data/twophase", n_sims=args.batch + 4, n_channels=1,
-                 nt=501, nx1=96, nx2=64, seed=args.seed)
-        saved = sys.argv
-        try:
-            sys.argv = ["trace_step", f"--dataset.base_path={tmp}/data",
-                        "--dataset.c_filter=[0]", f"--seed={args.seed}",
-                        f"--batch_size={args.batch}",
-                        f"--experiment_path={tmp}/out"]
-            with redirect_stdout(sys.stderr):
-                cfg = parse_args(args.config)
-        finally:
-            sys.argv = saved
+        cfg = _parse(args.config, [
+            f"--dataset.base_path={tmp}/data", "--dataset.c_filter=[0]",
+            f"--seed={args.seed}", f"--batch_size={args.batch}",
+            f"--experiment_path={tmp}/out"])
+        nt, nx1, nx2 = cfg["trainer"]["base_resolution"]
+        # the train split holds a whole batch (one validation and one test
+        # simulation besides)
+        generate(f"{tmp}/data/{cfg['dataset']['experiment']}",
+                 n_sims=args.batch + 4, n_channels=1, nt=nt, nx1=nx1,
+                 nx2=nx2, seed=args.seed)
+        if "data_parallel" in cfg["trainer"]:   # one card
+            cfg["trainer"]["data_parallel"] = False
         trainer = train_cli.get_config_static(cfg, device="cuda")[4]
         trainer.set_optimizer(dict(cfg["optimizer"]))
         trainer.ensure_initialized()
@@ -224,7 +230,7 @@ def main():
     ap.add_argument("--depth", type=int, default=0,
                     help="pushforward depth of the traced train steps")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: 4 for a rollout, 16 (the config's) to train")
+                    help="default: 4 for a rollout, the config's to train")
     ap.add_argument("--steps", type=int, default=None,
                     help="default: 3 for a rollout, 2 to train")
     ap.add_argument("--config", default=CFG,
@@ -234,7 +240,8 @@ def main():
     ap.add_argument("--out", default="results/trace")
     args = ap.parse_args()
     if args.batch is None:
-        args.batch = 16 if args.train else 4
+        args.batch = (_parse(args.config)["trainer"]["batch_size"]
+                      if args.train else 4)
     if args.steps is None:
         args.steps = 2 if args.train else 3
 

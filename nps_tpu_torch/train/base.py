@@ -10,14 +10,21 @@ runs inside the engine's :func:`autotuned_convs`: left to its heuristics,
 cuDNN picks an FFT algorithm for the U-Net's f32 convs that made a step of
 the full-width U-FNO about 65x slower on an H100 (PERF.md).
 
+The config's ``compute_dtype`` (the JAX package's spellings; f32 when
+unset) is the trainer's: its steps, evaluations and rollouts run inside
+:func:`~nps_tpu_torch.models.config.compute_dtype_scope` (methods marked
+:func:`in_compute_dtype`), where the JAX trainer sets the process-wide
+dtype. Parameters, gradients and Adam's state stay f32; so do the loss and
+the physics wrapper's output.
+
 Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the parallel regimes and gradient accumulation (P9), a compute dtype
-other than f32 (P12b, training at 512²), variable-time data (P11), the
-cheaper pushforward forward (P13). Parameters are a ``state_dict`` of the
-PyTorch reference's key names (``.pt``), which
+item: the parallel regimes and gradient accumulation (P9), variable-time
+data (P11), the cheaper pushforward forward (P13). Parameters are a
+``state_dict`` of the PyTorch reference's key names (``.pt``), which
 ``nps_tpu.compat.convert_state_dict`` reads.
 """
 
+import functools
 import json
 import os
 import random as py_random
@@ -35,6 +42,8 @@ from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.data.pipeline import (DeviceCacheLoader, HostDataLoader,
                                          prefetch_to_device)
 from nps_tpu_torch.inference import autotuned_convs, resolve_device
+from nps_tpu_torch.models.config import (compute_dtype_scope,
+                                         resolve_compute_dtype)
 from nps_tpu_torch.models.initializers import reset_parameters
 from nps_tpu_torch.train import optim as optim_lib
 from nps_tpu_torch.utils import misc as util
@@ -54,8 +63,6 @@ _UNPORTED = (
     ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9"),
     ("expert_parallel", lambda v: int(v or 0) > 1, "P9"),
     ("grad_accum", lambda v: int(v or 0) > 1, "P9"),
-    ("compute_dtype", lambda v: v not in (None, "float32"),
-     "P12b (training at 512²)"),
     ("variable_time", bool, "P11"),
     ("pushforward_fast", bool, "P13"),
 )
@@ -69,6 +76,15 @@ def refuse_unported(config):
         if value is not None and active(value):
             raise NotImplementedError(
                 f"trainer.{key}={value!r} is not ported yet (ROADMAP {item})")
+
+
+def in_compute_dtype(method):
+    """Run a trainer method inside the trainer's compute-dtype scope."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with compute_dtype_scope(self.compute_dtype):
+            return method(self, *args, **kwargs)
+    return run
 
 
 def _weighted_add(acc, v, bs):
@@ -102,6 +118,8 @@ class TrainInterface(metaclass=ABCMeta):
             self.config.variable_time = \
                 self.data.data_interface == D.sim1d_var_t
         refuse_unported(self.config)
+        self.compute_dtype = resolve_compute_dtype(
+            getattr(self.config, "compute_dtype", None))
 
         self.criterion = criterion
         self.optimizer_spec = optimizer  # config dict or (optimizer, lr)

@@ -13,6 +13,11 @@
 - ``simulate``: the rollout API, from ``nr_gt_steps * tw`` ground-truth
   frames to ``t_res`` in tw-strided steps.
 
+All three run in the trainer's compute dtype (``config.compute_dtype``):
+under bf16 the pushforward, the graded apply and the backward run their
+activations in bf16; the batch stays f32 (``_floats``), and the loss is
+taken in f32 on the physics wrapper's f32 output, as in the JAX package.
+
 The step's phases are named profiler ranges (``train_step/pushforward``,
 ``/forward``, ``/backward``, ``/optimizer``), which ``python -m
 nps_tpu_torch.trace_step --train`` reads; outside a profiler they cost a
@@ -39,7 +44,7 @@ from torch.profiler import record_function
 
 from nps_tpu_torch.common import graph as G
 from nps_tpu_torch.common.interfaces import D, M
-from nps_tpu_torch.train.base import TrainInterface
+from nps_tpu_torch.train.base import TrainInterface, in_compute_dtype
 from nps_tpu_torch.utils.process_output import process_step
 from nps_tpu_torch.utils.seed import get_seed
 
@@ -129,6 +134,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    @in_compute_dtype
     def train_step(self, batch, epoch, batch_idx, loader=None, unrolled=None,
                    steps0=None):
         """One pushforward step and optimizer update; returns (loss, None).
@@ -185,6 +191,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
+    @in_compute_dtype
     @torch.no_grad()
     def test_step(self, batch, batch_idx, use_train_loss_calc=False,
                   include_data=False, max_test_len=None):
@@ -307,6 +314,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                                 if divide_by_t else losses)
         return result
 
+    @in_compute_dtype
     def simulate(self, u, conditioning, x, compute_loss, include_data,
                  nr_gt_steps, t_res, t_conditioning=None,
                  spatial_conditioning=None, clip_min=True, use_bc=True,

@@ -10,7 +10,11 @@ artifact on the card, and the GNN's step and train gradients against the
 CPU. The variants for shapes the resident kernels do not take (the
 large-plane spectral conv, f32 and bf16; the streaming GN+GELU), the
 twophase shapes still on the resident kernels, and a bf16 engine on the
-card against the CPU.
+card against the CPU. The backward at those shapes: the large-plane input
+gradient (f32 and bf16, with and without FiLM) and GN+GELU's backward in
+bf16, each against autograd through its plain version and for the same
+bits on a second call, and a rematerialized train step against one
+without remat.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine, which
 has no JAX, run it without the repo's conftest:
@@ -366,11 +370,10 @@ def test_kernel_outputs_carry_gradients_in_a_model():
         assert p.grad is not None and float(p.grad.abs().sum()) > 0, name
 
 
-def test_film_with_gradients_raises_on_cuda():
-    """The name is older than FiLM's gradient kernel; what it now holds:
-    FiLM with gradients on CUDA no longer raises: spectral_conv_nd takes
-    SpectralConv2dFn, whose three launches give the FiLM gradient, and
-    without gradients the forward kernel alone runs. No route to the plain
+def test_film_with_gradients_runs_on_cuda():
+    """FiLM with gradients on CUDA: spectral_conv_nd takes
+    SpectralConv2dFn, whose launches give the FiLM gradient, and without
+    gradients the forward kernel alone runs. No route to the plain
     version."""
     from nps_tpu_torch import kernels
     from nps_tpu_torch.ops import spectral as sp
@@ -875,3 +878,192 @@ def test_bf16_engine_on_card_matches_cpu():
     scale = np.abs(f32).max()
     assert np.abs(out - ref).max() / scale < 2e-2
     assert np.abs(out - f32).max() / scale < 5e-2
+
+
+# ---- the backward at the ns512 shapes ---------------------------------------
+# (b, ci, co, grid, modes): the ns512 plane (two row tiles), a partial row
+# tile, scalar rows, a twophase plane (large in bf16 only)
+BWD_LARGE_CASES = [
+    (2, 6, 5, (512, 512), (20, 20)),
+    (3, 5, 7, (300, 200), (20, 17)),
+    (2, 4, 6, (130, 98), (20, 20)),
+    (10, 9, 66, (96, 64), (10, 10)),
+]
+
+
+@pytest.mark.parametrize("b,ci,co,grid,modes", BWD_LARGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("film_mode", [None, 0, 1])
+def test_spectral_fn_large_backward_matches_plain_autograd(b, ci, co, grid,
+                                                           modes, dtype,
+                                                           film_mode):
+    """SpectralConv2dFn where its backward takes the large-plane variant:
+    y and dx (in x's type) against autograd through the plain version at
+    1e-2 in bf16, 1e-4 in f32; the weight and FiLM gradients (f32) at
+    1e-4."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    bf16 = dtype == torch.bfloat16
+    if not bf16 and sp._check_kernel_fits(
+            b, co, *grid, *modes, "spectral_dft2d_bwd", c_out=ci) != "large":
+        pytest.skip("f32 takes the resident backward at this shape")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn((b, ci) + grid, device="cuda", generator=g).to(dtype)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    dy = torch.randn((b, co) + grid, device="cuda", generator=g).to(dtype)
+    leaves = [x, *ws]
+    fm = 1
+    if film_mode is not None:
+        fm = film_mode
+        leaves.append(torch.randn((b, co, 2 * modes[0], modes[1]),
+                                  device="cuda", generator=g))
+    kernels.reset_launches()
+    got = _grads(lambda x, w1, w2, *f: sp.SpectralConv2dFn.apply(
+        x, w1, w2, modes, f[0] if f else None, fm), leaves, dy)
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd_large": 1,
+                                      "spectral_dft2d_bwd_large": 1,
+                                      "spectral_dw2d": 1}
+    ref = _grads(lambda x, w1, w2, *f: sp.spectral_conv_2d_plain(
+        x, [w1, w2], modes, f[0] if f else None, fm), leaves, dy)
+    tol = 1e-2 if bf16 else 1e-4
+    names = ("y", "dx", "dw1", "dw2", "dfilm")
+    for a, r, name in zip(got, ref, names):
+        assert a.dtype == r.dtype, name
+        assert _rel(a, r) < (tol if name in ("y", "dx") else 1e-4), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spectral_bwd_large_same_bits_at_ns512_shape(dtype):
+    """The ns512 input gradient (dy [8, 128, 512, 512] -> dx [8, 132, 512,
+    512], 20 x 20 modes): its launch against the plain version (dx at
+    1e-2 in bf16, 1e-5 in f32; G at 1e-5), and two calls give the same
+    bits."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    dy = torch.randn((8, 128, 512, 512), device="cuda", generator=g).to(dtype)
+    ws = [torch.rand((2, 132, 128, 20, 20), device="cuda", generator=g)
+          / (132 * 128) for _ in range(2)]
+    wp = sp.pack_weights_2d(ws)
+    kernels.reset_launches()
+    got = sp.spectral_dft2d_bwd(dy, wp, (20, 20))
+    again = sp.spectral_dft2d_bwd(dy, wp, (20, 20))
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"spectral_dft2d_bwd_large": 2}
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ref = sp.spectral_dft2d_bwd_plain(dy, wp, (20, 20))
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert got[0].dtype == dtype and _rel(got[0], ref[0]) < tol
+    assert _rel(got[1], ref[1]) < 1e-5 and _rel(got[2], ref[2]) < 1e-5
+
+
+# the ns512 U-Net's largest norm input (vector path), its smallest (odd
+# h*w: scalar path), a small odd shape
+GN_BWD_BF16_SHAPES = [(2, 260, 526, 526), (8, 128, 125, 125), (3, 5, 7, 9)]
+
+
+@pytest.mark.parametrize("shape", GN_BWD_BF16_SHAPES)
+@pytest.mark.parametrize("gelu", [True, False])
+def test_gn_gelu_fn_bf16_gradient_matches_plain_autograd(shape, gelu):
+    """GNGeluFn in bf16: y and dx (bf16) against autograd through the plain
+    version at 1e-2, dgamma and dbeta (f32) at 1e-4; the backward kernel
+    gives the same bits on a second call."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    c = shape[1]
+    x = (torch.randn(shape, device="cuda", generator=g) * 1.5
+         + 0.3).to(torch.bfloat16)
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    kernels.reset_launches()
+    got = _grads(lambda *t: gn.GNGeluFn.apply(*t, gelu, gn.EPS), (x, w, b), dy)
+    assert kernels.launches["gn1_gelu_bwd"] == 1
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, gelu), (x, w, b), dy)
+    for a, r, name in zip(got, ref, ("y", "dx", "dgamma", "dbeta")):
+        assert a.dtype == r.dtype, name
+        assert _rel(a, r) < (1e-2 if name in ("y", "dx") else 1e-4), name
+    _, stats = gn.gn1_gelu_fwd_stats(x, w, b, gelu)
+    first = gn.gn1_gelu_bwd(x, w, b, stats, dy, gelu)
+    second = gn.gn1_gelu_bwd(x, w, b, stats, dy, gelu)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def _narrow_ns512(pde, remat):
+    """The ns512 config's model at 2 blocks x 16 features, on the card."""
+    from nps_tpu_torch.models.activation_wrapper import activation_wrapper
+    from nps_tpu_torch.models.activations import GELUTanh, Tanh
+
+    return activation_wrapper(
+        model_class="EncProcDec", activation_final=Tanh(), num_c=1,
+        num_spatial_dims=2, time_window=5, encoder="enc_grid.ElementWise",
+        activation=GELUTanh(), processor="UFNO", fno_modes=20,
+        hidden_blocks=2, hidden_features=16, padding_mode="circular",
+        ch_mults=[1, 1, 1], is_attn=[False] * 3, norm=True, use1x1=True,
+        remat=remat, remat_policy="save_conv_outputs",
+        decoder="dec_grid.TimeConvDense", dec_delta_mode="per_step",
+        pde=pde).cuda()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_train_step_matches_no_remat(dtype):
+    """The ns512 config narrowed (2 blocks x 16 features, 20 modes, 64 x 64
+    grid) on the card: a train step with its per-block remat
+    (save_conv_outputs) against the same step without remat, loss at 1e-5
+    and every gradient at 1e-4 of its largest. cuDNN runs its
+    deterministic algorithms here: left to choose, its backward algorithms
+    may sum in another order on each call, which bf16 rounding turns into
+    differences far above these bars with or without remat. The
+    rematerialized forward kernels launch twice per graded apply."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.models import config
+    from nps_tpu_torch.pde import PDE2D
+
+    pde = PDE2D(tmin=0, tmax=1, nt=21, L1=1.0, L2=1.0, nx1=64, nx2=64,
+                x=None, name="ns512", n_cond_static=2, n_cond_spatial=2)
+    rng = np.random.default_rng(3)
+    u = torch.from_numpy(rng.random((2, 1, 5, 64, 64), np.float32)).cuda()
+    cond = torch.from_numpy(rng.random((2, 2), np.float32)).cuda()
+    sc = torch.from_numpy((rng.random((2, 2, 64, 64)) > 0.8)
+                          .astype(np.float32)).cuda()
+    pos = torch.from_numpy(np.broadcast_to(
+        pde.x[None], (2, 64, 64, 2)).astype(np.float32)).cuda()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    out, state = {}, None
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        for remat in (True, False):
+            model = _narrow_ns512(pde, remat)
+            if state is None:
+                state = model.state_dict()
+            model.load_state_dict(state)
+            kernels.reset_launches()
+            with config.compute_dtype_scope(dtype):
+                loss = model(u, cond=cond, pos=pos,
+                             spatial_cond=sc).square().sum()
+                loss.backward()
+            torch.cuda.synchronize()
+            out[remat] = (float(loss.detach()),
+                          {k: p.grad.clone()
+                           for k, p in model.named_parameters()},
+                          dict(kernels.launches))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    (loss_r, grads_r, n_r), (loss_n, grads_n, n_n) = out[True], out[False]
+    assert abs(loss_r - loss_n) <= 1e-5 * abs(loss_n), (loss_r, loss_n)
+    for k, gr in grads_r.items():
+        ref = grads_n[k]
+        err = float((gr - ref).abs().max()) / max(float(ref.abs().max()),
+                                                  1e-30)
+        assert err <= 1e-4, (k, err)
+    for name in ("spectral_dft2d_fwd_large", "gn1_gelu_fwd"):
+        assert n_r[name] == 2 * n_n[name] > 0, (name, n_r, n_n)
+    for name in ("spectral_dft2d_bwd_large", "spectral_dw2d", "gn1_gelu_bwd"):
+        assert n_r[name] == n_n[name] > 0, (name, n_r, n_n)

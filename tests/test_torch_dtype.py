@@ -282,7 +282,7 @@ def test_family_step_in_bf16_matches_jax(family):
 
 def test_mpgnn_refuses_bf16_naming_its_item():
     """The MP-GNN's bf16 casts are not ported: a bf16 engine raises when it
-    applies the model, naming ROADMAP P12b."""
+    applies the model, naming its ROADMAP item, P12c."""
     over = ["--time_window=5", "--model.hidden_features=16",
             "--model.hidden_blocks=2"]
     pde = PDE2D(**dict(PDE_KW, nx1=12, nx2=8))
@@ -292,5 +292,5 @@ def test_mpgnn_refuses_bf16_naming_its_item():
     eng.init_params(seed=0)
     rng = np.random.default_rng(1)
     u0 = rng.random((2, 1, 5, 12, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="P12b"):
+    with pytest.raises(NotImplementedError, match="P12c"):
         eng.step(u0, cond=rng.random((2, 2)).astype(np.float32))

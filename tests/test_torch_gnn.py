@@ -276,8 +276,29 @@ def test_gather_path_matches_jax(aggregate):
 
 
 def test_remat_is_refused():
-    with pytest.raises(NotImplementedError, match="P12"):
-        MPGNN(hidden_features=8, remat=True)
+    """The name is older than remat in the MP-GNN: ``remat=True`` is now
+    taken and applied per layer (the output and gradients against the
+    JAX package's rematerialized layers are in ``test_torch_remat.py``);
+    a bf16 compute dtype is still refused, naming its ROADMAP item."""
+    from nps_tpu_torch.models import config
+
+    m = MPGNN(hidden_features=8, hidden_blocks=2, num_spatial_dims=2,
+              remat=True)
+    assert m.remat
+    pos, edges = _radius_case()
+    h = torch.ones((pos.shape[0], 8), requires_grad=True)
+    m(h, pos=pos, edge_index=edges).sum().backward()
+    assert h.grad is not None
+    with config.compute_dtype_scope("bfloat16"), \
+            pytest.raises(NotImplementedError, match="P12c"):
+        m(h, pos=pos, edge_index=edges)
+
+
+def _radius_case(seed=4, n=30):
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 2)).astype(np.float32)
+    return (torch.from_numpy(pos),
+            torch.from_numpy(G.radius_graph(pos, 0.4)).long())
 
 
 # ---- the cfg_twophase_gnn family against nps_tpu -----------------------------

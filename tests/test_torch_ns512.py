@@ -8,20 +8,28 @@ carried into the port.
 Also: the state dict mapped to the JAX tree and back; the engine built
 from the port's config over a synthetic 32 x 32
 split read through ``PDE2DDataset``; the bf16 model exported and reloaded;
-the U-FNO's ``remat`` fields; the trainer's refusal of bf16 compute; and
-which spectral kernel variant the ns512 and twophase shapes take.
+the U-FNO's ``remat`` fields; training: both trainers built by their own
+CLI's ``get_config_static`` from the config (bf16, remat with
+``save_conv_outputs``) at 1 block x 8 features, one train step at injected
+depths 0 and 1 against ``nps_tpu`` in bf16 (loss and every gradient), and
+a CLI epoch in bf16; and which spectral kernel variant, forward and
+backward, the ns512 and twophase shapes take.
 
 Bars: f32, forward max|d| / max|ref| < 1e-4 and 3-step rollout nRMSE <
 1e-3 (ROADMAP "How a part is held"). bf16 (see ``test_torch_dtype.py``):
 with d_jax the JAX bf16 result's deviation from JAX f32 relative to
 max|JAX f32| (for the rollout, nRMSE in place of the max), the port in
-bf16 against JAX in bf16 is within max(2 d_jax, 8e-3). The artifact
-against the engine: rtol 1e-5, atol 1e-6.
+bf16 against JAX in bf16 is within max(2 d_jax, 8e-3); for a train step
+the same bar holds the loss, and each parameter's gradient in RMS terms
+(scale: the RMS of JAX f32's gradient, or 1e-4 of the largest such RMS
+where it is smaller). The artifact against the engine: rtol 1e-5, atol 1e-6.
 """
 
+import json
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,10 +37,15 @@ import torch
 from nps_tpu.compat import convert_state_dict
 from nps_tpu.compat.torch_weights import assert_params_match_structure
 from nps_tpu.configs.parse import parse_args as jax_parse_args
+from nps_tpu.data.pipeline import HostDataLoader as JaxHostDataLoader
 from nps_tpu.inference import SurrogateEngine as JaxEngine
 from nps_tpu.models import config as jconfig
 from nps_tpu.pde import PDE2D as JaxPDE2D
+from nps_tpu.train.pushforward import window
+from nps_tpu.train_cli import get_config_static as jax_build
+from nps_tpu.utils.process_output import process_step as jax_process_step
 from nps_tpu_torch import train_cli
+from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.configs.parse import parse_args as port_parse_args
 from nps_tpu_torch.data.pde2d import PDE2DDataset
 from nps_tpu_torch.data.synthetic import generate
@@ -274,26 +287,161 @@ def test_ufno_refuses_an_unknown_remat_policy():
              remat_policy="save_everything")
 
 
-def test_trainer_refuses_bf16_naming_p12b(split, tmp_path):
-    """The config's compute dtype is the serving half's: the trainer
-    refuses it, naming ROADMAP P12b (``data_parallel`` set to false, as a
-    single-card user does, so that P9's refusal does not come first)."""
+def _argv(split, tmp_path, extra=()):
+    return [*OVERRIDES, f"--dataset.base_path={split}",
+            "--trainer.data_parallel=false", f"--experiment_path={tmp_path}",
+            *extra]
+
+
+def _parse(fn, cfg, argv):
     saved = sys.argv
     try:
-        sys.argv = ["prog", *OVERRIDES, f"--dataset.base_path={split}",
-                    "--trainer.data_parallel=false",
-                    f"--experiment_path={tmp_path}"]
-        args = port_parse_args(PORT_CFG)
+        sys.argv = ["prog", *argv]
+        return fn(cfg)
     finally:
         sys.argv = saved
-    with pytest.raises(NotImplementedError, match=r"P12b \(training at 512"):
+
+
+def test_trainer_refuses_bf16_naming_p12b(split, tmp_path):
+    """The name is older than bf16 training: the trainer now takes the
+    config's bf16 (ROADMAP P12b is done) and keeps it as its compute dtype,
+    and still refuses the config's ``data_parallel=True``, naming P9 (a
+    single card sets it to false)."""
+    trainer = train_cli.get_config_static(
+        _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path)),
+        device="cpu")[4]
+    assert trainer.compute_dtype == torch.bfloat16
+    args = _parse(port_parse_args, PORT_CFG,
+                  [a for a in _argv(split, tmp_path)
+                   if "data_parallel" not in a])
+    with pytest.raises(NotImplementedError, match="P9"):
         train_cli.get_config_static(args, device="cpu")
 
 
+# the train-step parity: 1 block x 8 features (the JAX side compiles a
+# rematerialized step per compute dtype)
+TRAIN_OVERRIDES = ["--model.hidden_features=8", "--model.hidden_blocks=1"]
+
+
+@pytest.fixture(scope="module")
+def train_runs(split, tmp_path_factory):
+    """One train step at depths 0 and 1 by the port's trainer (bf16, from
+    the config) and by the JAX loss and gradients rebuilt eagerly (as
+    ``test_torch_train.py`` does) in f32 and bf16, the same weights,
+    batch and start steps: {(side, dtype, depth): (loss, {name: grad})}."""
+    out_dir = tmp_path_factory.mktemp("ns512_train")
+    argv = _argv(split, out_dir, TRAIN_OVERRIDES)
+    jt = jax_build(_parse(jax_parse_args, JAX_CFG, argv))[5]
+    pt = train_cli.get_config_static(_parse(port_parse_args, PORT_CFG, argv),
+                                     device="cpu")[4]
+    assert pt.compute_dtype == torch.bfloat16
+    assert [(m.remat, m.remat_policy) for m in pt.model.modules()
+            if isinstance(m, UFNO)] == [(True, "save_conv_outputs")]
+    pt.init_params(seed=0)
+    pt.set_optimizer(dict(object="optim.Adam", lr=1e-4))
+    params = {"params": {"inner": convert_state_dict(
+        pt.model.state_dict())["params"]}}
+    batch = next(iter(JaxHostDataLoader(jt.data.train, B, seed=0,
+                                        process_index=0, process_count=1)))
+    _, u, x, cond, _, sc = (jnp.asarray(a) for a in batch)
+    pde, mi = jt.data.pde, jt.model.model_interface
+    state = {k: v.clone() for k, v in pt.model.state_dict().items()}
+    steps0 = np.array([TW, 2 * TW - 1])
+    out = {}
+    for depth in (0, 1):
+        pt.model.load_state_dict(state)
+        loss, _ = pt.train_step(tuple(torch.from_numpy(np.asarray(a))
+                                      for a in batch), 0, 0, unrolled=depth,
+                                steps0=steps0)
+        out["port", BF16, depth] = (float(loss), {
+            k: p.grad.numpy() for k, p in pt.model.named_parameters()})
+    try:
+        for dtype in (None, BF16):
+            jconfig.set_compute_dtype(dtype)
+            apply = jax.jit(lambda p, d: jt.model.apply(
+                p, d, cond=cond, bc=None, pos=x, t_cond=None, spatial_cond=sc))
+
+            def loss_fn(p, data, labels):
+                pred, _ = jax_process_step(pde, mi, apply(p, data), labels,
+                                           None, get_bc=False,
+                                           process_settings={})
+                return jnp.sqrt(jt.criterion(pred, labels))
+
+            value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+            for depth in (0, 1):
+                steps = jnp.asarray(steps0)
+                data, labels = window(u, steps, TW, "both")
+                with jax.default_matmul_precision("highest"):
+                    for _ in range(depth):
+                        pred = apply(params, data)
+                        labels_prev, steps = labels, steps + TW
+                        labels = window(u, steps, TW, "labels")
+                        data, _ = jax_process_step(pde, mi, pred, labels_prev,
+                                                   labels, process_settings={})
+                    loss, grads = value_and_grad(params, data, labels)
+                out["jax", dtype, depth] = (float(loss), {
+                    k: v.numpy() for k, v in from_jax_params(
+                        jax.tree_util.tree_map(np.asarray, grads)).items()})
+    finally:
+        jconfig.set_compute_dtype(None)
+    return out
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_bf16_train_step_matches_jax_bf16(train_runs, depth):
+    """The port's bf16 train step (remat, K1 and K2 through their plain
+    versions) against the JAX package's bf16 step, within max(2 d_jax,
+    8e-3): the loss relative to JAX f32's, and each parameter's gradient
+    (f32) as an RMS relative to the RMS of JAX f32's gradient (or 1e-4 of
+    the largest such RMS where it is smaller), as the rollout bar uses the
+    nRMSE: a gradient sums many bf16-rounded products, and the element-wise
+    largest deviation of two independent roundings runs near 2 d_jax by
+    itself."""
+    loss, grads = train_runs["port", BF16, depth]
+    l32, g32 = train_runs["jax", None, depth]
+    lbf, gbf = train_runs["jax", BF16, depth]
+    d_jax = abs(lbf - l32) / abs(l32)
+    err = abs(loss - lbf) / abs(l32)
+    assert np.isfinite(loss) and err <= max(2 * d_jax, BF16_FLOOR), \
+        (err, d_jax)
+    assert set(grads) == set(g32)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
+
+    floor = 1e-4 * max(rms(g) for g in g32.values())
+    for k, g in grads.items():
+        assert g.dtype == np.float32, k
+        scale = max(rms(g32[k]), floor)
+        d_jax = rms(gbf[k] - g32[k]) / scale
+        err = rms(g - gbf[k]) / scale
+        assert err <= max(2 * d_jax, BF16_FLOOR), (k, err, d_jax)
+
+
+def test_cli_epoch_in_bf16(split, tmp_path, capsys):
+    """One epoch of the training CLI on the config (bf16, remat) over the
+    32 x 32 split on the CPU: finite train and validation losses, the
+    metrics line and the saved models."""
+    trainer = train_cli.cli(["prog", "-C", PORT_CFG, "--device", "cpu",
+                             *_argv(split, tmp_path, [
+                                 *TRAIN_OVERRIDES, "--trainer.num_epochs=1",
+                                 "--trainer.test_interval=1",
+                                 "--trainer.print_interval=1",
+                                 "--experiment_name=ns512_bf16"])])
+    assert trainer.compute_dtype == torch.bfloat16
+    save = trainer.config.save_path
+    with open(save + "_metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == 1 and np.isfinite(rows[0]["train_loss"])
+    assert np.isfinite(rows[0]["default - val loss"])
+    assert (tmp_path / "ns512_bf16_final.pt").exists()
+    assert "Epoch 0" in capsys.readouterr().out
+
+
 def test_kernel_variant_by_shape():
-    """The ns512 spectral call takes the large-plane variant; every twophase
-    call keeps the resident kernels; the backward has no large-plane
-    variant yet (ROADMAP P12b)."""
+    """The ns512 spectral call takes the large-plane variant, forward and
+    backward, in bf16 and in f32 (m2 = 20); every twophase call keeps the
+    resident kernels in f32 and takes the large-plane ones in bf16."""
     assert tsp._check_kernel_fits(8, 132, 512, 512, 20, 20,
                                   c_out=128) == "large"
     assert tsp._check_kernel_fits(2, 36, 512, 512, 20, 20, bf16=True,
@@ -305,8 +453,16 @@ def test_kernel_variant_by_shape():
                                       "spectral_dft2d_bwd") == "resident"
     assert tsp._check_kernel_fits(4, 196, 96, 64, 10, 10, bf16=True) == \
         "large"
-    with pytest.raises(ValueError, match="P12b"):
-        tsp._check_kernel_fits(8, 128, 512, 512, 20, 20, "spectral_dft2d_bwd")
+    for bf16 in (True, False):   # the input gradient: dy's 128 -> 132
+        assert tsp._check_kernel_fits(8, 128, 512, 512, 20, 20,
+                                      "spectral_dft2d_bwd", bf16=bf16,
+                                      c_out=132) == "large"
+    assert tsp._check_kernel_fits(16, 192, 96, 64, 10, 10,
+                                  "spectral_dft2d_bwd", bf16=True,
+                                  c_out=196) == "large"
+    with pytest.raises(ValueError, match="65535 planes"):
+        tsp._check_kernel_fits(600, 128, 512, 512, 20, 20,
+                               "spectral_dft2d_bwd", bf16=True, c_out=132)
     with pytest.raises(ValueError, match="m2 <= 32"):
         tsp._check_kernel_fits(1, 4, 512, 512, 20, 40)
     with pytest.raises(ValueError, match="at most 1024 points"):
