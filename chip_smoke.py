@@ -98,12 +98,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              nps_torch::spectral_dft2d_fwd), reloaded, serving batches of
              4 and 2 against the engine (rtol 1e-5, atol 1e-6): rate,
              launches, artifact size, export and load seconds;
-10. profile - last, as a profiler session slows the host's launch path
-             for the rest of the process: per family an eager rollout and
+10. profile - after every timed phase, as a profiler session slows the
+             host's launch path for the rest of the process: per family an eager rollout and
              a replay of the captured one, and the artifact's rollouts,
              each under torch.profiler: K1 and K2 counted by kernel name
              (a CUDA graph's replay makes no Python launch, so the
-             wrappers' counters cannot see it) and the device-busy share.
+             wrappers' counters cannot see it) and the device-busy share;
+11. stages - the large-plane spectral conv at the ns512 call, forward
+             and input gradient, bf16 and f32: each of its kernels' device
+             time (torch.profiler) and a call's span, failing unless the
+             DFT stages its type and alignment choose ran (the tensor-core
+             stages in bf16); kept in the kernels line under "stages".
 
 In the kernels phase the spectral conv runs at the serving batch (4) and
 the train batch (16), and the backward ops join the forward kernels at the
@@ -1850,6 +1855,55 @@ def ns512_narrow(seed, ds, batch):
     return rec, failures
 
 
+# the DFT stage kernels of a large-plane call, by the stages it takes
+# (ops/spectral.py: large_stages)
+LARGE_STAGE_KERNELS = {"tensor": ("dft_fwd_tc_kernel", "dft_inv_tc_kernel"),
+                       "fma": ("dft_fwd_big_kernel", "dft_inv_big_kernel")}
+
+
+def phase_stages(gen):
+    """Last, after the profile phase (a profiler session slows the host for
+    the rest of the process): each kernel of the large-plane spectral conv
+    at the ns512 call, forward ([8, 132, 512, 512] -> 128) and input
+    gradient (dy [8, 128, 512, 512] -> 132), in bf16 and f32, timed by
+    torch.profiler (``trace_step.kernel_ms``); fails unless the DFT stages
+    that the call's type and alignment choose ran (``large_stages``: the
+    tensor-core ones in bf16). Returns {record name: {dtype: stages}}."""
+    import torch
+
+    from nps_tpu_torch.ops import spectral as sp
+    from nps_tpu_torch.trace_step import kernel_ms
+
+    b, ci, n1, n2 = NS_SPEC_SHAPE
+    co, m = NS_HIDDEN, (NS_MODES, NS_MODES)
+    ws = [torch.rand((2, ci, co, *m), device="cuda", generator=gen)
+          / (ci * co) for _ in range(2)]
+    packed = sp.pack_weights_2d(ws)
+    out = {}
+    for name, shape, fn in (
+            ("spectral_dft2d_fwd_large", NS_SPEC_SHAPE,
+             lambda t: sp.spectral_dft2d_fwd(t, packed, m)),
+            ("spectral_dft2d_bwd_large", (b, co, n1, n2),
+             lambda t: sp.spectral_dft2d_bwd(t, packed, m)[0])):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            y = fn(x)
+            chosen = sp.large_stages(dtype, n2, x.data_ptr(), y.data_ptr())
+            per, span = kernel_ms(lambda: fn(x))
+            rec = {"chosen": chosen, "call_span_ms": span,
+                   "kernel_ms": per}
+            emit({"phase": "stages", "name": name, "dtype": str(dtype),
+                  **rec})
+            want = LARGE_STAGE_KERNELS[chosen]
+            if not all(k in per for k in want):
+                raise AssertionError(f"{name} ({dtype}): the {chosen} "
+                                     f"stages {want} did not run: "
+                                     f"{sorted(per)}")
+            out.setdefault(name, {})[str(dtype)] = rec
+            del x, y
+    return out
+
+
 def spectral_large_record(gen, dtype):
     """spectral_dft2d_fwd at the ns512 call (NS_SPEC_SHAPE -> NS_HIDDEN,
     NS_MODES x NS_MODES) in ``dtype``: its large-plane variant against the
@@ -2454,6 +2508,9 @@ def main():
         # spectral packs) alive for the rest of the process
         export, artifact = phase_export(args.seed, card, tmp)
         replays = phase_profile(args.seed, card, artifact)
+    for name, by_dtype in phase_stages(gen).items():
+        kern[name]["stages"] = by_dtype["torch.bfloat16"]
+        kern[name]["f32"]["stages"] = by_dtype["torch.float32"]
 
     # name -> (source, TPU kernel replaced, the path whose run gives
     # "launches"[, the counter it reads when not its own name]); the forward
@@ -2479,8 +2536,10 @@ def main():
             "_pallas_bwd, XLA: its weight gradient)", train),
         "spectral_dft2d_fwd_large": (
             "nps_tpu_torch/csrc/spectral_dft2d.cu (large-plane variant: "
-            "dft_fwd_big_kernel, mix_kernel, dft_inv_big_kernel; at the "
-            "ns512 call in bf16, its f32 record under f32)",
+            "dft_fwd_tc_kernel, sum_tiles_kernel, mix_kernel, "
+            "dft_inv_tc_kernel in bf16, the FMA stages dft_fwd_big_kernel "
+            "and dft_inv_big_kernel in f32; at the ns512 call in bf16, its "
+            "f32 record under f32; per-stage device times under stages)",
             "nps_tpu/ops/pallas/spectral_dft.py:144 (git 92d7866^)", ns512),
         "gn1_gelu_fwd_stream": (
             "nps_tpu_torch/csrc/gn1_gelu.cu (streaming variant: "
@@ -2490,9 +2549,10 @@ def main():
             "tools/pallas_group_norm_evidence.py:61", ns512),
         "spectral_dft2d_bwd_large": (
             "nps_tpu_torch/csrc/spectral_dft2d.cu (large-plane input "
-            "gradient: dft_fwd_big_kernel and sum_tiles_kernel on dy, "
-            "film_bwd_kernel with FiLM, mix_adj_kernel, dft_inv_big_kernel; "
-            "at the ns512 call in bf16, its f32 record under f32)",
+            "gradient: dft_fwd_tc_kernel and sum_tiles_kernel on dy, "
+            "film_bwd_kernel with FiLM, mix_adj_kernel, dft_inv_tc_kernel "
+            "in bf16, the FMA stages in f32; at the ns512 call in bf16, its "
+            "f32 record under f32; per-stage device times under stages)",
             "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
             "_pallas_bwd, XLA)", ns512_train),
         "gn1_gelu_bwd_bf16": (
@@ -2539,7 +2599,7 @@ def main():
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
                     "dispatch_host_us", "library_how", "dtype", "shape",
                     "bound_f32_ops_ms", "two_pass_floor_ms",
-                    "two_read_floor_ms", "f32", "shapes", "ns512"):
+                    "two_read_floor_ms", "f32", "shapes", "ns512", "stages"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

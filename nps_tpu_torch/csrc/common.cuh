@@ -1,9 +1,11 @@
 // Helpers shared by the port's kernels: asynchronous global -> shared copies
-// (cp.async, sm_80 and later), programmatic dependent launch (sm_90), the
-// one-time shared-memory opt-in, and 4-element loads and stores of f32 or
-// bf16 as floats.
+// (cp.async, sm_80 and later; TMA and bulk copies on mbarriers, sm_90), bf16
+// tensor-core products (mma.sync, ldmatrix) and the hi + lo bf16 split of f32
+// values, programmatic dependent launch (sm_90), the one-time shared-memory
+// opt-in, and 4-element loads and stores of f32 or bf16 as floats.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the type only: nothing links the driver library)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +77,95 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- bf16 tensor-core products (mma.sync m16n8k16, sm_80 and later) ----
+// Fragments as in the PTX ISA, with g = lane / 4, t = lane % 4 and the lower
+// column (or row) of each pair in the low 16 bits:
+//   A 16x16: a0 (row g, cols 2t, 2t+1), a1 (row g+8), a2 (row g, cols
+//            2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9);
+//   B 16x8:  b0 (rows 2t, 2t+1, col g), b1 (rows 2t+8, 2t+9, col g);
+//   C 16x8:  c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8).
+// d += a b, f32 sums.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8q..8q+7 give the row
+// addresses of matrix q (16 bytes each), r[q] receives its (row g, cols
+// 2t, 2t+1).
+__device__ __forceinline__ void ldmatrix_x4(const void* p, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (v0, v1) as two bf16 terms: hi = bf16(v), lo = bf16(v - hi), both rounded
+// to nearest, v0 in the low halves; hi + lo holds v to ~2^-16 relative.
+__device__ __forceinline__ void split_bf16x2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(v0 - hf.x, v1 - hf.y));
+}
+
+// ---- TMA copies completing on an mbarrier (sm_90) ----
+// A barrier of `count` arrivals; the fence makes its initialisation visible
+// to the copy engine before the first copy names it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// A box of a 3D tensor map at (c0, c1, c2) (innermost first) into shared
+// memory; the box's bytes complete on `bar` (elements outside the tensor
+// arrive as zeros).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
+// into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Programmatic dependent launch (sm_90): let the next kernel on the stream

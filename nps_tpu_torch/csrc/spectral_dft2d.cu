@@ -132,6 +132,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -887,13 +891,39 @@ dft_inv_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
 //      (cos, sin) factors per mode from L1 (float4), Z by broadcast, and
 //      writes 16-byte (f32) or 8-byte (bf16) streaming stores.
 // x and out may be f32 or bf16; the spectrum scratch, the weights and every
-// sum are f32 (one rounding to bf16, on output). Bound on the H100 at the
-// ns512 shape (b=8, 132 -> 128 channels, 512x512, 20x20 modes): operations
-// on the CUDA cores, ~51 GFLOP at 67 TFLOP/s (0.77 ms) against 1.2 GB of
-// bf16 activations and f32 weights at 3.35 TB/s (0.36 ms); the DFT stages
-// as bf16 tensor-core products would leave the bytes as the bound (a later
-// design; the tables would have to be split into two bf16 terms to hold the
-// f32 plain version's 1e-2 bf16 bar).
+// sum are f32 (one rounding to bf16, on output). These are the FMA stages.
+// Bound on the H100 at the ns512 shape (b=8, 132 -> 128 channels, 512x512,
+// 20x20 modes): 1.2 GB of bf16 activations and f32 weights at 3.35 TB/s
+// (0.358 ms). On the CUDA cores the ~51 GFLOP of the two DFT stages alone
+// take 0.77 ms at 67 TFLOP/s f32, and these stages reach ~25 TFLOP/s (~1.0
+// ms each at that shape, PERF.md section 6): bf16 calls there are bound by
+// operations, not bytes, on these stages.
+// The tensor-core stages (dft_fwd_tc_kernel, dft_inv_tc_kernel, below) take
+// their places for bf16 rows of a multiple of 8 points on 16-byte aligned
+// planes (tc_stages; every ns512 call): the y pass and the column pass are
+// plain products with a small N ([b ci n1, n2] x [n2, 2 m2] and [b co n1,
+// 2 m2] x [2 m2, n2]) and go to bf16 mma.sync with f32 sums, the x pass and
+// the row pass too. The tables are split into hi + lo bf16 terms (hi =
+// bf16(t), lo = bf16(t - hi), ~2^-17 relative left), so a bf16 operand
+// times both gives the f32 table's product; an f32 operand (T, Y, Z) is
+// split the same way and three products (hi hi, hi lo, lo hi) stand for
+// the f32 one. At the ns512 shape that is ~57 GFLOP of bf16 products in
+// the forward stage and ~87 in the inverse (its column pass: three
+// products over K = 2 m2 = 40 padded to 48), ~0.15 ms at 989 TFLOP/s: the
+// operations no longer bound the call, the bytes (0.358 ms) do. Each stage
+// streams its bf16 plane once: TMA boxes (128-byte swizzle) into a 2-stage
+// ring on mbarriers in the forward, 16-byte streaming stores in the
+// inverse. mma.sync (m16n8k16), not wgmma: one product's accumulators are
+// the next product's A fragments (T in the forward through shared memory,
+// Z in the inverse in registers), where wgmma takes its operands from
+// shared memory in its own layouts. Measured (PERF.md section 6, python -m
+// nps_tpu_torch.tc_probe): the stages reach about half their share of the
+// bytes bound; what holds them is spread over the fragment loads, the
+// passes' serial phases and the rings' synchronisation, not one part.
+// f32 calls keep the FMA stages: products of split bf16 terms reach 4e-6
+// to 9e-6 relative (tests/test_torch_spectral_split.py), too near the f32
+// plain version's 1e-5 bar to hold it at every shape (TF32 is coarser), and
+// no shipped path launches the f32 large variant.
 // spectral_dft2d_bwd_large: the input gradient on the same tiled stages,
 // replacing _pallas_bwd (spectral_dft.py:175 at git 92d7866^) where the
 // resident backward does not fit, as spectral_dft2d_bwd does on the resident
@@ -902,9 +932,9 @@ dft_inv_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
 // forward's pack as it is; dft_inv_big_kernel into dx (b*ci planes). dy and
 // dx are f32 or bf16 (dx in dy's type), G, H and every sum f32; G stays in
 // gr, gi for spectral_dw2d, which takes any plane size. Its bound at the
-// ns512 shape is the forward's: ~51 GFLOP on the CUDA cores (0.77 ms)
-// against ~1.2 GB moved in bf16 (0.36 ms). The choice between it and the
-// resident backward is the wrapper's, by shape and type alone.
+// ns512 shape is the forward's: ~1.2 GB moved in bf16 (0.36 ms). The choice
+// between it and the resident backward is the wrapper's, by shape and type
+// alone; between the tensor-core and the FMA stages, as in the forward.
 constexpr int kBigThreads = 256;
 constexpr int kBigRows = 256;     // rows per forward CTA: 2 per thread
 constexpr int kBigYc = 32;        // y columns per staged chunk
@@ -1169,6 +1199,387 @@ dft_inv_big_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
   }
 }
 
+// ---- the tensor-core DFT stages of the large-plane variant (bf16) -------------
+// dft_fwd_tc_kernel and dft_inv_tc_kernel take the places of
+// dft_fwd_big_kernel and dft_inv_big_kernel for bf16 x and out whose rows are
+// a multiple of 8 points on 16-byte aligned planes (see the note above the
+// large-plane kernels). Every table is built once on the host per shape
+// (ops/spectral.py: tc_tables), split into hi + lo bf16 terms and stored in
+// the order of the mma fragments, so that a lane reads its fragment with one
+// 8- or 16-byte load.
+constexpr int kTcThreads = 256;      // 8 warps
+constexpr int kTcRows = kBigRows;    // plane rows per CTA: 32 per warp
+constexpr int kTcKc = 64;            // y columns per staged chunk of x: 128-byte rows
+constexpr int kTcStages = 2;
+constexpr int kTcNg = 4;             // column-pass n-tiles (8 columns each) per table ring slot
+constexpr int kTcInvStages = 3;      // the column pass's table ring
+constexpr int kTcOutLd = 8 * kTcNg + 8;  // output staging pitch, bf16
+
+// one ring stage: [kTcRows][kTcKc] bf16 of x (128-byte rows, the 16-byte
+// pieces of row n at piece ^ (n % 8): TMA's 128-byte swizzle, so ldmatrix
+// reads 8 rows of one piece from 8 bank groups), then the chunk's kTcKc / 16
+// k-steps of the y table ([kTcKc / 16][MT][32] uint4)
+constexpr uint32_t kTcXBytes = kTcRows * kTcKc * 2;
+__host__ __device__ constexpr uint32_t tc_table_bytes(int MT) {
+  return MT * (kTcKc / 16) * 32 * 16;
+}
+__host__ __device__ constexpr size_t tc_stage_bytes(int MT) {
+  return static_cast<size_t>(kTcXBytes) + tc_table_bytes(MT);
+}
+// what the forward stage keeps after its y pass: T's fragments and (P | Q)
+__host__ __device__ inline size_t tc_after_bytes(int MT, int NT) {
+  const int I = (MT + 1) / 2;
+  return static_cast<size_t>(I) * 16 * 2 * 32 * 16 + sizeof(float) * 16 * I * 8 * NT;
+}
+
+__device__ __forceinline__ const uint32_t* regs(const uint4& v) {
+  return reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The forward DFT stage on tensor cores, one CTA per (tile of kTcRows rows,
+// plane); MT: 16-row tiles of the y table (the 2*m2 (cos | sin) mode rows in
+// groups of 8, rows 0-7 of a tile hi, 8-15 lo).
+//   y pass: T^T [mode rows, rows] = (hi ; lo) table [16 MT, n2] x x^T, warp w
+//     owning rows [32 w, 32 w + 32) (4 n-tiles), x and the table streamed
+//     kTcKc columns at a time through a 2-stage ring: one thread asks TMA
+//     for the x box (the tile's rows, zeros past the plane's edge) and a
+//     bulk copy for the table chunk, both completing on the stage's
+//     mbarrier; T = the hi and lo products added (rows g and g+8 of the
+//     same tile: one lane).
+//   x pass: (P | Q) [mode rows, 2K] = T [mode rows, rows] x (c1 | s1) [rows,
+//     2K], T split into hi + lo bf16 in the A-fragment order (the y pass's
+//     accumulators are that order already) and staged in shared memory, the
+//     table te read as B fragments {b0 hi, b1 hi, b0 lo, b1 lo}: three
+//     products (hi hi, hi lo, lo hi). A warp owns an 8-column n-tile and
+//     contracts all the tile's rows in a fixed order.
+//   Then X_re[k, m] = P[m, k] - Q[m2 + m, k], X_im[k, m] = -P[m2 + m, k]
+//   - Q[m, k] to pr, pi [tile][mode][plane] (or X itself with one tile).
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads, MT <= 5 ? 2 : 1)
+dft_fwd_tc_kernel(const __grid_constant__ CUtensorMap xmap, const uint4* __restrict__ ty,
+                  const uint4* __restrict__ te, float* __restrict__ pr,
+                  float* __restrict__ pi, int planes, int n1, int n2, int K, int m2, int NT) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int I = (MT + 1) / 2;  // 16-row tiles of mode rows in the x pass
+  constexpr size_t kStage = tc_stage_bytes(MT);
+  constexpr int kSteps = kTcKc / 16;
+  // the swizzle repeats every 1024 bytes: the ring starts on such a boundary
+  unsigned char* smem = smem_raw + ((1024 - (nps::smem_addr(smem_raw) & 1023)) & 1023);
+  const size_t ring = kTcStages * kStage, after = tc_after_bytes(MT, NT);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (ring > after ? ring : after));
+  const int tile = blockIdx.x, plane = blockIdx.y;
+  const int r0 = tile * kTcRows;
+  const int rows = min(kTcRows, n1 - r0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const bool active = 32 * warp < rows;  // warp-uniform
+  const int nchunks = (n2 + kTcKc - 1) / kTcKc;
+
+  const CUtensorMap* map = &xmap;
+  auto load_chunk = [&](int c) {  // one thread
+    unsigned char* base = smem + (c % kTcStages) * kStage;
+    uint64_t* bar = bars + c % kTcStages;
+    const uint4* tsrc = ty + static_cast<int64_t>(c) * kSteps * MT * 32;
+    nps::mbar_expect_tx(bar, kTcXBytes + tc_table_bytes(MT));
+    nps::tma_load_3d(base, map, c * kTcKc, r0, plane, bar);
+    nps::bulk_load(base + kTcXBytes, tsrc, tc_table_bytes(MT), bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) nps::mbar_init(bars + s, 1);
+    nps::mbar_init_fence();
+    load_chunk(0);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // acc[i][j]: mode-row tile i (2 I tiles, the last one zero when MT is
+  // odd) x the warp's n-tile j of 8 rows
+  float acc[2 * I][4][4];
+#pragma unroll
+  for (int i = 0; i < 2 * I; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    // stage (c + 1) % kTcStages was read in iteration c - 1, which every
+    // warp has left (the barrier at its end)
+    if (threadIdx.x == 0 && c + 1 < nchunks) load_chunk(c + 1);
+    nps::mbar_wait(bars + c % kTcStages, (c / kTcStages) & 1);  // chunk c is in
+    const unsigned char* xs = smem + (c % kTcStages) * kStage;
+    const uint4* ts = reinterpret_cast<const uint4*>(xs + kTcXBytes);
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t b[4][2];
+        const int q = lane / 8;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int n = 32 * warp + 8 * (2 * jj + (q >> 1)) + lane % 8;
+          const int piece = (2 * kk + (q & 1)) ^ (n & 7);
+          nps::ldmatrix_x4(xs + n * (kTcKc * 2) + 16 * piece, b[2 * jj][0], b[2 * jj][1],
+                           b[2 * jj + 1][0], b[2 * jj + 1][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const uint4 a = ts[(kk * MT + i) * 32 + lane];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) nps::mma_bf16(acc[i][j], regs(a), b[j]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage c % kTcStages
+  }
+
+  // T (hi + lo products) as x-pass A fragments, split into hi + lo:
+  // tf[((ii * 16 + ks) * 2 + h) * 32 + lane], ks the tile's 16-row step
+  // (the ring's space: every copy into it has completed)
+  uint4* tf = reinterpret_cast<uint4*>(smem);
+  float* pq = reinterpret_cast<float*>(smem + static_cast<size_t>(I) * 16 * 2 * 32 * 16);
+  const int ldq = 8 * NT;
+#pragma unroll
+  for (int ii = 0; ii < I; ++ii) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // a0..a3: (tile 2ii + (q & 1), n-tile 2s + (q >> 1))
+        const float* c = acc[2 * ii + (q & 1)][2 * s + (q >> 1)];
+        nps::split_bf16x2(c[0] + c[2], c[1] + c[3], hi[q], lo[q]);
+      }
+      const int ks = 2 * warp + s;
+      tf[((ii * 16 + ks) * 2 + 0) * 32 + lane] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      tf[((ii * 16 + ks) * 2 + 1) * 32 + lane] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+  __syncthreads();
+
+  const int rb0 = r0 / 16;
+  for (int t = warp; t < NT; t += kTcThreads / 32) {
+    float a2[I][4];
+#pragma unroll
+    for (int ii = 0; ii < I; ++ii)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a2[ii][e] = 0.f;
+#pragma unroll 4
+    for (int ks = 0; ks < kTcRows / 16; ++ks) {
+      const uint4 bb = __ldg(te + (static_cast<int64_t>(rb0 + ks) * NT + t) * 32 + lane);
+      const uint32_t bhi[2] = {bb.x, bb.y}, blo[2] = {bb.z, bb.w};
+#pragma unroll
+      for (int ii = 0; ii < I; ++ii) {
+        const uint4 ahi = tf[((ii * 16 + ks) * 2 + 0) * 32 + lane];
+        const uint4 alo = tf[((ii * 16 + ks) * 2 + 1) * 32 + lane];
+        nps::mma_bf16(a2[ii], regs(ahi), bhi);
+        nps::mma_bf16(a2[ii], regs(ahi), blo);
+        nps::mma_bf16(a2[ii], regs(alo), bhi);
+      }
+    }
+#pragma unroll
+    for (int ii = 0; ii < I; ++ii) {
+      float* p = pq + (16 * ii + g) * ldq + 8 * t + 2 * t4;
+      p[0] = a2[ii][0];
+      p[1] = a2[ii][1];
+      p[8 * ldq] = a2[ii][2];
+      p[8 * ldq + 1] = a2[ii][3];
+    }
+  }
+  __syncthreads();
+  const int64_t out0 = static_cast<int64_t>(tile) * K * m2;
+  for (int i = threadIdx.x; i < K * m2; i += kTcThreads) {
+    const int k = i / m2, m = i % m2;
+    const float* pc = pq + m * ldq;         // the cos row of mode m
+    const float* ps = pq + (m2 + m) * ldq;  // its sin row
+    const int64_t o = (out0 + i) * planes + plane;  // [tile][mode][b][ci]
+    pr[o] = pc[k] - ps[K + k];
+    pi[o] = -ps[k] - pc[K + k];
+  }
+}
+
+// Y [K, m2] of one plane (ys: re then im, mode k * m2 + m) as the row pass's
+// B operand [[Yr, Yi], [-Yi, Yr]] (rows: the ic1 then the is1 row modes;
+// columns: Zr then Zi), 0 outside.
+__device__ __forceinline__ float tc_row_b(const float* ys, int row, int c, int K, int m2) {
+  const bool second = row >= K;
+  const int k = second ? row - K : row;
+  if (k >= K || c >= 2 * m2) return 0.f;
+  const bool im = c >= m2;
+  const int i = k * m2 + (im ? c - m2 : c);
+  const float re = ys[i], iv = ys[K * m2 + i];
+  if (!second) return im ? iv : re;
+  return im ? re : -iv;
+}
+
+// The inverse DFT stage on tensor cores, one CTA per (block of kTcRows rows,
+// plane), warp w owning rows [32 w, 32 w + 32) (two 16-row m-tiles).
+//   row pass: Z [rows, (Zr | Zi)] = (ic1 | is1)^T [rows, 2K] x
+//     [[Yr, Yi], [-Yi, Yr]] [2K, 2 m2]: the table ta as A fragments (hi and
+//     lo, from L2), Y staged once per CTA (one read of each value) and
+//     split into hi + lo B fragments; three products.
+//   column pass: out [rows, n2] = Z hi E hi + Z hi E lo + Z lo E hi, E =
+//     (ic2 ; -is2) [2 m2, n2] with the Hermitian doubling folded in. The row
+//     pass's accumulators are the column pass's A fragments in registers (C
+//     and A share the row-g / row-g+8 layout), split into hi + lo there.
+//     The table tb (the plane's largest operand: 96 KB at m2 = 20, n2 =
+//     512) comes kTcNg n-tiles at a time through a kTcInvStages-deep
+//     cp.async ring that all 8 warps read, so it crosses L2 once per CTA
+//     and not once per warp; its first chunks are requested before the
+//     wait for the mix, which they do not need.
+//   Then the scale 1/(n1 n2), one rounding to bf16, and 16-byte stores
+//   through a per-warp staging tile.
+template <int MT>
+__global__ void __launch_bounds__(kTcThreads, MT <= 5 ? 2 : 1)
+dft_inv_tc_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                  const uint4* __restrict__ ta, const uint4* __restrict__ tb,
+                  __nv_bfloat16* __restrict__ out, int planes, int n1, int n2, int K, int m2,
+                  int KS1, float scale) {
+  constexpr int KSZ = (MT + 1) / 2;           // k-steps of Z's 8 MT columns
+  constexpr int kChunk = kTcNg * KSZ * 32;    // uint4 of tb per ring slot
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);                  // [stage][kChunk]
+  uint4* yb = ring + kTcInvStages * kChunk;  // [KS1][MT][32] {b0 hi, b1 hi, b0 lo, b1 lo}
+  // [warp][32][kTcOutLd]
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(yb + KS1 * MT * 32);
+  float* ys = reinterpret_cast<float*>(stage + kTcThreads * kTcOutLd);          // [2][K m2]
+  const int plane = blockIdx.y, r0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nt2 = n2 / 8, nchunks = (nt2 + kTcNg - 1) / kTcNg;
+
+  auto load_chunk = [&](int c) {
+    if (c < nchunks) {
+      uint4* dst = ring + (c % kTcInvStages) * kChunk;
+      const uint4* src = tb + static_cast<int64_t>(c) * kChunk;
+      const int n = min(kTcNg, nt2 - c * kTcNg) * KSZ * 32;
+      for (int i = threadIdx.x; i < n; i += kTcThreads) nps::cp_async16(dst + i, src + i);
+    }
+    nps::cp_async_commit();
+  };
+  for (int c = 0; c < kTcInvStages - 1; ++c) load_chunk(c);
+  nps::wait_for_previous_kernel();  // the mix's Y is written
+#pragma unroll 4
+  for (int i = threadIdx.x; i < K * m2; i += kTcThreads) {
+    const int64_t s = static_cast<int64_t>(i) * planes + plane;  // mode i = k * m2 + m
+    ys[i] = yr[s];
+    ys[K * m2 + i] = yi[s];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < KS1 * MT * 32; i += kTcThreads) {
+    const int l = i % 32, t = (i / 32) % MT, s = i / (32 * MT);
+    const int c = 8 * t + l / 4, kr = 16 * s + 2 * (l % 4);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = tc_row_b(ys, kr + (e & 1) + 8 * (e >> 1), c, K, m2);
+    uint32_t h0, l0, h1, l1;
+    nps::split_bf16x2(v[0], v[1], h0, l0);
+    nps::split_bf16x2(v[2], v[3], h1, l1);
+    yb[i] = make_uint4(h0, h1, l0, l1);
+  }
+  __syncthreads();
+  const int rows_w = min(32, n1 - r0 - 32 * warp);
+  const bool active = rows_w > 0;  // warp-uniform; an idle warp still loads and syncs
+
+  // row pass, then Z as the column pass's A fragments: k-step s holds Z's
+  // n-tiles 2s (a0, a1) and 2s + 1 (a2, a3)
+  uint32_t ahi[2][KSZ][4], alo[2][KSZ][4];
+  {
+    float z[2][MT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int t = 0; t < MT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) z[mt][t][e] = 0.f;
+    const int64_t mt0 = (r0 + 32 * warp) / 16;
+    for (int s = 0; active && s < KS1; ++s) {
+      uint4 a_hi[2], a_lo[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint4* p = ta + (((mt0 + mt) * KS1 + s) * 2) * 32 + lane;
+        a_hi[mt] = __ldg(p);
+        a_lo[mt] = __ldg(p + 32);
+      }
+#pragma unroll
+      for (int t = 0; t < MT; ++t) {
+        const uint4 bb = yb[(s * MT + t) * 32 + lane];
+        const uint32_t bhi[2] = {bb.x, bb.y}, blo[2] = {bb.z, bb.w};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          nps::mma_bf16(z[mt][t], regs(a_hi[mt]), bhi);
+          nps::mma_bf16(z[mt][t], regs(a_hi[mt]), blo);
+          nps::mma_bf16(z[mt][t], regs(a_lo[mt]), bhi);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int s = 0; s < KSZ; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = 2 * s + (q >> 1), h = q & 1;
+          if (t < MT) {
+            nps::split_bf16x2(z[mt][t][2 * h], z[mt][t][2 * h + 1], ahi[mt][s][q], alo[mt][s][q]);
+          } else {
+            ahi[mt][s][q] = alo[mt][s][q] = 0u;
+          }
+        }
+  }
+
+  // column pass, one ring slot (kTcNg n-tiles) at a time
+  __nv_bfloat16* st = stage + warp * 32 * kTcOutLd;
+  __nv_bfloat16* dst = out + (static_cast<int64_t>(plane) * n1 + r0 + 32 * warp) * n2;
+  for (int c = 0; c < nchunks; ++c) {
+    nps::cp_async_wait<kTcInvStages - 2>();
+    __syncthreads();  // chunk c is in; every warp is done with chunk c - 1
+    load_chunk(c + kTcInvStages - 1);
+    if (!active) continue;
+    const uint4* tc = ring + (c % kTcInvStages) * kChunk;
+    const int t0 = c * kTcNg;
+    float acc[2][kTcNg][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < kTcNg; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KSZ; ++s) {
+#pragma unroll
+      for (int j = 0; j < kTcNg; ++j) {
+        if (t0 + j < nt2) {  // warp-uniform
+          const uint4 bb = tc[(j * KSZ + s) * 32 + lane];
+          const uint32_t bhi[2] = {bb.x, bb.y}, blo[2] = {bb.z, bb.w};
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            nps::mma_bf16(acc[mt][j], ahi[mt][s], bhi);
+            nps::mma_bf16(acc[mt][j], ahi[mt][s], blo);
+            nps::mma_bf16(acc[mt][j], alo[mt][s], bhi);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < kTcNg; ++j) {
+        __nv_bfloat16* p = st + (16 * mt + g) * kTcOutLd + 8 * j + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(p) =
+            __floats2bfloat162_rn(acc[mt][j][0] * scale, acc[mt][j][1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(p + 8 * kTcOutLd) =
+            __floats2bfloat162_rn(acc[mt][j][2] * scale, acc[mt][j][3] * scale);
+      }
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 32 * kTcNg; i += 32) {
+      const int r = i / kTcNg, q = i % kTcNg;
+      if (r < rows_w && t0 + q < nt2)
+        __stcs(reinterpret_cast<uint4*>(dst + static_cast<int64_t>(r) * n2 + 8 * (t0 + q)),
+               *reinterpret_cast<const uint4*>(st + r * kTcOutLd + 8 * q));
+    }
+    __syncwarp();
+  }
+  nps::cp_async_wait_all();
+}
+
 // ---- host ---------------------------------------------------------------------
 struct Dims {
   int b, ci, co, n1, n2, K, m2;
@@ -1333,12 +1744,30 @@ size_t big_inv_smem(const Dims& d) {
   return sizeof(float2) * static_cast<size_t>(d.K + kBigInvRows) * d.m2;
 }
 
-// The large-plane forward: dft_fwd_big_kernel (and sum_tiles_kernel when the
-// rows take more than one tile; pr, pi [tiles, modes, b, ci] hold the
-// partial spectra), the mix, dft_inv_big_kernel. With ADJ the input gradient:
-// x is dy, d.ci and d.co are the spectrum's and the output's channels (the
-// forward's co and ci), the FiLM stage runs before the mix, and the mix is
-// the adjoint one on the forward's pack.
+// The stages between the two DFT stages of the large-plane variant:
+// sum_tiles_kernel when the rows take more than one tile (pr, pi [tiles,
+// modes, b, ci] hold the partial spectra), with ADJ the FiLM stage, then the
+// mix (with ADJ the adjoint one on the forward's pack).
+template <bool ADJ>
+cudaError_t big_middle(const Dims& d, int tiles, const float* w, const Film& film,
+                       const float* pr, const float* pi, float* xr, float* xi, float* yr,
+                       float* yi, bool w_vec, cudaStream_t st) {
+  cudaError_t err;
+  if (tiles > 1) {
+    const int64_t n = static_cast<int64_t>(d.K) * d.m2 * d.b * d.ci;
+    const int64_t blocks = (n + kBigThreads - 1) / kBigThreads;
+    sum_tiles_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kBigThreads, 0,
+                       st>>>(pr, pi, xr, xi, tiles, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (ADJ && (err = film_stage(d, film, xr, xi, st)) != cudaSuccess) return err;
+  return mix_stage<ADJ>(d, w, film, xr, xi, yr, yi, w_vec, st);
+}
+
+// The large-plane forward on the FMA stages: dft_fwd_big_kernel, the
+// middle stages, dft_inv_big_kernel. With ADJ the input gradient: x is dy,
+// d.ci and d.co are the spectrum's and the output's channels (the forward's
+// co and ci).
 template <typename T, int M2, bool VEC, bool ADJ>
 int run_big(const T* x, const float* c2, const float* s2, const float* c1, const float* s1,
             const float* ic2, const float* is2, const float* ic1, const float* is1,
@@ -1356,16 +1785,8 @@ int run_big(const T* x, const float* c2, const float* s2, const float* c1, const
       x, c2, s2, c1, s1, tiles == 1 ? xr : pr, tiles == 1 ? xi : pi, planes_in, d.n1, d.n2,
       d.K, d.m2);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (tiles > 1) {
-    const int64_t n = static_cast<int64_t>(d.K) * d.m2 * planes_in;
-    const int64_t blocks = (n + kBigThreads - 1) / kBigThreads;
-    sum_tiles_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kBigThreads, 0,
-                       st>>>(pr, pi, xr, xi, tiles, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  if (ADJ && (err = film_stage(d, film, xr, xi, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = mix_stage<ADJ>(d, w, film, xr, xi, yr, yi, w_vec, st)) != cudaSuccess)
+  if ((err = big_middle<ADJ>(d, tiles, w, film, pr, pi, xr, xi, yr, yi, w_vec, st)) !=
+      cudaSuccess)
     return static_cast<int>(err);
   const dim3 grid((d.n1 + kBigInvRows - 1) / kBigInvRows, d.b * d.co);
   const float scale = 1.0f / (static_cast<float>(d.n1) * static_cast<float>(d.n2));
@@ -1378,21 +1799,119 @@ int run_big(const T* x, const float* c2, const float* s2, const float* c1, const
       is2, ic1, is1, out, d.b * d.co, d.n1, d.n2, d.K, d.m2, scale));
 }
 
-// the large-plane stages at the unrolled m2 bound that fits; w_co: the pack's
-// last dim
+// The tensor-core stages' tables (ops/spectral.py: tc_tables), in mma
+// fragment order: ty [ceil(n2/64)*4][MT][32] uint4 (y pass, A), te
+// [tiles*16][NT][32] uint4 (x pass, B hi | lo), ta [tiles*16][KS1][2][32]
+// uint4 (row pass, A hi, lo), tb [n2/8][(MT+1)/2][32] uint4 (column pass, B
+// hi | lo).
+struct TcTables {
+  const void *ty, *te, *ta, *tb;
+};
+
+// the x pass's (c1 | s1) columns in n-tiles of 8, and the row pass's 2K
+// row modes in k-steps of 16
+inline int tc_nt(const Dims& d) { return (2 * d.K + 7) / 8; }
+inline int tc_ks1(const Dims& d) { return (2 * d.K + 15) / 16; }
+// the ring or what follows it, the alignment slack, the stages' barriers
+size_t tc_fwd_smem(int MT, const Dims& d) {
+  const size_t ring = kTcStages * tc_stage_bytes(MT), after = tc_after_bytes(MT, tc_nt(d));
+  return (ring > after ? ring : after) + 1024 + kTcStages * sizeof(uint64_t);
+}
+
+// x [planes][n1][n2] bf16 as TMA's 3D tensor map, in boxes of kTcKc
+// columns x kTcRows rows with the 128-byte swizzle (tc_stages has checked
+// that rows are 16-byte multiples on a 16-byte aligned base, as TMA needs)
+cudaError_t tc_x_map(CUtensorMap* map, const void* x, const Dims& d, int planes) {
+  static const auto encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d.n2), static_cast<cuuint64_t>(d.n1),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d.n2) * 2,
+                                 static_cast<cuuint64_t>(d.n1) * d.n2 * 2};
+  const cuuint32_t box[3] = {kTcKc, kTcRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+size_t tc_inv_smem(int MT, const Dims& d) {
+  const size_t ring = static_cast<size_t>(kTcInvStages) * kTcNg * ((MT + 1) / 2) * 32 * 16;
+  return ring + static_cast<size_t>(tc_ks1(d)) * MT * 32 * 16 + kTcThreads * kTcOutLd * 2 +
+         sizeof(float) * 2 * d.K * d.m2;
+}
+
+// The large-plane forward on the tensor-core stages: dft_fwd_tc_kernel, the
+// middle stages, dft_inv_tc_kernel (bf16 x and out; ADJ as in run_big).
+template <int MT, bool ADJ>
+int run_big_tc(const __nv_bfloat16* x, const TcTables& tc, const float* w, const Film& film,
+               float* pr, float* pi, float* xr, float* xi, float* yr, float* yi,
+               __nv_bfloat16* out, const Dims& d, bool w_vec, cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_fwd_tc_kernel<MT>>();
+  if (err == cudaSuccess) err = opt_in_once<dft_inv_tc_kernel<MT>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (d.n1 + kTcRows - 1) / kTcRows;
+  const int planes_in = d.b * d.ci;
+  CUtensorMap xmap;
+  if ((err = tc_x_map(&xmap, x, d, planes_in)) != cudaSuccess) return static_cast<int>(err);
+  dft_fwd_tc_kernel<MT><<<dim3(tiles, planes_in), kTcThreads, tc_fwd_smem(MT, d), st>>>(
+      xmap, static_cast<const uint4*>(tc.ty), static_cast<const uint4*>(tc.te),
+      tiles == 1 ? xr : pr, tiles == 1 ? xi : pi, planes_in, d.n1, d.n2, d.K, d.m2, tc_nt(d));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = big_middle<ADJ>(d, tiles, w, film, pr, pi, xr, xi, yr, yi, w_vec, st)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const float scale = 1.0f / (static_cast<float>(d.n1) * static_cast<float>(d.n2));
+  return static_cast<int>(launch_after_previous(
+      dft_inv_tc_kernel<MT>, dim3(tiles, d.b * d.co), dim3(kTcThreads), tc_inv_smem(MT, d), st,
+      yr, yi, static_cast<const uint4*>(tc.ta), static_cast<const uint4*>(tc.tb), out,
+      d.b * d.co, d.n1, d.n2, d.K, d.m2, tc_ks1(d), scale));
+}
+
+// The stages a large-plane call runs: the tensor-core ones for bf16 rows of
+// a multiple of 8 points on 16-byte aligned planes (x and out), the FMA
+// ones otherwise. Mirrored by ops/spectral.py: large_stages.
+template <typename T>
+bool tc_stages(const Dims& d, const void* x, const void* out) {
+  return std::is_same<T, __nv_bfloat16>::value && d.n2 % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+}
+
+// the large-plane stages: the tensor-core ones where tc_stages chooses them
+// (their tile count MT of mode rows by m2: 3, 5 or 8), else the FMA ones at
+// the unrolled m2 bound that fits; w_co: the pack's last dim
 template <typename T, bool ADJ>
 int dispatch_big(const void* x, const float* w_packed, const Film& film, const float* c2,
                  const float* s2, const float* c1, const float* s1, const float* ic2,
-                 const float* is2, const float* ic1, const float* is1, float* pr, float* pi,
-                 float* xr, float* xi, float* yr, float* yi, void* out, const Dims& d,
-                 int w_co, void* stream) {
+                 const float* is2, const float* ic1, const float* is1, const TcTables& tc,
+                 float* pr, float* pi, float* xr, float* xi, float* yr, float* yi, void* out,
+                 const Dims& d, int w_co, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool w_vec = w_co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
+  if (tc_stages<T>(d, x, out)) {
+    if (!tc.ty || !tc.te || !tc.ta || !tc.tb) return static_cast<int>(cudaErrorInvalidValue);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    auto* ob = static_cast<__nv_bfloat16*>(out);
+    if (d.m2 <= 12)
+      return run_big_tc<3, ADJ>(xb, tc, w_packed, film, pr, pi, xr, xi, yr, yi, ob, d, w_vec, st);
+    if (d.m2 <= 20)
+      return run_big_tc<5, ADJ>(xb, tc, w_packed, film, pr, pi, xr, xi, yr, yi, ob, d, w_vec, st);
+    return run_big_tc<8, ADJ>(xb, tc, w_packed, film, pr, pi, xr, xi, yr, yi, ob, d, w_vec, st);
+  }
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   constexpr uintptr_t kAlign = 4 * sizeof(T);
   const bool in_vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(x) % kAlign) == 0;
   const bool out_vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(out) % kAlign) == 0;
-  const bool w_vec = w_co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
 #define NPS_BIG(M2, VEC)                                                                      \
   return run_big<T, M2, VEC, ADJ>(xt, c2, s2, c1, s1, ic2, is2, ic1, is1, w_packed, film, pr, pi, \
                              xr, xi, yr, yi, ot, d, w_vec, out_vec, st)
@@ -1451,22 +1970,28 @@ extern "C" int spectral_dft2d_fwd(
 
 // The large-plane variant of spectral_dft2d_fwd (see the note above the
 // large-plane kernels): x and out f32 or (is_bf16) bf16, everything else as
-// there; pr, pi [ceil(n1 / 256), modes, b, ci] receive the row tiles' partial
-// spectra (unused, and may be null, when n1 <= 256).
+// there; ty, te, ta, tb: the tensor-core stages' tables (null when the call
+// takes the FMA stages; a call that takes the tensor-core ones without them
+// fails with cudaErrorInvalidValue); pr, pi [ceil(n1 / 256), modes, b, ci]
+// receive the row tiles' partial spectra (unused, and may be null, when
+// n1 <= 256).
 extern "C" int spectral_dft2d_fwd_large(
     const void* x, const float* w_packed, const float* film, int film_mode,
     const float* c2, const float* s2, const float* c1, const float* s1,
     const float* ic2, const float* is2, const float* ic1, const float* is1,
+    const void* ty, const void* te, const void* ta, const void* tb,
     float* pr, float* pi, float* xr, float* xi, float* yr, float* yi, float* ur, float* ui,
     void* out, int b, int ci, int co, int n1, int n2, int m1, int m2, int is_bf16,
     void* stream) {
   const Film f{film, film_mode, film ? ur : nullptr, film ? ui : nullptr, nullptr, nullptr};
   const Dims d{b, ci, co, n1, n2, 2 * m1, m2};
+  const TcTables tc{ty, te, ta, tb};
   if (is_bf16)
     return dispatch_big<__nv_bfloat16, false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1,
-                                              is1, pr, pi, xr, xi, yr, yi, out, d, co, stream);
-  return dispatch_big<float, false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr, pi,
-                                    xr, xi, yr, yi, out, d, co, stream);
+                                              is1, tc, pr, pi, xr, xi, yr, yi, out, d, co,
+                                              stream);
+  return dispatch_big<float, false>(x, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, tc, pr,
+                                    pi, xr, xi, yr, yi, out, d, co, stream);
 }
 
 // The input gradient: dy [b, co, n1, n2] -> dx [b, ci, n1, n2] through the
@@ -1490,23 +2015,26 @@ extern "C" int spectral_dft2d_bwd(
 }
 
 // The large-plane variant of spectral_dft2d_bwd (see the note above the
-// large-plane kernels): dy and dx f32 or (is_bf16) bf16, everything else as
-// there; pr, pi [ceil(n1 / 256), modes, b, co] receive the row tiles' partial
-// spectra of dy (unused, and may be null, when n1 <= 256).
+// large-plane kernels): dy and dx f32 or (is_bf16) bf16, ty, te, ta, tb as in
+// spectral_dft2d_fwd_large, everything else as there; pr, pi [ceil(n1 /
+// 256), modes, b, co] receive the row tiles' partial spectra of dy (unused,
+// and may be null, when n1 <= 256).
 extern "C" int spectral_dft2d_bwd_large(
     const void* dy, const float* w_packed, const float* film, int film_mode,
     float* ur, float* ui, const float* scale, float* dfilm,
     const float* c2, const float* s2, const float* c1, const float* s1,
     const float* ic2, const float* is2, const float* ic1, const float* is1,
+    const void* ty, const void* te, const void* ta, const void* tb,
     float* pr, float* pi, float* gr, float* gi, float* hr, float* hi, void* dx, int b, int ci,
     int co, int n1, int n2, int m1, int m2, int is_bf16, void* stream) {
   const Film f{film, film_mode, ur, ui, scale, dfilm};
   const Dims d{b, co, ci, n1, n2, 2 * m1, m2};
+  const TcTables tc{ty, te, ta, tb};
   if (is_bf16)
     return dispatch_big<__nv_bfloat16, true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1,
-                                             is1, pr, pi, gr, gi, hr, hi, dx, d, co, stream);
-  return dispatch_big<float, true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, pr, pi,
-                                   gr, gi, hr, hi, dx, d, co, stream);
+                                             is1, tc, pr, pi, gr, gi, hr, hi, dx, d, co, stream);
+  return dispatch_big<float, true>(dy, w_packed, f, c2, s2, c1, s1, ic2, is2, ic1, is1, tc, pr,
+                                   pi, gr, gi, hr, hi, dx, d, co, stream);
 }
 
 // The weight gradient into dw1, dw2 [2, ci, co, m1, m2] from X [modes, b, ci]

@@ -48,9 +48,9 @@ SIGNATURES = {
     "spectral_dft2d_fwd": [P, P, P, I] + [P] * 8 + [P] * 7
                           + [I] * 7 + [P],
     # x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
-    # pr, pi, xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2, m1, m2, bf16,
-    # stream
-    "spectral_dft2d_fwd_large": [P, P, P, I] + [P] * 8 + [P] * 9
+    # ty, te, ta, tb, pr, pi, xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2,
+    # m1, m2, bf16, stream
+    "spectral_dft2d_fwd_large": [P, P, P, I] + [P] * 12 + [P] * 9
                                 + [I] * 8 + [P],
     # dy, w_packed, film, film_mode, ur, ui, scale, dfilm, c2, s2, c1, s1,
     # ic2, is2, ic1, is1, gr, gi, hr, hi, dx, b, ci, co, n1, n2, m1, m2,
@@ -58,9 +58,9 @@ SIGNATURES = {
     "spectral_dft2d_bwd": [P, P, P, I] + [P] * 4 + [P] * 8 + [P] * 5
                           + [I] * 7 + [P],
     # dy, w_packed, film, film_mode, ur, ui, scale, dfilm, c2, s2, c1, s1,
-    # ic2, is2, ic1, is1, pr, pi, gr, gi, hr, hi, dx, b, ci, co, n1, n2, m1,
-    # m2, bf16, stream
-    "spectral_dft2d_bwd_large": [P, P, P, I] + [P] * 4 + [P] * 8 + [P] * 7
+    # ic2, is2, ic1, is1, ty, te, ta, tb, pr, pi, gr, gi, hr, hi, dx, b, ci,
+    # co, n1, n2, m1, m2, bf16, stream
+    "spectral_dft2d_bwd_large": [P, P, P, I] + [P] * 4 + [P] * 12 + [P] * 7
                                 + [I] * 8 + [P],
     # xr, xi, gr, gi, scale, dw1, dw2, b, ci, co, m1, m2, stream
     "spectral_dw2d": [P] * 7 + [I] * 5 + [P],

@@ -30,9 +30,14 @@ weight gradient per mode is h(m)/(n1 n2) * sum_b conj(X_i) G_o, with X the
 forward's saved spectrum: the kernel ``spectral_dw2d``, which writes it in
 the parameters' layout (any plane size: it reads only the spectra). Their
 plain versions are :func:`spectral_dft2d_bwd_plain` and
-:func:`spectral_weight_grad`. With FiLM (Y scaled by the real f per
-[b, co, mode]) the forward also keeps the pre-FiLM spectrum U, and the
-input-gradient launch scales G by f before its adjoint mix (so both
+:func:`spectral_weight_grad`. Both large-plane calls run their two DFT
+stages on bf16 tensor cores (``dft_fwd_tc_kernel``, ``dft_inv_tc_kernel``)
+for bf16 rows of a multiple of 8 points on 16-byte aligned planes, and as
+f32 FMAs otherwise (:func:`large_stages`); the tensor-core stages read the
+f32 DFT tables split into hi + lo bf16 terms (:func:`tc_tables`). With
+FiLM (Y scaled by the real f per [b, co, mode]) the forward also keeps
+the pre-FiLM spectrum U, and the input-gradient launch scales G by f
+before its adjoint mix (so both
 gradients read G f) and writes the FiLM gradient scale * Re(conj(U) G):
 plain version :func:`film_grad_plain`. On the CPU, autograd runs through
 the plain version.
@@ -95,6 +100,133 @@ def dft_tables(n1, n2, m1, m2, device):
             _TABLES[key] = tuple(torch.from_numpy(a).to(device)
                                  for a in mats)
     return _TABLES[key]
+
+
+def _bf16_round(a):
+    """f32 values -> the nearest bf16 values (ties to even, as
+    ``__floats2bfloat162_rn``), as f32."""
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def split_bf16(a):
+    """An f32 table as two bf16 terms: hi = bf16(a), lo = bf16(a - hi), each
+    as f32; hi + lo holds a to ~2^-17 of its magnitude."""
+    hi = _bf16_round(a)
+    return hi, _bf16_round(np.asarray(a, dtype=np.float32) - hi)
+
+
+def _pack_pairs(e0, e1):
+    """Two arrays of bf16 values (as f32) -> uint32 words, e0 in the low
+    half: the element order of an mma fragment register."""
+    return ((e0.view(np.uint32) >> np.uint32(16))
+            | (e1.view(np.uint32) & np.uint32(0xFFFF0000)))
+
+
+_LANE_G, _LANE_T = np.arange(32) // 4, np.arange(32) % 4
+
+
+def frag_a(a):
+    """A [16 M, 16 S] of bf16 values -> its mma.m16n8k16 A fragments
+    [M, S, 32 lanes, 4] uint32: per lane g = lane // 4, t = lane % 4, a0
+    (row g, cols 2t, 2t+1), a1 (row g+8), a2 (row g, cols 2t+8, 2t+9), a3
+    (row g+8, cols 2t+8, 2t+9)."""
+    m, s = a.shape[0] // 16, a.shape[1] // 16
+    blk = a.reshape(m, 16, s, 16).transpose(0, 2, 1, 3)
+    g, t = _LANE_G, _LANE_T
+    return np.stack([_pack_pairs(blk[:, :, g + dr, 2 * t + dc],
+                                 blk[:, :, g + dr, 2 * t + dc + 1])
+                     for dr, dc in ((0, 0), (8, 0), (0, 8), (8, 8))], -1)
+
+
+def frag_b(b):
+    """B [16 S, 8 N] of bf16 values -> its mma.m16n8k16 B fragments
+    [S, N, 32 lanes, 2] uint32: b0 (rows 2t, 2t+1, col g), b1 (rows 2t+8,
+    2t+9, col g)."""
+    s, n = b.shape[0] // 16, b.shape[1] // 8
+    blk = b.reshape(s, 16, n, 8).transpose(0, 2, 1, 3)
+    g, t = _LANE_G, _LANE_T
+    return np.stack([_pack_pairs(blk[:, :, 2 * t + dk, g],
+                                 blk[:, :, 2 * t + dk + 1, g])
+                     for dk in (0, 8)], -1)
+
+
+def tc_mt(m2):
+    """The tensor-core stages' 16-row tiles of mode rows (the kernels'
+    compile-time bound MT): the 2*m2 (cos | sin) rows in groups of 8."""
+    return 3 if m2 <= 12 else 5 if m2 <= 20 else 8
+
+
+def tc_tables_np(n1, n2, m1, m2):
+    """The tensor-core stages' tables (``csrc/spectral_dft2d.cu``:
+    TcTables) from :func:`dft_tables`' f32 factors split by
+    :func:`split_bf16`, in mma fragment order (uint32 words):
+
+    - ty [ceil(n2/64)*4, MT, 32, 4]: the y pass's A, per 16-row tile the hi
+      (rows 0-7) and lo (rows 8-15) terms of 8 of the (c2 | s2)^T mode rows;
+    - te [tiles*16, NT, 32, 4]: the x pass's B, (c1 | s1) [rows, 2*2m1] in
+      n-tiles of 8, {b0, b1} hi then lo;
+    - ta [tiles*16, KS1, 2, 32, 4]: the row pass's A, (ic1 | is1)^T [rows,
+      2*2m1], hi then lo;
+    - tb [n2/8, KSZ, 32, 4]: the column pass's B, E = (ic2 ; -is2)
+      [2*m2, n2] padded to 16 KSZ = 8 MT (+ 8) rows, {b0, b1} hi then lo.
+
+    Rows are padded to whole row tiles (256) and columns to whole chunks (64),
+    with zeros; n2 % 8 == 0."""
+    if n2 % 8:
+        raise ValueError(f"the tensor-core stages take n2 % 8 == 0, got {n2}")
+    c2, s2, c1, s1, ic2, is2, ic1, is1 = (
+        *_dft_mats_fwd(n2, m2), *_dft_mats_fwd_rows(n1, m1),
+        *_dft_mats_inv_half(n2, m2), *_dft_mats_inv_rows(n1, m1))
+    mt, k = tc_mt(m2), 2 * m1
+    n1p = -(-n1 // _LARGE_ROWS) * _LARGE_ROWS
+    n2p = -(-n2 // 64) * 64
+    nt, ks1, ksz = -(-2 * k // 8), -(-2 * k // 16), (mt + 1) // 2
+    f = np.zeros((8 * mt, n2p), np.float32)
+    f[:m2, :n2], f[m2:2 * m2, :n2] = c2.T, s2.T
+    hi, lo = split_bf16(f)
+    ay = np.stack([hi.reshape(mt, 8, n2p), lo.reshape(mt, 8, n2p)],
+                  1).reshape(16 * mt, n2p)
+    ty = frag_a(ay).transpose(1, 0, 2, 3)
+    e = np.zeros((n1p, 8 * nt), np.float32)
+    e[:n1, :k], e[:n1, k:2 * k] = c1, s1
+    hi, lo = split_bf16(e)
+    te = np.concatenate([frag_b(hi), frag_b(lo)], -1)
+    g = np.zeros((n1p, 16 * ks1), np.float32)
+    g[:n1, :k], g[:n1, k:2 * k] = ic1.T, is1.T
+    hi, lo = split_bf16(g)
+    ta = np.stack([frag_a(hi), frag_a(lo)], 2)
+    e2 = np.zeros((16 * ksz, n2), np.float32)
+    e2[:m2], e2[m2:2 * m2] = ic2, -is2
+    hi, lo = split_bf16(e2)
+    tb = np.concatenate([frag_b(hi), frag_b(lo)], -1).transpose(1, 0, 2, 3)
+    return tuple(np.ascontiguousarray(t) for t in (ty, te, ta, tb))
+
+
+def tc_tables(n1, n2, m1, m2, device):
+    """:func:`tc_tables_np` as int32 tensors on ``device``, built once per
+    (n1, n2, m1, m2, device) in the cache of :func:`dft_tables`."""
+    device = torch.device(device)
+    key = ("tc", n1, n2, m1, m2, device)
+    if key not in _TABLES:
+        with torch.inference_mode(False):
+            _TABLES[key] = tuple(torch.from_numpy(t.view(np.int32)).to(device)
+                                 for t in tc_tables_np(n1, n2, m1, m2))
+    return _TABLES[key]
+
+
+def large_stages(dtype, n2, *ptrs):
+    """The DFT stages a large-plane call runs, as ``csrc/spectral_dft2d.cu``
+    (tc_stages) chooses them, by type and alignment alone: "tensor" (bf16
+    tensor-core products) for bf16 rows of a multiple of 8 points whose
+    plane pointers (x and out, or dy and dx) are all 16-byte aligned, else
+    "fma" (f32 FMAs on the CUDA cores)."""
+    if (dtype == torch.bfloat16 and n2 % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "tensor"
+    return "fma"
 
 
 def check_modes(modes, spatial_shape):
@@ -249,7 +381,32 @@ def _check_kernel_fits(b, c_in, n1, n2, m1, m2, name="spectral_dft2d_fwd",
     if b * max(c_in, c_out or 0) > 65535:
         raise ValueError(f"{name} takes at most 65535 planes a call, got "
                          f"{b} x {max(c_in, c_out or 0)}")
+    if bf16 and n2 % 8 == 0:   # the tensor-core stages may take it
+        need = max(_tc_smem(k, m2))
+        if need > _SMEM_LIMIT:
+            raise ValueError(f"{name}'s tensor-core stages need {need} B of "
+                             f"shared memory per CTA at {k} row modes")
     return "large"
+
+
+# the tensor-core stages' sizes, as ``csrc/spectral_dft2d.cu`` sets them:
+# y columns per staged chunk, its ring depth, the column pass's n-tiles per
+# table ring slot and that ring's depth
+_TC_KC, _TC_STAGES, _TC_NG, _TC_INV_STAGES = 64, 2, 4, 3
+
+
+def _tc_smem(k, m2):
+    """Shared memory per CTA of the forward and the inverse tensor-core
+    stage (tc_fwd_smem, tc_inv_smem) at 2*m1 = k row modes."""
+    mt = tc_mt(m2)
+    i = (mt + 1) // 2
+    frag = 32 * 16                      # one uint4 fragment per lane
+    ring = _TC_STAGES * (_LARGE_ROWS * _TC_KC * 2 + mt * (_TC_KC // 16) * frag)
+    fwd = (max(ring, i * 16 * 2 * frag + 4 * 16 * i * 8 * -(-2 * k // 8))
+           + 1024 + 8 * _TC_STAGES)   # alignment slack, the barriers
+    inv = (_TC_INV_STAGES * _TC_NG * i * frag + -(-2 * k // 16) * mt * frag
+           + _LARGE_ROWS * (8 * _TC_NG + 8) * 2 + 4 * 2 * k * m2)
+    return fwd, inv
 
 
 def spectral_dft2d_fwd(x, w_packed, modes, film=None, film_mode=1):
@@ -294,7 +451,8 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
     and every sum are f32. The variant follows :func:`_check_kernel_fits`:
     the resident kernels count their launches under
     ``spectral_dft2d_fwd``, the large-plane variant under
-    ``spectral_dft2d_fwd_large``."""
+    ``spectral_dft2d_fwd_large``; its DFT stages follow
+    :func:`large_stages`."""
     m1, m2 = modes
     _check_launch(x, w_packed, modes, "spectral_dft2d_fwd", 2,
                   (torch.float32, torch.bfloat16))
@@ -332,9 +490,10 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
         kernels.launches["spectral_dft2d_fwd"] += 1
     else:
         pr, pi = _row_tile_partials(n1, k * m2, b, ci, x.device)
+        tc = _tc_args(x, out, modes)
         rc = lib.spectral_dft2d_fwd_large(
             x.data_ptr(), w_packed.data_ptr(), film_ptr, int(film_mode),
-            *(t.data_ptr() for t in tables), _ptr(pr), _ptr(pi),
+            *(t.data_ptr() for t in tables), *tc, _ptr(pr), _ptr(pi),
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             _ptr(ur), _ptr(ui), out.data_ptr(), b, ci, co, n1, n2, m1, m2,
             int(bf16), kernels.stream_ptr(x.device))
@@ -345,6 +504,17 @@ def spectral_dft2d_fwd_spectrum(x, w_packed, modes, film=None, film_mode=1,
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def _tc_args(x, out, modes):
+    """The tensor-core stages' table pointers for a large-plane call on x
+    (or dy) into out (or dx), or four nulls where :func:`large_stages`
+    gives the FMA stages."""
+    if large_stages(x.dtype, x.shape[-1], x.data_ptr(),
+                    out.data_ptr()) == "fma":
+        return (0,) * 4
+    n1, n2 = x.shape[2:]
+    return tuple(t.data_ptr() for t in tc_tables(n1, n2, *modes, x.device))
 
 
 def _row_tile_partials(n1, modes, b, c, device):
@@ -403,7 +573,8 @@ def spectral_dft2d_bwd(dy, w_packed, modes, film=None, film_mode=1, u=None,
     scaled. The variant follows :func:`_check_kernel_fits`: the resident
     kernels count their launches under ``spectral_dft2d_bwd``, the
     large-plane variant (every bf16 call, and the f32 planes and modes the
-    resident kernels refuse) under ``spectral_dft2d_bwd_large``."""
+    resident kernels refuse) under ``spectral_dft2d_bwd_large``; its DFT
+    stages follow :func:`large_stages`."""
     m1, m2 = modes
     _check_launch(dy, w_packed, modes, "spectral_dft2d_bwd", 3,
                   (torch.float32, torch.bfloat16))
@@ -440,7 +611,8 @@ def spectral_dft2d_bwd(dy, w_packed, modes, film=None, film_mode=1, u=None,
     else:
         pr, pi = _row_tile_partials(n1, k * m2, b, co, dy.device)
         rc = lib.spectral_dft2d_bwd_large(
-            dy.data_ptr(), w_packed.data_ptr(), *film_args, _ptr(pr),
+            dy.data_ptr(), w_packed.data_ptr(), *film_args,
+            *_tc_args(dy, dx, modes), _ptr(pr),
             _ptr(pi), gr.data_ptr(), gi.data_ptr(), hr.data_ptr(),
             hi.data_ptr(), dx.data_ptr(), b, ci, co, n1, n2, m1, m2,
             int(bf16), kernels.stream_ptr(dy.device))

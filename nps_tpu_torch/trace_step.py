@@ -54,10 +54,10 @@ CFG = "nps_tpu_torch/configs/train/cfg_twophase_ufno.py"
 PROFILER_RECORDS = ("Buffer Flush", "Activity Buffer Request")
 # the device kernels of the port's hand-written CUDA sources, by name
 PORTED_KERNELS = ("gn1_gelu_kernel", "gn1_stream_", "gn1_bwd_",
-                  "dft_fwd_kernel", "dft_fwd_big_kernel", "sum_tiles_kernel",
-                  "mix_kernel", "mix_adj_kernel", "dft_inv_kernel",
-                  "dft_inv_big_kernel", "spectral_dw_kernel",
-                  "film_bwd_kernel")
+                  "dft_fwd_kernel", "dft_fwd_big_kernel", "dft_fwd_tc_kernel",
+                  "sum_tiles_kernel", "mix_kernel", "mix_adj_kernel",
+                  "dft_inv_kernel", "dft_inv_big_kernel", "dft_inv_tc_kernel",
+                  "spectral_dw_kernel", "film_bwd_kernel")
 PHASES = ("pushforward", "forward", "backward", "optimizer")
 
 
@@ -86,6 +86,43 @@ def _call_spans_us(events, first, last):
             spans.append(e.time_range.end - start)
             start = None
     return spans
+
+
+def kernel_ms(fn, calls=3):
+    """Device ms per launch of each kernel ``fn`` launches (the mean over
+    ``calls`` calls under torch.profiler, 5 ms apart, after a warm-up
+    call), keyed by the kernel's name without namespace and template
+    arguments; and the mean span of a call, from its first kernel's start
+    to its last one's end, over the calls whose every kernel was recorded
+    (the tracer now and then drops a record). A kernel launched with
+    programmatic dependent launch (K1's inverse stages) starts while the
+    one before it runs, so its duration includes that overlap and the
+    durations add up to more than the span."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+            fn()
+            torch.cuda.synchronize()
+    events = sorted(_device_events(prof), key=lambda e: e.time_range.start)
+    total, count, groups = defaultdict(float), defaultdict(int), []
+    for e in events:
+        name = re.sub(r"^void ", "",
+                      e.name.replace("(anonymous namespace)::", ""))
+        name = re.split(r"[<(]", name)[0].split("::")[-1]
+        total[name] += e.time_range.elapsed_us() / 1e3
+        count[name] += 1
+        if not groups or e.time_range.start - groups[-1][2] > 2000:
+            groups.append([set(), e.time_range.start, e.time_range.end])
+        g = groups[-1]
+        g[0].add(name)
+        g[2] = max(g[2], e.time_range.end)
+    full = [(end - start) / 1e3 for names, start, end in groups
+            if len(names) == len(total)]
+    return ({k: total[k] / count[k] for k in total},
+            sum(full) / len(full) if full else None)
 
 
 def _busy_share(events, window_us):
@@ -276,7 +313,8 @@ def main():
     total_dev_us = sum(r[0] for r in rows)
     spans = sorted(
         _call_spans_us(events, "dft_fwd_kernel", "dft_inv_kernel")
-        + _call_spans_us(events, "dft_fwd_big_kernel", "dft_inv_big_kernel"))
+        + _call_spans_us(events, "dft_fwd_big_kernel", "dft_inv_big_kernel")
+        + _call_spans_us(events, "dft_fwd_tc_kernel", "dft_inv_tc_kernel"))
 
     def row(us, k, n):
         return {"name": k[:90], "ms_per_step": us / 1e3 / args.steps,

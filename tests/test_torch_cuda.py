@@ -8,7 +8,8 @@ twophase family; the kernels' custom ops on the card, the captured rollout
 against the eager one (bar 1e-6) for all five families, the exported
 artifact on the card, and the GNN's step and train gradients against the
 CPU. The variants for shapes the resident kernels do not take (the
-large-plane spectral conv, f32 and bf16; the streaming GN+GELU), the
+large-plane spectral conv, f32 and bf16, and the DFT stages each shape
+takes, tensor-core or FMA, by kernel name; the streaming GN+GELU), the
 twophase shapes still on the resident kernels, and a bf16 engine on the
 card against the CPU. The backward at those shapes: the large-plane input
 gradient (f32 and bf16, with and without FiLM) and GN+GELU's backward in
@@ -775,6 +776,64 @@ def test_spectral_large_variant_same_bits_at_ns512_shape():
     torch.cuda.synchronize()
     assert torch.equal(y, again)
     assert _rel(y, sp.spectral_conv_2d_plain(xb, ws, (20, 20))) < 1e-2
+
+
+# (b, ci, co, grid, modes, dtype, x's offset in elements, the DFT stages)
+@pytest.mark.parametrize("b,ci,co,grid,modes,dtype,offset,stages", [
+    (8, 132, 128, (512, 512), (20, 20), torch.bfloat16, 0, "tensor"),  # ns512
+    (2, 6, 5, (512, 512), (20, 20), torch.bfloat16, 0, "tensor"),
+    (3, 5, 7, (300, 200), (20, 17), torch.bfloat16, 0, "tensor"),
+    (1, 3, 4, (1024, 1024), (32, 32), torch.bfloat16, 0, "tensor"),
+    (10, 9, 66, (96, 64), (10, 10), torch.bfloat16, 0, "tensor"),
+    (2, 3, 5, (40, 32), (4, 6), torch.bfloat16, 0, "tensor"),
+    (2, 4, 6, (130, 98), (20, 20), torch.bfloat16, 0, "fma"),  # 98 points
+    (2, 3, 5, (40, 36), (4, 6), torch.bfloat16, 0, "fma"),     # 36 points
+    (2, 6, 5, (512, 512), (20, 20), torch.bfloat16, 4, "fma"),  # x off 8 B
+    (2, 6, 5, (512, 512), (20, 20), torch.float32, 0, "fma"),
+])
+def test_large_plane_dft_stages_by_kernel_name(b, ci, co, grid, modes, dtype,
+                                               offset, stages):
+    """The DFT stage kernels a large-plane forward and input gradient run,
+    by name in a torch.profiler record: the tensor-core stages
+    (dft_fwd_tc_kernel, dft_inv_tc_kernel) for bf16 rows of a multiple of 8
+    points on 16-byte aligned planes, the ns512 call among them, the FMA
+    stages (dft_fwd_big_kernel, dft_inv_big_kernel) otherwise, as
+    ``large_stages`` mirrors the choice; each against its plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nps_tpu_torch.ops import spectral as sp
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def planes(c):   # contiguous, its data ``offset`` elements in
+        t = torch.empty(b * c * grid[0] * grid[1] + offset, dtype=dtype,
+                        device="cuda")[offset:].view((b, c) + grid)
+        return t.copy_(torch.randn((b, c) + grid, device="cuda",
+                                   generator=g))
+
+    x, dy = planes(ci), planes(co)
+    ws = [torch.rand((2, ci, co) + modes, device="cuda", generator=g)
+          / (ci * co) for _ in range(2)]
+    wp = sp.pack_weights_2d(ws)
+    for t in (x, dy):
+        assert sp.large_stages(dtype, grid[1], t.data_ptr(), 0) == stages
+    want = {"tensor": ("dft_fwd_tc_kernel", "dft_inv_tc_kernel"),
+            "fma": ("dft_fwd_big_kernel", "dft_inv_big_kernel")}
+    for fn, ref in (
+            (lambda: sp.spectral_dft2d_fwd(x, wp, modes),
+             lambda: sp.spectral_conv_2d_plain(x, ws, modes)),
+            (lambda: sp.spectral_dft2d_bwd(dy, wp, modes)[0],
+             lambda: sp.spectral_dft2d_bwd_plain(dy, wp, modes)[0])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages())
+        assert all(k in names for k in want[stages]), names
+        other = want["fma" if stages == "tensor" else "tensor"]
+        assert not any(k in names for k in other), names
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        assert _rel(out, ref()) < tol
 
 
 def test_twophase_shapes_keep_the_resident_kernels():
