@@ -67,13 +67,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              captured (against eager, 1e-6), peak memory, one step in f32
              against bf16 (nRMSE, a 5e-2 sanity bound); a narrow model (1
              block x 16 features, f32, batch 2) whose step launches both
-             new kernel variants, against the port on the CPU (1e-4); then
-             the
-             large-plane spectral conv at [8, 132, 512, 512] -> 128 in bf16
-             and f32, and GN+GELU at the largest and smallest ns512
-             GroupNorm inputs (bf16 and f32), each against its plain
-             version, twice for the same bits, beside its bound, its plain
-             version and one PyTorch call;
+             new kernel variants, against the port on the CPU (1e-4); the
+             serving step's tanh F.gelu calls by caller (the encoder's,
+             the decoder's, each block's own and its U-Net's final one:
+             none after a K2 call, whose tanh epilogue replaces them);
+             then the large-plane spectral conv at [8, 132, 512, 512] ->
+             128 in bf16 and f32, and GN+GELU (its tanh GELU) at the
+             largest and smallest ns512 GroupNorm inputs (bf16 and f32),
+             each against its plain version, twice for the same bits,
+             beside its bound, its plain version and one PyTorch call;
 8. ns512_train - the same config trained on that split through the
              training CLI's get_config_static (bf16, f32 parameters and
              Adam, per-block remat with the save_conv_outputs policy,
@@ -86,12 +88,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              remat (its peak memory, or its out-of-memory error); one step
              of the same weights in f32 against bf16 at batch 2 (a 5e-2
              sanity bound on the loss); the narrow model (1 x 16, f32) at
-             depth 1 card against CPU; then the large-plane input gradient
-             at the ns512 call in bf16 and f32, spectral_dw2d at its 800
-             modes and gn1_gelu_bwd in bf16 at the largest and smallest
-             ns512 GroupNorm inputs, each against its plain version, twice
-             for the same bits, beside its bound, its plain version and one
-             PyTorch call;
+             depth 1 card against CPU; one more depth-0 step whose tanh
+             F.gelu calls are counted by caller as in serving (the remat
+             recomputes the U-Net final ones) and whose 66 gn1_gelu_bwd
+             calls are recorded (none may copy dy) and timed together
+             beside their summed bound; then the large-plane input
+             gradient at the ns512 call in bf16 and f32, spectral_dw2d at
+             its 800 modes and gn1_gelu_bwd in bf16 at the largest and
+             smallest ns512 GroupNorm inputs with the GELU off and tanh,
+             each against its plain version, twice for the same bits,
+             beside its bound, its plain version and one PyTorch call;
 9. export  - the slice's U-FNO exported on the card (torch.export of one
              bundled step, symbolic batch, 19 steps; the kernels stay the
              custom ops nps_torch::gn1_gelu_fwd and
@@ -132,6 +138,7 @@ a checkout of the repo. Longer outputs (ptxas reports) go to ``--out``.
 """
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -223,6 +230,24 @@ NS_TRAIN_F32_TOL = 5e-2
 PEAK_BF16 = 989e12
 # graph replay for calls of about a millisecond and more
 FEW_CALLS = dict(calls=5, replays=5, warmup=2)
+# GN+GELU's activation, as chip_smoke names it, and the wrappers' keywords
+GN_ACT_KW = {"off": dict(gelu=False, approximate="none"),
+             "erf": dict(gelu=True, approximate="none"),
+             "tanh": dict(gelu=True, approximate="tanh")}
+# the tanh F.gelu calls one cfg_ns512_ufno apply keeps, by caller: the
+# encoder's two and the decoder's one, and per block the U-FNO's own
+# activation and its U-Net's final one (after GroupNorm(8), not fused);
+# the 66 ResidualBlock norms take K2's tanh epilogue (their caller,
+# unet_modern.py:_norm_act, must not appear)
+NS_TANH_PER_APPLY = {"enc_grid.py:forward": 2, "ufno.py:forward": NS_BLOCKS,
+                     "unet_modern.py:forward": NS_BLOCKS,
+                     "dec_grid.py:forward": 1}
+
+
+def gn_act(gelu, approximate="none"):
+    """chip_smoke's name of a GN+GELU call's activation."""
+    return "off" if not gelu else ("tanh" if approximate == "tanh"
+                                   else "erf")
 
 
 def emit(obj):
@@ -598,14 +623,18 @@ def gn_bwd_record(gen):
     dy = torch.randn(shape, device="cuda", generator=gen)
     y_k, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta)
     got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy)
+    again = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy)
     y_p, leaves_p, ref = _grads(gn.gn_gelu_plain, (x, gamma, beta), dy)
     torch.cuda.synchronize()
     err, max_abs = _errors(got, ref)
     err_y = rel_err(y_k, y_p)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     n = math.prod(shape)
     bound_ms, bound_by = bound(3 * 4 * n, GN_BWD_FLOPS_PER_ELEMENT * n)
     rec = {"phase": "kernel", "name": "gn1_gelu_bwd", "shape": shape,
-           "rel_err": err, "max_abs_err": max_abs, "rel_err_fwd_y": err_y,
+           "act": "erf", "rel_err": err, "max_abs_err": max_abs,
+           "rel_err_fwd_y": err_y, "same_bits": same,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_how": "x, dy read once + dx written once, f32, at "
                         "3.35 TB/s"}
@@ -620,9 +649,9 @@ def gn_bwd_record(gen):
         y_l, leaves_l, dy, retain_graph=True))
     rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
     emit(rec)
-    if not (err < REL_TOL_GRAD and err_y < REL_TOL_F32):
+    if not (err < REL_TOL_GRAD and err_y < REL_TOL_F32 and same):
         raise AssertionError(f"gn1_gelu_bwd disagrees: {err} (forward y "
-                             f"{err_y})")
+                             f"{err_y}), same bits {same}")
     return rec
 
 
@@ -846,9 +875,9 @@ def gn_step_time(eng, u0, cond, sc):
     seen = []
     wrapped = gn.gn1_gelu_fwd
 
-    def record(x, weight, bias, gelu=True, eps=gn.EPS):
-        seen.append((tuple(x.shape), x.dtype, gelu))
-        return wrapped(x, weight, bias, gelu, eps)
+    def record(x, weight, bias, gelu=True, eps=gn.EPS, approximate="none"):
+        seen.append((tuple(x.shape), x.dtype, gn_act(gelu, approximate)))
+        return wrapped(x, weight, bias, gelu, eps, approximate)
 
     gn.gn1_gelu_fwd = record
     try:
@@ -856,11 +885,12 @@ def gn_step_time(eng, u0, cond, sc):
     finally:
         gn.gn1_gelu_fwd = wrapped
     calls = []
-    for shape, dtype, gelu in seen:
+    for shape, dtype, act in seen:
         x = torch.randn(shape, device="cuda").to(dtype)
         w = torch.ones(shape[1], device="cuda")
-        calls.append((x, w, torch.zeros_like(w), gelu))
-    ms, why = graph_ms(lambda: [wrapped(*c) for c in calls], calls=5)
+        calls.append((x, w, torch.zeros_like(w), GN_ACT_KW[act]))
+    ms, why = graph_ms(lambda: [wrapped(*c[:3], **c[3]) for c in calls],
+                       calls=5)
     bound_ms, bound_by = gn_bound([s for s, _, _ in seen],
                                   torch.finfo(seen[0][1]).bits // 8)
     counts = {}
@@ -886,16 +916,17 @@ def _grad_errors(got, ref):
 @contextlib.contextmanager
 def kernel_shapes():
     """Record the distinct inputs the kernels' forward calls see inside the
-    block: GN+GELU (shape, gelu) and spectral conv (shape, co, modes)."""
+    block: GN+GELU (shape, activation) and spectral conv (shape, co,
+    modes)."""
     from nps_tpu_torch.ops import group_norm as gn
     from nps_tpu_torch.ops import spectral as sp
 
     seen = {"gn": set(), "spectral": set()}
     gn_fwd, sp_fwd = gn.gn1_gelu_fwd_stats, sp.spectral_dft2d_fwd_spectrum
 
-    def gn_record(x, weight, bias, gelu=True, eps=gn.EPS):
-        seen["gn"].add((tuple(x.shape), bool(gelu)))
-        return gn_fwd(x, weight, bias, gelu, eps)
+    def gn_record(x, weight, bias, gelu=True, eps=gn.EPS, approximate="none"):
+        seen["gn"].add((tuple(x.shape), gn_act(gelu, approximate)))
+        return gn_fwd(x, weight, bias, gelu, eps, approximate)
 
     def sp_record(x, w_packed, modes, *args, **kwargs):
         seen["spectral"].add((tuple(x.shape), w_packed.shape[3],
@@ -926,15 +957,17 @@ def check_shapes(seen, gen):
                 "rel_err_grad": _errors(got, ref)[0]}
 
     rows = []
-    for shape, gelu in sorted(seen["gn"]):
+    for shape, act in sorted(seen["gn"]):
         c = shape[1]
         x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
         gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
         beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
         dy = torch.randn(shape, device="cuda", generator=gen)
-        rows.append({"op": "GNGeluFn", "shape": shape, "gelu": gelu,
-                     **compare(lambda *t: gn.GNGeluFn.apply(*t, gelu, gn.EPS),
-                               lambda *t: gn.gn_gelu_plain(*t, gelu),
+        kw = GN_ACT_KW[act]
+        rows.append({"op": "GNGeluFn", "shape": shape, "act": act,
+                     **compare(lambda *t: gn.GNGeluFn.apply(
+                                   *t, kw["gelu"], gn.EPS, kw["approximate"]),
+                               lambda *t: gn.gn_gelu_plain(*t, **kw),
                                (x, gamma, beta), dy)})
     for shape, co, modes in sorted(seen["spectral"]):
         b, ci, n1, n2 = shape
@@ -1670,16 +1703,41 @@ def ns512_split(tmp, seed):
 
 
 @contextlib.contextmanager
+def tanh_gelus():
+    """Count the tanh F.gelu calls inside the block by caller
+    ("file:function", the first frame outside the activation objects)."""
+    import torch.nn.functional as F
+
+    calls, wrapped = collections.Counter(), F.gelu
+
+    def counting(x, approximate="none"):
+        if approximate == "tanh":
+            f = sys._getframe(1)
+            while f.f_code.co_filename.endswith("activations.py"):
+                f = f.f_back
+            calls[f"{Path(f.f_code.co_filename).name}:"
+                  f"{f.f_code.co_name}"] += 1
+        return wrapped(x, approximate=approximate)
+
+    F.gelu = counting
+    try:
+        yield calls
+    finally:
+        F.gelu = wrapped
+
+
+@contextlib.contextmanager
 def gn_inputs_seen():
-    """The (shape, dtype, gelu) of every gn1_gelu_fwd_stats call inside the
-    block (the persistent and the streaming variant's wrapper), in order."""
+    """The (shape, dtype, activation) of every gn1_gelu_fwd_stats call inside
+    the block (the persistent and the streaming variant's wrapper), in
+    order."""
     from nps_tpu_torch.ops import group_norm as gn
 
     seen, wrapped = [], gn.gn1_gelu_fwd_stats
 
-    def record(x, weight, bias, gelu=True, eps=gn.EPS):
-        seen.append((tuple(x.shape), str(x.dtype), bool(gelu)))
-        return wrapped(x, weight, bias, gelu, eps)
+    def record(x, weight, bias, gelu=True, eps=gn.EPS, approximate="none"):
+        seen.append((tuple(x.shape), str(x.dtype), gn_act(gelu, approximate)))
+        return wrapped(x, weight, bias, gelu, eps, approximate)
 
     gn.gn1_gelu_fwd_stats = record
     try:
@@ -1710,7 +1768,7 @@ def ns512_serve(seed, ds, batch):
     eng.init_params(seed=seed)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with gn_inputs_seen() as seen:
+    with gn_inputs_seen() as seen, tanh_gelus() as gelus:
         step = eng.step(u0, cond=cond, spatial_cond=sc)   # also warms up
     warm_s = time.perf_counter() - t0
     seconds, launches = [], []
@@ -1760,8 +1818,8 @@ def ns512_serve(seed, ds, batch):
     f32_nrmse = float(np.sqrt(np.mean(diff ** 2) / np.mean(step_f32 ** 2)))
     del f32
     shapes = {}
-    for shape, dtype, gelu in seen:
-        key = (shape, dtype, gelu)
+    for shape, dtype, act in seen:
+        key = (shape, dtype, act)
         shapes[key] = shapes.get(key, 0) + 1
     want = {"spectral_dft2d_fwd_large": NS_BLOCKS * NS_STEPS,
             "gn1_gelu_fwd": sum(n for (s, _, _), n in shapes.items()
@@ -1790,8 +1848,15 @@ def ns512_serve(seed, ds, batch):
                         "max_rel_dev_bf16_vs_f32": f32_max,
                         "seconds": f32_s},
            "gn_inputs": [[list(s), d, g, n]
-                         for (s, d, g), n in sorted(shapes.items())]}
+                         for (s, d, g), n in sorted(shapes.items())],
+           "tanh_gelu_calls": dict(gelus),
+           "tanh_gelu_calls_expected": NS_TANH_PER_APPLY}
     failures = []
+    if dict(gelus) != NS_TANH_PER_APPLY or any(a != "tanh" for _, _, a in
+                                               seen):
+        failures.append(f"ns512 serving step: tanh F.gelu calls "
+                        f"{dict(gelus)} (want {NS_TANH_PER_APPLY}), K2 "
+                        f"activations {sorted({a for _, _, a in seen})}")
     if tuple(out.shape) != (NS_BATCH, 1, NS_STEPS * NS_TW, NS_N, NS_N):
         failures.append(f"ns512 rollout shape {out.shape}")
     if not rec["finite"]:
@@ -1962,12 +2027,13 @@ def spectral_large_record(gen, dtype):
     return rec
 
 
-def gn_stream_record(gen, shape, dtype, gelu):
+def gn_stream_record(gen, shape, dtype, act):
     """gn1_gelu_fwd at an ns512 GroupNorm input in ``dtype`` (the variant
-    its size selects) against the plain version, twice for the same bits,
-    timed beside the plain version, F.group_norm (+ F.gelu) and two bounds:
-    x read once and y written once (the bound), and the streaming design's
-    two reads of x and one write."""
+    its size selects) with the activation ``act`` (GN_ACT_KW) against the
+    plain version, twice for the same bits, timed beside the plain version,
+    F.group_norm (+ F.gelu) and two bounds: x read once and y written once
+    (the bound), and the streaming design's two reads of x and one
+    write."""
     import torch
     import torch.nn.functional as F
 
@@ -1979,17 +2045,18 @@ def gn_stream_record(gen, shape, dtype, gelu):
          + 0.3).to(dtype)
     gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    kw = GN_ACT_KW[act]
     kernels.reset_launches()
-    y = gn.gn1_gelu_fwd(x, gamma, beta, gelu)
+    y = gn.gn1_gelu_fwd(x, gamma, beta, **kw)
     launched = dict(kernels.launches)
-    again = gn.gn1_gelu_fwd(x, gamma, beta, gelu)
-    y_p = gn.gn_gelu_plain(x, gamma, beta, gelu)
+    again = gn.gn1_gelu_fwd(x, gamma, beta, **kw)
+    y_p = gn.gn_gelu_plain(x, gamma, beta, **kw)
     torch.cuda.synchronize()
     err = rel_err(y, y_p)
     size = x.element_size()
     bound_ms, bound_by = gn_bound([shape], size)
     rec = {"phase": "kernel", "name": "gn1_gelu (ns512 shape)",
-           "shape": list(shape), "dtype": str(dtype), "gelu": gelu,
+           "shape": list(shape), "dtype": str(dtype), "act": act,
            "launched": launched, "rel_err": err,
            "same_bits": bool(torch.equal(y, again)),
            "max_abs_err": float((y.float() - y_p.float()).abs().max()),
@@ -1998,11 +2065,13 @@ def gn_stream_record(gen, shape, dtype, gelu):
 
     def library():
         z = F.group_norm(x, 1, gamma.to(dtype), beta.to(dtype))
-        return F.gelu(z) if gelu else z
+        if act == "off":
+            return z
+        return F.gelu(z, approximate="tanh" if act == "tanh" else "none")
 
-    for key, fn in (("ms", lambda: gn.gn1_gelu_fwd(x, gamma, beta, gelu)),
+    for key, fn in (("ms", lambda: gn.gn1_gelu_fwd(x, gamma, beta, **kw)),
                     ("plain_ms", lambda: gn.gn_gelu_plain(x, gamma, beta,
-                                                          gelu)),
+                                                          **kw)),
                     ("library_ms", library)):
         timed(rec, fn, key, **FEW_CALLS)
     rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
@@ -2045,15 +2114,15 @@ def phase_ns512(seed, card, gen, tmp):
     recs["spectral_dft2d_fwd_large"]["f32"] = spectral_large_record(
         gen, torch.float32)
     gn_shapes = [tuple(s) for s, _, _, _ in serve["gn_inputs"]]
-    gelu = serve["gn_inputs"][0][2]
-    records = [gn_stream_record(gen, shape, dtype, gelu)
+    act = serve["gn_inputs"][0][2]
+    records = [gn_stream_record(gen, shape, dtype, act)
                for shape in (max(gn_shapes, key=math.prod),
                              min(gn_shapes, key=math.prod))
                for dtype in (torch.bfloat16, torch.float32)]
     recs["gn1_gelu_fwd_stream"] = dict(records[0], shapes=[
-        {k: r[k] for k in ("shape", "dtype", "launched", "rel_err",
+        {k: r[k] for k in ("shape", "dtype", "act", "launched", "rel_err",
                            "same_bits", "ms", "plain_ms", "library_ms",
-                           "bound_ms", "two_pass_floor_ms", "bound_share")}
+                           "bound_ms", "bound_share")}
         for r in records])
     gc.collect()
     torch.cuda.empty_cache()
@@ -2096,7 +2165,7 @@ def ns512_train_launches(gn_inputs, depth):
     of the depth + 1 applies, and each once more in the backward (the
     per-block remat recomputes the K1 and K2 forwards, which are not
     convs), then one backward per call. ``gn_inputs``: the serving step's
-    GroupNorm inputs, [shape, dtype, gelu, calls per apply]."""
+    GroupNorm inputs, [shape, dtype, activation, calls per apply]."""
     stream = sum(n for s, _, _, n in gn_inputs if _streams(s))
     persistent = sum(n for s, _, _, n in gn_inputs if not _streams(s))
     want = {"spectral_dft2d_fwd_large": NS_BLOCKS * (depth + 2),
@@ -2195,6 +2264,26 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
         failures.append(f"plain versions called on the card: {plain}, "
                         f"{plain_steps}")
 
+    # one more depth-0 step: its tanh F.gelu calls by caller (one graded
+    # apply, whose U-Net final activations the remat recomputes) and its
+    # gn1_gelu_bwd calls, then those calls timed together
+    with autotuned_convs(), tanh_gelus() as gelus, gn_bwd_calls() as bwds:
+        trainer.train_step(batch, 0, 0, unrolled=0)
+        torch.cuda.synchronize()
+    want_gelus = dict(NS_TANH_PER_APPLY)
+    want_gelus["unet_modern.py:forward"] *= 2
+    if dict(gelus) != want_gelus:
+        failures.append(f"ns512 train step: tanh F.gelu calls {dict(gelus)}"
+                        f" (want {want_gelus})")
+    if any(a != "tanh" for _, _, a in bwds["calls"]) or bwds["dy_copies"]:
+        failures.append(f"ns512 train step: gn1_gelu_bwd activations "
+                        f"{sorted({a for _, _, a in bwds['calls']})}, "
+                        f"{bwds['dy_copies']} copies of dy")
+    gn_bwd_step = dict(gn_bwd_step_time(bwds["calls"]),
+                       dy_copies=bwds["dy_copies"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the same depth-0 step without the U-FNO's remat
     ufnos = [m for m in trainer.model.modules() if isinstance(m, UFNO)]
     gc.collect()
@@ -2278,6 +2367,9 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
                      "plain_calls": plain},
            "steps": {str(d): v for d, v in steps.items()},
            "plain_calls_in_steps": plain_steps,
+           "tanh_gelu_calls": dict(gelus),
+           "tanh_gelu_calls_expected": want_gelus,
+           "gn_bwd_step": gn_bwd_step,
            "no_remat_step": no_remat, "remat_peak_mem_gib": remat_peak,
            "bf16_vs_f32": vs_f32, "narrow_vs_cpu": vs_cpu}
     del trainer, narrow, batch
@@ -2359,14 +2451,14 @@ def spectral_bwd_large_record(gen, dtype):
     return rec
 
 
-def gn_bwd_bf16_record(gen, shape, gelu):
-    """gn1_gelu_bwd in bf16 at an ns512 GroupNorm input: dx (bf16) against
-    autograd through the plain version at REL_TOL_BF16, dgamma and dbeta
-    (f32) at REL_TOL_GRAD, twice for the same bits, timed (graph replay)
-    beside autograd through the plain version and through F.group_norm in
-    bf16 (eager calls between CUDA events), with the bound (x, dy read
-    once, dx written once) and the present design's floor (x and dy read
-    twice)."""
+def gn_bwd_bf16_record(gen, shape, act):
+    """gn1_gelu_bwd in bf16 at an ns512 GroupNorm input with the activation
+    ``act`` (GN_ACT_KW): dx (bf16) against autograd through the plain
+    version at REL_TOL_BF16, dgamma and dbeta (f32) at REL_TOL_GRAD, twice
+    for the same bits, timed (graph replay) beside autograd through the
+    plain version and through F.group_norm (+ F.gelu) in bf16 (eager calls
+    between CUDA events), with the bound (x, dy read once, dx written once)
+    and the present design's floor (x and dy read twice)."""
     import torch
     import torch.nn.functional as F
 
@@ -2375,16 +2467,17 @@ def gn_bwd_bf16_record(gen, shape, gelu):
 
     c, n = shape[1], math.prod(shape)
     bf = torch.bfloat16
+    kw = GN_ACT_KW[act]
     x = (torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3).to(bf)
     gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
     dy = torch.randn(shape, device="cuda", generator=gen).to(bf)
-    _, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta, gelu)
+    _, stats = gn.gn1_gelu_fwd_stats(x, gamma, beta, **kw)
     kernels.reset_launches()
-    got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, gelu)
+    got = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, **kw)
     launched = dict(kernels.launches)
-    again = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, gelu)
-    y_p, leaves_p, ref = _grads(lambda *t: gn.gn_gelu_plain(*t, gelu),
+    again = gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, **kw)
+    y_p, leaves_p, ref = _grads(lambda *t: gn.gn_gelu_plain(*t, **kw),
                                 (x, gamma, beta), dy)
     torch.cuda.synchronize()
     err = rel_err(got[0], ref[0])
@@ -2392,7 +2485,7 @@ def gn_bwd_bf16_record(gen, shape, gelu):
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     bound_ms, bound_by = bound(3 * 2 * n, GN_BWD_FLOPS_PER_ELEMENT * n)
     rec = {"phase": "kernel", "name": "gn1_gelu_bwd (bf16, ns512 shape)",
-           "shape": list(shape), "dtype": str(bf), "gelu": gelu,
+           "shape": list(shape), "dtype": str(bf), "act": act,
            "launched": launched, "rel_err": err, "rel_err_dweight": err_w,
            "same_bits": same,
            "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
@@ -2401,7 +2494,7 @@ def gn_bwd_bf16_record(gen, shape, gelu):
            "bound_how": "x, dy read once + dx written once, bf16, at "
                         "3.35 TB/s"}
     del again
-    timed(rec, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, gelu),
+    timed(rec, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, **kw),
           "ms", **FEW_CALLS)
     rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
         y_p, leaves_p, dy, retain_graph=True), calls=3)
@@ -2409,7 +2502,7 @@ def gn_bwd_bf16_record(gen, shape, gelu):
 
     def library(x, w, b):
         z = F.group_norm(x, 1, w.to(bf), b.to(bf))
-        return F.gelu(z) if gelu else z
+        return z if act == "off" else F.gelu(z, approximate=kw["approximate"])
 
     y_l, leaves_l, _ = _grads(library, (x, gamma, beta), dy)
     rec["library_ms"] = event_ms(lambda: torch.autograd.grad(
@@ -2420,6 +2513,67 @@ def gn_bwd_bf16_record(gen, shape, gelu):
             and launched == {"gn1_gelu_bwd": 1}):
         raise AssertionError(f"gn1_gelu_bwd bf16 at {shape}: dx {err}, "
                              f"dweight {err_w}, same bits {same}, {launched}")
+    return rec
+
+
+@contextlib.contextmanager
+def gn_bwd_calls():
+    """Record every gn1_gelu_bwd call inside the block (shape, dtype,
+    activation), and count the GNGeluFn backward calls whose dy was not
+    contiguous (its .contiguous() then copies)."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    seen = {"calls": [], "dy_copies": 0}
+    bwd, fn_bwd = gn.gn1_gelu_bwd, gn.GNGeluFn.backward
+
+    def record(x, weight, bias, stats, dy, gelu=True, approximate="none"):
+        seen["calls"].append((tuple(x.shape), x.dtype,
+                              gn_act(gelu, approximate)))
+        return bwd(x, weight, bias, stats, dy, gelu, approximate)
+
+    def backward(ctx, dy):
+        seen["dy_copies"] += not dy.is_contiguous()
+        return fn_bwd(ctx, dy)
+
+    gn.gn1_gelu_bwd = record
+    gn.GNGeluFn.backward = staticmethod(backward)
+    try:
+        yield seen
+    finally:
+        gn.gn1_gelu_bwd = bwd
+        gn.GNGeluFn.backward = staticmethod(fn_bwd)
+
+
+def gn_bwd_step_time(calls):
+    """The gn1_gelu_bwd calls of one train step (``calls``: shape, dtype,
+    activation) on fresh inputs, timed together (graph replay) beside their
+    summed bound."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    args, bound_ms, counts = [], 0.0, collections.Counter()
+    for shape, dtype, act in calls:
+        x = torch.randn(shape, device="cuda").to(dtype)
+        dy = torch.randn(shape, device="cuda").to(dtype)
+        w = torch.ones(shape[1], device="cuda")
+        kw = GN_ACT_KW[act]
+        _, stats = gn.gn1_gelu_fwd_stats(x, w, torch.zeros_like(w), **kw)
+        args.append((x, w, torch.zeros_like(w), stats, dy, kw))
+        n, size = math.prod(shape), x.element_size()
+        bound_ms += bound(3 * size * n, GN_BWD_FLOPS_PER_ELEMENT * n)[0]
+        counts[(shape, str(dtype), act)] += 1
+
+    def run():
+        for *a, kw in args:
+            gn.gn1_gelu_bwd(*a, **kw)
+
+    rec = {"calls": len(calls), "bound_ms": bound_ms,
+           "shapes": [[list(s), d, a, k] for (s, d, a), k in
+                      sorted(counts.items())]}
+    timed(rec, run, "ms", calls=2, replays=3, warmup=1)
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    del args
     return rec
 
 
@@ -2454,18 +2608,17 @@ def phase_ns512_train(seed, card, gen, out_dir, tmp, gn_inputs):
     scale = sp.mode_scale(NS_N, NS_N, NS_MODES, NS_MODES, "cuda")
     recs["spectral_dw2d_ns512"] = dw2d_record(*spectra, scale, NS_MODES)
     shapes = [tuple(s) for s, _, _, _ in gn_inputs]
-    records = [gn_bwd_bf16_record(gen, shape, gelu)
+    records = [gn_bwd_bf16_record(gen, shape, act)
                for shape in (max(shapes, key=math.prod),
                              min(shapes, key=math.prod))
-               for gelu in (False, True)]
+               for act in ("tanh", "off")]
     gc.collect()
     torch.cuda.empty_cache()
     recs["gn1_gelu_bwd_bf16"] = dict(records[0], shapes=[
-        {k: r[k] for k in ("shape", "gelu", "launched", "rel_err",
+        {k: r[k] for k in ("shape", "act", "launched", "rel_err",
                            "rel_err_dweight", "same_bits", "ms", "plain_ms",
-                           "library_ms", "bound_ms", "two_read_floor_ms",
-                           "bound_share")}
-        for r in records])
+                           "library_ms", "bound_ms", "bound_share")}
+        for r in records], step_calls=rec["gn_bwd_step"])
     recs["seconds"] = time.perf_counter() - t0
     return launches, recs
 
@@ -2558,8 +2711,10 @@ def main():
         "gn1_gelu_bwd_bf16": (
             "nps_tpu_torch/csrc/gn1_gelu.cu (gn1_bwd_sums, gn1_bwd_reduce, "
             "gn1_bwd_apply on bf16 x and dy; at the largest ns512 GroupNorm "
-            "input, gelu off as ns512 runs it; every shape and gelu setting "
-            "under shapes)",
+            "input with the tanh GELU "
+            "as ns512 runs it; both shapes with the GELU off and tanh under "
+            "shapes; the 66 calls of one ns512 train step under "
+            "step_calls)",
             "tools/pallas_group_norm_evidence.py:106 (_gn_bwd, XLA)",
             ns512_train, "gn1_gelu_bwd")}
     line = []
@@ -2598,8 +2753,8 @@ def main():
                                   "CUDA events" if name in eager else "")})
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
                     "dispatch_host_us", "library_how", "dtype", "shape",
-                    "bound_f32_ops_ms", "two_pass_floor_ms",
-                    "two_read_floor_ms", "f32", "shapes", "ns512", "stages"):
+                    "act", "bound_f32_ops_ms", "f32", "shapes", "ns512", "stages",
+                    "step_calls"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

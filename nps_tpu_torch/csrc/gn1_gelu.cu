@@ -1,15 +1,16 @@
-// gn1_gelu_fwd: GroupNorm with one group, fused with exact-erf GELU.
+// gn1_gelu_fwd: GroupNorm with one group, fused with the GELU that follows it.
 //
 // Replaces the TPU kernel K2, tools/pallas_group_norm_evidence.py:
 // _fwd_kernel / _run_fwd (pl.pallas_call) behind group_norm_pallas. Same
 // semantics: f32 sum and sum of squares over a whole sample, mean = s/n,
 // var = max(q/n - mean^2, 0), inv = rsqrt(var + eps), y = (x - mean) * inv *
-// gamma[c] + beta[c]; then, here, the exact-erf GELU that follows every such
-// norm in a U-Net ResidualBlock. (mean, inv) per sample are saved for the
-// backward pass.
+// gamma[c] + beta[c]; then, here, the activation that follows every such
+// norm in a U-Net ResidualBlock: `act` 0 none, 1 the exact-erf GELU, 2 the
+// tanh-approximate GELU (cfg_ns512_ufno's GELUTanh). (mean, inv) per sample
+// are saved for the backward pass.
 //
 // Bound on the H100: memory bandwidth. Per element it does a few flops and
-// one erff, far below the card's 67 TFLOP/s f32; the least traffic is one
+// one exp, far below the card's 67 TFLOP/s f32; the least traffic is one
 // read of x and one write of y at 3.35 TB/s. The statistics need the whole
 // sample before the first y can be written, and a sample of the main path
 // (up to ~10.5 MB f32) is far larger than one SM's 227 KB of shared memory,
@@ -32,19 +33,22 @@
 //      memory and meets every other CTA at grid.sync();
 //   3. reduces its sample's G partials in a fixed order (every CTA of the
 //      sample gets the same bits: the result is deterministic);
-//   4. normalises, applies gamma/beta and GELU from shared memory and stores
-//      y with 16-byte streaming stores; right after each store, the thread
-//      copies the same 16 bytes of its slice of round r+1 into the place
-//      just read, so the next round's reads stream while this round's
-//      writes do. A thread only ever touches its own units of shared
-//      memory, so this needs no barrier.
+//   4. normalises, applies gamma/beta and the activation from shared memory
+//      and stores y with 16-byte streaming stores; right after each store,
+//      the thread copies the same 16 bytes of its slice of round r+1 into
+//      the place just read, so the next round's reads stream while this
+//      round's writes do. A thread only ever touches its own units of
+//      shared memory, so this needs no barrier.
 // grid.sync() resets its own barrier, so no state outlives a call. f32 uses
 // 16-byte vectors when the sample length is a multiple of 4 (bf16: of 8);
 // other lengths are copied and normalised as scalars. bf16 input keeps f32
 // statistics and arithmetic and is rounded once on output. erf is the
 // Abramowitz-Stegun 7.1.26 rational form (absolute error below 1.5e-7, about
 // the rounding of f32 near 1) with the hardware exp: branch-free, where
-// CUDA's erff takes one of two paths per lane, so a warp runs both.
+// CUDA's erff takes one of two paths per lane, so a warp runs both. The tanh
+// form is z * sigmoid(2u), u = sqrt(2/pi) (z + 0.044715 z^3), which equals
+// 0.5 z (1 + tanh u) and takes one exp and one division (the exponent
+// clamped at 80, where sigmoid is 0 to f32's range).
 //
 // The host side plans once per shape (gn1_gelu_plan): grid, samples per
 // round, slice length, rounds; the wrapper raises on a sample larger than
@@ -61,8 +65,9 @@
 // gn1_gelu_bwd: the backward of the same op, f32 or bf16. The TPU side has no
 // Pallas backward: its _gn_bwd (tools/pallas_group_norm_evidence.py:106-127)
 // is one XLA fusion. With pre = xh * gamma + beta, xh = (x - mean) * inv,
-// g = dy * GELU'(pre) (GELU'(z) = Phi(z) + z phi(z), the forward's erf form
-// and one shared exp) and t = g * gamma:
+// g = dy * act'(pre) (the erf form's Phi(z) + z phi(z) with one shared exp,
+// or the tanh form's s + 2 z s (1 - s) u'(z), s = sigmoid(2u), one exp)
+// and t = g * gamma:
 //   dx     = inv * (t - mean_n(t) - xh * mean_n(t * xh))   per sample
 //   dgamma = sum_{b, hw} g * xh,   dbeta = sum_{b, hw} g   per channel
 // Bound on the H100: memory bandwidth, one read of x and dy and one write of
@@ -83,8 +88,8 @@
 // fixed order, and dx is rounded to bf16 once on store: half the bytes of
 // the f32 backward, and the same bits on every call. Planes of a multiple
 // of 4 elements load and store 4 elements at a time (16 bytes f32, 8 bf16).
-// No atomics: every sum runs in the same order on every call, so the result
-// is deterministic.
+// No atomics: every sum runs in the same order on every call, so
+// the result is deterministic.
 
 // gn1_gelu_fwd_stream: the same forward for a sample larger than the
 // resident grid's shared memory holds (about 29.8 MB f32 on an H100; a
@@ -99,7 +104,7 @@
 //   2. gn1_stream_stats: one CTA per sample sums its partials in a fixed
 //      order into (mean, inv) with the same variance clamp;
 //   3. gn1_stream_apply: reads x again, normalises, applies gamma/beta and
-//      the GELU, and writes y in x's type with streaming stores.
+//      the activation, and writes y in x's type with streaming stores.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -169,6 +174,18 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (z >= 0.f ? 2.0f - q : q);
 }
 
+// GELU with tanh, 0.5 v (1 + tanh u), u = sqrt(2/pi) (v + 0.044715 v^3), as
+// v * sigmoid(2u): one exp and one division (see the note at the top)
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float u2 = 1.5957691216057308f * fmaf(0.044715f * v, v * v, v);
+  return __fdividef(v, 1.0f + __expf(fminf(-u2, 80.0f)));
+}
+
+// act: 0 none, 1 GELU with erf, 2 GELU with tanh
+__device__ __forceinline__ float activate(float v, int act) {
+  return act == 1 ? gelu_erf(v) : act == 2 ? gelu_tanh(v) : v;
+}
+
 // e / hw for 0 <= e < 2^31 without an integer division: a float estimate,
 // corrected to the exact quotient.
 __device__ __forceinline__ int div_hw(int e, int hw, float inv_hw) {
@@ -213,7 +230,7 @@ struct Args {
   float2* partials;
   int b, n, hw;
   float eps;
-  int gelu;
+  int act;  // 0 none, 1 GELU (erf), 2 GELU (tanh)
   int spr, G, per, rounds, vec;
 };
 
@@ -342,15 +359,15 @@ __global__ void __launch_bounds__(kThreads, 1) gn1_gelu_kernel(Args a) {
             bb = __ldg(a.beta + c);
           }
         }
-        if (a.gelu) {
+        if (a.act) {
 #pragma unroll
-          for (int k = 0; k < V; ++k) v[k] = gelu_erf(v[k]);
+          for (int k = 0; k < V; ++k) v[k] = activate(v[k], a.act);
         }
         store16(ys + i * V, v);
       } else {
         const int c = div_hw(lo + i, a.hw, inv_hw);
         const float t = fmaf(to_f(buf[i]) - mean, __ldg(a.gamma + c) * inv, __ldg(a.beta + c));
-        put(ys + i, a.gelu ? gelu_erf(t) : t);
+        put(ys + i, activate(t, a.act));
       }
       // the store above used the unit's value, so its read of shared memory
       // is complete before the copy below overwrites it
@@ -445,6 +462,30 @@ __device__ __forceinline__ float gelu_erf_grad(float v) {
   return fmaf(v * 0.39894228040143268f, e, cdf);
 }
 
+__device__ __forceinline__ float ex2_approx(float v) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
+  return y;
+}
+__device__ __forceinline__ float rcp_approx(float v) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
+  return y;
+}
+
+// d/dz of the tanh GELU z * s, s = sigmoid(2u): s + 2 z s (1 - s) u'(z),
+// u'(z) = sqrt(2/pi) (1 + 3 * 0.044715 z^2); 1 - s is e * s (no
+// cancellation), e = exp(-2u) = 2^(z (A0 + A1 z^2)) with the constants
+// folded (the exponent clamped at 80 / ln 2, as gelu_tanh's), two of its
+// instructions the hardware's ex2 and rcp
+__device__ __forceinline__ float gelu_tanh_grad(float v) {
+  const float v2 = v * v;
+  const float e = ex2_approx(fminf(v * fmaf(-0.1029432395800235f, v2, -2.302208198144325f),
+                                   115.41560327111708f));
+  const float s = rcp_approx(1.0f + e);
+  return fmaf(v * s * (e * s), fmaf(0.21406444881780076f, v2, 1.5957691216057308f), s);
+}
+
 // Sum two values over a kBwdThreads block, in a fixed order; valid in
 // thread 0. Every thread of the block must call it.
 __device__ __forceinline__ float2 bwd_block_sum2(float2 v) {
@@ -476,7 +517,7 @@ struct BwdArgs {
   void* dx;
   float* dgamma;
   float* dbeta;
-  int b, c, hw, gelu;
+  int b, c, hw, act;  // act as Args::act
   float inv_n;
 };
 
@@ -502,7 +543,8 @@ __device__ __forceinline__ Plane plane_of(const BwdArgs& a) {
 __device__ __forceinline__ void grad_in(const BwdArgs& a, const Plane& p, float xv, float dyv,
                                         float& g, float& xh) {
   xh = (xv - p.mean) * p.inv;
-  g = a.gelu ? dyv * gelu_erf_grad(fmaf(xh, p.g, p.bb)) : dyv;
+  const float z = fmaf(xh, p.g, p.bb);
+  g = a.act == 1 ? dyv * gelu_erf_grad(z) : a.act == 2 ? dyv * gelu_tanh_grad(z) : dyv;
 }
 
 // VEC: hw % 4 == 0 and x, dy, dx aligned to 4 elements
@@ -612,7 +654,7 @@ struct StreamArgs {
   void* y;
   float* stats;       // [b, 2] (mean, inv)
   float2* partials;   // [b, chunks] (sum x, sum x^2)
-  int n, hw, chunk, chunks, gelu;
+  int n, hw, chunk, chunks, act;
   float eps;
 };
 
@@ -700,7 +742,7 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_stream_apply(StreamArgs a) {
         bb = __ldg(a.beta + c);
       }
       const float t = fmaf(v[k] - mean, g, bb);
-      v[k] = a.gelu ? gelu_erf(t) : t;
+      v[k] = activate(t, a.act);
       ++r;
     }
     if constexpr (VEC)
@@ -730,10 +772,11 @@ extern "C" int gn1_gelu_plan(int b, long long n, int is_bf16, int* out) {
   return is_bf16 ? plan<__nv_bfloat16>(b, n, out) : plan<float>(b, n, out);
 }
 
+// act: 0 none, 1 GELU (erf), 2 GELU (tanh)
 extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta, void* y,
                             float* stats, float* partials, int b, int c, long long hw,
-                            float eps, int apply_gelu, int is_bf16, int grid, int spr,
-                            int G, int per, int rounds, int vec, void* stream) {
+                            float eps, int act, int is_bf16, int grid, int spr, int G, int per,
+                            int rounds, int vec, void* stream) {
   Args a;
   a.x = x;
   a.gamma = gamma;
@@ -745,7 +788,7 @@ extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta
   a.n = static_cast<int>(c * hw);  // the wrapper keeps n below 2^31 - 2^20
   a.hw = static_cast<int>(hw);
   a.eps = eps;
-  a.gelu = apply_gelu;
+  a.act = act;
   a.spr = spr;
   a.G = G;
   a.per = per;
@@ -756,11 +799,11 @@ extern "C" int gn1_gelu_fwd(const void* x, const float* gamma, const float* beta
 }
 
 // The backward, three kernels (see the note at the top): x, dy and dx f32 or
-// (is_bf16) bf16; vec: hw % 4 == 0 and x, dy, dx aligned to 4 elements.
-// Returns the first CUDA error.
+// (is_bf16) bf16; act as gn1_gelu_fwd's; vec: hw % 4 == 0 and x, dy, dx
+// aligned to 4 elements. Returns the first CUDA error.
 extern "C" int gn1_gelu_bwd(const void* x, const void* dy, const float* gamma, const float* beta,
                             const float* stats, float* ws, float* coef, void* dx, float* dgamma,
-                            float* dbeta, int b, int c, long long hw, int apply_gelu, int is_bf16,
+                            float* dbeta, int b, int c, long long hw, int act, int is_bf16,
                             int vec, void* stream) {
   BwdArgs a;
   a.x = x;
@@ -776,7 +819,7 @@ extern "C" int gn1_gelu_bwd(const void* x, const void* dy, const float* gamma, c
   a.b = b;
   a.c = c;
   a.hw = static_cast<int>(hw);  // the wrapper keeps c * hw below 2^31 - 2^20
-  a.gelu = apply_gelu;
+  a.act = act;
   a.inv_n = 1.0f / static_cast<float>(static_cast<double>(c) * hw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
@@ -787,11 +830,12 @@ extern "C" int gn1_gelu_bwd(const void* x, const void* dy, const float* gamma, c
 // The streaming forward (see the note at the top) for samples that do not
 // fit the persistent grid: chunk elements per CTA (a multiple of 8), chunks
 // = ceil(c * hw / chunk); partials f32 [b, chunks, 2] scratch; vec: the
-// sample length a multiple of a 16-byte vector and x, y 16-byte aligned.
+// sample length a multiple of a 16-byte vector and x, y 16-byte aligned;
+// act as gn1_gelu_fwd's.
 extern "C" int gn1_gelu_fwd_stream(const void* x, const float* gamma, const float* beta,
                                    void* y, float* stats, float* partials, int b, int c,
-                                   long long hw, float eps, int apply_gelu, int is_bf16,
-                                   int chunk, int chunks, int vec, void* stream) {
+                                   long long hw, float eps, int act, int is_bf16, int chunk,
+                                   int chunks, int vec, void* stream) {
   StreamArgs a;
   a.x = x;
   a.gamma = gamma;
@@ -803,7 +847,7 @@ extern "C" int gn1_gelu_fwd_stream(const void* x, const float* gamma, const floa
   a.hw = static_cast<int>(hw);
   a.chunk = chunk;
   a.chunks = chunks;
-  a.gelu = apply_gelu;
+  a.act = act;
   a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)

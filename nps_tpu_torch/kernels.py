@@ -33,15 +33,15 @@ P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     # b, n, bf16, out[6]
     "gn1_gelu_plan": [I, I64, I, P],
-    # x, gamma, beta, y, stats, partials, b, c, hw, eps, gelu, bf16, then
-    # the plan (grid, samples per round, CTAs per sample, slice, rounds,
-    # vec), stream
+    # x, gamma, beta, y, stats, partials, b, c, hw, eps, act (0 none, 1
+    # GELU erf, 2 GELU tanh), bf16, then the plan (grid, samples per round,
+    # CTAs per sample, slice, rounds, vec), stream
     "gn1_gelu_fwd": [P] * 6 + [I, I, I64, F32, I, I] + [I] * 6 + [P],
-    # x, gamma, beta, y, stats, partials, b, c, hw, eps, gelu, bf16, chunk,
+    # x, gamma, beta, y, stats, partials, b, c, hw, eps, act, bf16, chunk,
     # chunks, vec, stream
     "gn1_gelu_fwd_stream": [P] * 6 + [I, I, I64, F32, I, I, I, I, I] + [P],
     # x, dy, gamma, beta, stats, ws, coef, dx, dgamma, dbeta, b, c, hw,
-    # gelu, bf16, vec, stream
+    # act, bf16, vec, stream
     "gn1_gelu_bwd": [P] * 10 + [I, I, I64, I, I, I] + [P],
     # x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
     # xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2, m1, m2, stream

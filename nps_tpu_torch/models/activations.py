@@ -110,6 +110,12 @@ def resolve_activation(act):
     raise ValueError(f"Cannot resolve activation from {act!r}")
 
 
-def is_exact_gelu(act):
-    """Whether ``act`` is the exact-erf GELU that the fused GN kernel applies."""
-    return isinstance(resolve_activation(act), GELU)
+def fused_gelu(act):
+    """The GELU form the fused GroupNorm kernel applies in place of ``act``:
+    "none" (the exact erf form) for ``GELU``, "tanh" for ``GELUTanh``, as
+    ``F.gelu``'s ``approximate`` spells them; None for any other
+    activation."""
+    act = resolve_activation(act)
+    if isinstance(act, GELUTanh):
+        return "tanh"
+    return "none" if isinstance(act, GELU) else None

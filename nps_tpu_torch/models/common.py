@@ -295,8 +295,9 @@ class GroupNorm(nn.Module):
         return group_norm_plain(x, self.num_groups, self.weight,
                                 self.bias).to(x.dtype)
 
-    def with_gelu(self, x, gelu=True):
-        """GroupNorm(1) [+ exact GELU], fused."""
+    def with_gelu(self, x, gelu=True, approximate="none"):
+        """GroupNorm(1) [+ GELU, exact ("none") or "tanh"], fused."""
         if self.num_groups != 1:
             raise ValueError("the fused op takes one group")
-        return gn_gelu(x, self.weight, self.bias, gelu)
+        return gn_gelu(x, self.weight, self.bias, gelu,
+                       approximate=approximate)

@@ -8,8 +8,9 @@ block input, and a final GroupNorm(8)+act+conv+crop. NCHW throughout.
 
 In every ResidualBlock with one norm group, GroupNorm and the activation
 after it run as one fused op (the GN+GELU kernel for CUDA tensors) when the
-activation is the exact GELU; with another one (the tanh-approximate GELU
-of ``cfg_ns512_ufno``) the kernel normalises and the activation follows.
+activation is a GELU, the exact one or the tanh-approximate one of
+``cfg_ns512_ufno``; with another one the kernel normalises and the
+activation follows.
 ``AttentionBlock`` is not ported yet: ``is_attn``/``mid_attn`` must be off.
 """
 
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from nps_tpu_torch.common.interfaces import D, M
-from nps_tpu_torch.models.activations import is_exact_gelu, resolve_activation
+from nps_tpu_torch.models.activations import fused_gelu, resolve_activation
 from nps_tpu_torch.models.common import (ConvND, ConvTransposeND, GroupNorm,
                                          crop_nd)
 
@@ -41,7 +42,8 @@ class ResidualBlock(nn.Module):
         pk = _padding_kwargs(padding_mode)
         self.nd = nd
         self.act = resolve_activation(activation)
-        self.fuse_gelu = is_exact_gelu(activation)
+        # the GELU form GroupNorm(1) fuses ("none", "tanh"), or None
+        self.fused_gelu = fused_gelu(activation)
         self.conv1 = ConvND(in_channels, out_channels, 3, nd, **pk)
         self.conv2 = ConvND(out_channels, out_channels, 3, nd, **pk)
         if norm:
@@ -59,8 +61,9 @@ class ResidualBlock(nn.Module):
         if norm is None:
             return self.act(x)
         if norm.num_groups == 1:
-            y = norm.with_gelu(x, gelu=self.fuse_gelu)
-            return y if self.fuse_gelu else self.act(y)
+            if self.fused_gelu is None:
+                return self.act(norm.with_gelu(x, gelu=False))
+            return norm.with_gelu(x, approximate=self.fused_gelu)
         return self.act(norm(x))
 
     def forward(self, x):

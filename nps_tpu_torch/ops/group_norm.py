@@ -2,10 +2,13 @@
 
 The fused op is the port of the TPU kernel K2
 (``tools/pallas_group_norm_evidence.py``: ``_fwd_kernel`` / ``_run_fwd``),
-extended by the exact-erf GELU that follows every such norm in a U-Net
-``ResidualBlock``. Semantics, as in ``nps_tpu.models.common.GroupNormFast``:
-f32 statistics ``E[x]`` and ``E[x^2]``, ``var = max(E[x^2] - E[x]^2, 0)``,
-``inv = rsqrt(var + eps)``, eps 1e-5, then per-channel affine.
+extended by the GELU that follows every such norm in a U-Net
+``ResidualBlock``: the exact-erf form (``approximate="none"``, ``GELU``) or
+the tanh form (``approximate="tanh"``, ``GELUTanh``, as ``F.gelu`` spells
+it; ``cfg_ns512_ufno``'s). Semantics, as in
+``nps_tpu.models.common.GroupNormFast``: f32 statistics ``E[x]`` and
+``E[x^2]``, ``var = max(E[x^2] - E[x]^2, 0)``, ``inv = rsqrt(var + eps)``,
+eps 1e-5, then per-channel affine, then the GELU if ``gelu``.
 
 Layout: NCHW (any number of spatial dims), contiguous; f32, or bf16 with f32
 statistics and f32 arithmetic, rounded once on output. A CPU tensor takes
@@ -53,11 +56,24 @@ def group_norm_plain(x, num_groups, weight, bias, eps=EPS):
     return y * weight.float().reshape(aff) + bias.float().reshape(aff)
 
 
-def gn_gelu_plain(x, weight, bias, gelu=True, eps=EPS):
-    """Plain version of the fused kernel: GroupNorm(1) then exact GELU."""
+APPROXIMATE = ("none", "tanh")
+
+
+def _act(gelu, approximate):
+    """The kernels' activation code: 0 none, 1 GELU (erf), 2 GELU (tanh)."""
+    if approximate not in APPROXIMATE:
+        raise ValueError(f"approximate must be one of {APPROXIMATE}, got "
+                         f"{approximate!r}")
+    return 0 if not gelu else 1 + APPROXIMATE.index(approximate)
+
+
+def gn_gelu_plain(x, weight, bias, gelu=True, eps=EPS, approximate="none"):
+    """Plain version of the fused kernel: GroupNorm(1) then GELU (exact, or
+    tanh-approximate), computed in f32 and rounded once to x's type."""
+    _act(gelu, approximate)
     y = group_norm_plain(x, 1, weight, bias, eps)
     if gelu:
-        y = F.gelu(y, approximate="none")
+        y = F.gelu(y, approximate=approximate)
     return y.to(x.dtype)
 
 
@@ -80,9 +96,9 @@ def _plan(b, n, is_bf16):
     return _PLANS[key]
 
 
-def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS):
+def gn1_gelu_fwd(x, weight, bias, gelu=True, eps=EPS, approximate="none"):
     """Launch the fused GroupNorm(1)+GELU kernel on a CUDA tensor."""
-    return gn1_gelu_fwd_stats(x, weight, bias, gelu, eps)[0]
+    return gn1_gelu_fwd_stats(x, weight, bias, gelu, eps, approximate)[0]
 
 
 def _check_affine(x, weight, bias):
@@ -102,9 +118,11 @@ def _check_sample_size(x):
     return n
 
 
-def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS):
+def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS,
+                       approximate="none"):
     """:func:`gn1_gelu_fwd` that also returns the per-sample statistics the
     kernel writes, ``stats`` [b, 2] f32 (mean, inv), for the backward."""
+    act = _act(gelu, approximate)
     if x.device.type != "cuda":
         raise ValueError(f"gn1_gelu_fwd takes CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -122,7 +140,7 @@ def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS):
     y = torch.empty_like(x)
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     if plan is None:
-        _launch_stream(x, weight, bias, y, stats, gelu, eps)
+        _launch_stream(x, weight, bias, y, stats, act, eps)
         return y, stats
     grid, spr, ctas, per, rounds, vec = plan
     # 16-byte copies need 16-byte aligned samples in and out
@@ -130,15 +148,15 @@ def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS):
     partials = torch.empty((b, ctas, 2), dtype=torch.float32, device=x.device)
     rc = kernels.library().gn1_gelu_fwd(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), partials.data_ptr(), b, c, hw, float(eps),
-        int(bool(gelu)), int(bf16), grid, spr, ctas, per, rounds, vec,
+        stats.data_ptr(), partials.data_ptr(), b, c, hw, float(eps), act,
+        int(bf16), grid, spr, ctas, per, rounds, vec,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_fwd")
     kernels.launches["gn1_gelu_fwd"] += 1
     return y, stats
 
 
-def _launch_stream(x, weight, bias, y, stats, gelu, eps):
+def _launch_stream(x, weight, bias, y, stats, act, eps):
     """The streaming variant into ``y`` and ``stats``: f32 partial sums over
     fixed chunks of each sample, their sum per sample in a fixed order,
     then the normalisation (x read twice)."""
@@ -152,14 +170,14 @@ def _launch_stream(x, weight, bias, y, stats, gelu, eps):
                            device=x.device)
     rc = kernels.library().gn1_gelu_fwd_stream(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), partials.data_ptr(), b, c, hw, float(eps),
-        int(bool(gelu)), int(x.dtype == torch.bfloat16), STREAM_CHUNK,
+        stats.data_ptr(), partials.data_ptr(), b, c, hw, float(eps), act,
+        int(x.dtype == torch.bfloat16), STREAM_CHUNK,
         chunks, vec, kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_fwd_stream")
     kernels.launches["gn1_gelu_fwd_stream"] += 1
 
 
-def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
+def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True, approximate="none"):
     """Launch the backward kernel: (dx, dweight, dbias) of the fused op at
     ``x`` for the output gradient ``dy``, from the forward's ``stats``.
     CUDA, contiguous; ``x`` and ``dy`` both f32 or both bf16, dx in their
@@ -175,6 +193,7 @@ def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
                          f"{tuple(x.shape)} and {tuple(dy.shape)}")
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("gn1_gelu_bwd takes contiguous NCHW tensors")
+    act = _act(gelu, approximate)
     b, c = x.shape[:2]
     _check_affine(x, weight, bias)
     if (stats.device != x.device or stats.dtype != torch.float32
@@ -193,7 +212,7 @@ def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
     rc = kernels.library().gn1_gelu_bwd(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), b, c, hw, int(bool(gelu)),
+        dw.data_ptr(), db.data_ptr(), b, c, hw, act,
         int(x.dtype == torch.bfloat16), vec, kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_bwd")
     kernels.launches["gn1_gelu_bwd"] += 1
@@ -201,32 +220,35 @@ def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True):
 
 
 class GNGeluFn(torch.autograd.Function):
-    """GroupNorm(1) [+ exact GELU] on CUDA tensors: the forward kernel, and
-    the backward kernel for its gradient."""
+    """GroupNorm(1) [+ GELU, exact or tanh] on CUDA tensors: the forward
+    kernel, and the backward kernel for its gradient."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, gelu, eps):
-        y, stats = gn1_gelu_fwd_stats(x, weight, bias, gelu, eps)
+    def forward(ctx, x, weight, bias, gelu, eps, approximate="none"):
+        y, stats = gn1_gelu_fwd_stats(x, weight, bias, gelu, eps,
+                                      approximate)
         ctx.save_for_backward(x, weight, bias, stats)
         ctx.gelu = gelu
+        ctx.approximate = approximate
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, weight, bias, stats = ctx.saved_tensors
         dx, dw, db = gn1_gelu_bwd(x, weight, bias, stats, dy.contiguous(),
-                                  ctx.gelu)
-        return dx, dw, db, None, None
+                                  ctx.gelu, ctx.approximate)
+        return dx, dw, db, None, None, None
 
 
-def gn_gelu(x, weight, bias, gelu=True, eps=EPS):
-    """GroupNorm(1 group) [+ exact GELU]. Where a gradient is wanted: plain
-    autograd on the CPU, :class:`GNGeluFn` on CUDA; otherwise the custom op
-    ``nps_torch::gn1_gelu_fwd`` on either device."""
+def gn_gelu(x, weight, bias, gelu=True, eps=EPS, approximate="none"):
+    """GroupNorm(1 group) [+ GELU, ``approximate`` "none" (erf) or "tanh"].
+    Where a gradient is wanted: plain autograd on the CPU, :class:`GNGeluFn`
+    on CUDA; otherwise the custom op ``nps_torch::gn1_gelu_fwd`` on either
+    device."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, weight, bias)):
         if x.device.type == "cpu":
-            return gn_gelu_plain(x, weight, bias, gelu, eps)
-        return GNGeluFn.apply(x, weight, bias, bool(gelu), eps)
+            return gn_gelu_plain(x, weight, bias, gelu, eps, approximate)
+        return GNGeluFn.apply(x, weight, bias, bool(gelu), eps, approximate)
     return torch.ops.nps_torch.gn1_gelu_fwd(x, weight, bias, bool(gelu),
-                                            float(eps))
+                                            float(eps), approximate)

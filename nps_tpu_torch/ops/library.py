@@ -33,18 +33,20 @@ from nps_tpu_torch.ops import spectral as sp
 @torch.library.custom_op("nps_torch::gn1_gelu_fwd", mutates_args=(),
                          device_types="cuda")
 def gn1_gelu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                 gelu: bool, eps: float) -> torch.Tensor:
-    """GroupNorm(1 group) [+ exact GELU] of x [b, C, *sp]: the kernel."""
-    return gn.gn1_gelu_fwd(x, weight, bias, gelu, eps)
+                 gelu: bool, eps: float,
+                 approximate: str = "none") -> torch.Tensor:
+    """GroupNorm(1 group) [+ GELU, exact ("none") or "tanh"] of x
+    [b, C, *sp]: the kernel."""
+    return gn.gn1_gelu_fwd(x, weight, bias, gelu, eps, approximate)
 
 
 @gn1_gelu_fwd.register_kernel("cpu")
-def _gn1_gelu_fwd_cpu(x, weight, bias, gelu, eps):
-    return gn.gn_gelu_plain(x, weight, bias, gelu, eps)
+def _gn1_gelu_fwd_cpu(x, weight, bias, gelu, eps, approximate="none"):
+    return gn.gn_gelu_plain(x, weight, bias, gelu, eps, approximate)
 
 
 @gn1_gelu_fwd.register_fake
-def _gn1_gelu_fwd_fake(x, weight, bias, gelu, eps):
+def _gn1_gelu_fwd_fake(x, weight, bias, gelu, eps, approximate="none"):
     return torch.empty_like(x)
 
 

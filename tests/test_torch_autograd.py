@@ -230,24 +230,30 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
 
 
 # ---- K2 ---------------------------------------------------------------------
-def _fake_gn_fwd_stats(x, weight, bias, gelu=True, eps=gn.EPS):
+def _fake_gn_fwd_stats(x, weight, bias, gelu=True, eps=gn.EPS,
+                       approximate="none"):
     xf = x.reshape(x.shape[0], -1)
     mean = xf.mean(1)
     inv = torch.rsqrt(torch.clamp((xf * xf).mean(1) - mean * mean, min=0.0)
                       + eps)
-    return (gn.gn_gelu_plain(x, weight, bias, gelu, eps),
+    return (gn.gn_gelu_plain(x, weight, bias, gelu, eps, approximate),
             torch.stack([mean, inv], 1))
 
 
-def _fake_gn_bwd(x, weight, bias, stats, dy, gelu=True):
-    """``gn1_gelu_bwd``'s three passes in plain PyTorch: per-plane sums of g
-    and g * xh, then per-sample and per-channel sums of those, then dx."""
+def _fake_gn_bwd(x, weight, bias, stats, dy, gelu=True, approximate="none"):
+    """``gn1_gelu_bwd``'s sums in plain PyTorch: per-plane sums of g and
+    g * xh, then per-sample and per-channel sums of those, then dx."""
     b, c = x.shape[:2]
     xf, dyf = x.reshape(b, c, -1), dy.reshape(b, c, -1)
     mean, inv = stats[:, 0, None, None], stats[:, 1, None, None]
     xh = (xf - mean) * inv
     pre = xh * weight[None, :, None] + bias[None, :, None]
-    if gelu:
+    if gelu and approximate == "tanh":
+        k = np.sqrt(2 / np.pi)
+        t = torch.tanh(k * (pre + 0.044715 * pre ** 3))
+        g = dyf * (0.5 * (1 + t) + 0.5 * pre * (1 - t * t) * k
+                   * (1 + 3 * 0.044715 * pre * pre))
+    elif gelu:
         cdf = 0.5 * (1 + torch.erf(pre / np.sqrt(2)))
         pdf = torch.exp(-0.5 * pre * pre) / np.sqrt(2 * np.pi)
         g = dyf * (cdf + pre * pdf)
@@ -277,6 +283,36 @@ def test_gn_gelu_fn_gradient_matches_plain_autograd(monkeypatch, shape, gelu):
     grads = torch.autograd.grad(out, [x, w, bb], dy)
     ref_out = gn.gn_gelu_plain(x, w, bb, gelu)
     refs = torch.autograd.grad(ref_out, [x, w, bb], dy)
+    assert _rel(out, ref_out) < REL
+    for got, ref, name in zip(grads, refs, ("dx", "dgamma", "dbeta")):
+        assert _rel(got, ref) < 1e-4, name
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (2, 8, 6, 4), (2, 4, 3, 5, 6)])
+def test_gn_gelu_fn_tanh_gradient_matches_plain_autograd(monkeypatch, shape):
+    """GNGeluFn keeps ``approximate`` for its backward: the tanh GELU's
+    gradient through the kernels' sums (in plain PyTorch) against autograd
+    through the plain version."""
+    seen = []
+
+    def bwd(*args):
+        seen.append(args[5:])
+        return _fake_gn_bwd(*args)
+
+    monkeypatch.setattr(gn, "gn1_gelu_fwd_stats", _fake_gn_fwd_stats)
+    monkeypatch.setattr(gn, "gn1_gelu_bwd", bwd)
+    g = torch.Generator().manual_seed(4)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g) * 1.5 + 0.3).requires_grad_()
+    w = (1.0 + 0.2 * torch.randn(c, generator=g)).requires_grad_()
+    bb = (0.1 * torch.randn(c, generator=g)).requires_grad_()
+    dy = torch.randn(shape, generator=g)
+
+    out = gn.GNGeluFn.apply(x, w, bb, True, gn.EPS, "tanh")
+    grads = torch.autograd.grad(out, [x, w, bb], dy)
+    ref_out = gn.gn_gelu_plain(x, w, bb, True, approximate="tanh")
+    refs = torch.autograd.grad(ref_out, [x, w, bb], dy)
+    assert seen == [(True, "tanh")]
     assert _rel(out, ref_out) < REL
     for got, ref, name in zip(grads, refs, ("dx", "dgamma", "dbeta")):
         assert _rel(got, ref) < 1e-4, name

@@ -1126,3 +1126,124 @@ def test_remat_train_step_matches_no_remat(dtype):
         assert n_r[name] == 2 * n_n[name] > 0, (name, n_r, n_n)
     for name in ("spectral_dft2d_bwd_large", "spectral_dw2d", "gn1_gelu_bwd"):
         assert n_r[name] == n_n[name] > 0, (name, n_r, n_n)
+
+
+# ---- gn1_gelu_bwd with each activation, and the tanh GELU -----------------
+# (shape, the backward's path): planes of a multiple of 4 elements take
+# 4-element loads ("vec"), others single elements ("scalar"); the ns512
+# shapes at batch 1 and 2, batch 5, the twophase train shape.
+GN_BWD_CLASSES = [
+    ((5, 7, 13, 11), "scalar"),
+    ((16, 64, 9, 5), "scalar"),
+    ((16, 388, 100, 68), "vec"),
+    ((1, 128, 125, 125), "scalar"),
+    ((2, 132, 263, 263), "scalar"),
+    ((2, 260, 526, 526), "vec"),
+]
+GN_ACTS = [(False, "none"), (True, "none"), (True, "tanh")]
+
+
+def _gn_case(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    w = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=g)
+    b = 0.1 * torch.randn(c, device="cuda", generator=g)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize("shape,cls", GN_BWD_CLASSES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gelu,approximate", GN_ACTS)
+def test_gn1_gelu_bwd_matches_plain_autograd(shape, cls, dtype, gelu,
+                                             approximate):
+    """The backward kernels against autograd through the plain version: dx
+    at 1e-4 in f32 and 1e-2 in bf16, dgamma and dbeta (f32) at 1e-4; the
+    same bits on a second call."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    x, w, b, dy = _gn_case(shape, dtype, 13)
+    assert (shape[2] * shape[3] % 4 == 0) == (cls == "vec")
+    kernels.reset_launches()
+    got = _grads(lambda *t: gn.GNGeluFn.apply(*t, gelu, gn.EPS, approximate),
+                 (x, w, b), dy)
+    assert dict(kernels.launches) == {
+        ("gn1_gelu_fwd" if gn._plan(shape[0], x[0].numel(),
+                                    dtype == torch.bfloat16)
+         else "gn1_gelu_fwd_stream"): 1, "gn1_gelu_bwd": 1}
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, gelu, gn.EPS, approximate),
+                 (x, w, b), dy)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, r, name in zip(got, ref, ("y", "dx", "dgamma", "dbeta")):
+        assert a.dtype == r.dtype, name
+        bar = tol if name in ("y", "dx") else 1e-4
+        if name == "y" and dtype == torch.float32:
+            bar = 1e-5
+        assert _rel(a, r) < bar, (name, _rel(a, r))
+    _, stats = gn.gn1_gelu_fwd_stats(x, w, b, gelu, gn.EPS, approximate)
+    first = gn.gn1_gelu_bwd(x, w, b, stats, dy, gelu, approximate)
+    second = gn.gn1_gelu_bwd(x, w, b, stats, dy, gelu, approximate)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approximate", ["none", "tanh"])
+def test_gn1_gelu_bwd_misaligned_view(dtype, approximate):
+    """x and dy as views one element into their storage: planes of a
+    multiple of 4 elements that take the scalar path, as they are not
+    aligned, against autograd through the plain version."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    shape = (3, 20, 16, 9)
+    n = int(np.prod(shape))
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x0 = (torch.randn(n + 1, device="cuda", generator=g) * 1.5
+          + 0.3).to(dtype)
+    dy0 = torch.randn(n + 1, device="cuda", generator=g).to(dtype)
+    w = 1.0 + 0.2 * torch.randn(shape[1], device="cuda", generator=g)
+    b = 0.1 * torch.randn(shape[1], device="cuda", generator=g)
+    x, dy = x0[1:].view(shape), dy0[1:].view(shape)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    _, stats = gn.gn1_gelu_fwd_stats(x, w, b, True, gn.EPS, approximate)
+    got = gn.gn1_gelu_bwd(x, w, b, stats, dy, True, approximate)
+    again = gn.gn1_gelu_bwd(x, w, b, stats, dy, True, approximate)
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, True, gn.EPS, approximate),
+                 (x, w, b), dy)[1:]
+    torch.cuda.synchronize()
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel(got[0], ref[0]) < tol
+    assert _rel(got[1], ref[1]) < 1e-4 and _rel(got[2], ref[2]) < 1e-4
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (4, 388, 100, 68),
+                                   (2, 24, 17, 13), (1, 260, 526, 526),
+                                   (2, 132, 263, 263)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gn1_gelu_forward_tanh_matches_plain(shape, dtype, tol):
+    """Both forward variants (the persistent one; the streaming one for the
+    526^2 shape, and for the 263^2 one in f32) with the tanh GELU against
+    the plain version (F.gelu approximate="tanh" on the f32 normalisation),
+    the same bits twice."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops import group_norm as gn
+
+    x, w, b, _ = _gn_case(shape, dtype, 16)
+    variant = ("gn1_gelu_fwd" if gn._plan(shape[0], x[0].numel(),
+                                          dtype == torch.bfloat16)
+               else "gn1_gelu_fwd_stream")
+    assert (variant == "gn1_gelu_fwd_stream") == (
+        shape[-1] == 526 or (shape[-1] == 263 and dtype == torch.float32))
+    kernels.reset_launches()
+    y = gn.gn1_gelu_fwd(x, w, b, True, gn.EPS, "tanh")
+    again = gn.gn1_gelu_fwd(x, w, b, True, gn.EPS, "tanh")
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {variant: 2}
+    assert torch.equal(y, again)
+    assert _rel(y, gn.gn_gelu_plain(x, w, b, True, gn.EPS, "tanh")) < tol
+    op = torch.ops.nps_torch.gn1_gelu_fwd(x, w, b, True, gn.EPS, "tanh")
+    assert torch.equal(op, y)
