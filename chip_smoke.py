@@ -77,9 +77,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              each against its plain version, twice for the same bits,
              beside its bound, its plain version and one PyTorch call;
 8. ns512_train - the same config trained on that split through the
-             training CLI's get_config_static (bf16, f32 parameters and
-             Adam, per-block remat with the save_conv_outputs policy,
-             --trainer.data_parallel=false): one epoch (one step: the
+             training CLI's get_config_static as shipped (bf16, f32
+             parameters and Adam, per-block remat with the
+             save_conv_outputs policy, its own data_parallel=True, which
+             one process runs as the single-device step): one epoch (one step: the
              train split holds 2 simulations; stdout to train_ns512.log in
              --out), then steps at batch 8 timed at depths 0 and 4 (median
              of 3 after a warm-up) with peak memory, their launch counts
@@ -98,6 +99,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
              smallest ns512 GroupNorm inputs with the GELU off and tanh,
              each against its plain version, twice for the same bits,
              beside its bound, its plain version and one PyTorch call;
+             and the grad_accum run (trainer.grad_accum=2, the JAX
+             trainer's optax.MultiSteps): two depth-0 mini-steps at batch
+             8 and full width, each with a depth-0 step's launches, the
+             parameters unchanged after the first and moved after the
+             second; effective steps of batch 16 (two mini-steps) timed
+             (median of 3 after a warm-up) with their peak memory beside
+             the batch-8 depth-0 step's; the narrow model (1 x 16, f32) at
+             grad_accum=2 through one boundary card against CPU (losses
+             1e-4, the mean gradient 5e-3, the parameters' nRMSE 1e-4);
+8b. var1d  - cfg_var1d_fno, the variable-time 1D FNO, at full width (2
+             blocks x 64 features, 8 modes, time window 5, batch 8) on a
+             ragged split from the port's generator at its config's size
+             (64 simulations of 40-100 frames on 32 points): one epoch
+             through the training CLI on the card (stdout to
+             train_var1d.log in --out), train steps timed at depths 0, 1
+             and 2 (median of 5 after a warm-up), one masked max-pad
+             evaluation (loss 1e-4) and one train step (loss 1e-4,
+             gradients 5e-3) card against CPU, and the engine's 19-step
+             rollout of batch 8, eager and captured (against eager, 1e-6).
+             It runs neither K1 nor K2 (its spectral conv is
+             torch.einsum, as JAX's is XLA's): every launch count stays 0,
+             and the kernels line gains no entry for it;
 9. export  - the slice's U-FNO exported on the card (torch.export of one
              bundled step, symbolic batch, 19 steps; the kernels stay the
              custom ops nps_torch::gn1_gelu_fwd and
@@ -110,6 +133,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              each under torch.profiler: K1 and K2 counted by kernel name
              (a CUDA graph's replay makes no Python launch, so the
              wrappers' counters cannot see it) and the device-busy share;
+             the var1d rollout's too (no K1 or K2 may appear);
 11. stages - the large-plane spectral conv at the ns512 call, forward
              and input gradient, bf16 and f32: each of its kernels' device
              time (torch.profiler) and a call's span, failing unless the
@@ -226,6 +250,14 @@ NS_F32_TOL, NS_F32_BATCH = 5e-2, 2
 # over the whole output, where those deviations average out far below it)
 NS_TRAIN_DEPTHS, NS_TRAIN_TIMED = (0, 4), 3
 NS_TRAIN_F32_TOL = 5e-2
+# cfg_var1d_fno (the var1d phase): 2 blocks x 64 features, 8 modes, time
+# window 5, batch 8, at the size of its config's docstring: 64 generated
+# simulations of 40-100 frames on 32 points (generate_var_t's defaults);
+# steps timed at every depth its ramp reaches (unrolling 2); 19 bundled
+# serving steps, as the twophase rollouts
+V1_CFG = "nps_tpu_torch/configs/train/cfg_var1d_fno.py"
+V1_SIMS, V1_NX, V1_T_MIN, V1_T_MAX, V1_TW, V1_BATCH = 64, 32, 40, 100, 5, 8
+V1_DEPTHS, V1_TIMED, V1_STEPS = (0, 1, 2), 5, 19
 # bf16 dense products on the tensor cores (NVIDIA's data sheet)
 PEAK_BF16 = 989e12
 # graph replay for calls of about a millisecond and more
@@ -1035,6 +1067,7 @@ def timed_steps(trainer, batch, depth, want, n_timed, batch_size=TRAIN_BATCH):
 
     trainer.train_step(batch, 0, 0, unrolled=depth)  # warm-up
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     seconds, counts = [], []
     for i in range(n_timed):
@@ -1049,6 +1082,7 @@ def timed_steps(trainer, batch, depth, want, n_timed, batch_size=TRAIN_BATCH):
     return {"step_seconds": seconds, "ms_per_step": 1e3 * median,
             "samples_per_s": batch_size / median,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "resident_gib": resident,
             "loss": float(loss), "launches": counts[0],
             "launches_expected": want,
             "launches_ok": all(c == want for c in counts)}
@@ -1616,6 +1650,24 @@ def phase_profile(seed, card, artifact):
         replays[name] = fam["captured"]["kernels"]
         del eng
         torch.cuda.empty_cache()
+    # the var1d path, which runs neither kernel: its busy share
+    eng = SurrogateEngine.from_config(V1_CFG, pde=var1d_pde(), device="cuda")
+    eng.init_params(seed=seed)
+    vu0, vcond = var1d_serving_inputs(seed)
+    eng.rollout(vu0, V1_STEPS, cond=vcond)
+    eng.rollout(vu0, V1_STEPS, cond=vcond, captured=True)
+    rec["var1d"] = {}
+    for mode, fn in (
+            ("eager", lambda: eng.rollout(vu0, V1_STEPS, cond=vcond)),
+            ("captured", lambda: eng.rollout(vu0, V1_STEPS, cond=vcond,
+                                             captured=True))):
+        counts, busy, ms, tries = profiled_counts(fn, {})
+        rec["var1d"][mode] = {"kernels": counts, "busy_share": busy,
+                              "ms": ms, "attempts": tries}
+        if counts:
+            failures.append(f"var1d {mode}: profiled {counts}, want none")
+    del eng
+    torch.cuda.empty_cache()
     want = family_launches(*FAMILIES["ufno"][:2], N_STEPS, False)
     rec["export"] = {}
     art = load_exported(artifact)
@@ -2181,15 +2233,16 @@ def ns512_train_argv(tmp, seed, extra=()):
     return ["chip_smoke", f"--dataset.base_path={tmp}/ns512", f"--seed={seed}",
             f"--base_resolution=[{NS_NT},{NS_N},{NS_N}]",
             f"--super_resolution=[{NS_NT},{NS_N},{NS_N}]",
-            "--trainer.data_parallel=false", "--trainer.num_epochs=1",
+            "--trainer.num_epochs=1",
             "--trainer.test_interval=1", "--trainer.print_interval=1",
             f"--experiment_path={tmp}/out", "--experiment_name=train_ns512",
             *extra]
 
 
 def _grad_nrmse(got, ref):
-    """nRMSE of the gradients over all parameters, and the worst
-    parameter's (value, name)."""
+    """nRMSE of ``got`` against ``ref`` (two dicts of tensors by parameter
+    name: gradients or parameters) over all of them, and the worst
+    tensor's (value, name)."""
     num = sum(float(((got[k].float() - r) ** 2).sum()) for k, r in ref.items())
     den = sum(float((r ** 2).sum()) for r in ref.values())
     worst = max((float(((got[k].float() - r) ** 2).mean().sqrt()
@@ -2208,8 +2261,9 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
     plain versions' calls (none); one depth-0 step again with the U-FNO's
     remat off (its peak memory, or the out-of-memory it raises); one step of
     the same weights in f32 against bf16 at batch 2; the narrow model
-    (NS_NARROW, f32) depth-1 step card against CPU. Returns (record, the
-    epoch's launches, failures)."""
+    (NS_NARROW, f32) depth-1 step card against CPU; then ns512_accum on the
+    same batch. Returns (record, the epoch's launches, the grad_accum
+    mini-steps' launches, failures)."""
     import gc
 
     import numpy as np
@@ -2250,6 +2304,7 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
     batches = prefetch_to_device(iter([host]), trainer.device)
     batch = next(batches)
     batches.close()
+    held_before_steps = cuda_held()
     with autotuned_convs(), plain_calls() as plain_steps:
         steps = {d: timed_steps(trainer, batch, d,
                                 ns512_train_launches(gn_inputs, d),
@@ -2358,6 +2413,7 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
         failures.append(f"ns512 narrow train step launched no "
                         f"spectral_dft2d_bwd_large: {vs_cpu['launches']}")
     rec = {"config": NS_CFG, "batch": NS_BATCH,
+           "data_parallel": trainer.config.data_parallel,
            "compute_dtype": str(trainer.compute_dtype),
            "remat": [ufnos[0].remat, ufnos[0].remat_policy],
            "epoch": {"train_steps": n_steps, "seconds": train_s,
@@ -2366,16 +2422,202 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
                      "launches": launches, "launches_expected": want_run,
                      "plain_calls": plain},
            "steps": {str(d): v for d, v in steps.items()},
+           "held_before_steps": held_before_steps,
            "plain_calls_in_steps": plain_steps,
            "tanh_gelu_calls": dict(gelus),
            "tanh_gelu_calls_expected": want_gelus,
            "gn_bwd_step": gn_bwd_step,
            "no_remat_step": no_remat, "remat_peak_mem_gib": remat_peak,
            "bf16_vs_f32": vs_f32, "narrow_vs_cpu": vs_cpu}
-    del trainer, narrow, batch
+    # the main model's UFNO processor (with its gradients) goes too, also
+    # through ``m``, the remat loops' last module, so that the grad_accum
+    # run's memory holds only its own trainer
+    del trainer, narrow, ufnos, m
     gc.collect()
     torch.cuda.empty_cache()
-    return rec, launches, failures
+    rec["grad_accum"], accum_launches, bad = ns512_accum(
+        seed, tmp, batch, gn_inputs, steps[0])
+    failures += bad
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, accum_launches, failures
+
+
+def cuda_held(n=6):
+    """What the process holds on the card: the allocated GiB, and the ``n``
+    largest CUDA tensors Python still references (GiB, shape, dtype), found
+    by the garbage collector (a parameter and its gradient count apart)."""
+    import gc
+    import warnings
+
+    import torch
+
+    sizes = collections.Counter()
+    with warnings.catch_warnings():   # isinstance on deprecated proxies
+        warnings.simplefilter("ignore", FutureWarning)
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                    sizes[(tuple(obj.shape), str(obj.dtype))] += (
+                        obj.numel() * obj.element_size())
+            except ReferenceError:
+                continue
+    return {"allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+            "referenced_gib": sum(sizes.values()) / 2 ** 30,
+            "largest": [[b / 2 ** 30, list(s), d]
+                        for (s, d), b in sizes.most_common(n)]}
+
+
+def accum_trainer(argv, device):
+    """The cfg_ns512_ufno trainer of ``argv`` at grad_accum=2, its
+    optimizer built. The config has no grad_accum key (nor has the JAX
+    package's), so the CLI takes no --trainer.grad_accum flag for it: the
+    value goes on the trainer's config before the optimizer is built, as
+    the JAX package's tests pass it to their trainer."""
+    trainer = build_trainer(NS_CFG, argv, device)
+    trainer.config.grad_accum = 2
+    trainer.ensure_initialized()
+    return trainer
+
+
+def ns512_accum(seed, tmp, batch, gn_inputs, depth0):
+    """grad_accum=2 (``accum_trainer``) on the full-width cfg_ns512_ufno
+    (bf16, remat, its own ``data_parallel=True``), built by the training
+    CLI's get_config_static: two depth-0 mini-steps at batch 8, the launch counts
+    set to 0 just before each and read just after (each a depth-0 step's):
+    the parameters hold after the first and move at the second; then
+    NS_TRAIN_TIMED effective steps of batch 16 (two mini-steps each,
+    median after a warm-up, host clock around synchronised steps) with
+    their peak memory, beside the batch-8 depth-0 step ``depth0``; then the
+    narrow model (NS_NARROW, f32) at grad_accum=2 through one boundary on
+    the card and on the CPU, same weights and start steps: each mini-step's
+    loss (REL_TOL_STEP), the mean gradient the boundary stepped on
+    (REL_TOL_STEP_GRAD) and the parameters after it (nRMSE, REL_TOL_STEP).
+    Returns (record, the two mini-steps' launches, failures)."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import autotuned_convs
+    from nps_tpu_torch.train.optim import MultiSteps
+
+    failures = []
+    held_at_entry = cuda_held()
+    acc = accum_trainer(ns512_train_argv(tmp, seed), "cuda")
+    if not isinstance(acc.optimizer, MultiSteps):
+        failures.append(f"grad_accum=2 built {type(acc.optimizer)}")
+    params = list(acc.model.parameters())
+    p0 = [p.detach().clone() for p in params]
+    want = ns512_train_launches(gn_inputs, 0)
+    mini = []
+    with autotuned_convs(), plain_calls() as plain:
+        for i in range(2):
+            kernels.reset_launches()
+            acc.train_step(batch, 0, i, unrolled=0)
+            torch.cuda.synchronize()
+            mini.append({"launches": dict(kernels.launches),
+                         "params_moved": sum(not torch.equal(a, p)
+                                             for a, p in zip(p0, params)),
+                         "mini_step_after": acc.optimizer.mini_step})
+    del p0
+    total = collections.Counter()
+    for m in mini:
+        total.update(m["launches"])
+    if any(m["launches"] != want for m in mini):
+        failures.append(f"ns512 grad_accum mini-step launches "
+                        f"{[m['launches'] for m in mini]}, want {want}")
+    if mini[0]["params_moved"] or not mini[1]["params_moved"]:
+        failures.append(f"ns512 grad_accum: {mini[0]['params_moved']} "
+                        f"tensors moved after the first mini-step, "
+                        f"{mini[1]['params_moved']} after the second")
+    if any(plain.values()):
+        failures.append(f"plain versions called on the card: {plain}")
+
+    with autotuned_convs():
+        for i in range(2):           # warm-up: one effective step
+            acc.train_step(batch, 0, i, unrolled=0)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        held_resident = cuda_held()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, mini_seconds = [], []
+        for i in range(NS_TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for j in range(2):
+                t1 = time.perf_counter()
+                loss, _ = acc.train_step(batch, 0, 2 * i + j, unrolled=0)
+                torch.cuda.synchronize()
+                mini_seconds.append(time.perf_counter() - t1)
+            seconds.append(time.perf_counter() - t0)
+    median = sorted(seconds)[len(seconds) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"grad_accum": 2, "mini_batch": NS_BATCH,
+           "effective_batch": 2 * NS_BATCH, "depth": 0,
+           "mini_steps": mini, "launches_expected_per_mini_step": want,
+           "plain_calls": plain,
+           "effective_step_seconds": seconds,
+           "mini_step_seconds": mini_seconds,
+           "ms_per_effective_step": 1e3 * median,
+           "samples_per_s": 2 * NS_BATCH / median,
+           "peak_mem_gib": peak, "resident_gib": resident,
+           "held_at_entry": held_at_entry, "held_resident": held_resident,
+           "loss": float(loss),
+           "batch8_depth0_ms": depth0["ms_per_step"],
+           "batch8_depth0_peak_mem_gib": depth0["peak_mem_gib"],
+           "batch8_depth0_resident_gib": depth0["resident_gib"],
+           "peak_minus_batch8_gib": peak - depth0["peak_mem_gib"]}
+    if not math.isfinite(float(loss)):
+        failures.append("ns512 grad_accum loss is not finite")
+    del acc, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = ns512_train_argv(tmp, seed, [*NS_NARROW,
+                                        "--trainer.compute_dtype=float32"])
+    card = accum_trainer(argv, "cuda")
+    cpu = accum_trainer(argv, "cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    small = tuple(t[:2] for t in batch)
+    small_cpu = tuple(t.cpu() for t in small)
+    gen = torch.Generator().manual_seed(seed)
+    losses = []
+    with autotuned_convs():
+        for i in range(2):
+            steps0 = torch.randint(NS_TW, NS_NT - NS_TW + 1, (2,),
+                                   generator=gen)
+            lg, _ = card.train_step(small, 0, i, unrolled=0, steps0=steps0)
+            lc, _ = cpu.train_step(small_cpu, 0, i, unrolled=0,
+                                   steps0=steps0)
+            losses.append((float(lg), float(lc),
+                           abs(float(lg) - float(lc)) / abs(float(lc))))
+    grad_err, grad_worst = _grad_errors(
+        {k: p.grad for k, p in card.model.named_parameters()},
+        {k: p.grad for k, p in cpu.model.named_parameters()})
+    # after an Adam step a gradient element at f32 noise level may take the
+    # other sign on the two devices and move its parameter by 2 lr the other
+    # way: the nRMSE over the model holds it, the worst tensor is recorded
+    p_nrmse, p_worst = _grad_nrmse(
+        {k: v.cpu() for k, v in card.model.state_dict().items()},
+        cpu.model.state_dict())
+    rec["narrow_vs_cpu"] = {
+        "depth": 0, "batch": 2, "losses_gpu_cpu_rel_err": losses,
+        "mean_grad_rel_err": grad_err, "worst_grad": grad_worst,
+        "params_nrmse_after_boundary": p_nrmse,
+        "worst_param_nrmse": p_worst,
+        "mini_step_after": [card.optimizer.mini_step,
+                            cpu.optimizer.mini_step]}
+    if not (max(e for _, _, e in losses) < REL_TOL_STEP
+            and grad_err < REL_TOL_STEP_GRAD and p_nrmse < REL_TOL_STEP):
+        failures.append(f"ns512 narrow grad_accum card vs CPU: "
+                        f"{rec['narrow_vs_cpu']}")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, dict(total), failures
 
 
 def spectral_bwd_large_record(gen, dtype):
@@ -2582,8 +2824,8 @@ def phase_ns512_train(seed, card, gen, out_dir, tmp, gn_inputs):
     wrote, then its kernels at the ns512 shapes: the large-plane input
     gradient in bf16 and f32, spectral_dw2d at the ns512 modes, and
     gn1_gelu_bwd in bf16 at the largest and smallest GroupNorm inputs, each
-    gelu setting. Returns (the epoch's launches, the kernel records by
-    name)."""
+    gelu setting. Returns (the epoch's launches, the grad_accum mini-steps'
+    launches, the kernel records by name)."""
     import gc
 
     import torch
@@ -2591,7 +2833,8 @@ def phase_ns512_train(seed, card, gen, out_dir, tmp, gn_inputs):
     from nps_tpu_torch.ops import spectral as sp
 
     t0 = time.perf_counter()
-    rec, launches, failures = ns512_train(seed, tmp, out_dir, gn_inputs)
+    rec, launches, accum_launches, failures = ns512_train(seed, tmp, out_dir,
+                                                          gn_inputs)
     emit({"phase": "ns512_train", **rec, "card": card, "tf32": False})
     if failures:
         raise AssertionError("; ".join(failures))
@@ -2620,7 +2863,172 @@ def phase_ns512_train(seed, card, gen, out_dir, tmp, gn_inputs):
                            "library_ms", "bound_ms", "bound_share")}
         for r in records], step_calls=rec["gn_bwd_step"])
     recs["seconds"] = time.perf_counter() - t0
-    return launches, recs
+    return launches, accum_launches, recs
+
+
+def var1d_pde():
+    from nps_tpu_torch.pde import PDE1D
+
+    return PDE1D(tmin=0.0, tmax=10.0, nt=V1_T_MAX, L=1.0, nx=V1_NX, x=None,
+                 name="var1d", n_cond_static=2)
+
+
+def var1d_serving_inputs(seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.random((V1_BATCH, 2, V1_TW, V1_NX), dtype=np.float32),
+            rng.random((V1_BATCH, 2), dtype=np.float32))
+
+
+def phase_var1d(seed, card, out_dir, tmp):
+    """The variable-time 1D path, cfg_var1d_fno at full width (2 blocks x
+    64 features, 8 modes, time window 5, batch 8): ragged data from the
+    port's generator at its config's size (V1_SIMS simulations of 40-100
+    frames on 32 points); one training epoch through the training CLI on
+    the card (stdout to train_var1d.log in ``out_dir``); train steps on one
+    min-cropped batch timed at each admissible depth V1_DEPTHS (median of
+    V1_TIMED after a warm-up); one masked max-pad evaluation and one train
+    step (depth 1, batch 2) card against CPU; the engine's eager rollout
+    of V1_STEPS bundled steps (median of ROLLOUTS) and the captured one
+    (median of ROLLOUTS replays, against eager, CAPTURED_TOL). It runs
+    neither K1 nor K2 (JAX computes its 1D spectral conv with XLA einsums,
+    the port with torch.einsum): every launch count of the phase must stay
+    0. Returns the phase's launches (empty)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels, train_cli
+    from nps_tpu_torch.data.pipeline import prefetch_to_device
+    from nps_tpu_torch.data.synthetic import generate_var_t
+    from nps_tpu_torch.inference import SurrogateEngine, autotuned_convs
+
+    failures = []
+    t0 = time.perf_counter()
+    generate_var_t(f"{tmp}/var1d_data/var1d", n_sims=V1_SIMS, nx=V1_NX,
+                   t_min=V1_T_MIN, t_max=V1_T_MAX, seed=seed)
+    gen_s = time.perf_counter() - t0
+    argv = ["chip_smoke", "-C", V1_CFG, f"--dataset.base_path={tmp}/var1d_data",
+            f"--seed={seed}", "--trainer.num_epochs=1",
+            "--trainer.test_interval=1", "--trainer.print_interval=1",
+            f"--experiment_path={tmp}/out", "--experiment_name=train_var1d"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with open(out_dir / "train_var1d.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        trainer = train_cli.cli(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    with open(trainer.config.save_path + "_metrics.jsonl") as f:
+        metrics = [json.loads(line) for line in f]
+    if trainer.device.type != "cuda" or launches:
+        failures.append(f"var1d CLI epoch on {trainer.device}, launches "
+                        f"{launches}")
+    if not (len(metrics) == 1 and np.isfinite(metrics[0]["train_loss"])
+            and np.isfinite(metrics[0]["default - val loss"])):
+        failures.append(f"var1d CLI epoch metrics {metrics}")
+
+    train_loader, valid_loader, _ = trainer.get_dataloaders()
+    host = next(iter(train_loader))
+    batch = next(prefetch_to_device(iter([host]), trainer.device))
+    t_res = int(batch[1].shape[2])
+    with autotuned_convs():
+        steps = {d: timed_steps(trainer, batch, d, {}, V1_TIMED, V1_BATCH)
+                 for d in V1_DEPTHS if t_res >= V1_TW * (d + 2)}
+    if sorted(steps) != list(V1_DEPTHS):
+        failures.append(f"var1d batch of {t_res} frames admits depths "
+                        f"{sorted(steps)}, want {list(V1_DEPTHS)}")
+    if not all(v["launches_ok"] and np.isfinite(v["loss"])
+               for v in steps.values()):
+        failures.append(f"var1d timed steps: {steps}")
+
+    cpu = build_trainer(V1_CFG, argv[:1] + argv[3:], "cpu")
+    cpu.ensure_initialized()
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               trainer.model.state_dict().items()})
+    vhost = next(iter(valid_loader))
+    vbatch = next(prefetch_to_device(iter([vhost]), trainer.device))
+    padded_frames = int(vhost[1].shape[2]) * len(vhost[6]) - int(
+        np.sum(vhost[6]))
+    with autotuned_convs():
+        loss_gpu, _ = trainer.test_step(vbatch, 0)
+    loss_cpu, _ = cpu.test_step(tuple(torch.from_numpy(a) for a in vhost), 0)
+    eval_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    with autotuned_convs():
+        vs_cpu, loss_err, grad_err = step_vs_cpu(
+            V1_CFG, argv[:1] + argv[3:], trainer, batch, seed, tw=V1_TW,
+            nt=t_res)
+    if not (eval_err < REL_TOL_STEP and loss_err < REL_TOL_STEP
+            and grad_err < REL_TOL_STEP_GRAD):
+        failures.append(f"var1d card vs CPU: eval {eval_err}, {vs_cpu}")
+
+    eng = SurrogateEngine.from_config(V1_CFG, pde=var1d_pde(), device="cuda")
+    eng.model.load_state_dict(trainer.model.state_dict())
+    u0, cond = var1d_serving_inputs(seed)
+    eng.rollout(u0, V1_STEPS, cond=cond)     # warm-up
+    kernels.reset_launches()
+    seconds = []
+    for _ in range(ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.rollout(u0, V1_STEPS, cond=cond)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out_c = eng.rollout(u0, V1_STEPS, cond=cond, captured=True)
+    capture_s = time.perf_counter() - t0
+    c_seconds = []
+    for _ in range(ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_c = eng.rollout(u0, V1_STEPS, cond=cond, captured=True)
+        torch.cuda.synchronize()
+        c_seconds.append(time.perf_counter() - t0)
+    serve_launches = dict(kernels.launches)
+    captured_err = float(np.abs(out_c - out).max() / np.abs(out).max())
+    median = sorted(seconds)[len(seconds) // 2]
+    c_median = sorted(c_seconds)[len(c_seconds) // 2]
+    if tuple(out.shape) != (V1_BATCH, 2, V1_STEPS * V1_TW, V1_NX) or \
+            not np.isfinite(out).all():
+        failures.append(f"var1d rollout shape {out.shape} or not finite")
+    if not captured_err <= CAPTURED_TOL:
+        failures.append(f"var1d captured rollout vs eager: {captured_err}")
+    if serve_launches:
+        failures.append(f"var1d serving launched {serve_launches}")
+    rec = {"phase": "var1d", "config": V1_CFG,
+           "parameters": sum(p.numel() for p in trainer.model.parameters()),
+           "data": {"sims": V1_SIMS, "nx": V1_NX,
+                    "t": [V1_T_MIN, V1_T_MAX], "generate_seconds": gen_s},
+           "kernels": "none: no K1 or K2 on this path",
+           "epoch": {"cli_seconds": cli_s, "metrics": metrics,
+                     "train_batches": len(train_loader),
+                     "launches": launches},
+           "steps": {str(d): v for d, v in steps.items()},
+           "step_batch_frames": t_res,
+           "eval_vs_cpu": {"loss_gpu": loss_gpu, "loss_cpu": loss_cpu,
+                           "rel_err": eval_err,
+                           "padded_frames": padded_frames,
+                           "lengths": [int(v) for v in vhost[6]]},
+           "train_step_vs_cpu": vs_cpu,
+           "serve": {"batch": V1_BATCH, "bundled_steps": V1_STEPS,
+                     "rollout_seconds": seconds,
+                     "bundled_steps_per_s": V1_STEPS / median,
+                     "launches": serve_launches,
+                     "captured": {"bundled_steps_per_s": V1_STEPS / c_median,
+                                  "rollout_seconds": c_seconds,
+                                  "capture_seconds": capture_s,
+                                  "rel_err_vs_eager": captured_err}},
+           "card": card, "tf32": False}
+    emit(rec)
+    del trainer, cpu, eng, batch, vbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {**launches, **serve_launches}
 
 
 def main():
@@ -2653,9 +3061,10 @@ def main():
         families = phase_families(args.seed, card, out_dir, tmp)
         ns512, ns_kern, gn_inputs = phase_ns512(args.seed, card, gen, tmp)
         kern.update(ns_kern)
-        ns512_train, ns_train_kern = phase_ns512_train(
+        ns512_train, ns512_accum, ns_train_kern = phase_ns512_train(
             args.seed, card, gen, out_dir, tmp, gn_inputs)
         kern.update(ns_train_kern)
+        var1d = phase_var1d(args.seed, card, out_dir, tmp)
         kern["spectral_dw2d"]["ns512"] = kern.pop("spectral_dw2d_ns512")
         # after training: torch.export keeps the constants it traced (the
         # spectral packs) alive for the rest of the process
@@ -2733,6 +3142,8 @@ def main():
                          "train": train.get(key, 0),
                          "ns512": ns512.get(key, 0),
                          "ns512_train": ns512_train.get(key, 0),
+                         "ns512_train_grad_accum": ns512_accum.get(key, 0),
+                         "var1d": var1d.get(key, 0),
                          **{p: n.get(key, 0) for p, n in families.items()},
                          **{f"{f}_captured": n.get(key, 0)
                             for f, n in replays.items() if f != "ufno"},

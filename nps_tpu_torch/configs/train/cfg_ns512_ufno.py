@@ -5,9 +5,13 @@ key for key).
 
 Serve it on one card with ``SurrogateEngine.from_config`` (bf16 from
 ``trainer.compute_dtype``), and train it on one card with the training CLI
-and ``--trainer.data_parallel=false``: the trainer refuses
-``data_parallel=True``, naming ROADMAP P9. It trains in bf16 with f32
-parameters and Adam state, each block's FNO layer and U-Net rematerialized
+as it is: ``data_parallel=True`` in one process is the single-device step,
+as the JAX trainer's mesh over one device is (more processes are ROADMAP
+P9b). Gradient accumulation (``trainer.grad_accum=2``: the gradients of
+two batches of 8 averaged before each Adam step, the effective batch 16
+without the memory) has no key here, as in the JAX config, so the flag
+``--trainer.grad_accum`` is not accepted; a caller sets it on the trainer's
+config before the optimizer is built. It trains in bf16 with f32 parameters and Adam state, each block's FNO layer and U-Net rematerialized
 with the ``save_conv_outputs`` policy. Neither the trainer nor the engine
 reads ``trainer.device``. Generate a synthetic dataset at this shape with
 the port's generator:
@@ -65,8 +69,8 @@ trainer = dict(
     max_test_batches=float("inf"),
     print_setting=dict(print_per_step=False),
     process_settings={},
-    # the JAX package's multi-device layout; refused by the port's trainer
-    # (ROADMAP P9): a single card sets --trainer.data_parallel=false
+    # the JAX package's multi-device layout: in one process the single-device
+    # step (a world of more processes is ROADMAP P9b)
     data_parallel=True,
     spatial_parallel=0,  # set K>1 for the ("data", "x") grid mesh
     dynamic_unroll=True,  # one compiled step for every unroll depth

@@ -8,10 +8,13 @@
   recorded on the consumer's stream so the allocator does not reuse it
   early;
 - :class:`DeviceCacheLoader` keeps a whole split on the device and gathers
-  batches there.
+  batches there;
+- :class:`VariableTimeLoader` batches variable-length (``D.sim1d_var_t``)
+  simulations through a batch sampler, cropped to the batch's shortest or
+  padded to its longest, with their lengths; its batches take the same
+  pinned copy through :func:`prefetch_to_device`.
 
-One process only: the multi-process branches raise (ROADMAP P9). The
-variable-time loader waits for ROADMAP P11.
+One process only: the multi-process branches raise (ROADMAP P9b).
 """
 
 import queue
@@ -20,7 +23,7 @@ import threading
 import numpy as np
 import torch
 
-_P9 = ("multi-process data loading is not ported yet (ROADMAP P9, "
+_P9 = ("multi-process data loading is not ported yet (ROADMAP P9b, "
        "data parallel)")
 
 
@@ -188,3 +191,69 @@ class DeviceCacheLoader:
                 torch.zeros((len(idx), 0), device=self.device)
                 if a.shape[1:] == (0,) else a.index_select(0, sel)
                 for a in self._cache)
+
+
+class VariableTimeLoader:
+    """Loader for ``D.sim1d_var_t`` (counterpart of the JAX package's
+    ``VariableTimeLoader``): a batch sampler picks the element groups; the
+    collate crops every element to the batch minimum (``mode="min"``,
+    training: one random window start per element, shared by every role,
+    from the loader's own ``np.random.default_rng(seed)``) or pads it with
+    zeros to the maximum (``mode="max"``, evaluation), both rounded to
+    ``time_window`` multiples. Yields the 7-tuple ``(u_base, u, x, cond,
+    t_cond, spatial_cond, lengths)`` of numpy arrays, ``lengths`` [b] int32
+    the elements' own time lengths."""
+
+    def __init__(self, dataset, batch_sampler, mode="min", time_window=25,
+                 seed=0, process_index=0, process_count=1):
+        from nps_tpu_torch.utils.collate import collate_batch_sim
+
+        if process_count != 1 or process_index != 0:
+            raise NotImplementedError(_P9)
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.mode = mode
+        self.tw = time_window
+        self._collate_u = collate_batch_sim(t_dim=1, mode=mode,
+                                            tw=time_window)
+        self._rng = np.random.default_rng(seed)
+        lengths = getattr(batch_sampler, "lengths", None)
+        if lengths is None:
+            lengths = np.array([dataset[i][1].shape[1]
+                                for i in range(len(dataset))])
+        self._lengths = np.asarray(lengths)
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        from nps_tpu_torch.utils.collate import min_crop_starts
+
+        for idxs in self.batch_sampler:
+            idxs = [int(i) for i in idxs]
+            lengths_b = self._lengths[idxs]
+            if self.mode == "min":
+                shape_t = int(lengths_b.min())
+                shape_t -= shape_t % self.tw
+                starts = min_crop_starts(lengths_b, self.tw, rng=self._rng)
+            else:
+                shape_t = int(lengths_b.max())
+                if shape_t % self.tw:
+                    shape_t += self.tw - shape_t % self.tw
+                starts = None
+            els = [self.dataset[i] for i in idxs]
+            n = len(els)
+
+            def roles(k, crop):
+                parts = [e[k] for e in els]
+                if not sum(e.size for e in parts):
+                    return np.zeros((n, 0), np.float32)
+                if crop:
+                    return self._collate_u(parts, starts=starts,
+                                           shape_t=shape_t).astype(np.float32)
+                return np.stack(parts).astype(np.float32)
+
+            lengths = np.array([e[1].shape[1] for e in els], np.int32)
+            yield (roles(0, True), roles(1, True),
+                   np.stack([e[2] for e in els]).astype(np.float32),
+                   roles(3, False), roles(4, True), roles(5, False), lengths)

@@ -1,6 +1,7 @@
 """Synthetic twophase-shaped dataset generator (the port's own copy of
-``nps_tpu/data/synthetic.py:generate``; the same seed writes the same
-bytes). The variable-time generator waits for ROADMAP P11.
+``nps_tpu/data/synthetic.py``; the same seed writes the same bytes):
+:func:`generate` for the twophase contract below, :func:`generate_var_t`
+for variable-length 1D simulations in ragged stores.
 
 The real twophase dataset is an external download (reference ``README.md:16``);
 tests and benchmarks need data with the same on-disk contract:
@@ -84,6 +85,48 @@ def generate(out_dir, n_sims=16, n_channels=7, nt=101, nx1=96, nx2=64,
     np.save(os.path.join(out_dir, "conditioning.npy"), cond)
     np.save(os.path.join(out_dir, "spatial_conditioning.npy"), sp_cond)
 
+    idx = list(range(n_sims))
+    n_val = max(1, int(split[1] * n_sims))
+    n_test = max(1, int(split[2] * n_sims))
+    save_yaml(os.path.join(out_dir, "split.yaml"), dict(
+        train=idx[: n_sims - n_val - n_test],
+        valid=idx[n_sims - n_val - n_test: n_sims - n_test],
+        test=idx[n_sims - n_test:]))
+    return out_dir
+
+
+def generate_var_t(out_dir, n_sims=12, n_channels=2, nx=32, t_min=40,
+                   t_max=100, tmax_time=10.0, seed=0,
+                   split=(0.7, 0.15, 0.15)):
+    """Variable-length 1D dataset (D.sim1d_var_t contract): ragged snapshots
+    of shape [c, t_i, nx] with per-simulation t_i."""
+    from nps_tpu_torch.data.ragged import RaggedMemmap
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+
+    x = np.linspace(0.0, 1.0, nx, dtype=np.float32)
+    sims, conds = [], []
+    for s in range(n_sims):
+        t_i = int(rng.integers(t_min, t_max + 1))
+        vel = rng.uniform(0.5, 2.0)
+        width = rng.uniform(0.05, 0.2)
+        conds.append([vel, width])
+        t_grid = np.linspace(0, 1, t_i, dtype=np.float32)[:, None]
+        sim = np.zeros((n_channels, t_i, nx), np.float32)
+        for c in range(n_channels):
+            center = (0.3 + 0.1 * c + vel * t_grid) % 1.0
+            d = np.minimum(np.abs(x[None] - center), 1 - np.abs(x[None] - center))
+            sim[c] = np.exp(-d ** 2 / (2 * width ** 2))
+        sims.append(sim)
+    RaggedMemmap.save(os.path.join(out_dir, "snapshots"), sims)
+    # one storage format per dataset (as upstream): conditioning rides the
+    # ragged container too (its elements just happen to be fixed-size)
+    RaggedMemmap.save(os.path.join(out_dir, "conditioning"),
+                      [np.asarray(c, np.float32) for c in conds])
+    save_yaml(os.path.join(out_dir, "snapshots.yaml"), dict(
+        x=[float(v) for v in x], tmin=0.0, tmax=float(tmax_time),
+        dt=float(tmax_time / (t_max - 1))))
     idx = list(range(n_sims))
     n_val = max(1, int(split[1] * n_sims))
     n_test = max(1, int(split[2] * n_sims))

@@ -47,7 +47,7 @@ Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, n_spatial, *sp]``. GNN configs (``data_structure="graph"``) convert
 grid windows to node space at the model boundary over a static graph built
 once per batch size; they serve eagerly and captured, and refuse export.
-Sharding is not ported yet (ROADMAP P9).
+Sharding is not ported yet (ROADMAP P9b).
 """
 
 import io
@@ -373,10 +373,12 @@ class SurrogateEngine:
 
 @contextmanager
 def _spectral_weights_hidden(model):
-    """Unregister each spectral layer's ``weights1``/``weights2`` inside the
-    block (their packs serve the no-grad path), so an export does not carry
+    """Unregister each 2D spectral layer's ``weights1``/``weights2`` inside
+    the block (their packs serve the no-grad path; a 1D layer reads its
+    weights), so an export does not carry
     them as unused parameters beside the packs; restored in order after."""
-    layers = [m for m in model.modules() if isinstance(m, SpectralConvND)]
+    layers = [m for m in model.modules()
+              if isinstance(m, SpectralConvND) and m.nd == 2]
     saved = [(m, m._parameters.pop("weights1"), m._parameters.pop("weights2"))
              for m in layers]
     try:

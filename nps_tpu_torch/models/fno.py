@@ -1,14 +1,17 @@
 """Spectral conv layer and FNO layer (counterpart of ``nps_tpu/models/fno.py``).
 
 ``SpectralConvND`` holds the split-complex weights ``weights1``/``weights2``
-(real ``[2, ci, co, m1, m2]``) and calls ``ops.spectral.spectral_conv_nd``.
+(real ``[2, ci, co, m1, m2]``; in 1D ``weights1`` alone, ``[2, ci, co,
+m1]``, as the JAX package's one mode block) and calls
+``ops.spectral.spectral_conv_nd``.
 ``FNO_Layer`` adds the pointwise-conv bypass, and the ``FNO`` processor
 stacks ``hidden_blocks`` of them, conditioned by channel concat of the
 broadcast grid (``cond_mode='concat'``) or by FiLM on the spectrum
 (``cond_mode='film'``).
 
-The spectral conv runs in the compute dtype (:mod:`.config`; f32 when none
-is set) with its weights and their pack in f32. Each call packs the weights
+The 2D spectral conv runs in the compute dtype (:mod:`.config`; f32 when
+none is set) with its weights and their pack in f32; the 1D one in f32,
+whatever the compute dtype, as the JAX package's. Each call packs the weights
 into the CUDA kernel's layout, inside the autograd Function where a
 gradient is wanted. A caller that applies the model many times with fixed
 weights (a serving rollout) wraps the calls in
@@ -35,7 +38,8 @@ def packed_spectral_weights(model):
     let the calls inside the block without gradients use that pack. The
     caller keeps the weights fixed inside the block; the packs are dropped
     at its end, so the next block packs whatever the weights are then."""
-    layers = [m for m in model.modules() if isinstance(m, SpectralConvND)]
+    layers = [m for m in model.modules()
+              if isinstance(m, SpectralConvND) and m.nd == 2]
     try:
         with torch.no_grad():
             for m in layers:
@@ -64,17 +68,20 @@ class SpectralConvND(nn.Module):
                  transform_mode=1):
         super().__init__()
         nd = num_spatial_dims
-        if nd != 2:
+        if nd not in (1, 2):
             raise NotImplementedError(
-                f"the {nd}D spectral conv is not ported yet (2D only)")
+                f"the {nd}D spectral conv is not ported yet (1D and 2D only)")
         self.nd = nd
         self.modes = _modes_tuple(modes, nd)
         self.transform_mode = transform_mode
         self.scale = 1.0 / (in_channels * out_channels)
         shape = (2, in_channels, out_channels, *self.modes)
         self.weights1 = nn.Parameter(torch.empty(shape))
-        self.weights2 = nn.Parameter(torch.empty(shape))
-        self.film_grid = (out_channels, 2 * self.modes[0], self.modes[1])
+        if nd == 2:
+            self.weights2 = nn.Parameter(torch.empty(shape))
+            self.film_grid = (out_channels, 2 * self.modes[0], self.modes[1])
+        else:
+            self.film_grid = (out_channels, self.modes[0])
         self.weights_feat = (Dense(feature_transform_dim,
                                    math.prod(self.film_grid))
                              if feature_transform else None)
@@ -82,16 +89,24 @@ class SpectralConvND(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
-        for w in (self.weights1, self.weights2):
+        for w in self._weights():
             init.uniform_(w, 0.0, 1.0, generator)
             with torch.no_grad():
                 w.mul_(self.scale)
+
+    def _weights(self):
+        return ([self.weights1] if self.nd == 1
+                else [self.weights1, self.weights2])
 
     def forward(self, x, p=None):
         film = None
         if self.weights_feat is not None:
             assert p is not None, "FiLM conditioning requires the cond vector"
             film = self.weights_feat(p).reshape((p.shape[0],) + self.film_grid)
+        if self.nd == 1:
+            return spectral_conv_nd(x, self._weights(), self.modes, film=film,
+                                    film_mode=self.transform_mode,
+                                    num_spatial_dims=1)
         # in the compute dtype (f32 when none is set), as the JAX package
         # casts x to f32 and then to the compute dtype; the output has it
         dt = compute_dtype() or torch.float32

@@ -14,8 +14,15 @@ the low and the high row modes. FiLM ``[b, co, 2*m1, m2]``.
 Without gradients, a CPU tensor takes the plain version and a CUDA tensor
 the kernel ``spectral_dft2d_fwd`` (``csrc/spectral_dft2d.cu``, the port of
 the TPU kernel K1), both through the custom op
-``nps_torch::spectral_dft2d_fwd``. The 1D and 3D paths are not ported yet
-and raise.
+``nps_torch::spectral_dft2d_fwd``. The 3D path is not ported yet and
+raises.
+
+The 1D path (:func:`spectral_conv_1d`, ``_spectral_conv_1d_dft``) never had
+a TPU kernel: the JAX package computes it with XLA einsums. Here it is
+``torch.einsum`` in f32 on the CPU and on the card alike (PyTorch's matmuls
+run without TF32 unless a caller turns it on), and autograd gives its
+backward. x ``[b, ci, n1]`` -> ``[b, co, n1]`` f32, with ``weights1`` real
+``[2, ci, co, m1]`` and FiLM ``[b, co, m1]``.
 
 Gradients on CUDA go through :class:`SpectralConv2dFn`. The map is linear,
 and its adjoint is the same three stages with the conjugate-transposed
@@ -100,6 +107,46 @@ def dft_tables(n1, n2, m1, m2, device):
             _TABLES[key] = tuple(torch.from_numpy(a).to(device)
                                  for a in mats)
     return _TABLES[key]
+
+
+def dft_tables_1d(n1, m1, device):
+    """The four f32 factor tables of one 1D transform, built in float64 on
+    the host once per (n1, m1) and kept on ``device``: (c1, s1) [n1, m1],
+    (ic1, is1) [m1, n1] (Hermitian doubling)."""
+    device = torch.device(device)
+    key = ("1d", n1, m1, device)
+    if key not in _TABLES:
+        mats = (*_dft_mats_fwd(n1, m1), *_dft_mats_inv_half(n1, m1))
+        with torch.inference_mode(False):
+            _TABLES[key] = tuple(torch.from_numpy(a).to(device)
+                                 for a in mats)
+    return _TABLES[key]
+
+
+def spectral_conv_1d(x, weights1, m1, film=None, film_mode=1):
+    """The 1D mode-truncated spectral conv (``_spectral_conv_1d_dft``): the
+    forward DFT truncated to ``m1`` modes, the complex ci->co mix
+    ``bmi,iom->bmo`` over ``weights1`` [2, ci, co, m1], FiLM ``film[:, :,
+    :m1]`` (``1 + f`` in mode 0), the half-spectrum inverse, then ``/ n1``.
+    x [b, ci, n1] in any float type; every stage and the result in f32, as
+    the JAX package computes it."""
+    n1 = x.shape[-1]
+    c1, s1, ic1, is1 = dft_tables_1d(n1, m1, x.device)
+    x = x.float()
+    ein = torch.einsum
+    x_re = ein("bix,xm->bim", x, c1)
+    x_im = -ein("bix,xm->bim", x, s1)
+    wr, wi = weights1[0], weights1[1]
+    y_re = ein("bim,iom->bom", x_re, wr) - ein("bim,iom->bom", x_im, wi)
+    y_im = ein("bim,iom->bom", x_re, wi) + ein("bim,iom->bom", x_im, wr)
+    if film is not None:
+        f = film[:, :, :m1].float()
+        if film_mode == 0:
+            f = 1.0 + f
+        y_re = y_re * f
+        y_im = y_im * f
+    out = ein("bom,mx->box", y_re, ic1) - ein("bom,mx->box", y_im, is1)
+    return out / n1
 
 
 def _bf16_round(a):
@@ -796,14 +843,18 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     the caller has none), so a caller can pack once instead of per call.
     Where a gradient is wanted the CUDA path takes :class:`SpectralConv2dFn`
     and the CPU path plain autograd; both ignore ``w_packed``. ``x`` is f32 or
-    bf16, and the output has its type.
+    bf16, and the output has its type. A 1D call (``weights`` is
+    [weights1]) is :func:`spectral_conv_1d` on either device, with or
+    without gradients, and returns f32.
     """
     nd = num_spatial_dims or (x.ndim - 2)
     modes = tuple(int(m) for m in modes)
     check_modes(modes, x.shape[2:2 + nd])
+    if nd == 1:
+        return spectral_conv_1d(x, weights[0], modes[0], film, film_mode)
     if nd != 2:
         raise NotImplementedError(
-            f"the {nd}D spectral conv is not ported yet (2D only)")
+            f"the {nd}D spectral conv is not ported yet (1D and 2D only)")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, *weights, film)):
         if x.device.type == "cpu":

@@ -21,10 +21,10 @@ With ``--train`` the step is a train step at the injected pushforward
 depth ``--depth`` (the trainer built by the training CLI's
 ``get_config_static`` on a synthetic split of the config's grid and frame
 count, made in a temporary directory, at the config's batch and compute
-dtype: ``cfg_ns512_ufno.py`` trains in bf16 with its remat, and
-``data_parallel`` is set to false), and the kernel time is also split by
-the step's phases: the no-grad pushforward, the forward, the backward and the
-optimizer. A kernel belongs to the phase whose profiler range
+dtype: ``cfg_ns512_ufno.py`` trains in bf16 with its remat and its own
+``data_parallel``, one process's single-device step), and the kernel time
+is also split by the step's phases: the no-grad pushforward, the forward,
+the backward and the optimizer. A kernel belongs to the phase whose profiler range
 (``train_step/...``) was open when the CUDA runtime call that launched it
 ran; the two are paired by CUPTI's correlation id. What no phase claims is
 listed as ``unattributed``: the phases and it sum to the kernel time, and
@@ -241,8 +241,6 @@ def _train_runner(args):
         generate(f"{tmp}/data/{cfg['dataset']['experiment']}",
                  n_sims=args.batch + 4, n_channels=1, nt=nt, nx1=nx1,
                  nx2=nx2, seed=args.seed)
-        if "data_parallel" in cfg["trainer"]:   # one card
-            cfg["trainer"]["data_parallel"] = False
         trainer = train_cli.get_config_static(cfg, device="cuda")[4]
         trainer.set_optimizer(dict(cfg["optimizer"]))
         trainer.ensure_initialized()

@@ -17,9 +17,14 @@ unset) is the trainer's: its steps, evaluations and rollouts run inside
 dtype. Parameters, gradients and Adam's state stay f32; so do the loss and
 the physics wrapper's output.
 
-Not ported, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the parallel regimes and gradient accumulation (P9), variable-time
-data (P11), the cheaper pushforward forward (P13). Parameters are a
+``data_parallel=True`` in a world of one process is the single-device
+step, as the JAX trainer's mesh over the one device present is;
+``grad_accum=N`` wraps the optimizer in :class:`~nps_tpu_torch.train.optim.
+MultiSteps` (the JAX trainer's ``optax.MultiSteps``); variable-time data
+(``D.sim1d_var_t``) takes the batch sampler and the min-crop / max-pad
+loaders. Not ported, and refused with ``NotImplementedError`` naming the
+ROADMAP item: a world of more than one process and the other parallel
+regimes (P9b), the cheaper pushforward forward (P13). Parameters are a
 ``state_dict`` of the PyTorch reference's key names (``.pt``), which
 ``nps_tpu.compat.convert_state_dict`` reads.
 """
@@ -40,7 +45,9 @@ import torch
 from nps_tpu_torch.common.interfaces import D
 from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.data.pipeline import (DeviceCacheLoader, HostDataLoader,
+                                         VariableTimeLoader,
                                          prefetch_to_device)
+from nps_tpu_torch.data.samplers import VariableTimeBatchSampler
 from nps_tpu_torch.inference import autotuned_convs, resolve_device
 from nps_tpu_torch.models.config import (compute_dtype_scope,
                                          resolve_compute_dtype)
@@ -57,25 +64,40 @@ except ModuleNotFoundError:
 # config keys of regimes the port does not have yet: (key, whether a value
 # asks for it, ROADMAP item)
 _UNPORTED = (
-    ("data_parallel", bool, "P9"), ("zero1", bool, "P9"),
-    ("spatial_parallel", lambda v: int(v or 0) > 1, "P9"),
-    ("tensor_parallel", lambda v: int(v or 0) > 1, "P9"),
-    ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9"),
-    ("expert_parallel", lambda v: int(v or 0) > 1, "P9"),
-    ("grad_accum", lambda v: int(v or 0) > 1, "P9"),
-    ("variable_time", bool, "P11"),
+    ("zero1", bool, "P9b"),
+    ("spatial_parallel", lambda v: int(v or 0) > 1, "P9b"),
+    ("tensor_parallel", lambda v: int(v or 0) > 1, "P9b"),
+    ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9b"),
+    ("expert_parallel", lambda v: int(v or 0) > 1, "P9b"),
     ("pushforward_fast", bool, "P13"),
 )
 
 
+def world_size():
+    """The processes of this run: the initialised ``torch.distributed``
+    group's size, or ``WORLD_SIZE`` as a launcher sets it, the larger."""
+    import torch.distributed as dist
+
+    group = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    return max(group, int(os.environ.get("WORLD_SIZE") or 1))
+
+
 def refuse_unported(config):
     """Raise NotImplementedError for a config that asks for a regime the
-    port does not have yet, naming its ROADMAP item."""
+    port does not have yet, naming its ROADMAP item. ``data_parallel`` in a
+    world of one process is the single-device step; more processes are
+    P9b."""
     for key, active, item in _UNPORTED:
         value = getattr(config, key, None)
         if value is not None and active(value):
             raise NotImplementedError(
                 f"trainer.{key}={value!r} is not ported yet (ROADMAP {item})")
+    n = world_size()
+    if n > 1:
+        raise NotImplementedError(
+            f"training in a world of {n} processes is not ported yet "
+            f"(ROADMAP P9b); one process trains on one device")
 
 
 def in_compute_dtype(method):
@@ -202,6 +224,9 @@ class TrainInterface(metaclass=ABCMeta):
                 self.model.parameters(), **spec)
         else:
             self.optimizer, self.base_lr = spec
+        accum = int(getattr(self.config, "grad_accum", 0) or 0)
+        if accum > 1:
+            self.optimizer = optim_lib.MultiSteps(self.optimizer, accum)
         self._build_lr_scheduler()
 
     def _build_lr_scheduler(self):
@@ -223,7 +248,10 @@ class TrainInterface(metaclass=ABCMeta):
         """(train, valid, test) loaders. ``eval_batch_size`` (0: the train
         batch size) sizes the evaluation loaders; ``device_cache`` keeps the
         splits on the device (``device_cache_scope="train"``: the train split
-        only; ``device_cache_dtype``: cast the cached floats)."""
+        only; ``device_cache_dtype``: cast the cached floats). Variable-time
+        data takes :meth:`_variable_time_loaders`."""
+        if self.config.variable_time:
+            return self._variable_time_loaders()
         kw = dict(batch_size=self.config.batch_size, shuffle=True,
                   seed=get_seed())
         ekw = dict(kw, batch_size=int(
@@ -245,6 +273,35 @@ class TrainInterface(metaclass=ABCMeta):
         return (train,
                 DeviceCacheLoader(splits[1], device=self.device, **ekw),
                 DeviceCacheLoader(splits[2], device=self.device, **ekw))
+
+    def _variable_time_loaders(self):
+        """(train, valid, test) for ``D.sim1d_var_t``, as the JAX trainer
+        builds them in one process: a :class:`VariableTimeBatchSampler` per
+        split (the config's ``sampler``: ``time_window`` and
+        ``max_unrolling`` default to the trainer's, ``with_replacement`` to
+        True for training; evaluation draws without replacement), the train
+        loader min-crops and the evaluation loaders max-pad."""
+        sampler_cfg = dict(getattr(self.config, "sampler", None) or {})
+        sampler_cfg.pop("object", None)
+        sampler_cfg.setdefault("time_window", self.config.time_window)
+        sampler_cfg.setdefault("max_unrolling",
+                               getattr(self.config, "unrolling", 0))
+        with_repl = sampler_cfg.pop("with_replacement", True)
+        bs = self.config.batch_size
+        ebs = int(getattr(self.config, "eval_batch_size", 0) or bs)
+
+        def loader(split, mode, with_replacement, batch_size):
+            sampler = VariableTimeBatchSampler(
+                split, batch_size=batch_size,
+                with_replacement=with_replacement, seed=get_seed(),
+                **sampler_cfg)
+            return VariableTimeLoader(split, sampler, mode=mode,
+                                      time_window=self.config.time_window,
+                                      seed=get_seed())
+
+        return (loader(self.data.train, "min", with_repl, bs),
+                loader(self.data.valid, "max", False, ebs),
+                loader(self.data.test, "max", False, ebs))
 
     def _batches(self, loader):
         if getattr(loader, "device_resident", False):

@@ -9,6 +9,10 @@ are the same host-side classes: MultiStepLR multiplies the learning rate by
 ``gamma`` each time its step counter crosses a milestone, and the trainer
 steps it every ``lr_step_interval`` epochs and writes the rate into the
 optimizer with :func:`set_learning_rate`.
+
+:class:`MultiSteps` is ``optax.MultiSteps``, the JAX trainer's gradient
+accumulation (``trainer.grad_accum``): the gradients of N mini-steps are
+averaged and the wrapped optimizer steps once, at the N-th.
 """
 
 import numpy as np
@@ -96,7 +100,69 @@ def build_lr_scheduler(base_lr, object=None, **kwargs):
     raise ValueError(f"Unknown lr scheduler '{object}'")
 
 
+class MultiSteps:
+    """Gradient accumulation over ``every`` mini-steps, as
+    ``optax.MultiSteps(tx, every_k_schedule=every)``: ``zero_grad`` clears
+    the gradients only where a window starts, so each mini-step's backward
+    adds its gradients into the f32 ``.grad``; ``step`` counts the
+    mini-step and, at the ``every``-th, scales the sum by 1/``every`` (optax
+    keeps a running mean: the same value up to rounding) and steps the
+    wrapped optimizer once. Between boundaries the parameters and the
+    wrapped optimizer's state (Adam's moments and step count) do not
+    change. The parameter groups are the wrapped optimizer's, so
+    :func:`set_learning_rate` reaches the optimizer that steps. The partial
+    sum and its counter belong to the state: :meth:`state_dict` holds them,
+    so they carry over an epoch's end and through a checkpoint."""
+
+    def __init__(self, optimizer, every):
+        if int(every) < 2:
+            raise ValueError(f"MultiSteps accumulates over every >= 2 "
+                             f"mini-steps, got {every}")
+        self.inner = optimizer
+        self.every = int(every)
+        self.mini_step = 0
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def _params(self):
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
+    def zero_grad(self, set_to_none=True):
+        if self.mini_step == 0:
+            self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self):
+        self.mini_step += 1
+        if self.mini_step < self.every:
+            return
+        for p in self._params():
+            if p.grad is not None:
+                p.grad.div_(self.every)
+        self.inner.step()
+        self.mini_step = 0
+
+    def state_dict(self):
+        return {"inner": self.inner.state_dict(), "every": self.every,
+                "mini_step": self.mini_step,
+                "acc_grads": [None if p.grad is None or self.mini_step == 0
+                              else p.grad.detach().cpu()
+                              for p in self._params()]}
+
+    def load_state_dict(self, state):
+        if int(state["every"]) != self.every:
+            raise ValueError(f"checkpoint accumulates over {state['every']} "
+                             f"mini-steps, this run over {self.every}")
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        for p, g in zip(self._params(), state["acc_grads"], strict=True):
+            p.grad = None if g is None else g.to(p.device, p.dtype)
+
+
 def set_learning_rate(optimizer, lr):
-    """Write ``lr`` into every parameter group of ``optimizer``."""
+    """Write ``lr`` into every parameter group of ``optimizer`` (through a
+    :class:`MultiSteps`, the wrapped optimizer's)."""
     for group in optimizer.param_groups:
         group["lr"] = float(lr)

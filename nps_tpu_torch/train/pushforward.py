@@ -27,8 +27,15 @@ Randomness comes from two ``torch.Generator``s seeded from the config's
 seed: the depth choice and the start steps; ``train_step`` also takes an
 injected ``unrolled`` and ``steps0``. The JAX package's compile-ahead,
 ``_jit_cache`` and ``dynamic_unroll`` machinery has no counterpart: PyTorch
-runs each depth eagerly, with nothing to compile. Variable-time data
-(P11) raises.
+runs each depth eagerly, with nothing to compile, so the config's
+``dynamic_unroll`` is accepted and not read.
+
+Variable-time data (``D.sim1d_var_t``) comes as 7-tuples whose last entry
+is the elements' time lengths: ``train_step`` takes a min-cropped batch and
+its depth from the batch sampler (``loader.batch_sampler.get_t_batch``);
+``test_step`` takes a max-padded batch and multiplies the prediction and
+the labels by a mask of the valid frames, built from the lengths, before
+every loss (the divisor stays the padded rollout length, as upstream).
 
 GNN models (``M.AR_TB_GNN``) take the same steps: at the model boundary the
 grid window goes to node space and back (two reshapes) over a static graph
@@ -61,6 +68,18 @@ def window(u, steps, tw, mode):
     return out
 
 
+def frame_mask(u, lengths, max_len=None):
+    """1 on the valid frames of each element of u [b, c, t, *sp] and 0 on
+    its padding, from the elements' time lengths [b] (at most ``max_len``),
+    in u's type; the JAX package builds the same mask on the device."""
+    lengths = torch.as_tensor(lengths, device=u.device)
+    if max_len is not None:
+        lengths = lengths.clamp(max=max_len)
+    frames = torch.arange(u.shape[2], device=u.device)
+    return (frames.view(1, 1, -1, *[1] * (u.ndim - 3))
+            < lengths.view(-1, *[1] * (u.ndim - 1))).to(u.dtype)
+
+
 def _opt(x):
     """None for an empty placeholder ([b, 0])."""
     return None if (x is None or x.numel() == 0) else x
@@ -91,6 +110,9 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         if states:
             self.depth_rng.set_state(states["depth"])
             self.start_rng.set_state(states["start"])
+
+    def _variable_time(self):
+        return self.data.data_interface == D.sim1d_var_t
 
     def _is_gnn(self):
         return self.model.model_interface == M.AR_TB_GNN
@@ -139,7 +161,13 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                    steps0=None):
         """One pushforward step and optimizer update; returns (loss, None).
         ``unrolled`` and ``steps0`` [b] override the drawn depth and start
-        steps."""
+        steps. A variable-time batch takes its depth from ``loader``'s batch
+        sampler (0 without a loader)."""
+        if self._variable_time():
+            *batch, _lengths = batch
+            if unrolled is None:
+                unrolled = (loader.batch_sampler.get_t_batch(batch_idx)
+                            if loader is not None else 0)
         u_base, u_super, x, cond, t_cond, spatial_cond = self._floats(batch)
         t_res, b, tw = int(u_super.shape[2]), int(u_super.shape[0]), self.tw
         if unrolled is None:
@@ -199,10 +227,15 @@ class AutoregressivePushforwardTrainer(TrainInterface):
             raise RuntimeError(
                 "use_train_loss_calc=True is unexpected: test_step is "
                 "implemented")
+        lengths = None
+        if self._variable_time():
+            *batch, lengths = batch
         u_base, u_super, x, cond, t_cond, spatial_cond = self._floats(batch)
         t_res = int(u_super.shape[2])
         if max_test_len is not None:
             t_res = min(max_test_len, t_res)
+        mask = (None if lengths is None
+                else frame_mask(u_super, lengths, max_test_len))
         b, tw = int(u_super.shape[0]), self.tw
         steps_list = list(range(tw, t_res - tw + 1, tw))
         if not steps_list:
@@ -222,6 +255,9 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                                   set_bc=False, set_min=False)
             tc = t_cond_[:, :, step:step + tw] if t_cond_ is not None else None
             pred = self._apply(data, cond_, bc, x, tc, sc_)
+            if mask is not None:
+                window_mask = mask[:, :, step:step + tw]
+                pred, labels = pred * window_mask, labels * window_mask
             pred, _ = self._process(pred, labels, None, get_bc=False,
                                     set_bc=True, set_min=True)
             step_losses.append(crit(pred, labels) / b)
@@ -231,7 +267,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                              nr_gt_steps=self.config.nr_gt_steps, t_res=t_res,
                              compute_loss=True, include_data=include_data,
                              use_bc=True, clip_min=True, divide_by_t=True,
-                             batch_size=b)
+                             batch_size=b, u_mask=mask)
         unrolled_sum = torch.sum(sim["losses"])
 
         base_sum = torch.zeros((), device=u_super.device)

@@ -83,7 +83,7 @@ def main(args, device="cuda"):
     dist = str(args.get("trainer", {}).get("distributed", "") or "")
     if dist and dist.lower() not in ("false", "0", "none"):
         raise NotImplementedError("trainer.distributed is not ported yet "
-                                  "(ROADMAP P9)")
+                                  "(ROADMAP P9b)")
     if PRINT_ARGS:
         print(util.dict_str(args, prefix="--", mapping="="))
     os.makedirs(args["experiment_path"], exist_ok=True)

@@ -1,6 +1,8 @@
 """Host-side IO helpers (counterpart of ``nps_tpu/utils/io.py``): yaml
-sidecars and numpy memmaps. Ragged stores (``raggedmemmap``) belong to the
-variable-time data, not ported yet (ROADMAP P11), and raise."""
+sidecars and numpy memmaps. Ragged (variable-length) stores auto-detect the
+on-disk layout: the port's ``RaggedMemmap`` directories or reference-produced
+mmap_ninja ``RaggedMmap`` directories, read with plain numpy
+(``nps_tpu_torch/data/ragged.py``)."""
 
 import os
 
@@ -24,6 +26,7 @@ def load_memmap(data_format, data_dir, load_name):
         return np.lib.format.open_memmap(
             os.path.join(data_dir, load_name + ".npy"), mode="r")
     if data_format == "raggedmemmap":
-        raise NotImplementedError(
-            "ragged (variable-time) stores are not ported yet (ROADMAP P11)")
+        from nps_tpu_torch.data.ragged import open_ragged
+
+        return open_ragged(os.path.join(data_dir, load_name))
     raise ValueError(f"data format {data_format} not supported")

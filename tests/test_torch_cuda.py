@@ -1247,3 +1247,95 @@ def test_gn1_gelu_forward_tanh_matches_plain(shape, dtype, tol):
     assert _rel(y, gn.gn_gelu_plain(x, w, b, True, gn.EPS, "tanh")) < tol
     op = torch.ops.nps_torch.gn1_gelu_fwd(x, w, b, True, gn.EPS, "tanh")
     assert torch.equal(op, y)
+
+
+@pytest.mark.parametrize("film_mode", [None, 0, 1])
+def test_spectral_conv_1d_on_card_matches_cpu(film_mode):
+    """The 1D spectral conv (torch.einsum in f32, no hand kernel, TF32 off)
+    on the card against the CPU: output and the gradients of x, the
+    weights and the FiLM scales, at cfg_var1d_fno's 64 features, 32 points
+    and 8 modes; it launches no kernel of the port."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.ops.spectral import spectral_conv_nd
+
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn((8, 66, 32), generator=g)
+    w = torch.rand((2, 66, 64, 8), generator=g) / (66 * 64)
+    film = (torch.randn((8, 64, 8), generator=g) if film_mode is not None
+            else None)
+    dy = torch.randn((8, 64, 32), generator=g)
+    res = {}
+    kernels.reset_launches()
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).detach().requires_grad_() for t in (
+            (x, w) if film is None else (x, w, film))]
+        out = spectral_conv_nd(leaves[0], [leaves[1]], (8,),
+                               film=leaves[2] if film is not None else None,
+                               film_mode=film_mode or 0, num_spatial_dims=1)
+        (out * dy.to(dev)).sum().backward()
+        res[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    torch.cuda.synchronize()
+    assert not any(kernels.launches.values())
+    for a, ref in zip(res["cuda"], res["cpu"]):
+        assert _rel(a, ref) < 1e-5
+
+
+def test_grad_accum_on_card_steps_at_the_boundary_with_fresh_packs():
+    """A spectral layer trained on the card under MultiSteps(Adam, 2): the
+    weights hold after the first mini-step and move at the second, as on
+    the CPU (1e-4), and a serving block's weight pack is built from the
+    weights after the boundary step."""
+    from nps_tpu_torch.models.fno import (SpectralConvND,
+                                          packed_spectral_weights)
+    from nps_tpu_torch.ops import spectral as sp
+    from nps_tpu_torch.train.optim import MultiSteps
+
+    torch.manual_seed(3)
+    cpu = SpectralConvND(24, 16, (6, 6), 2)
+    card = SpectralConvND(24, 16, (6, 6), 2).cuda()
+    card.load_state_dict(cpu.state_dict())
+    xs = [torch.randn((2, 24, 32, 24)) for _ in range(2)]
+    weights = {}
+    for dev, layer in (("cpu", cpu), ("cuda", card)):
+        opt = MultiSteps(torch.optim.Adam(layer.parameters(), lr=1e-2), 2)
+        w0 = layer.weights1.detach().clone()
+        for i, x in enumerate(xs):
+            opt.zero_grad()
+            layer(x.to(dev)).square().mean().backward()
+            opt.step()
+            moved = not torch.equal(layer.weights1.detach(), w0)
+            assert moved == (i == 1), (dev, i)
+        weights[dev] = [w.detach().cpu() for w in (layer.weights1,
+                                                  layer.weights2)]
+    for a, ref in zip(weights["cuda"], weights["cpu"]):
+        assert _rel(a, ref) < 1e-4
+    x = xs[0].cuda()
+    with torch.inference_mode(), packed_spectral_weights(card):
+        out = card(x)
+        ref = sp.spectral_conv_2d_plain(x, [card.weights1, card.weights2],
+                                        (6, 6))
+    assert _rel(out, ref) < 1e-5
+
+
+def test_var1d_engine_on_card_captured_matches_eager_and_cpu():
+    """cfg_var1d_fno at full width (2 x 64, 8 modes) served by the engine on
+    the card: a 6-step rollout against the CPU engine (1e-4) and captured
+    against eager (1e-6)."""
+    from nps_tpu_torch.inference import SurrogateEngine
+    from nps_tpu_torch.pde import PDE1D
+
+    pde = PDE1D(0.0, 10.0, 100, 1.0, 32, None, "var1d", n_cond_static=2)
+    cfg = "nps_tpu_torch/configs/train/cfg_var1d_fno.py"
+    engines = {d: SurrogateEngine.from_config(cfg, pde=pde, device=d)
+               for d in ("cpu", "cuda")}
+    for eng in engines.values():
+        eng.init_params(seed=4)
+    rng = np.random.default_rng(4)
+    u0 = rng.random((8, 2, 5, 32)).astype(np.float32)
+    cond = rng.random((8, 2)).astype(np.float32)
+    eager = engines["cuda"].rollout(u0, 6, cond=cond)
+    ref = engines["cpu"].rollout(u0, 6, cond=cond)
+    captured = engines["cuda"].rollout(u0, 6, cond=cond, captured=True)
+    assert eager.shape == (8, 2, 30, 32)
+    assert _rel(torch.from_numpy(eager), torch.from_numpy(ref)) < 1e-4
+    assert _rel(torch.from_numpy(captured), torch.from_numpy(eager)) < 1e-6

@@ -289,8 +289,7 @@ def test_ufno_refuses_an_unknown_remat_policy():
 
 def _argv(split, tmp_path, extra=()):
     return [*OVERRIDES, f"--dataset.base_path={split}",
-            "--trainer.data_parallel=false", f"--experiment_path={tmp_path}",
-            *extra]
+            f"--experiment_path={tmp_path}", *extra]
 
 
 def _parse(fn, cfg, argv):
@@ -302,20 +301,22 @@ def _parse(fn, cfg, argv):
         sys.argv = saved
 
 
-def test_trainer_refuses_bf16_naming_p12b(split, tmp_path):
-    """The name is older than bf16 training: the trainer now takes the
-    config's bf16 (ROADMAP P12b is done) and keeps it as its compute dtype,
-    and still refuses the config's ``data_parallel=True``, naming P9 (a
-    single card sets it to false)."""
+def test_trainer_refuses_bf16_naming_p12b(split, tmp_path, monkeypatch):
+    """The name is older than bf16 training and than ``data_parallel`` in
+    one process: the trainer takes the config's bf16 (ROADMAP P12b is done)
+    as its compute dtype and the config's ``data_parallel=True`` as the
+    single-device step of a one-process world (P9a is done), and refuses a
+    world of more processes, naming P9b."""
     trainer = train_cli.get_config_static(
         _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path)),
         device="cpu")[4]
     assert trainer.compute_dtype == torch.bfloat16
-    args = _parse(port_parse_args, PORT_CFG,
-                  [a for a in _argv(split, tmp_path)
-                   if "data_parallel" not in a])
-    with pytest.raises(NotImplementedError, match="P9"):
-        train_cli.get_config_static(args, device="cpu")
+    assert trainer.config.data_parallel is True
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="P9b"):
+        train_cli.get_config_static(
+            _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path)),
+            device="cpu")
 
 
 # the train-step parity: 1 block x 8 features (the JAX side compiles a

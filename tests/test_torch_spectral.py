@@ -82,9 +82,24 @@ def test_spectral_mode_range_errors(grid, modes):
 @pytest.mark.parametrize("shape,modes", [((2, 3, 16), (4,)),
                                          ((2, 3, 8, 8, 8), (2, 2, 2))])
 def test_spectral_1d_3d_not_ported(shape, modes):
-    x = torch.zeros(shape)
-    with pytest.raises(NotImplementedError):
-        port.spectral_conv_nd(x, [], modes)
+    """The name is older than the 1D path: the 1D case (ported with the
+    variable-time data, ROADMAP P11) now matches the JAX package's
+    ``_spectral_conv_1d_dft`` on the same inputs; the 3D case still
+    raises."""
+    if len(modes) == 3:
+        with pytest.raises(NotImplementedError):
+            port.spectral_conv_nd(torch.zeros(shape), [], modes)
+        return
+    b, ci, n1 = shape
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((b, n1, ci)).astype(np.float32)
+    w = (rng.random((2, ci, 5, *modes)) / (ci * 5)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jax_spectral(x, [w], modes, precision="highest"))
+    out = port.spectral_conv_nd(torch.from_numpy(x).permute(0, 2, 1),
+                                [torch.from_numpy(w)], modes)
+    assert out.dtype == torch.float32
+    assert _rel(out.permute(0, 2, 1).numpy(), ref) < REL
 
 
 @pytest.mark.parametrize("b,ci,co,grid,modes", [
