@@ -47,17 +47,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (GNGeluFn, SpectralConv2dFn), output and gradients, at every
              input shape one train step at batch 16 gave them, against
              autograd through their plain versions;
-6. family  - the other four twophase families at full width, one line
+5b. pushforward_fast - the same U-FNO trained with
+             --trainer.pushforward_fast=true: a depth-0 step whose loss
+             equals the flag-off step's bit for bit (same weights, batch
+             and start steps), a depth-8 step timed (median of 3) whose
+             no-grad applies launch K2 with the tanh GELU (act 2, read
+             from the wrappers' per-activation counters) and whose graded
+             apply the config's erf one, and K2's f32 tanh forward at the
+             twophase GroupNorm shapes against its plain version;
+6. family  - the other five twophase families at full width, one line
              each: cfg_twophase_drn (Dilated ResNet, 2 blocks x 128
              features, kernel 5; no hand kernel), cfg_twophase_unet
              (U-Net, 32 features, ch_mults [2, 2, 1, 2]; 44 GN+GELU calls
              per apply), cfg_twophase_ufno_fno (an FNO and a U-FNO block
-             of 192 features, 10 modes; 16 GN+GELU and 2 spectral calls)
-             and cfg_twophase_gnn (MP-GNN, 6 blocks x 128 features over the
-             24-offset grid graph; no hand kernel). Each goes through the
-             same serving (eager and captured) and training code as the
-             U-FNO's phases (family_serve, family_train), with one
-             training epoch and the median of 3 timed steps per depth;
+             of 192 features, 10 modes; 16 GN+GELU and 2 spectral calls),
+             cfg_twophase_gnn (MP-GNN, 6 blocks x 128 features over the
+             24-offset grid graph; no hand kernel) and cfg_twophase_moe
+             (the mixture of spectral experts, 3 blocks x 4 experts x 192
+             features, 10 modes, ~181 M parameters; 12 spectral calls per
+             apply, one an expert, at the U-FNO's shapes). Each goes
+             through the same serving (eager and captured) and training
+             code as the U-FNO's phases (family_serve, family_train), with
+             one training epoch and the median of 3 timed steps per depth;
+             then the MP-GNN in bf16 (gnn_bf16 line): one serving step and
+             one depth-1 train step at batch 2 on the card against the
+             CPU in bf16 at the bf16 bar (the CPU in f32 the reference),
+             and its depth-0 train step timed at batch 16;
 7. ns512   - cfg_ns512_ufno (512x512, 3 blocks x 128 features, 20x20
              modes, tanh GELU, bf16) at full width from its config over a
              split from the port's generator (4 simulations of 151 frames,
@@ -186,6 +201,10 @@ GN_SHAPES = [(BATCH, 2 * HIDDEN + N_STATIC + N_SPATIAL, 100, 68),
 SPEC_CI = HIDDEN + N_STATIC + N_SPATIAL
 REL_TOL_F32 = 1e-5    # kernel vs plain, f32: sums in another order
 REL_TOL_BF16 = 1e-2   # bf16 output: one rounding of an 8-bit mantissa
+# the bf16 bar's floor (ROADMAP "How a part is held"): bf16 against its
+# reference within max(2 d, BF16_FLOOR), d the reference's own bf16-vs-f32
+# deviation
+BF16_FLOOR = 8e-3
 REL_TOL_STEP = 1e-4   # card vs CPU step, the ROADMAP forward bar
 REL_TOL_GRAD = 1e-4   # backward kernels vs plain autograd, f32: more terms
 REL_TOL_STEP_GRAD = 5e-3  # card vs CPU gradients, the ROADMAP gradient bar
@@ -209,18 +228,19 @@ TRAIN_DEPTHS = (0, 8)
 # calls (every U-Net ResidualBlock norm) and the spectral-conv calls (one
 # per FNO layer), then the training epochs and the timed steps per depth;
 # the Dilated ResNet and the MP-GNN run neither kernel (cuDNN convs; dense
-# layers and shifted-grid messages in plain PyTorch). The
+# layers and shifted-grid messages in plain PyTorch); the mixture of
+# experts runs K1 once an expert (3 blocks x 4). The
 # U-FNO is the main path: its serving and training lines are the "slice"
 # and "train" phases, the others' the "family" phase
 FAMILIES = {"ufno": (48, 3, TRAIN_EPOCHS, 5), "drn": (0, 0, 1, 3),
             "unet": (44, 0, 1, 3), "ufno_fno": (16, 2, 1, 3),
-            "gnn": (0, 0, 1, 3)}
+            "gnn": (0, 0, 1, 3), "moe": (0, 12, 1, 3)}
 # the forward launches a graded apply makes again in its backward where the
 # family's processor rematerializes its blocks (models/common.py:
 # remat_block): the FNO processor of cfg_twophase_ufno_fno (on by default,
 # as in the JAX package) recomputes its one spectral call; the DRN
-# recomputes too, with no hand kernel; the U-FNO configs of twophase leave
-# remat off
+# recomputes too, with no hand kernel; the U-FNO configs of twophase and
+# the mixture of experts leave remat off
 RECOMPUTED = {"ufno_fno": {"spectral_dft2d_fwd": 1}}
 # cfg_ns512_ufno: 512x512, 3 blocks x 128 features, 20x20 modes, bf16,
 # batch 8; the spectral conv's input [8, 132, 512, 512] -> 128 (128
@@ -1411,13 +1431,13 @@ def family_train(name, seed, out_dir, tmp):
     ``tmp`` (stdout to ``train_<name>.log`` in ``out_dir``); time steps at
     the depths TRAIN_DEPTHS (median of its timed steps after a warm-up);
     hold a depth-1 step at batch 2 against the CPU, and both kernel ops at
-    every input shape its train step gives them. Returns (record, the
-    training run's launches, failures)."""
+    every input shape its train step gives them; for a family that runs K1,
+    its weight pack's share of the timed steps (weight_pack_record).
+    Returns (record, the training run's launches, failures)."""
     import numpy as np
     import torch
 
     from nps_tpu_torch import kernels
-    from nps_tpu_torch.data.pipeline import prefetch_to_device
     from nps_tpu_torch.inference import autotuned_convs
 
     gn_calls, spec_calls, epochs, n_timed = FAMILIES[name]
@@ -1443,10 +1463,7 @@ def family_train(name, seed, out_dir, tmp):
     n_steps = epochs * len(trainer.get_dataloaders()[0])
 
     # single steps at injected depths, on one batch of the split
-    batches = prefetch_to_device(iter(trainer.get_dataloaders()[0]),
-                                 trainer.device)
-    batch = next(batches)
-    batches.close()
+    batch = first_batch(trainer)
     with autotuned_convs():
         with kernel_shapes() as seen:   # also a first warm-up
             trainer.train_step(batch, 0, 0, unrolled=1)
@@ -1475,6 +1492,8 @@ def family_train(name, seed, out_dir, tmp):
            "launches": launches, "launches_expected": want_run,
            "steps": {str(d): v for d, v in steps.items()},
            "step_vs_cpu": vs_cpu, "kernels_at_train_shapes": shape_checks}
+    if spec_calls:
+        rec["weight_pack"] = weight_pack_record(rec["steps"])
     if not (np.isfinite(train_losses).all()
             and np.isfinite(val_losses["default"]).all()
             and len(val_losses["default"]) == epochs):
@@ -1700,6 +1719,30 @@ def phase_train(seed, card, out_dir, tmp, gen_s):
     return launches
 
 
+def weight_pack_record(steps):
+    """The spectral conv's weight pack (``pack_weights_2d``: two permuting
+    copies into the kernel's layout), which every K1 forward launch with
+    gradients, and every one in a train step's no-grad pushforward, makes
+    anew: device ms per call at the twophase weight shape (graph replay),
+    its calls in each timed train step of ``steps`` (its K1 forward
+    launches) and their share of that step's time."""
+    import torch
+
+    from nps_tpu_torch.ops.spectral import pack_weights_2d
+
+    shape = (2, SPEC_CI, HIDDEN, MODES, MODES)
+    w = [torch.rand(shape, device="cuda") for _ in range(2)]
+    rec = {"shape": list(shape)}
+    timed(rec, lambda: pack_weights_2d(w), "ms")
+    for depth, st in steps.items():
+        calls = st["launches"].get("spectral_dft2d_fwd", 0)
+        rec[f"depth{depth}"] = {
+            "calls": calls, "step_ms": st["ms_per_step"],
+            "share": (calls * rec["ms"] / st["ms_per_step"]
+                      if rec["ms"] else None)}
+    return rec
+
+
 def phase_families(seed, card, out_dir, tmp):
     """The other four twophase families (Dilated ResNet, U-Net, FNO ->
     U-FNO, MP-GNN) at full width, each served (eager and captured) and
@@ -1724,6 +1767,221 @@ def phase_families(seed, card, out_dir, tmp):
     if failures:
         raise AssertionError("; ".join(failures))
     return paths
+
+
+def first_batch(trainer):
+    """The first train batch of ``trainer``'s split, on its device."""
+    from nps_tpu_torch.data.pipeline import prefetch_to_device
+
+    batches = prefetch_to_device(iter(trainer.get_dataloaders()[0]),
+                                 trainer.device)
+    batch = next(batches)
+    batches.close()
+    return batch
+
+
+def gn_tanh_records(gen):
+    """K2's f32 forward with the tanh GELU (act 2, the pushforward_fast
+    applies' form of the U-FNO's GroupNorms) at GN_SHAPES against its plain
+    version, beside its bound and the plain version's time."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    recs = []
+    for shape in GN_SHAPES:
+        c = shape[1]
+        x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
+        gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+        beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+        y = gn.gn1_gelu_fwd(x, gamma, beta, approximate="tanh")
+        ref = gn.gn_gelu_plain(x, gamma, beta, approximate="tanh")
+        rec = {"shape": shape, "rel_err": rel_err(y, ref),
+               "max_abs_err": float((y - ref).abs().max())}
+        rec["bound_ms"], rec["bound_by"] = gn_bound([shape])
+        timed(rec, lambda: gn.gn1_gelu_fwd(x, gamma, beta,
+                                           approximate="tanh"), "ms")
+        timed(rec, lambda: gn.gn_gelu_plain(x, gamma, beta,
+                                            approximate="tanh"), "plain_ms")
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else None
+        recs.append(rec)
+    return recs
+
+
+def phase_pushforward_fast(seed, card, gen, tmp):
+    """The U-FNO (cfg_twophase_ufno, full width) trained with
+    --trainer.pushforward_fast=true on the split in ``tmp``: a depth-0 step
+    against the flag-off trainer's (same weights, batch and start steps;
+    cuDNN's deterministic algorithms): the loss bit for bit; then depth-8
+    steps timed (their launches as the flag-off step's), where the 8
+    no-grad applies launch K2 with act 2 (tanh) and the graded apply with
+    act 1 (erf), read from ``kernels.act_launches``; and K2's f32 tanh
+    forward at GN_SHAPES against its plain version (gn_tanh_records)."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import autotuned_convs
+
+    gn_calls, spec_calls = FAMILIES["ufno"][:2]
+    argv = train_argv(tmp, seed, 1, "train_ufno_fast")
+    off = build_trainer(family_cfg("ufno"), argv, "cuda")
+    on = build_trainer(family_cfg("ufno"),
+                       argv + ["--trainer.pushforward_fast=true"], "cuda")
+    for t in (off, on):
+        t.ensure_initialized()
+    on.model.load_state_dict(off.model.state_dict())
+    batch = first_batch(off)
+    steps0 = torch.randint(TW, TRAIN_NT - TW + 1, (TRAIN_BATCH,),
+                           generator=torch.Generator().manual_seed(seed))
+    failures = []
+    with autotuned_convs(deterministic=True):
+        loss_off = off.train_step(batch, 0, 0, unrolled=0, steps0=steps0)[0]
+        loss_on = on.train_step(batch, 0, 0, unrolled=0, steps0=steps0)[0]
+        params_equal = all(torch.equal(a, b) for a, b in zip(
+            off.model.parameters(), on.model.parameters()))
+    del off
+    gc.collect()
+    depth = TRAIN_DEPTHS[-1]
+    want = family_launches(gn_calls, spec_calls, depth + 1, True)
+    with autotuned_convs():
+        on.train_step(batch, 0, 0, unrolled=depth)  # warm-up
+        kernels.reset_launches()
+        on.train_step(batch, 0, 0, unrolled=depth)
+        torch.cuda.synchronize()
+        acts = {f"{name}/act{act}": n
+                for (name, act), n in sorted(kernels.act_launches.items())}
+        steps = timed_steps(on, batch, depth, want, 3)
+    want_acts = {"gn1_gelu_fwd/act1": gn_calls,
+                 "gn1_gelu_fwd/act2": gn_calls * depth}
+    tanh = gn_tanh_records(gen)
+    rec = {"phase": "pushforward_fast", "config": family_cfg("ufno"),
+           "flag": "--trainer.pushforward_fast=true",
+           "depth0": {"loss_off": float(loss_off), "loss_on": float(loss_on),
+                      "bitwise_equal": float(loss_off) == float(loss_on),
+                      "params_equal_after_adam": params_equal},
+           "depth": depth, "act_launches": acts,
+           "act_launches_expected": want_acts, "step": steps,
+           "gn1_gelu_fwd_tanh_f32": tanh, "card": card, "tf32": False}
+    emit(rec)
+    if float(loss_off) != float(loss_on):
+        failures.append(f"depth-0 loss with the flag {float(loss_on)} != "
+                        f"without {float(loss_off)}")
+    if not params_equal:
+        failures.append("depth-0 parameters after Adam differ with the flag")
+    if acts != want_acts:
+        failures.append(f"K2 launches by activation {acts}, want "
+                        f"{want_acts}")
+    if not steps["launches_ok"]:
+        failures.append(f"depth-{depth} launches {steps['launches']}, want "
+                        f"{want}")
+    bad = [r for r in tanh if not r["rel_err"] < REL_TOL_F32]
+    if bad:
+        failures.append(f"K2 f32 tanh disagrees: {bad}")
+    del on
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def gnn_bf16(seed, card, tmp):
+    """cfg_twophase_gnn at full width in bf16: one serving step (batch 2)
+    and one depth-1 train step (batch 2, same weights and start steps) on
+    the card against the port on the CPU in bf16, held at the bf16 bar with
+    the CPU in f32 as the reference (|card - CPU_bf16| / |CPU_f32| <=
+    max(2 d, BF16_FLOOR), d the CPU's own bf16-vs-f32 deviation; the output
+    and loss in max terms, the gradients over all parameters in RMS terms);
+    then the bf16 train step timed at depth 0 and batch 16 (no hand kernel
+    may launch)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch.inference import SurrogateEngine, autotuned_convs
+
+    cfg = family_cfg("gnn")
+    pde = twophase_pde()
+    engines = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                       ("cpu", None)):
+        engines[dev, dtype] = SurrogateEngine.from_config(
+            cfg, pde=pde, device=dev, compute_dtype=dtype)
+    engines["cuda", "bfloat16"].init_params(seed=seed)
+    state = engines["cuda", "bfloat16"].model.state_dict()
+    u0, cond, _ = serving_inputs(seed)
+    out = {}
+    for key, eng in engines.items():
+        if key[0] == "cpu":
+            eng.model.load_state_dict({k: v.cpu() for k, v in state.items()})
+        out[key] = eng.step(u0[:2], cond=cond[:2])
+    del engines
+    gc.collect()
+
+    def bar(got, ref16, ref32, norm):
+        scale = norm(ref32)
+        d, err = norm(ref16 - ref32) / scale, norm(got - ref16) / scale
+        return {"rel_err": float(err), "cpu_bf16_vs_f32": float(d),
+                "bar": float(max(2 * d, BF16_FLOOR))}
+
+    def amax(a):
+        return float(np.abs(a).max())
+
+    serve = bar(out["cuda", "bfloat16"], out["cpu", "bfloat16"],
+                out["cpu", None], amax)
+    serve["finite"] = bool(np.isfinite(out["cuda", "bfloat16"]).all())
+
+    argv = train_argv(tmp, seed, 1, "train_gnn_bf16")
+    bf16 = ["--trainer.compute_dtype=bfloat16"]
+    card16 = build_trainer(cfg, argv + bf16, "cuda")
+    card16.ensure_initialized()
+    batch = first_batch(card16)
+    small = tuple(t[:2] for t in batch)
+    steps0 = torch.randint(TW, TRAIN_NT - 2 * TW + 1, (2,),
+                           generator=torch.Generator().manual_seed(seed))
+    # copies, taken before the card's step moves its weights
+    state = {k: v.detach().cpu().clone()
+             for k, v in card16.model.state_dict().items()}
+    losses, grads = {}, {}
+    for key, extra in (("card", bf16), ("cpu_bf16", bf16), ("cpu_f32", [])):
+        t = (card16 if key == "card"
+             else build_trainer(cfg, argv + extra, "cpu"))
+        t.ensure_initialized()
+        t.model.load_state_dict(state)
+        b = small if key == "card" else tuple(x.cpu() for x in small)
+        losses[key] = float(t.train_step(b, 0, 0, unrolled=1,
+                                         steps0=steps0)[0])
+        grads[key] = np.concatenate([p.grad.detach().float().cpu().numpy()
+                                     .ravel() for _, p in sorted(
+                                         t.model.named_parameters())])
+        if key != "card":
+            del t
+    train = {"loss": bar(np.float64(losses["card"]),
+                         np.float64(losses["cpu_bf16"]),
+                         np.float64(losses["cpu_f32"]), amax),
+             "grads": bar(grads["card"], grads["cpu_bf16"], grads["cpu_f32"],
+                          lambda a: float(np.sqrt(np.mean(np.square(a))))),
+             "losses": losses}
+    with autotuned_convs():
+        timed_d0 = timed_steps(card16, batch, 0, {}, 3)
+    rec = {"phase": "gnn_bf16", "config": cfg, "compute_dtype": "bfloat16",
+           "serve_step": serve, "train_step": train, "step_d0": timed_d0,
+           "card": card, "tf32": False}
+    emit(rec)
+    del card16
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures = [f"gnn bf16 {what}: {r}" for what, r in (
+        ("serving step", serve), ("train loss", train["loss"]),
+        ("train gradients", train["grads"])) if not r["rel_err"] <= r["bar"]]
+    if not serve["finite"]:
+        failures.append("gnn bf16 serving step is not finite")
+    if not timed_d0["launches_ok"]:
+        failures.append(f"gnn bf16 launched {timed_d0['launches']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def ns512_split(tmp, seed):
@@ -3058,7 +3316,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         gen_s = make_split(tmp, args.seed)
         train = phase_train(args.seed, card, out_dir, tmp, gen_s)
+        phase_pushforward_fast(args.seed, card, gen, tmp)
         families = phase_families(args.seed, card, out_dir, tmp)
+        gnn_bf16(args.seed, card, tmp)
         ns512, ns_kern, gn_inputs = phase_ns512(args.seed, card, gen, tmp)
         kern.update(ns_kern)
         ns512_train, ns512_accum, ns_train_kern = phase_ns512_train(

@@ -2,7 +2,9 @@
 
 Counterpart of ``nps_tpu/common/interfaces.py``: every dataset declares a
 ``data_interface``, every model a ``model_interface`` plus the data
-interfaces it supports.
+interfaces it supports. The models carry the two as class attributes; the
+JAX package's ``ModelInterface`` base class (``models/base.py``), which
+only sets them to None and (), has no counterpart here.
 """
 
 from enum import Enum

@@ -12,6 +12,13 @@ names and layouts:
 - a path segment ``name_N``          -> ``name.N`` (list and Sequential slots)
 - a Dilated ResNet conv ``block_B/conv_L`` -> ``processor.B.layers.2L`` (the
   reference's block list and its Sequential, activations at the odd slots)
+- a mixture-of-experts block ``experts_I`` (``models/moe_fno.py``): JAX
+  stacks its experts' leaves on a leading ``E`` axis; each leaf is split
+  along it first, leaf ``[E, ...]`` under ``experts_I/...`` becoming ``E``
+  leaves under ``experts.I.e....``, and each is then mapped by the rules
+  above (so an expert's 2D 1x1 conv kernel ``[E, 1, 1, I, O]`` is read as
+  the ``[1, 1, I, O]`` kernel it is, not as a 3D one); the gate
+  ``gate_I`` is a Dense
 
 Spectral weights stay split real ``[2, i, o, *modes]``.
 """
@@ -24,6 +31,7 @@ import torch
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 _TRANSPOSE_CONV = re.compile(r"(^|/)up_\d+/conv$")
 _DRN_CONV = re.compile(r"(^|/)block_(\d+)/conv_(\d+)(?=/|$)")
+_EXPERTS = re.compile(r"^experts_\d+$")
 
 
 def _leaves(tree, path=()):
@@ -34,6 +42,20 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def _split_experts(leaves):
+    """Split every leaf under an ``experts_I`` module along its leading
+    (expert) axis: ``(.., experts_I, ..), [E, ...]`` -> ``E`` leaves
+    ``(.., experts_I, "e", ..), [...]``."""
+    for path, val in leaves:
+        at = next((i for i, m in enumerate(path[:-1]) if _EXPERTS.match(m)),
+                  None)
+        if at is None:
+            yield path, val
+            continue
+        for e, part in enumerate(np.asarray(val)):
+            yield path[:at + 1] + (str(e),) + path[at + 1:], part
+
+
 def from_jax_params(tree):
     """nps_tpu params tree -> an ordered ``state_dict`` of f32 CPU tensors."""
     if "params" in tree:
@@ -41,7 +63,7 @@ def from_jax_params(tree):
     if set(tree) == {"inner"}:
         tree = tree["inner"]
     state = {}
-    for path, val in _leaves(tree):
+    for path, val in _split_experts(_leaves(tree)):
         arr = np.asarray(val, dtype=np.float32)
         *mods, leaf = path
         mod_path = "/".join(mods)

@@ -10,7 +10,9 @@ and flags, so an edited source is never served by a stale build.
 Each C entry launches on the stream it is given, allocates nothing, and
 returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
 ``launches`` counts, per kernel name, the launches the wrappers made since
-:func:`reset_launches`.
+:func:`reset_launches`; ``act_launches`` counts the GN+GELU forward
+launches among them by (kernel name, activation code: 0 none, 1 erf GELU,
+2 tanh GELU).
 """
 
 import ctypes
@@ -67,11 +69,13 @@ SIGNATURES = {
 }
 
 launches = Counter()
+act_launches = Counter()
 _lib = None
 
 
 def reset_launches():
     launches.clear()
+    act_launches.clear()
 
 
 def nvcc_path():

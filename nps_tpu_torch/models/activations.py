@@ -10,6 +10,8 @@ erf form, torch's default and the reference's.
 import torch
 import torch.nn.functional as F
 
+from nps_tpu_torch.models.config import fast_forward_active
+
 
 class _Activation:
     """Base: a named, argument-carrying callable usable as a config value."""
@@ -37,10 +39,13 @@ class _Activation:
 
 
 class GELU(_Activation):
-    """Exact-erf GELU (torch's default ``nn.GELU()``)."""
+    """Exact-erf GELU (torch's default ``nn.GELU()``); the tanh form inside
+    a no-grad pushforward step under ``trainer.pushforward_fast``
+    (:func:`~nps_tpu_torch.models.config.fast_forward_scope`)."""
 
     def __call__(self, x):
-        return F.gelu(x, approximate="none")
+        return F.gelu(x, approximate=("tanh" if fast_forward_active()
+                                      else "none"))
 
 
 class GELUTanh(_Activation):

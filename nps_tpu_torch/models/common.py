@@ -37,7 +37,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from nps_tpu_torch.models import initializers as init
-from nps_tpu_torch.models.config import compute_dtype, compute_dtype_scope
+from nps_tpu_torch.models.config import (compute_dtype, compute_dtype_scope,
+                                         fast_forward_active)
 from nps_tpu_torch.ops.group_norm import gn_gelu, group_norm_plain  # noqa: F401
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -296,8 +297,12 @@ class GroupNorm(nn.Module):
                                 self.bias).to(x.dtype)
 
     def with_gelu(self, x, gelu=True, approximate="none"):
-        """GroupNorm(1) [+ GELU, exact ("none") or "tanh"], fused."""
+        """GroupNorm(1) [+ GELU, exact ("none") or "tanh"], fused. The
+        exact form becomes "tanh" inside a no-grad pushforward step under
+        ``trainer.pushforward_fast``, as ``activations.GELU`` does."""
         if self.num_groups != 1:
             raise ValueError("the fused op takes one group")
+        if approximate == "none" and fast_forward_active():
+            approximate = "tanh"
         return gn_gelu(x, self.weight, self.bias, gelu,
                        approximate=approximate)

@@ -22,9 +22,21 @@ The serving engine keeps its own compute dtype (its config's
 model apply inside :func:`compute_dtype_scope`; so does the trainer, for
 its steps (backward included), evaluations and rollouts. A block that
 :func:`~nps_tpu_torch.models.common.remat_block` rematerializes is
-recomputed in the dtype its forward ran in. The JAX package's
-``gn_stats_impl`` and ``fast_forward_scope`` are not ported yet (ROADMAP
-P13).
+recomputed in the dtype its forward ran in.
+
+One more switch, the JAX package's: :func:`fast_forward_scope` /
+:func:`fast_forward_active`. Inside the block the model apply is a no-grad
+pushforward step whose output only becomes the next train window's input,
+so modules may take cheaper numerics; the trainer opens it around its
+pushforward loop when ``trainer.pushforward_fast`` is set. There the exact
+GELU (``activations.GELU``, and the fused GroupNorm+GELU's exact form)
+becomes the tanh-approximate one. The JAX package also takes bf16
+GroupNorm statistics there for bf16 inputs; the port keeps the f32
+statistics of the K2 kernel (``ops/group_norm.py``).
+
+The JAX package's ``set_gn_stats_impl``/``gn_stats_impl`` have no
+counterpart here: K2's f32 sums are the only GroupNorm statistics on the
+card.
 """
 
 from contextlib import contextmanager
@@ -72,3 +84,25 @@ def cast_compute(x):
     if dt is not None and x.dtype != dt:
         return x.to(dt)
     return x
+
+
+_FAST_FORWARD = False
+
+
+def fast_forward_active():
+    """Whether the current model apply is a no-grad pushforward step
+    (:func:`fast_forward_scope`)."""
+    return _FAST_FORWARD
+
+
+@contextmanager
+def fast_forward_scope(enabled=True):
+    """Set :func:`fast_forward_active` to ``enabled`` inside the block and
+    restore the caller's value after it, an exception included."""
+    global _FAST_FORWARD
+    prev = _FAST_FORWARD
+    _FAST_FORWARD = bool(enabled)
+    try:
+        yield
+    finally:
+        _FAST_FORWARD = prev

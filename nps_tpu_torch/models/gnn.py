@@ -35,6 +35,15 @@ no Pallas kernel is on this path). Parameters keep the flax module names
 so ``compat.jax_weights.from_jax_params`` maps the JAX tree. On CUDA,
 ``index_add_`` sums with atomics in no fixed order: gradients and outputs
 are held to tolerances, not bits.
+
+Under a bf16 compute dtype (:mod:`.config`) every dense layer and the
+decoder's time convs take and give bf16 (``common.Dense``/``ConvND``), as
+the JAX package's ``nn.Dense(dtype=compute_dtype)``: the messages, their
+aggregate (``index_add_`` into a bf16 sum, or the shifted path's masked
+sum with its masks in bf16), the residual stream and the node update run
+in bf16; the in-degrees are counted exactly in f32 and their inverse then
+cast to the features' type; the encoder's input concat (the window and
+positions f32) is f32 until its first dense layer.
 """
 
 import math
@@ -168,9 +177,8 @@ class MPGNN(nn.Module):
     aggregate divides by each receiver's in-degree, counted exactly in f32.
     ``remat=True`` recomputes each layer in the backward instead of keeping
     its edge activations (:func:`~nps_tpu_torch.models.common.remat_block`,
-    nothing kept), as the JAX package does. A compute dtype other than f32
-    raises: the JAX package's bf16 casts in its layers are still to be
-    ported (ROADMAP P12c)."""
+    nothing kept), as the JAX package does. Under a bf16 compute dtype the
+    layers run in bf16 (the module docstring)."""
 
     model_interface = M.AR_TB_GNN
     data_interface = (D.sim1d, D.sim2d)
@@ -192,12 +200,13 @@ class MPGNN(nn.Module):
             for _ in range(hidden_blocks))
         self._grid_consts = {}
 
-    def _grid(self, grid_meta, device):
+    def _grid(self, grid_meta, device, dtype):
         """The shifted path's constants on ``device``: (spatial shape,
-        offsets, position deltas [K, nd], receiver masks [K, *sp]). Built
-        once per structure and device, so a later call (inside a CUDA graph
-        capture, say) copies nothing from the host."""
-        key = (grid_meta, str(device))
+        offsets, position deltas [K, nd] f32, receiver masks [K, *sp] in
+        the messages' ``dtype``). Built once per structure, device and
+        type, so a later call (inside a CUDA graph capture, say) copies
+        nothing from the host."""
+        key = (grid_meta, str(device), dtype)
         if key not in self._grid_consts:
             sp, offsets, deltas = grid_meta
             masks = np.zeros((len(offsets),) + tuple(sp), np.float32)
@@ -207,17 +216,13 @@ class MPGNN(nn.Module):
                 self._grid_consts[key] = (
                     tuple(sp), offsets,
                     torch.tensor(deltas, dtype=torch.float32, device=device),
-                    torch.from_numpy(masks).to(device))
+                    torch.from_numpy(masks).to(device=device, dtype=dtype))
         return self._grid_consts[key]
 
     def forward(self, h, variables_broadcast=None, pos=None, edge_index=None,
                 batch=None, grid_meta=None):
         if edge_index is None:
             raise ValueError("MPGNN needs graph edges")
-        if compute_dtype() is not None:
-            raise NotImplementedError(
-                f"MPGNN under compute dtype {compute_dtype()} is not ported "
-                "yet (ROADMAP P12c: the MP-GNN's bf16 casts)")
         degree_inv = None
         if self.aggregate == "mean":
             recv = edge_index[1]
@@ -232,8 +237,9 @@ class MPGNN(nn.Module):
                 raise ValueError("MPGNN was built with n_cond=0 but got "
                                  "node conditioning")
             h = self.cond_proj(torch.cat([h, variables_broadcast], dim=-1))
-        grid = (self._grid(grid_meta, h.device) if grid_meta is not None
-                else None)
+        # the messages' type: the dense layers' output type
+        grid = (self._grid(grid_meta, h.device, compute_dtype() or h.dtype)
+                if grid_meta is not None else None)
         for layer in self.mp:
             if self.remat:
                 layer = remat_block(layer)

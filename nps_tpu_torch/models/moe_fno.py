@@ -1,0 +1,113 @@
+"""Mixture-of-spectral-experts FNO processor (counterpart of
+``nps_tpu/models/moe_fno.py``; the reference has no MoE).
+
+``hidden_blocks`` x (a softmax gate and ``n_experts`` FNO layers). Every
+expert runs on every sample and the gate mixes them, with the activation
+applied after the sum::
+
+    h = act(sum_e g[b, e] * Expert_e(h_in)[b])
+
+where ``h_in`` is ``h`` with the broadcast conditioning concatenated
+(``cond_mode="concat"``). The gate is a ``Dense(n_gate_in -> E)`` on the
+model-level conditioning vector (``variables``, the static conditioning),
+or, for a model without static conditioning, on the spatial mean of ``h``;
+its logits go through the softmax in f32 and the gate is then cast to the
+experts' output type; the weighted outputs are summed in f32 and rounded
+once to that type. With ``n_experts=1`` the gate is the constant 1 and a
+block is exactly an ``FNO_Layer`` with the activation.
+
+Each expert is its own :class:`~nps_tpu_torch.models.fno.FNO_Layer`
+(``activation=None``), so each launches its spectral conv (the K1 kernel on
+the card) once per apply: ``hidden_blocks * n_experts`` calls.
+``remat`` rematerializes each expert layer in the backward
+(:func:`~nps_tpu_torch.models.common.remat_block`), as the JAX package
+wraps ``FNO_Layer`` in ``nn.remat``. FiLM conditioning is refused.
+
+Parameter names (the JAX package stacks each expert's leaves on a leading
+``E`` axis; :func:`~nps_tpu_torch.compat.jax_weights.from_jax_params`
+splits it): ``processor.P.experts.i.e.<FNO_Layer keys>`` for expert ``e``
+of block ``i`` (JAX ``processor_P/experts_i/...`` at index ``e``), and
+``processor.P.gate.i.weight`` ``[E, n_gate_in]`` / ``.bias`` ``[E]`` (JAX
+``gate_i/kernel`` ``[n_gate_in, E]`` / ``bias``).
+"""
+
+import torch
+from torch import nn
+
+from nps_tpu_torch.common.interfaces import D, M
+from nps_tpu_torch.models.activations import resolve_activation
+from nps_tpu_torch.models.common import REMAT_POLICIES, Dense, remat_block
+from nps_tpu_torch.models.config import compute_dtype_scope
+from nps_tpu_torch.models.fno import FNO_Layer
+
+
+class MoEFNO(nn.Module):
+    """``hidden_blocks`` x (gated mixture of ``n_experts`` FNO layers),
+    h [b, hidden, *sp] in and out."""
+
+    model_interface = M.AR_TB
+    data_interface = (D.sim1d, D.sim1d_var_t, D.sim2d)
+
+    def __init__(self, pde=None, num_spatial_dims=1, n_cond=0,
+                 hidden_features=128, hidden_blocks=4, cond_mode="concat",
+                 padding_mode="circular", activation="gelu", n_experts=4,
+                 fno_modes=48, fno_kernel_size=1, fno_conv_mode="single",
+                 remat=False, remat_policy=None):
+        super().__init__()
+        assert cond_mode in ("concat", None), \
+            "MoEFNO conditions by concat (+ the gate); FiLM is not supported"
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"Unknown remat policy {remat_policy!r}")
+        self.cond_mode = cond_mode
+        self.nd = num_spatial_dims
+        self.remat, self.remat_policy = bool(remat), remat_policy
+        self.act = resolve_activation(activation)
+        E = int(n_experts)
+        hidden_in = (hidden_features + n_cond if cond_mode == "concat"
+                     else hidden_features)
+        pm = padding_mode if padding_mode != "ones" else "zeros"
+        # the gate reads the static conditioning where the model has it,
+        # else the pooled hidden state
+        n_static = int(getattr(pde, "n_cond_static", 0) or 0)
+        self.n_gate_in = n_static or hidden_features
+        self.gate = nn.ModuleList(Dense(self.n_gate_in, E)
+                                  for _ in range(hidden_blocks))
+        self.experts = nn.ModuleList(
+            nn.ModuleList(
+                FNO_Layer(hidden_dim=hidden_in,
+                          hidden_dim_out=hidden_features,
+                          num_spatial_dims=num_spatial_dims, modes=fno_modes,
+                          kernel_size=fno_kernel_size,
+                          conv_mode=fno_conv_mode, padding_mode=pm,
+                          activation=None)
+                for _ in range(E))
+            for _ in range(hidden_blocks))
+
+    def forward(self, h, variables=None, variables_broadcast=None, pos=None):
+        for gate, experts in zip(self.gate, self.experts):
+            h_in = (torch.cat([h, variables_broadcast], dim=1)
+                    if (self.cond_mode == "concat"
+                        and variables_broadcast is not None) else h)
+            gate_in = (variables if variables is not None
+                       else h.mean(dim=tuple(range(2, 2 + self.nd))))
+            if gate_in.shape[-1] != self.n_gate_in:
+                raise ValueError(
+                    f"the gate was built for {self.n_gate_in} inputs, got "
+                    f"{gate_in.shape[-1]} (static conditioning given to a "
+                    "model built without it, or the other way round)")
+            # f32 logits and softmax, whatever the compute dtype
+            with compute_dtype_scope(None):
+                g = torch.softmax(gate(gate_in.float()), dim=-1)
+            acc = None
+            for e, expert in enumerate(experts):
+                if self.remat:
+                    expert = remat_block(expert, self.remat_policy)
+                out = expert(h_in)
+                # g[:, e] rounded to the expert's output type, [b, 1, ...];
+                # the mixture is summed in f32 and rounded once
+                ge = g[:, e].to(out.dtype).float().reshape(
+                    (-1,) + (1,) * (out.ndim - 1))
+                term = out.float() * ge
+                acc = term if acc is None else acc + term
+            h = self.act(acc.to(out.dtype))
+        return h

@@ -11,7 +11,13 @@ it; ``cfg_ns512_ufno``'s). Semantics, as in
 eps 1e-5, then per-channel affine, then the GELU if ``gelu``.
 
 Layout: NCHW (any number of spatial dims), contiguous; f32, or bf16 with f32
-statistics and f32 arithmetic, rounded once on output. A CPU tensor takes
+statistics and f32 arithmetic, rounded once on output. The statistics stay f32
+inside a no-grad pushforward step under ``trainer.pushforward_fast`` too,
+where the JAX package takes them in bf16 for bf16 inputs
+(``nps_tpu/models/common.py``): f32 sums are the TPU kernel's own, cost the
+kernel nothing extra, and keep the fast step within the bf16 bar against
+JAX; only the exact GELU turns into the tanh form there
+(``models/config.py:fast_forward_scope``). A CPU tensor takes
 the plain version, a CUDA tensor the kernel ``gn1_gelu_fwd``
 (``csrc/gn1_gelu.cu``); there is no fallback between them.
 
@@ -153,6 +159,7 @@ def gn1_gelu_fwd_stats(x, weight, bias, gelu=True, eps=EPS,
         kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_fwd")
     kernels.launches["gn1_gelu_fwd"] += 1
+    kernels.act_launches["gn1_gelu_fwd", act] += 1
     return y, stats
 
 
@@ -175,6 +182,7 @@ def _launch_stream(x, weight, bias, y, stats, act, eps):
         chunks, vec, kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_gelu_fwd_stream")
     kernels.launches["gn1_gelu_fwd_stream"] += 1
+    kernels.act_launches["gn1_gelu_fwd_stream", act] += 1
 
 
 def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True, approximate="none"):

@@ -69,7 +69,6 @@ _UNPORTED = (
     ("tensor_parallel", lambda v: int(v or 0) > 1, "P9b"),
     ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9b"),
     ("expert_parallel", lambda v: int(v or 0) > 1, "P9b"),
-    ("pushforward_fast", bool, "P13"),
 )
 
 
@@ -86,8 +85,8 @@ def world_size():
 def refuse_unported(config):
     """Raise NotImplementedError for a config that asks for a regime the
     port does not have yet, naming its ROADMAP item. ``data_parallel`` in a
-    world of one process is the single-device step; more processes are
-    P9b."""
+    world of one process, and ``expert_parallel`` 0 or 1, are the
+    single-device step; more processes or expert shards are P9b."""
     for key, active, item in _UNPORTED:
         value = getattr(config, key, None)
         if value is not None and active(value):

@@ -6,7 +6,11 @@
   element gets a random start step; ``unrolled`` model steps run under
   ``torch.no_grad()``, feeding predictions back as inputs with BC
   extraction, injection and min clipping between steps; then one step with
-  gradients, loss sqrt(MSE_sum), backward and an optimizer update.
+  gradients, loss sqrt(MSE_sum), backward and an optimizer update. With
+  ``config.pushforward_fast`` the no-grad applies (and nothing else) run
+  inside ``models.config.fast_forward_scope``: the exact GELU becomes the
+  tanh form there (on the card K2's tanh epilogue); the graded apply,
+  ``test_step``, ``simulate`` and the serving engine never see it.
 - ``test_step``: one-step losses at every tw-strided start, the unrolled
   rollout loss (normalised by the spatial cell count and the rollout
   length) and the numerical-baseline loss.
@@ -51,6 +55,7 @@ from torch.profiler import record_function
 
 from nps_tpu_torch.common import graph as G
 from nps_tpu_torch.common.interfaces import D, M
+from nps_tpu_torch.models.config import fast_forward_scope
 from nps_tpu_torch.train.base import TrainInterface, in_compute_dtype
 from nps_tpu_torch.utils.process_output import process_step
 from nps_tpu_torch.utils.seed import get_seed
@@ -191,12 +196,18 @@ class AutoregressivePushforwardTrainer(TrainInterface):
             return (window(t_cond_, steps, tw, "labels")
                     if t_cond_ is not None else None)
 
+        # with trainer.pushforward_fast the no-grad applies take cheaper
+        # numerics (the tanh GELU): their output is only the next window's
+        # input, never a gradient path
+        fast = bool(getattr(self.config, "pushforward_fast", False))
         with torch.no_grad(), record_function("train_step/pushforward"):
             data, labels = window(u_super, steps, tw, "both")
             _, bc = self._process(data, data, labels, get_bc=True,
                                   set_bc=False, set_min=False)
             for _ in range(unrolled):
-                pred = self._apply(data, cond_, bc, x, t_window(steps), sc_)
+                with fast_forward_scope(fast):
+                    pred = self._apply(data, cond_, bc, x, t_window(steps),
+                                       sc_)
                 labels_prev = labels
                 steps = steps + tw
                 labels = window(u_super, steps, tw, "labels")

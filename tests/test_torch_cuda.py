@@ -15,7 +15,10 @@ card against the CPU. The backward at those shapes: the large-plane input
 gradient (f32 and bf16, with and without FiLM) and GN+GELU's backward in
 bf16, each against autograd through its plain version and for the same
 bits on a second call, and a rematerialized train step against one
-without remat.
+without remat. The mixture of experts (a train step card against CPU,
+through K1 alone), a pushforward_fast step (its no-grad applies launch K2
+with the tanh GELU) and the MP-GNN in bf16 against the CPU at the bf16
+bar.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. On the GPU machine, which
 has no JAX, run it without the repo's conftest:
@@ -533,6 +536,8 @@ def test_gn_gelu_fn_at_unet_shapes(shape):
 # kernels each family's serving step launches
 FAMILY_OVERRIDES = {
     "drn": (["--model.hidden_features=16", "--model.hidden_blocks=1"], set()),
+    "moe": (["--model.hidden_features=16", "--model.hidden_blocks=2",
+             "--model.fno_modes=4"], {"spectral_dft2d_fwd"}),
     "unet": (["--model.hidden_features=8", "--model.ch_mults=[2,1]"],
              {"gn1_gelu_fwd"}),
     "ufno_fno": (["--model.hidden_features=16", "--model.fno_modes=4"],
@@ -798,10 +803,14 @@ def test_large_plane_dft_stages_by_kernel_name(b, ci, co, grid, modes, dtype,
     (dft_fwd_tc_kernel, dft_inv_tc_kernel) for bf16 rows of a multiple of 8
     points on 16-byte aligned planes, the ns512 call among them, the FMA
     stages (dft_fwd_big_kernel, dft_inv_big_kernel) otherwise, as
-    ``large_stages`` mirrors the choice; each against its plain version."""
+    ``large_stages`` mirrors the choice; each against its plain version.
+    A record that holds no device kernel at all (the tracer now and then
+    keeps only the launches' API calls in a fresh process) is taken again,
+    at most 3 times; a record that holds kernels is judged at once."""
     from torch.profiler import ProfilerActivity, profile
 
     from nps_tpu_torch.ops import spectral as sp
+    from nps_tpu_torch.trace_step import _device_events
 
     g = torch.Generator(device="cuda").manual_seed(13)
 
@@ -824,10 +833,13 @@ def test_large_plane_dft_stages_by_kernel_name(b, ci, co, grid, modes, dtype,
              lambda: sp.spectral_conv_2d_plain(x, ws, modes)),
             (lambda: sp.spectral_dft2d_bwd(dy, wp, modes)[0],
              lambda: sp.spectral_dft2d_bwd_plain(dy, wp, modes)[0])):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
+        for _ in range(3):
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            if _device_events(prof):
+                break
         names = " ".join(e.key for e in prof.key_averages())
         assert all(k in names for k in want[stages]), names
         other = want["fma" if stages == "tensor" else "tensor"]
@@ -1339,3 +1351,141 @@ def test_var1d_engine_on_card_captured_matches_eager_and_cpu():
     assert eager.shape == (8, 2, 30, 32)
     assert _rel(torch.from_numpy(eager), torch.from_numpy(ref)) < 1e-4
     assert _rel(torch.from_numpy(captured), torch.from_numpy(eager)) < 1e-6
+
+
+# ---- the mixture of experts, pushforward_fast, the MP-GNN in bf16 ----------
+
+def _two_applies_loss_and_grads(eng, u0, cond, sc, dtype=None):
+    """Two model applies with gradients (the first detached, as a depth-1
+    pushforward step), the squared mean of the second: (loss, gradients by
+    parameter on the host)."""
+    from nps_tpu_torch.models.config import compute_dtype_scope
+
+    u, c, s = (None if a is None else torch.from_numpy(a).to(eng.device)
+               for a in (u0, cond, sc))
+    eng.model.zero_grad()
+    with compute_dtype_scope(dtype):
+        h = eng._apply(u, c, eng._pos(u.shape[0]), s).detach()
+        loss = eng._apply(h, c, eng._pos(u.shape[0]), s).float() \
+            .square().mean()
+        loss.backward()
+    return float(loss.detach()), {k: p.grad.float().cpu()
+                         for k, p in eng.model.named_parameters()}
+
+
+def test_moe_train_step_on_card_matches_cpu():
+    """The small MoE (2 blocks x 4 experts): a depth-1 step's loss and
+    every gradient, each expert's and each gate's, against the CPU (1e-4,
+    5e-3), through K1 only: per apply one forward launch an expert, per
+    backward one input-gradient and one weight-gradient launch an
+    expert."""
+    from nps_tpu_torch import kernels
+
+    gpu, cpu = _small_engine("moe"), _small_engine("moe", "cpu")
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in gpu.model.state_dict().items()})
+    u0, cond, sc = _small_inputs()
+    kernels.reset_launches()
+    loss, grads = _two_applies_loss_and_grads(gpu, u0, cond, sc)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"spectral_dft2d_fwd": 16,
+                                      "spectral_dft2d_bwd": 8,
+                                      "spectral_dw2d": 8}
+    loss_cpu, grads_cpu = _two_applies_loss_and_grads(cpu, u0, cond, sc)
+    assert abs(loss - loss_cpu) / abs(loss_cpu) < 1e-4
+    assert any(".gate." in k for k in grads)
+    floor = 1e-5 * max(float(g.abs().max()) for g in grads_cpu.values())
+    for k, g in grads_cpu.items():
+        scale = max(float(g.abs().max()), floor)
+        assert float((grads[k] - g).abs().max()) / scale < 5e-3, k
+
+
+def _ufno_trainer(tmp_path, device, *extra):
+    import sys
+
+    from nps_tpu_torch import train_cli
+    from nps_tpu_torch.configs.parse import parse_args
+
+    saved = sys.argv
+    try:
+        sys.argv = ["prog", "--base_resolution=[21,24,16]",
+                    "--super_resolution=[21,24,16]", "--time_window=5",
+                    "--batch_size=2", f"--dataset.base_path={tmp_path}",
+                    "--dataset.c_filter=[0]", "--model.hidden_features=8",
+                    "--model.hidden_blocks=1", "--model.fno_modes=4",
+                    f"--experiment_path={tmp_path}/out", *extra]
+        args = parse_args("nps_tpu_torch/configs/train/cfg_twophase_ufno.py")
+    finally:
+        sys.argv = saved
+    trainer = train_cli.get_config_static(args, device=device)[4]
+    trainer.set_optimizer(dict(args["optimizer"]))
+    trainer.ensure_initialized()   # builds its optimizer
+    return trainer
+
+
+def test_pushforward_fast_no_grad_applies_launch_k2_tanh(tmp_path):
+    """A small U-FNO trained with --trainer.pushforward_fast=true on the
+    card: at depth 2 the two no-grad applies launch K2 with the tanh GELU
+    (act 2), the graded apply with the config's exact one (act 1); the loss
+    against the same step on the CPU (1e-4)."""
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.data.synthetic import generate
+
+    generate(str(tmp_path / "twophase"), n_sims=6, n_channels=1, nt=21,
+             nx1=24, nx2=16, seed=2)
+    fast = "--trainer.pushforward_fast=true"
+    gpu = _ufno_trainer(tmp_path, "cuda", fast)
+    cpu = _ufno_trainer(tmp_path, "cpu", fast)
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in gpu.model.state_dict().items()})
+    batch = tuple(torch.as_tensor(np.asarray(t))
+                  for t in next(iter(cpu.get_dataloaders()[0])))
+    steps0 = torch.tensor([5, 6])
+    kernels.reset_launches()
+    loss = gpu.train_step(tuple(t.cuda() for t in batch), 0, 0, unrolled=2,
+                          steps0=steps0)[0]
+    torch.cuda.synchronize()
+    acts = dict(kernels.act_launches)
+    per_apply = acts.get(("gn1_gelu_fwd", 1), 0)
+    assert per_apply > 0
+    assert acts == {("gn1_gelu_fwd", 1): per_apply,
+                    ("gn1_gelu_fwd", 2): 2 * per_apply}
+    loss_cpu = cpu.train_step(batch, 0, 0, unrolled=2, steps0=steps0)[0]
+    assert abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu)) < 1e-4
+
+
+def test_gnn_bf16_engine_and_train_step_on_card_match_cpu():
+    """The small MP-GNN in bf16 on the card against the CPU in bf16 at the
+    bf16 bar, the CPU in f32 as the reference: |card - CPU_bf16| /
+    max|CPU_f32| <= max(2 d, 8e-3), d the CPU's own bf16-vs-f32 deviation,
+    for one serving step (max terms) and a depth-1 step's loss and
+    gradients (all parameters' RMS terms)."""
+    from nps_tpu_torch.models.config import resolve_compute_dtype
+
+    gpu, cpu = _small_engine("gnn"), _small_engine("gnn", "cpu")
+    cpu.model.load_state_dict({k: v.cpu()
+                               for k, v in gpu.model.state_dict().items()})
+    u0, cond, _ = _small_inputs()
+    bf16 = "bfloat16"
+
+    def bar(got, ref16, ref32, norm):
+        scale = norm(ref32)
+        d, err = norm(ref16 - ref32) / scale, norm(got - ref16) / scale
+        assert err <= max(2 * d, 8e-3), (err, d)
+
+    def at(eng, dtype):
+        eng.compute_dtype = resolve_compute_dtype(dtype)
+        return eng.step(u0, cond=cond)
+
+    out, ref16, ref32 = at(gpu, bf16), at(cpu, bf16), at(cpu, None)
+    bar(out, ref16, ref32, lambda a: float(np.abs(a).max()))
+    loss, grads = _two_applies_loss_and_grads(gpu, u0, cond, None, bf16)
+    loss16, grads16 = _two_applies_loss_and_grads(cpu, u0, cond, None, bf16)
+    loss32, grads32 = _two_applies_loss_and_grads(cpu, u0, cond, None)
+    bar(np.float64(loss), np.float64(loss16), np.float64(loss32), abs)
+
+    def flat(g):
+        return torch.cat([g[k].flatten() for k in sorted(g)]).numpy()
+
+    bar(flat(grads), flat(grads16), flat(grads32),
+        lambda a: float(np.sqrt(np.mean(np.square(a)))))

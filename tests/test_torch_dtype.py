@@ -1,8 +1,8 @@
 """The port's compute-dtype switch against ``nps_tpu``'s: the spellings
 ``set_compute_dtype`` takes, each module that casts to the compute dtype,
 the spectral conv at m2 = 20 (the shape class of the large-plane kernel
-variant), one serving step of three twophase families in bf16, and the
-MP-GNN's refusal.
+variant), one serving step of four twophase families (the MoE among them)
+and of the MP-GNN in bf16.
 
 Inputs are made with numpy from a seed; the port's weights are carried
 into the JAX modules (``convert_state_dict``'s layouts), so both sides
@@ -229,6 +229,8 @@ FAMILIES = {
     "drn": ["--model.hidden_features=16", "--model.hidden_blocks=1"],
     "unet": ["--model.hidden_features=8", "--model.ch_mults=[2,1]"],
     "ufno_fno": ["--model.hidden_features=16", "--model.fno_modes=4"],
+    "moe": ["--model.hidden_features=16", "--model.hidden_blocks=2",
+            "--model.fno_modes=4"],
 }
 PDE_KW = dict(tmin=0, tmax=10, nt=NT, L1=1.0, L2=0.7, nx1=NX1, nx2=NX2,
               x=None, name="twophase", n_cond_static=2, n_cond_spatial=2)
@@ -281,16 +283,22 @@ def test_family_step_in_bf16_matches_jax(family):
 
 
 def test_mpgnn_refuses_bf16_naming_its_item():
-    """The MP-GNN's bf16 casts are not ported: a bf16 engine raises when it
-    applies the model, naming its ROADMAP item, P12c."""
+    """The name is older than the MP-GNN's bf16 casts, which are ported
+    now: one serving step of ``cfg_twophase_gnn`` (the shifted-grid path)
+    built by both engines, JAX weights carried into the port, in bf16 at
+    the bf16 bar, the physics wrapper's output f32."""
     over = ["--time_window=5", "--model.hidden_features=16",
             "--model.hidden_blocks=2"]
-    pde = PDE2D(**dict(PDE_KW, nx1=12, nx2=8))
+    jcfg = "nps_tpu/configs/train/cfg_twophase_gnn.py"
+    u0, cond, _ = _inputs()
+    j32, params = _jax_step(jcfg, over, None, u0, cond, None)
+    jbf, _ = _jax_step(jcfg, over, BF16, u0, cond, None, params)
     eng = SurrogateEngine.from_config(
-        "nps_tpu_torch/configs/train/cfg_twophase_gnn.py", pde=pde,
-        overrides=over, device="cpu", compute_dtype="bf16")
-    eng.init_params(seed=0)
-    rng = np.random.default_rng(1)
-    u0 = rng.random((2, 1, 5, 12, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="P12c"):
-        eng.step(u0, cond=rng.random((2, 2)).astype(np.float32))
+        "nps_tpu_torch/configs/train/cfg_twophase_gnn.py",
+        pde=PDE2D(**PDE_KW), overrides=over, device="cpu",
+        compute_dtype="bf16")
+    eng.load_jax_params(jax.tree_util.tree_map(np.asarray, params))
+    out = eng.step(u0, cond=cond)
+    assert out.dtype == np.float32
+    err, bar = _bf16_bar(out, jbf, j32)
+    assert err <= bar, (err, bar)

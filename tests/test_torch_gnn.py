@@ -276,22 +276,59 @@ def test_gather_path_matches_jax(aggregate):
 
 
 def test_remat_is_refused():
-    """The name is older than remat in the MP-GNN: ``remat=True`` is now
-    taken and applied per layer (the output and gradients against the
-    JAX package's rematerialized layers are in ``test_torch_remat.py``);
-    a bf16 compute dtype is still refused, naming its ROADMAP item."""
+    """The name is older than remat and bf16 in the MP-GNN: ``remat=True``
+    is taken and applied per layer (the output and gradients against the
+    JAX package's rematerialized layers in f32 are in
+    ``test_torch_remat.py``), and a bf16 compute dtype is taken too: the
+    rematerialized layers on the gather path in bf16 against JAX's, output
+    and the input's gradient at the bf16 bar of ``test_torch_dtype.py``
+    (|port_bf16 - JAX_bf16| / max|JAX_f32| <= max(2 d_jax, 8e-3))."""
+    from nps_tpu.models import config as jconfig
     from nps_tpu_torch.models import config
 
+    pos, edges = _radius_case()
+    rng = np.random.default_rng(6)
+    h = rng.standard_normal((pos.shape[0], 8)).astype(np.float32)
+    dy = rng.standard_normal(h.shape).astype(np.float32)
+    jm = JaxMPGNN(hidden_features=8, hidden_blocks=2, num_spatial_dims=2,
+                  remat=True)
+    jpos, jedges = pos.numpy(), edges.numpy()
+    params = jm.init(jax.random.PRNGKey(0), h, pos=jpos, edge_index=jedges)
+    ref = {}
+    try:
+        for dtype in (None, "bfloat16"):
+            jconfig.set_compute_dtype(dtype)
+
+            @jax.jit
+            def value_and_vjp(h):
+                y, vjp = jax.vjp(lambda h: jm.apply(
+                    params, h, pos=jpos, edge_index=jedges), h)
+                return y, vjp(jnp.asarray(dy).astype(y.dtype))[0]
+
+            with jax.default_matmul_precision("highest"):
+                y, dh = value_and_vjp(jnp.asarray(h))
+            ref[dtype] = (np.asarray(y.astype(jnp.float32)),
+                          np.asarray(dh.astype(jnp.float32)), str(y.dtype))
+    finally:
+        jconfig.set_compute_dtype(None)
     m = MPGNN(hidden_features=8, hidden_blocks=2, num_spatial_dims=2,
               remat=True)
     assert m.remat
-    pos, edges = _radius_case()
-    h = torch.ones((pos.shape[0], 8), requires_grad=True)
-    m(h, pos=pos, edge_index=edges).sum().backward()
-    assert h.grad is not None
-    with config.compute_dtype_scope("bfloat16"), \
-            pytest.raises(NotImplementedError, match="P12c"):
-        m(h, pos=pos, edge_index=edges)
+    m.load_state_dict(from_jax_params(
+        jax.tree_util.tree_map(np.asarray, params)))
+    th = torch.from_numpy(h).requires_grad_(True)
+    with config.compute_dtype_scope("bfloat16"):
+        out = m(th, pos=pos, edge_index=edges)
+        # an f32 input keeps the residual stream f32, on both sides
+        assert str(out.dtype) == "torch." + ref["bfloat16"][2]
+        (out.float() * torch.from_numpy(dy)).sum().backward()
+    for got, j16, j32 in ((out.detach().float().numpy(), ref["bfloat16"][0],
+                           ref[None][0]),
+                          (th.grad.numpy(), ref["bfloat16"][1], ref[None][1])):
+        scale = np.abs(j32).max()
+        d_jax = np.abs(j16 - j32).max() / scale
+        err = np.abs(got - j16).max() / scale
+        assert err <= max(2 * d_jax, 8e-3), (err, d_jax)
 
 
 def _radius_case(seed=4, n=30):
