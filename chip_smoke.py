@@ -47,6 +47,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (GNGeluFn, SpectralConv2dFn), output and gradients, at every
              input shape one train step at batch 16 gave them, against
              autograd through their plain versions;
+5a. dp     - the same U-FNO trained with data parallelism and ZeRO-1
+             (nps_tpu_torch.parallel): two ranks sharing the card over
+             gloo (NCCL refuses two ranks on one device), each this script
+             run with --dp-worker, joined by the package's
+             init_distributed, the trainer the CLI builds with
+             data_parallel and zero1, global batch 16, 8 a rank from the
+             multi-process loader: one step at depths 0 and 8 from the
+             weights and start steps of the single-process batch-16 step
+             on the card, loss (1e-5) and every gradient (1e-4) against
+             it, launches per rank, step ms (two ranks sharing one card:
+             no scaling figure), peak memory and optimizer-state bytes
+             per rank with and without ZeRO-1, and the parameters after
+             Adam with and without it (1e-6; cuDNN's deterministic
+             algorithms); the evaluation of the batch (test_step over
+             the whole trajectory, frames gathered over the ranks)
+             against the single process's from the same weights: per-step
+             losses (1e-5) and the first rollout window's frames (1e-4),
+             with every window's error and the unrolled loss, and the
+             same of the ranks and of the single process on the ranks'
+             halves (their shapes) against it and against each other; a
+             rank that fails or hangs fails the phase and its peer is
+             killed; then a world of one over NCCL through
+             the training CLI (--trainer.distributed=auto, WORLD_SIZE=1,
+             data_parallel and zero1), one epoch (stdout to
+             train_dp_nccl.log and dp_rank*.log in --out);
 5b. pushforward_fast - the same U-FNO trained with
              --trainer.pushforward_fast=true: a depth-0 step whose loss
              equals the flag-off step's bit for bit (same weights, batch
@@ -54,7 +79,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              no-grad applies launch K2 with the tanh GELU (act 2, read
              from the wrappers' per-activation counters) and whose graded
              apply the config's erf one, and K2's f32 tanh forward at the
-             twophase GroupNorm shapes against its plain version;
+             twophase GroupNorm shapes against its plain version,
+             beside its bound, its plain version and one library call;
 6. family  - the other five twophase families at full width, one line
              each: cfg_twophase_drn (Dilated ResNet, 2 blocks x 128
              features, kernel 5; no hand kernel), cfg_twophase_unet
@@ -955,11 +981,11 @@ def gn_step_time(eng, u0, cond, sc):
             **({"timing_refused": why} if why else {})}
 
 
-def _grad_errors(got, ref):
+def _grad_errors(got, ref, floor_frac=1e-5):
     """Per parameter max|d| / max|ref|, a tensor whose gradient is below
-    1e-5 of the model's largest held at that floor (zero in exact
+    ``floor_frac`` of the model's largest held at that floor (zero in exact
     arithmetic, f32 noise on both sides); the worst one: (err, name)."""
-    floor = 1e-5 * max(float(r.abs().max()) for r in ref.values())
+    floor = floor_frac * max(float(r.abs().max()) for r in ref.values())
     return max((float((got[k].cpu() - r).abs().max())
                 / max(float(r.abs().max()), floor), k)
                for k, r in ref.items())
@@ -1783,8 +1809,10 @@ def first_batch(trainer):
 def gn_tanh_records(gen):
     """K2's f32 forward with the tanh GELU (act 2, the pushforward_fast
     applies' form of the U-FNO's GroupNorms) at GN_SHAPES against its plain
-    version, beside its bound and the plain version's time."""
+    version, beside its bound, the plain version's time and the library
+    call's (F.group_norm + F.gelu(approximate="tanh"), graph replay)."""
     import torch
+    import torch.nn.functional as F
 
     from nps_tpu_torch.ops import group_norm as gn
 
@@ -1803,6 +1831,8 @@ def gn_tanh_records(gen):
                                            approximate="tanh"), "ms")
         timed(rec, lambda: gn.gn_gelu_plain(x, gamma, beta,
                                             approximate="tanh"), "plain_ms")
+        timed(rec, lambda: F.gelu(F.group_norm(x, 1, gamma, beta),
+                                  approximate="tanh"), "library_ms")
         rec["bound_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else None
         recs.append(rec)
     return recs
@@ -3289,10 +3319,379 @@ def phase_var1d(seed, card, out_dir, tmp):
     return {**launches, **serve_launches}
 
 
+# the dp phase: cfg_twophase_ufno at full width in a world of DP_WORLD
+# ranks sharing the one card over gloo (NCCL refuses two ranks on one
+# device), the config's global batch TRAIN_BATCH, TRAIN_BATCH / DP_WORLD a
+# rank, one step at each of TRAIN_DEPTHS from the same weights and starts
+# as the single-process step; bars: loss rel DP_LOSS_TOL, gradients the
+# backward kernels' REL_TOL_GRAD (per tensor, _grad_errors), ZeRO-1's
+# parameters after Adam against unsharded data parallelism's DP_ZERO_TOL;
+# a rank that fails or passes DP_TIMEOUT seconds fails the phase and its
+# peers are killed. The gradient floor: a tensor whose gradient is below
+# DP_GRAD_FLOOR of the model's largest is held at that floor (the last up
+# block's shortcut bias, zero in exact arithmetic: the two sum its f32
+# noise over the batch in other orders)
+DP_WORLD, DP_LOSS_TOL, DP_ZERO_TOL, DP_TIMEOUT = 2, 1e-5, 1e-6, 600
+DP_GRAD_FLOOR = 1e-3
+# the evaluation (test_step over the whole trajectory, its frames gathered
+# over the ranks) against the single-process batch-TRAIN_BATCH one from the
+# same weights: the per-step losses (one apply from the ground truth each)
+# within DP_LOSS_TOL, the first rollout window's frames within the forward
+# bar REL_TOL_STEP. The later windows feed each prediction back in, and
+# are read, not held: they show how far batching alone moves the rollout
+# (the single process on the ranks' halves against its whole batch)
+DP_EVAL_TOL = REL_TOL_STEP
+
+
+def eval_rollout(trainer, batch):
+    """``trainer.test_step`` over ``batch`` with its frames: (info, the
+    predicted frames [b, c, t, *sp] on the CPU)."""
+    import torch
+
+    _, info, (_, pred, _) = trainer.test_step(batch, 0, include_data=True)
+    return info, torch.from_numpy(pred)
+
+
+def eval_errors(info, pred, ref_info, ref_pred):
+    """Evaluation against a reference: the largest relative error of the
+    per-step losses (teacher-forced), the unrolled loss's, and each
+    rollout window's max|d| / max|ref| of the frames."""
+    steps = [k for k in ref_info if k.startswith("Step ")]
+    window_errs = [float((pred[:, :, s:s + TW] - ref_pred[:, :, s:s + TW])
+                         .abs().max() / ref_pred[:, :, s:s + TW].abs().max())
+                   for s in range(TW, ref_pred.shape[2], TW)]
+    unrolled = "Unrolled forward losses"
+    return {"step_loss_rel_err": max(
+                abs(info[k] - ref_info[k]) / abs(ref_info[k])
+                for k in [*steps, "Mean per-step loss"]),
+            "unrolled": info[unrolled],
+            "unrolled_rel_err": abs(info[unrolled] - ref_info[unrolled])
+            / abs(ref_info[unrolled]),
+            "window_rel_err": window_errs}
+
+
+def run_ranks(commands, logs, timeout, env=None):
+    """Start one process per command (output to its log file) and wait for
+    all within ``timeout`` seconds; when one fails or the time is up, kill
+    the others. Returns the exit codes (None for a rank killed at the
+    limit)."""
+    import os
+
+    procs = []
+    try:
+        for cmd, log in zip(commands, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT,
+                    cwd=Path(__file__).resolve().parent,
+                    env=dict(os.environ, **(env or {}))))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def _tail(path, n=40):
+    return "\n".join(Path(path).read_text().splitlines()[-n:])
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_worker(spec_path):
+    """One rank of the dp phase (``chip_smoke.py --dp-worker SPEC``): join
+    the gloo world on the card through the package's init_distributed,
+    build the shipped trainer with data_parallel (its batches: this rank's
+    slice of the first global batch of the split, from the multi-process
+    loader), then from the same weights: a warm-up step, one depth-0 step of
+    plain data parallelism (its parameters after Adam, peak memory and
+    optimizer-state bytes), and with zero1 one step at each depth (loss and
+    gradients against the single-process steps in the spec's reference
+    file, launches, the step's ms, and at depth 0 the parameters against
+    plain data parallelism's, peak memory and state bytes), then the
+    evaluation of the batch (test_step, its frames gathered over the
+    ranks; rank 0 holds it against the single-process one). cuDNN times
+    only its deterministic algorithms here: the two runs' gradients must
+    be the same bits for Adam's first update (about lr times the sign of
+    the gradient) to agree where a gradient is near zero. Writes its
+    record to the spec's ``out`` as JSON."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch import kernels, parallel
+    from nps_tpu_torch.inference import autotuned_convs
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = parallel.init_distributed(
+        f"tcp://127.0.0.1:{spec['port']}", world_size=spec["world"],
+        rank=spec["rank"], backend="gloo", device="cuda",
+        timeout=DP_TIMEOUT)
+    rank, world = parallel.world()
+    ref = torch.load(spec["ref"], weights_only=False)
+    b = TRAIN_BATCH // world
+    mine = {d: s[rank * b:(rank + 1) * b] for d, s in ref["steps0"].items()}
+    rec = {"rank": rank, "world": world, "device": str(device),
+           "backend": torch.distributed.get_backend(), "steps": {}}
+
+    def trainer(zero1):
+        tr = build_trainer(family_cfg("ufno"), [
+            *spec["argv"], "--trainer.data_parallel=true",
+            f"--trainer.zero1={zero1}"], device)
+        tr.load_model(spec["weights"])
+        tr.ensure_initialized()
+        return tr
+
+    def step(tr, depth, batch):
+        """A step from the reference weights with a fresh optimizer."""
+        tr.load_model(spec["weights"])
+        tr.set_optimizer(tr.optimizer_spec)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
+                                steps0=mine[depth])
+        torch.cuda.synchronize()
+        return {"loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
+                "launches": dict(kernels.launches),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    try:
+        with autotuned_convs(deterministic=True):
+            tr = trainer(False)
+            batch = first_batch(tr)
+            rec["batch"] = int(batch[1].shape[0])
+            step(tr, 0, batch)   # warm-up: cuDNN's timing, the gloo rings
+            plain = step(tr, 0, batch)
+            dp_params = {k: p.detach().cpu() for k, p in
+                         tr.model.named_parameters()}
+            rec["plain"] = {"depth0": plain, "optimizer":
+                            type(tr.optimizer).__name__,
+                            "state_bytes": parallel.state_bytes(tr.optimizer)}
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            tz = trainer(True)
+            rec["zero1"] = {"optimizer": type(tz.optimizer).__name__}
+            for depth in TRAIN_DEPTHS:
+                r = step(tz, depth, batch)
+                r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
+                    ref["loss"][depth])
+                r["grad_rel_err"], r["worst_grad"] = _grad_errors(
+                    {k: p.grad for k, p in tz.model.named_parameters()},
+                    ref["grads"][depth], DP_GRAD_FLOOR)
+                if depth == 0:
+                    r["params_vs_plain"], r["worst_param"] = max(
+                        (float((p.detach().cpu() - dp_params[k]).abs().max())
+                         / max(float(dp_params[k].abs().max()), 1e-30), k)
+                        for k, p in tz.model.named_parameters())
+                    rec["zero1"]["state_bytes"] = parallel.state_bytes(
+                        tz.optimizer)
+                rec["steps"][str(depth)] = r
+            del tz
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the evaluation from the reference weights (data_parallel
+            # without zero1: test_step does not read the optimizer)
+            te = trainer(False)
+            info, pred = eval_rollout(te, batch)
+            if rank == 0:
+                ev = torch.load(spec["eval_ref"], weights_only=False)
+                rec["eval"] = eval_errors(info, pred, ev["info"], ev["pred"])
+                rec["eval"]["vs_halves"] = eval_errors(info, pred,
+                                                       *ev["halves"])
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(rec))
+    return 0
+
+
+def dp_reference(seed, tmp):
+    """The single-process batch-TRAIN_BATCH step on the card at each of
+    TRAIN_DEPTHS from one set of weights and start steps, and the
+    evaluation of the batch from those weights (and of its DP_WORLD
+    slices, one at a time: the ranks' shapes): writes the weights,
+    {steps0, loss, grads} and the evaluation for the ranks to ``tmp``;
+    returns
+    (the record, the argv the ranks build their trainers from, the weights'
+    path)."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch.inference import autotuned_convs
+
+    argv = train_argv(tmp, seed, 1, "dp_single")
+    trainer = build_trainer(family_cfg("ufno"), argv, "cuda")
+    trainer.ensure_initialized()
+    weights = f"{tmp}/dp_weights.pt"
+    torch.save({k: v.detach().cpu() for k, v in
+                trainer.model.state_dict().items()}, weights)
+    batch = first_batch(trainer)
+    gen = torch.Generator().manual_seed(seed + 2)
+    ref = {"steps0": {}, "loss": {}, "grads": {}}
+    rec = {}
+    with autotuned_convs():
+        trainer.train_step(batch, 0, 0, unrolled=0)   # warm-up
+        for depth in TRAIN_DEPTHS:
+            steps0 = torch.randint(TW, TRAIN_NT - TW * (depth + 1) + 1,
+                                   (TRAIN_BATCH,), generator=gen)
+            trainer.load_model(weights)
+            trainer.set_optimizer(trainer.optimizer_spec)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = trainer.train_step(batch, 0, 0, unrolled=depth,
+                                         steps0=steps0)
+            torch.cuda.synchronize()
+            rec[str(depth)] = {"loss": float(loss),
+                               "ms": 1e3 * (time.perf_counter() - t0)}
+            ref["steps0"][depth] = steps0
+            ref["loss"][depth] = float(loss)
+            ref["grads"][depth] = {k: p.grad.detach().cpu() for k, p in
+                                   trainer.model.named_parameters()}
+    torch.save(ref, f"{tmp}/dp_ref.pt")
+    with autotuned_convs(deterministic=True):
+        trainer.load_model(weights)
+        info, pred = eval_rollout(trainer, batch)
+        h = TRAIN_BATCH // DP_WORLD
+        halves = [eval_rollout(trainer, tuple(a[r * h:(r + 1) * h]
+                                              for a in batch))
+                  for r in range(DP_WORLD)]
+    halves = ({k: sum(i[k] for i, _ in halves) / DP_WORLD for k in info},
+              torch.cat([p for _, p in halves]))
+    rec["eval"] = {"unrolled": info["Unrolled forward losses"],
+                   "halves": eval_errors(*halves, info, pred)}
+    torch.save({"info": info, "pred": pred, "halves": halves},
+               f"{tmp}/dp_eval_ref.pt")
+    del trainer, batch, ref, pred, halves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, argv, weights
+
+
+def dp_cli_nccl(seed, tmp, out_dir):
+    """A world of one over NCCL through the training CLI, as torchrun
+    launches a rank: --trainer.distributed=auto with WORLD_SIZE=1,
+    data_parallel and zero1, one epoch on the split without the epoch's
+    validation (the CLI's own evaluations before and after training stay;
+    stdout to train_dp_nccl.log in ``out_dir``). Returns (record,
+    failures)."""
+    import math
+
+    log = out_dir / "train_dp_nccl.log"
+    argv = train_argv(tmp, seed, 1, "dp_nccl")[1:]
+    cmd = [sys.executable, "-m", "nps_tpu_torch.train_cli", "-C",
+           family_cfg("ufno"), *argv, "--trainer.test_interval=99",
+           "--trainer.distributed=auto", "--trainer.data_parallel=true",
+           "--trainer.zero1=true"]
+    t0 = time.perf_counter()
+    rc, = run_ranks([cmd], [log], DP_TIMEOUT, env=dict(
+        WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+        MASTER_PORT=str(_free_port())))
+    seconds = time.perf_counter() - t0
+    text = log.read_text()
+    line = [ln for ln in text.splitlines() if ln.startswith("Distributed:")]
+    losses = [ln.split(":", 1)[1] for ln in text.splitlines()
+              if ln.startswith("Train losses:")]
+    losses = json.loads(losses[-1]) if losses else []
+    rec = {"rc": rc, "seconds": seconds, "process_line": line[:1],
+           "train_losses": losses}
+    failures = []
+    if rc != 0:
+        failures.append(f"CLI world of one exited {rc}:\n{_tail(log)}")
+    elif not (line and "backend nccl" in line[0]):
+        failures.append(f"CLI world of one: process line {line}")
+    elif len(losses) != 1 or not all(math.isfinite(v) for v in losses):
+        failures.append(f"CLI world of one: train losses {losses}")
+    return rec, failures
+
+
+def phase_dp(seed, card, out_dir, tmp):
+    """Data parallelism and ZeRO-1 on the main path: (a) DP_WORLD ranks
+    sharing the card over gloo (dp_worker) against the single-process step
+    (dp_reference); (b) a world of one over NCCL through the CLI
+    (dp_cli_nccl). Returns the launches of one rank's zero1 steps."""
+    single, argv, weights = dp_reference(seed, tmp)
+    port = _free_port()
+    commands, logs, outs = [], [], []
+    for rank in range(DP_WORLD):
+        spec = Path(tmp) / f"dp_spec{rank}.json"
+        outs.append(Path(tmp) / f"dp_rank{rank}.json")
+        spec.write_text(json.dumps({
+            "rank": rank, "world": DP_WORLD, "port": port, "argv": argv,
+            "weights": weights, "ref": f"{tmp}/dp_ref.pt",
+            "eval_ref": f"{tmp}/dp_eval_ref.pt", "out": str(outs[-1])}))
+        commands.append([sys.executable, str(Path(__file__).resolve()),
+                         "--dp-worker", str(spec)])
+        logs.append(out_dir / f"dp_rank{rank}.log")
+    t0 = time.perf_counter()
+    rcs = run_ranks(commands, logs, DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    failures = [f"rank {r} exited {rc}:\n{_tail(log)}"
+                for r, (rc, log) in enumerate(zip(rcs, logs)) if rc != 0]
+    ranks = [json.loads(o.read_text()) for o in outs] if not failures else []
+    nccl, nccl_failures = dp_cli_nccl(seed, tmp, out_dir)
+    failures += nccl_failures
+    want = {depth: family_launches(*FAMILIES["ufno"][:2], depth + 1, True)
+            for depth in TRAIN_DEPTHS}
+    for r in ranks:
+        if r["backend"] != "gloo" or r["batch"] != TRAIN_BATCH // DP_WORLD:
+            failures.append(f"rank {r['rank']}: {r['backend']}, batch "
+                            f"{r['batch']}")
+        if (r["plain"]["optimizer"], r["zero1"]["optimizer"]) != (
+                "AllReduceGrads", "Zero1"):
+            failures.append(f"rank {r['rank']}: optimizers {r['plain']}")
+        for depth in TRAIN_DEPTHS:
+            s = r["steps"][str(depth)]
+            if not (s["loss_rel_err"] <= DP_LOSS_TOL
+                    and s["grad_rel_err"] <= REL_TOL_GRAD
+                    and s["launches"] == want[depth]):
+                failures.append(f"rank {r['rank']} depth {depth}: {s}, "
+                                f"launches want {want[depth]}")
+        if not r["steps"]["0"]["params_vs_plain"] <= DP_ZERO_TOL:
+            failures.append(f"rank {r['rank']}: ZeRO-1 parameters "
+                            f"{r['steps']['0']['params_vs_plain']}")
+        share = r["zero1"]["state_bytes"] / r["plain"]["state_bytes"]
+        if not 0.45 <= share <= 0.55:
+            failures.append(f"rank {r['rank']}: ZeRO-1 state share {share}")
+    ev = ranks[0]["eval"] if ranks else None
+    if ev is not None and not (ev["step_loss_rel_err"] <= DP_LOSS_TOL
+                               and ev["window_rel_err"][0] <= DP_EVAL_TOL):
+        failures.append(f"evaluation against the single process: {ev}")
+    emit({"phase": "dp", "config": family_cfg("ufno"), "world": DP_WORLD,
+          "backend": "gloo", "global_batch": TRAIN_BATCH,
+          "timing": f"{DP_WORLD} ranks sharing one card: host clock around "
+                    "one synchronised step each, cuDNN's deterministic "
+                    "algorithms; says nothing about scaling",
+          "single_process": single, "seconds": seconds, "ranks": ranks,
+          "launches_per_rank_expected": {str(d): w for d, w in want.items()},
+          "cli_nccl_world_of_one": nccl, "card": card, "tf32": False})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return ranks[0]["steps"][str(TRAIN_DEPTHS[-1])]["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/chip_smoke")
+    ap.add_argument("--dp-worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3303,6 +3702,8 @@ def main():
         return 2
     import nps_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = Path(args.out)
@@ -3316,6 +3717,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         gen_s = make_split(tmp, args.seed)
         train = phase_train(args.seed, card, out_dir, tmp, gen_s)
+        dp = phase_dp(args.seed, card, out_dir, tmp)
         phase_pushforward_fast(args.seed, card, gen, tmp)
         families = phase_families(args.seed, card, out_dir, tmp)
         gnn_bf16(args.seed, card, tmp)
@@ -3404,6 +3806,7 @@ def main():
                          "ns512_train": ns512_train.get(key, 0),
                          "ns512_train_grad_accum": ns512_accum.get(key, 0),
                          "var1d": var1d.get(key, 0),
+                         "dp_rank": dp.get(key, 0),
                          **{p: n.get(key, 0) for p, n in families.items()},
                          **{f"{f}_captured": n.get(key, 0)
                             for f, n in replays.items() if f != "ufno"},

@@ -6,8 +6,9 @@ key for key).
 Serve it on one card with ``SurrogateEngine.from_config`` (bf16 from
 ``trainer.compute_dtype``), and train it on one card with the training CLI
 as it is: ``data_parallel=True`` in one process is the single-device step,
-as the JAX trainer's mesh over one device is (more processes are ROADMAP
-P9b). Gradient accumulation (``trainer.grad_accum=2``: the gradients of
+as the JAX trainer's mesh over one device is; in a world of several
+processes (``--trainer.distributed``) each rank trains on its slice of the
+global batch of 8. Gradient accumulation (``trainer.grad_accum=2``: the gradients of
 two batches of 8 averaged before each Adam step, the effective batch 16
 without the memory) has no key here, as in the JAX config, so the flag
 ``--trainer.grad_accum`` is not accepted; a caller sets it on the trainer's
@@ -70,7 +71,7 @@ trainer = dict(
     print_setting=dict(print_per_step=False),
     process_settings={},
     # the JAX package's multi-device layout: in one process the single-device
-    # step (a world of more processes is ROADMAP P9b)
+    # step, in a world of several one process a device
     data_parallel=True,
     spatial_parallel=0,  # set K>1 for the ("data", "x") grid mesh
     dynamic_unroll=True,  # one compiled step for every unroll depth

@@ -6,7 +6,7 @@ A conditioning-gated mixture of spectral experts
 192 features and 10x10 modes, the gate on the static conditioning, the
 tanh-approximate GELU after each mixture. One device trains it
 (``expert_parallel`` 0 or 1); sharding the expert axis over several
-devices is not ported (ROADMAP P9b).
+devices is not ported (ROADMAP P9b item 6).
 """
 
 from nps_tpu_torch.configs.parse_component import load_config_modules, compose_config

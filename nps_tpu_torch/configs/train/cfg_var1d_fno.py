@@ -67,7 +67,8 @@ trainer = dict(
     compute_dtype=None,
     resume=False,
     checkpoint_interval=None,  # None -> test_interval
-    # more than one process is ROADMAP P9b
+    # "auto" (a launcher's env://) or "host:port,N,i" for several
+    # processes, with data_parallel=True
     distributed="",
     eval_only=False,
     load_model=None,

@@ -14,7 +14,12 @@
   padded to its longest, with their lengths; its batches take the same
   pinned copy through :func:`prefetch_to_device`.
 
-One process only: the multi-process branches raise (ROADMAP P9b).
+Several processes (data parallelism, ``nps_tpu_torch.parallel``, one
+device a process): every process derives the same global batches from the
+shared seed, trims each to a multiple of the process count and keeps its
+contiguous slice (``parallel.multihost.process_slice``); the defaults of
+``process_index`` and ``process_count`` are the process group's rank and
+size.
 """
 
 import queue
@@ -23,8 +28,9 @@ import threading
 import numpy as np
 import torch
 
-_P9 = ("multi-process data loading is not ported yet (ROADMAP P9b, "
-       "data parallel)")
+from nps_tpu_torch.parallel.multihost import (process_slice,
+                                              shard_indices_for_process)
+from nps_tpu_torch.parallel.mesh import world
 
 
 def collate(elements):
@@ -40,37 +46,84 @@ def collate(elements):
     return tuple(out)
 
 
+def _fleet(process_index, process_count):
+    """(process_index, process_count), each from the process group where
+    not given."""
+    rank, size = world()
+    pi = rank if process_index is None else int(process_index)
+    pc = size if process_count is None else int(process_count)
+    if not 0 <= pi < pc:
+        raise ValueError(f"process_index={pi} is not one of the "
+                         f"{pc} processes")
+    return pi, pc
+
+
+def _empty_split(n, batch_size, process_count):
+    """The refusal of a split none of whose global batches survives the
+    trim to a multiple of the process count."""
+    return ValueError(
+        f"every batch of this split ({n} elements, batch_size={batch_size}) "
+        f"trims to zero on {process_count} processes: use a global batch "
+        f"and splits of at least the process count — a multi-process run "
+        f"cannot fall back to replication, no process holds the full batch")
+
+
 class HostDataLoader:
     """Shuffled epoch iterator over an index-able dataset of 6-tuples. The
     order comes from ``np.random.default_rng(seed)``, one permutation per
-    epoch, as in the JAX package."""
+    epoch, as in the JAX package.
+
+    Several processes: every process derives the same global order from
+    the shared ``seed``, trims each global batch to a multiple of the
+    process count and collates only its contiguous slice; ``__len__`` and
+    the order are the same on every process."""
 
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_last=False, process_index=0, process_count=1):
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError(_P9)
+                 drop_last=False, process_index=None, process_count=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
+        self.process_index, self.process_count = _fleet(process_index,
+                                                        process_count)
+        if self.process_count > 1 and not len(self):
+            raise _empty_split(len(dataset), batch_size, self.process_count)
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        return _count_batches(len(self.dataset), self.batch_size,
+                              self.drop_last, self.process_count)
 
     def __iter__(self):
-        n = len(self.dataset)
-        order = np.arange(n)
-        if self.shuffle:
-            self._rng.shuffle(order)
-        for start in range(0, n, self.batch_size):
-            idx = order[start:start + self.batch_size]
-            if self.drop_last and len(idx) < self.batch_size:
-                return
+        for idx in _global_batches(len(self.dataset), self.batch_size,
+                                   self.shuffle, self._rng, self.drop_last,
+                                   self.process_count):
+            if self.process_count > 1:
+                idx = shard_indices_for_process(idx, self.process_index,
+                                                self.process_count)
             yield collate([self.dataset[int(i)] for i in idx])
+
+
+def _global_batches(n, batch_size, shuffle, rng, drop_last, process_count):
+    """One epoch's global batches of element indices: a permutation from
+    ``rng`` (or the identity), cut into batches, each trimmed to a multiple
+    of ``process_count``."""
+    order = np.arange(n)
+    if shuffle:
+        rng.shuffle(order)
+    for start in range(0, n, batch_size):
+        idx = order[start:start + batch_size]
+        if drop_last and len(idx) < batch_size:
+            return
+        idx = idx[:len(idx) - len(idx) % process_count]
+        if len(idx):
+            yield idx
+
+
+def _count_batches(n, batch_size, drop_last, process_count):
+    """The number of batches of one epoch (the same on every process)."""
+    return sum(1 for _ in _global_batches(n, batch_size, False, None,
+                                          drop_last, process_count))
 
 
 def _stage(batch, device, stream):
@@ -154,17 +207,24 @@ class DeviceCacheLoader:
     kept on ``device`` as tensors (float roles cast to ``cache_dtype`` if
     given, e.g. ``"bfloat16"``); each epoch shuffles indices on the host
     with the same generator as :class:`HostDataLoader` and gathers the
-    batches on the device. Yields the same 6-tuple layout, as tensors."""
+    batches on the device. Yields the same 6-tuple layout, as tensors.
+
+    Several processes: every process caches the whole split (a process's
+    slices cover all of it over an epoch's shuffles) and gathers exactly
+    the elements :class:`HostDataLoader` would give it."""
 
     device_resident = True  # trainers skip the host prefetch
 
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_last=False, device="cpu", cache_dtype=None):
+                 drop_last=False, device="cpu", cache_dtype=None,
+                 process_index=None, process_count=None):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.device = torch.device(device)
         self._rng = np.random.default_rng(seed)
+        self.process_index, self.process_count = _fleet(process_index,
+                                                        process_count)
         n = len(dataset)
         host = collate([dataset[i] for i in range(n)])
         dtype = (getattr(torch, cache_dtype) if isinstance(cache_dtype, str)
@@ -174,18 +234,16 @@ class DeviceCacheLoader:
         self._n = n
 
     def __len__(self):
-        if self.drop_last:
-            return self._n // self.batch_size
-        return (self._n + self.batch_size - 1) // self.batch_size
+        return _count_batches(self._n, self.batch_size, self.drop_last,
+                              self.process_count)
 
     def __iter__(self):
-        order = np.arange(self._n)
-        if self.shuffle:
-            self._rng.shuffle(order)
-        for start in range(0, self._n, self.batch_size):
-            idx = order[start:start + self.batch_size]
-            if self.drop_last and len(idx) < self.batch_size:
-                return
+        for idx in _global_batches(self._n, self.batch_size, self.shuffle,
+                                   self._rng, self.drop_last,
+                                   self.process_count):
+            if self.process_count > 1:
+                idx = shard_indices_for_process(idx, self.process_index,
+                                                self.process_count)
             sel = torch.as_tensor(idx, device=self.device)
             yield tuple(
                 torch.zeros((len(idx), 0), device=self.device)
@@ -202,14 +260,18 @@ class VariableTimeLoader:
     zeros to the maximum (``mode="max"``, evaluation), both rounded to
     ``time_window`` multiples. Yields the 7-tuple ``(u_base, u, x, cond,
     t_cond, spatial_cond, lengths)`` of numpy arrays, ``lengths`` [b] int32
-    the elements' own time lengths."""
+    the elements' own time lengths.
+
+    Several processes: every process runs the same seeded batch sampler
+    (the same global batches and per-batch unroll depths), trims each
+    global batch to a multiple of the process count, takes the crop or
+    pad extent and the crop starts over the global batch, then collates
+    only its contiguous slice."""
 
     def __init__(self, dataset, batch_sampler, mode="min", time_window=25,
-                 seed=0, process_index=0, process_count=1):
+                 seed=0, process_index=None, process_count=None):
         from nps_tpu_torch.utils.collate import collate_batch_sim
 
-        if process_count != 1 or process_index != 0:
-            raise NotImplementedError(_P9)
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.mode = mode
@@ -217,20 +279,44 @@ class VariableTimeLoader:
         self._collate_u = collate_batch_sim(t_dim=1, mode=mode,
                                             tw=time_window)
         self._rng = np.random.default_rng(seed)
+        self.process_index, self.process_count = _fleet(process_index,
+                                                        process_count)
         lengths = getattr(batch_sampler, "lengths", None)
         if lengths is None:
             lengths = np.array([dataset[i][1].shape[1]
                                 for i in range(len(dataset))])
         self._lengths = np.asarray(lengths)
+        # the batches that survive the trim: a ragged final batch shrinks
+        # to a multiple of the process count and is dropped where it trims to
+        # zero (__len__ is the trainer's loss denominator)
+        self._n_batches = len(batch_sampler)
+        if self.process_count > 1:
+            bs = getattr(batch_sampler, "batch_size", None)
+            wr = getattr(batch_sampler, "with_replacement", None)
+            if bs is not None and wr is not None:
+                n = len(dataset)
+                sizes = ([bs] * len(batch_sampler) if wr else
+                         [min(bs, n - s) for s in range(0, n, bs)])
+                pc = self.process_count
+                self._n_batches = sum(1 for s in sizes if s >= pc)
+            if self._n_batches == 0:
+                raise _empty_split(len(dataset), bs, self.process_count)
 
     def __len__(self):
-        return len(self.batch_sampler)
+        return self._n_batches
 
     def __iter__(self):
         from nps_tpu_torch.utils.collate import min_crop_starts
 
+        pc = self.process_count
         for idxs in self.batch_sampler:
             idxs = [int(i) for i in idxs]
+            if pc > 1:
+                idxs = idxs[:len(idxs) - len(idxs) % pc]
+                if not idxs:
+                    continue
+            # the extent and the crop starts of the global batch, the same
+            # draws on every process, then this process's slice
             lengths_b = self._lengths[idxs]
             if self.mode == "min":
                 shape_t = int(lengths_b.min())
@@ -241,6 +327,10 @@ class VariableTimeLoader:
                 if shape_t % self.tw:
                     shape_t += self.tw - shape_t % self.tw
                 starts = None
+            if pc > 1:
+                lo, hi = process_slice(len(idxs), self.process_index, pc)
+                idxs = idxs[lo:hi]
+                starts = starts[lo:hi] if starts is not None else None
             els = [self.dataset[i] for i in idxs]
             n = len(els)
 

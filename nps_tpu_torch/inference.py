@@ -47,7 +47,8 @@ Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, n_spatial, *sp]``. GNN configs (``data_structure="graph"``) convert
 grid windows to node space at the model boundary over a static graph built
 once per batch size; they serve eagerly and captured, and refuse export.
-Sharding is not ported yet (ROADMAP P9b).
+The engine serves on one device; sharding it (spatial parallelism) is not
+ported yet (ROADMAP P9b item 3).
 """
 
 import io

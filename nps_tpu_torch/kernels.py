@@ -5,7 +5,9 @@ source, all started together), linked into one shared library with a plain
 C interface, and loaded with ``ctypes``. The build happens at first use,
 from the sources in the checkout, into ``_build/`` beside this file (listed
 in ``.gitignore``); the library's file name carries a hash of the sources
-and flags, so an edited source is never served by a stale build.
+and flags, so an edited source is never served by a stale build. A file
+lock in ``_build/`` makes the processes of one machine (the ranks of a
+data-parallel run) build once: the others wait and load that build.
 
 Each C entry launches on the stream it is given, allocates nothing, and
 returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
@@ -16,6 +18,7 @@ launches among them by (kernel name, activation code: 0 none, 1 erf GELU,
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -103,8 +106,17 @@ def build():
     so = BUILD_DIR / f"libnps_kernels_{_digest(sources + headers)}.so"
     if so.exists():
         return so
-    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():   # another process may have built it meanwhile
+            _compile(sources, so)
+    return so
+
+
+def _compile(sources, so):
+    """nvcc every source into an object (all at once), then link ``so``."""
+    nvcc = nvcc_path()
     jobs = []
     for src in sources:
         obj = BUILD_DIR / f"{src.stem}.o"
@@ -127,7 +139,6 @@ def build():
                     *(str(BUILD_DIR / f"{s.stem}.o") for s in sources),
                     "-o", str(tmp)], check=True, capture_output=True)
     os.replace(tmp, so)
-    return so
 
 
 def library():

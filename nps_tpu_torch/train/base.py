@@ -17,16 +17,24 @@ unset) is the trainer's: its steps, evaluations and rollouts run inside
 dtype. Parameters, gradients and Adam's state stay f32; so do the loss and
 the physics wrapper's output.
 
-``data_parallel=True`` in a world of one process is the single-device
-step, as the JAX trainer's mesh over the one device present is;
-``grad_accum=N`` wraps the optimizer in :class:`~nps_tpu_torch.train.optim.
-MultiSteps` (the JAX trainer's ``optax.MultiSteps``); variable-time data
-(``D.sim1d_var_t``) takes the batch sampler and the min-crop / max-pad
-loaders. Not ported, and refused with ``NotImplementedError`` naming the
-ROADMAP item: a world of more than one process and the other parallel
-regimes (P9b), the cheaper pushforward forward (P13). Parameters are a
-``state_dict`` of the PyTorch reference's key names (``.pt``), which
-``nps_tpu.compat.convert_state_dict`` reads.
+``data_parallel=True`` trains in a world of one process per device
+(``nps_tpu_torch.parallel``, the JAX trainer's "data" mesh): every rank
+holds the replicated parameters (rank 0's, broadcast), trains on its slice
+of each global batch from the multi-process loaders, and the optimizer
+sums the gradients over the world (``parallel.AllReduceGrads``, or
+``parallel.Zero1`` with ``zero1=True``, which shards the optimizer state);
+the step's loss and evaluation are the global batch's (see
+``train.pushforward``). Only rank 0 writes checkpoints, exports and
+metrics; a stop signal to any rank stops every rank at the same batch
+boundary. Without a process group it is the single-device step, as the
+JAX trainer's mesh over the one device present is. ``grad_accum=N`` wraps
+the optimizer in :class:`~nps_tpu_torch.train.optim.MultiSteps` (the JAX
+trainer's ``optax.MultiSteps``); variable-time data (``D.sim1d_var_t``)
+takes the batch sampler and the min-crop / max-pad loaders. Not ported,
+and refused with ``NotImplementedError`` naming the ROADMAP item: spatial,
+tensor, pipeline and expert parallelism above 1 (P9b items 3-6).
+Parameters are a ``state_dict`` of the PyTorch reference's key names
+(``.pt``), which ``nps_tpu.compat.convert_state_dict`` reads.
 """
 
 import functools
@@ -41,7 +49,9 @@ from argparse import Namespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from nps_tpu_torch import parallel
 from nps_tpu_torch.common.interfaces import D
 from nps_tpu_torch.compat.jax_weights import from_jax_params
 from nps_tpu_torch.data.pipeline import (DeviceCacheLoader, HostDataLoader,
@@ -61,42 +71,49 @@ try:
 except ModuleNotFoundError:
     wandb = None
 
-# config keys of regimes the port does not have yet: (key, whether a value
-# asks for it, ROADMAP item)
-_UNPORTED = (
-    ("zero1", bool, "P9b"),
-    ("spatial_parallel", lambda v: int(v or 0) > 1, "P9b"),
-    ("tensor_parallel", lambda v: int(v or 0) > 1, "P9b"),
-    ("pipeline_parallel", lambda v: int(v or 0) > 1, "P9b"),
-    ("expert_parallel", lambda v: int(v or 0) > 1, "P9b"),
-)
+# the parallel regimes the port does not have yet: (config key, its item
+# of ROADMAP P9b); a value above 1 asks for it
+_UNPORTED = (("spatial_parallel", 3), ("tensor_parallel", 4),
+             ("pipeline_parallel", 5), ("expert_parallel", 6))
 
 
 def world_size():
     """The processes of this run: the initialised ``torch.distributed``
     group's size, or ``WORLD_SIZE`` as a launcher sets it, the larger."""
-    import torch.distributed as dist
-
     group = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
     return max(group, int(os.environ.get("WORLD_SIZE") or 1))
 
 
 def refuse_unported(config):
-    """Raise NotImplementedError for a config that asks for a regime the
-    port does not have yet, naming its ROADMAP item. ``data_parallel`` in a
-    world of one process, and ``expert_parallel`` 0 or 1, are the
-    single-device step; more processes or expert shards are P9b."""
-    for key, active, item in _UNPORTED:
+    """Raise for a config the port cannot train as asked: a parallel regime
+    it does not have yet (``NotImplementedError`` naming its ROADMAP P9b
+    item), ``zero1`` without data parallelism, and a world of more than one
+    process without data parallelism or without a process group (each
+    process would train its own model; ``ValueError``, ``RuntimeError``).
+    ``expert_parallel`` 0 or 1 is the single-device step."""
+    for key, item in _UNPORTED:
         value = getattr(config, key, None)
-        if value is not None and active(value):
+        if int(value or 0) > 1:
             raise NotImplementedError(
-                f"trainer.{key}={value!r} is not ported yet (ROADMAP {item})")
+                f"trainer.{key}={value!r} is not ported yet (ROADMAP P9b "
+                f"item {item})")
+    dp = bool(getattr(config, "data_parallel", False))
+    if getattr(config, "zero1", False) and not dp:
+        raise ValueError(
+            "zero1=true shards the optimizer state over the data-parallel "
+            "world: enable trainer.data_parallel")
     n = world_size()
-    if n > 1:
-        raise NotImplementedError(
-            f"training in a world of {n} processes is not ported yet "
-            f"(ROADMAP P9b); one process trains on one device")
+    if n > 1 and not dp:
+        raise ValueError(
+            f"training in a world of {n} processes requires "
+            f"trainer.data_parallel=true: without it each process would "
+            f"train its own divergent model on a disjoint data shard")
+    if n > 1 and not dist.is_initialized():
+        raise RuntimeError(
+            f"a world of {n} processes (WORLD_SIZE) with no torch.distributed "
+            f"group: call nps_tpu_torch.parallel.init_distributed first (the "
+            f"CLI's --trainer.distributed)")
 
 
 def in_compute_dtype(method):
@@ -139,6 +156,12 @@ class TrainInterface(metaclass=ABCMeta):
             self.config.variable_time = \
                 self.data.data_interface == D.sim1d_var_t
         refuse_unported(self.config)
+        # the data-parallel world: this process's rank and the world's size
+        # (rank 0 of 1 without data parallelism or a process group)
+        self.data_parallel = (bool(getattr(self.config, "data_parallel",
+                                           False)) and dist.is_initialized())
+        self.rank, self.world = (parallel.world() if self.data_parallel
+                                 else (0, 1))
         self.compute_dtype = resolve_compute_dtype(
             getattr(self.config, "compute_dtype", None))
 
@@ -189,11 +212,19 @@ class TrainInterface(metaclass=ABCMeta):
         weights on any device."""
         seed = get_seed() if seed is None else seed
         reset_parameters(self.model, torch.Generator().manual_seed(seed))
+        self._replicate()
         self.initialized = True
+
+    def _replicate(self):
+        """Data parallelism: every rank takes rank 0's parameters and
+        buffers (a collective: every rank calls it)."""
+        if self.data_parallel:
+            parallel.replicate(self.model)
 
     def load_jax_params(self, tree):
         """Load an ``nps_tpu`` parameter tree (nested dicts of arrays)."""
         self.model.load_state_dict(from_jax_params(tree))
+        self._replicate()
         self.initialized = True
         return self
 
@@ -218,11 +249,23 @@ class TrainInterface(metaclass=ABCMeta):
         if self.optimizer_spec is None:
             return
         spec = self.optimizer_spec
-        if isinstance(spec, dict):
+        zero1 = self.data_parallel and getattr(self.config, "zero1", False)
+        if zero1 and not isinstance(spec, dict):
+            raise ValueError("zero1 builds its optimizer over this rank's "
+                             "share of the parameters: give the optimizer "
+                             "as a config dict")
+        if zero1:
+            cls, kw = optim_lib.optimizer_class(**spec)
+            self.optimizer = parallel.Zero1(self.model.parameters(), cls,
+                                            **kw)
+            self.base_lr = float(kw["lr"])
+        elif isinstance(spec, dict):
             self.optimizer, self.base_lr = optim_lib.build_optimizer(
                 self.model.parameters(), **spec)
         else:
             self.optimizer, self.base_lr = spec
+        if self.data_parallel and not zero1:
+            self.optimizer = parallel.AllReduceGrads(self.optimizer)
         accum = int(getattr(self.config, "grad_accum", 0) or 0)
         if accum > 1:
             self.optimizer = optim_lib.MultiSteps(self.optimizer, accum)
@@ -248,11 +291,13 @@ class TrainInterface(metaclass=ABCMeta):
         batch size) sizes the evaluation loaders; ``device_cache`` keeps the
         splits on the device (``device_cache_scope="train"``: the train split
         only; ``device_cache_dtype``: cast the cached floats). Variable-time
-        data takes :meth:`_variable_time_loaders`."""
+        data takes :meth:`_variable_time_loaders`. Under data parallelism
+        each loader yields this rank's slice of every global batch of
+        ``batch_size``."""
         if self.config.variable_time:
             return self._variable_time_loaders()
         kw = dict(batch_size=self.config.batch_size, shuffle=True,
-                  seed=get_seed())
+                  seed=get_seed(), **self._fleet())
         ekw = dict(kw, batch_size=int(
             getattr(self.config, "eval_batch_size", 0)
             or self.config.batch_size))
@@ -273,9 +318,14 @@ class TrainInterface(metaclass=ABCMeta):
                 DeviceCacheLoader(splits[1], device=self.device, **ekw),
                 DeviceCacheLoader(splits[2], device=self.device, **ekw))
 
+    def _fleet(self):
+        """The loaders' share of the world: this rank's slice of global
+        batches trimmed to a multiple of the world's size."""
+        return dict(process_index=self.rank, process_count=self.world)
+
     def _variable_time_loaders(self):
         """(train, valid, test) for ``D.sim1d_var_t``, as the JAX trainer
-        builds them in one process: a :class:`VariableTimeBatchSampler` per
+        builds them: a :class:`VariableTimeBatchSampler` per
         split (the config's ``sampler``: ``time_window`` and
         ``max_unrolling`` default to the trainer's, ``with_replacement`` to
         True for training; evaluation draws without replacement), the train
@@ -288,6 +338,10 @@ class TrainInterface(metaclass=ABCMeta):
         with_repl = sampler_cfg.pop("with_replacement", True)
         bs = self.config.batch_size
         ebs = int(getattr(self.config, "eval_batch_size", 0) or bs)
+        if bs % self.world:
+            raise ValueError(
+                f"batch_size={bs} must divide by the data-parallel world's "
+                f"{self.world} processes for variable-time training")
 
         def loader(split, mode, with_replacement, batch_size):
             sampler = VariableTimeBatchSampler(
@@ -296,7 +350,7 @@ class TrainInterface(metaclass=ABCMeta):
                 **sampler_cfg)
             return VariableTimeLoader(split, sampler, mode=mode,
                                       time_window=self.config.time_window,
-                                      seed=get_seed())
+                                      seed=get_seed(), **self._fleet())
 
         return (loader(self.data.train, "min", with_repl, bs),
                 loader(self.data.valid, "max", False, ebs),
@@ -368,7 +422,7 @@ class TrainInterface(metaclass=ABCMeta):
 
         for epoch in range(self.start_epoch, self.config.num_epochs):
             train_loss, n_samples = self.train_one_epoch(train_loader, epoch)
-            if self._last_epoch_partial or self._preempt_requested:
+            if self._last_epoch_partial or self._preempt_fleet_agreed():
                 # a partial epoch's loss is dropped and the checkpoint points
                 # at `epoch`; a signal caught after the epoch's last batch
                 # keeps the epoch and resumes at epoch + 1
@@ -463,7 +517,7 @@ class TrainInterface(metaclass=ABCMeta):
             self._log_metrics_jsonl(epoch, epoch_log)
             if self.use_wandb:
                 wandb.log(epoch_log)
-            if self._preempt_requested:
+            if self._preempt_fleet_agreed():
                 # caught during validation or checkpointing: the epoch is
                 # complete, so the resumed run continues at epoch + 1
                 return self._preempt_exit(epoch + 1, min_val_loss,
@@ -481,12 +535,12 @@ class TrainInterface(metaclass=ABCMeta):
         n_samples = 0
         self._last_epoch_partial = False
         for batch_idx, batch in enumerate(self._batches(loader)):
-            if self._preempt_requested:
+            if self._preempt_fleet_agreed():
                 # stop at the batch boundary; train() checkpoints and exits
                 self._last_epoch_partial = True
                 return float(total_loss), n_samples
             loss, _ = self.train_step(batch, epoch, batch_idx, loader=loader)
-            bs = util.get_batch_size(batch)
+            bs = self._batch_size(batch)
             total_loss = total_loss + loss / bs
             n_samples += bs
             if batch_idx >= self.max_train_batches:
@@ -524,7 +578,7 @@ class TrainInterface(metaclass=ABCMeta):
                     batch_loss, batch_metrics, batch_data = out
                 else:
                     batch_loss, batch_metrics = out
-                bs = util.get_batch_size(batch)
+                bs = self._batch_size(batch)
                 loss = loss + util.to_float(batch_loss) * bs
                 n_total += bs
                 for k, v in batch_metrics.items():
@@ -546,11 +600,22 @@ class TrainInterface(metaclass=ABCMeta):
                                          data_other)
         return loss, other_metrics
 
+    def _batch_size(self, batch):
+        """The global batch's size: this rank's times the world's (every
+        rank holds an equal slice)."""
+        return util.get_batch_size(batch) * self.world
+
+    def _is_writer_process(self):
+        """Only rank 0 writes checkpoints, exports and metrics (the ranks'
+        writes to a shared filesystem would race)."""
+        return self.rank == 0
+
     def _log_metrics_jsonl(self, epoch, epoch_log):
         """Append one JSON line per epoch to ``<save_path>_metrics.jsonl``,
         a training-curve record a hard kill cannot lose; a resumed run keeps
         appending. Opt-out: ``trainer.metrics_jsonl=False``."""
-        if not getattr(self.config, "metrics_jsonl", True):
+        if not getattr(self.config, "metrics_jsonl", True) \
+                or not self._is_writer_process():
             return
         path = self.config.save_path + "_metrics.jsonl"
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -594,6 +659,21 @@ class TrainInterface(metaclass=ABCMeta):
             signal.signal(sig, h)
         self._orig_handlers = {}
 
+    def _preempt_fleet_agreed(self):
+        """Whether any rank caught a stop signal: under data parallelism an
+        all-reduce (max) of the flags, which every rank makes at every batch
+        boundary, so all stop at the same one (a rank that went on alone
+        would wait in its next step's collectives forever); the local flag
+        in one process."""
+        if not self.data_parallel:
+            return self._preempt_requested
+        flag = torch.tensor([float(self._preempt_requested)],
+                            device=self.device)
+        parallel.all_reduce_([flag], op=dist.ReduceOp.MAX)
+        if flag.item():
+            self._preempt_requested = True
+        return self._preempt_requested
+
     def _preempt_exit(self, epoch, min_val_loss, train_loader,
                       train_losses, val_losses, val_stats_list):
         self.save_checkpoint(epoch, min_val_loss, train_loader=train_loader)
@@ -611,6 +691,8 @@ class TrainInterface(metaclass=ABCMeta):
     def save_model(self, save_name):
         """Write the model's ``state_dict`` (CPU tensors) to
         ``save_name`` (``.pt`` unless it has an extension)."""
+        if not self._is_writer_process():
+            return
         root, ext = os.path.splitext(save_name)
         save_name = root + (ext or ".pt")
         os.makedirs(os.path.dirname(save_name) or ".", exist_ok=True)
@@ -621,6 +703,7 @@ class TrainInterface(metaclass=ABCMeta):
     def load_model(self, save_name):
         state = torch.load(save_name, map_location="cpu", weights_only=True)
         self.model.load_state_dict(state)
+        self._replicate()
         self.initialized = True
 
     def _ckpt_path(self):
@@ -636,13 +719,19 @@ class TrainInterface(metaclass=ABCMeta):
     def save_checkpoint(self, epoch, min_val_loss=None, train_loader=None):
         """The full training state: model, optimizer, epoch, scheduler
         counter, best validation losses and every generator, so a resumed
-        run continues the same sequence of batches and draws."""
+        run continues the same sequence of batches and draws. Under data
+        parallelism every rank calls it (ZeRO-1's state is gathered on
+        rank 0) and rank 0 writes it; the generators are the same on
+        every rank."""
+        optimizer = (self.optimizer.state_dict()
+                     if self.optimizer is not None else None)
+        if not self._is_writer_process():
+            return
         state = dict(
             epoch=epoch,
             model={k: v.detach().cpu()
                    for k, v in self.model.state_dict().items()},
-            optimizer=(self.optimizer.state_dict()
-                       if self.optimizer is not None else None),
+            optimizer=optimizer,
             lr_epoch=getattr(self.lr_scheduler, "epoch", 0),
             min_val_loss=min_val_loss or {},
             np_random=np.random.get_state(),
@@ -664,7 +753,18 @@ class TrainInterface(metaclass=ABCMeta):
         if not getattr(self.config, "resume", False):
             return False
         path = self._ckpt_path()
-        if not os.path.exists(path):
+        found = os.path.exists(path)
+        if self.data_parallel:
+            # every rank reads rank 0's checkpoint: all must find it
+            seen = torch.tensor([float(found), float(not found)],
+                                device=self.device)
+            parallel.all_reduce_([seen])
+            if seen.min() > 0:
+                raise RuntimeError(
+                    f"{int(seen[0])} of {self.world} ranks found the "
+                    f"checkpoint {path}: a data-parallel resume reads rank "
+                    f"0's checkpoint from a path every rank sees")
+        if not found:
             return False
         # this program's own file: it holds numpy and python RNG states,
         # which the weights-only loader refuses

@@ -12,15 +12,22 @@ optimizer with :func:`set_learning_rate`.
 
 :class:`MultiSteps` is ``optax.MultiSteps``, the JAX trainer's gradient
 accumulation (``trainer.grad_accum``): the gradients of N mini-steps are
-averaged and the wrapped optimizer steps once, at the N-th.
+averaged and the wrapped optimizer steps once, at the N-th. Under data
+parallelism it wraps the data-parallel optimizer
+(``parallel.AllReduceGrads`` or ``parallel.Zero1``), whose step sums the
+gradients over the world: the mini-steps that apply no update sync
+nothing, and the boundary syncs once.
 """
 
 import numpy as np
 import torch
 
+from nps_tpu_torch.parallel.mesh import all_reduce_
 
-def build_optimizer(params, object="optim.Adam", lr=1e-3, **kwargs):
-    """-> (torch optimizer over ``params``, base learning rate)."""
+
+def optimizer_class(object="optim.Adam", lr=1e-3, **kwargs):
+    """-> (torch optimizer class, its keyword arguments) of a config's
+    optimizer spec."""
     name = object.split(".")[-1].lower()
     kw = dict(kwargs)
     betas = tuple(kw.pop("betas", (0.9, 0.999)))
@@ -28,19 +35,21 @@ def build_optimizer(params, object="optim.Adam", lr=1e-3, **kwargs):
     weight_decay = kw.pop("weight_decay", 0.0)
     if name == "adam":
         if weight_decay:
-            opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
-                                    weight_decay=weight_decay)
-        else:
-            opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
-    elif name == "adamw":
-        opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
-                                weight_decay=weight_decay or 0.01)
-    elif name == "sgd":
-        opt = torch.optim.SGD(params, lr=lr,
-                              momentum=kw.pop("momentum", 0.0))
-    else:
-        raise ValueError(f"Unknown optimizer '{object}'")
-    return opt, float(lr)
+            return torch.optim.AdamW, dict(lr=lr, betas=betas, eps=eps,
+                                           weight_decay=weight_decay)
+        return torch.optim.Adam, dict(lr=lr, betas=betas, eps=eps)
+    if name == "adamw":
+        return torch.optim.AdamW, dict(lr=lr, betas=betas, eps=eps,
+                                       weight_decay=weight_decay or 0.01)
+    if name == "sgd":
+        return torch.optim.SGD, dict(lr=lr, momentum=kw.pop("momentum", 0.0))
+    raise ValueError(f"Unknown optimizer '{object}'")
+
+
+def build_optimizer(params, **spec):
+    """-> (torch optimizer over ``params``, base learning rate)."""
+    cls, kw = optimizer_class(**spec)
+    return cls(params, **kw), float(kw["lr"])
 
 
 class MultiStepLR:
@@ -112,7 +121,13 @@ class MultiSteps:
     change. The parameter groups are the wrapped optimizer's, so
     :func:`set_learning_rate` reaches the optimizer that steps. The partial
     sum and its counter belong to the state: :meth:`state_dict` holds them,
-    so they carry over an epoch's end and through a checkpoint."""
+    so they carry over an epoch's end and through a checkpoint.
+
+    Under data parallelism (an inner optimizer with ``world`` > 1) each
+    rank's partial sum is its own until the boundary: :meth:`state_dict`
+    sums them over the world (every rank calls it) and
+    :meth:`load_state_dict` gives each rank 1/world of that sum, which the
+    boundary's all-reduce adds up to the same total."""
 
     def __init__(self, optimizer, every):
         if int(every) < 2:
@@ -144,12 +159,17 @@ class MultiSteps:
         self.inner.step()
         self.mini_step = 0
 
+    def _world(self):
+        return getattr(self.inner, "world", 1)
+
     def state_dict(self):
+        acc = [None if p.grad is None or self.mini_step == 0
+               else p.grad.detach().clone() for p in self._params()]
+        if self._world() > 1:
+            all_reduce_(acc)
         return {"inner": self.inner.state_dict(), "every": self.every,
                 "mini_step": self.mini_step,
-                "acc_grads": [None if p.grad is None or self.mini_step == 0
-                              else p.grad.detach().cpu()
-                              for p in self._params()]}
+                "acc_grads": [None if g is None else g.cpu() for g in acc]}
 
     def load_state_dict(self, state):
         if int(state["every"]) != self.every:
@@ -157,8 +177,9 @@ class MultiSteps:
                              f"mini-steps, this run over {self.every}")
         self.inner.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
+        n = self._world()
         for p, g in zip(self._params(), state["acc_grads"], strict=True):
-            p.grad = None if g is None else g.to(p.device, p.dtype)
+            p.grad = None if g is None else g.to(p.device, p.dtype) / n
 
 
 def set_learning_rate(optimizer, lr):

@@ -41,6 +41,15 @@ its depth from the batch sampler (``loader.batch_sampler.get_t_batch``);
 the labels by a mask of the valid frames, built from the lengths, before
 every loss (the divisor stays the padded rollout length, as upstream).
 
+Under data parallelism (``TrainInterface.data_parallel``) each rank holds
+its slice of the global batch, and the step is the global batch's, as the
+JAX step on a global array is: the depth is drawn from the shared generator
+on every rank alike, the start steps are drawn for the whole global batch
+and each rank takes its slice, the loss is sqrt of the world's sum of
+squares (:func:`~nps_tpu_torch.parallel.global_sum`, whose backward leaves
+each rank its share of the gradient, which the optimizer's all-reduce
+sums), and ``test_step`` sums every rank's losses over the global batch.
+
 GNN models (``M.AR_TB_GNN``) take the same steps: at the model boundary the
 grid window goes to node space and back (two reshapes) over a static graph
 structure built once per (grid, batch size) on the host and kept on the
@@ -53,6 +62,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from nps_tpu_torch import parallel
 from nps_tpu_torch.common import graph as G
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.config import fast_forward_scope
@@ -164,10 +174,11 @@ class AutoregressivePushforwardTrainer(TrainInterface):
     @in_compute_dtype
     def train_step(self, batch, epoch, batch_idx, loader=None, unrolled=None,
                    steps0=None):
-        """One pushforward step and optimizer update; returns (loss, None).
-        ``unrolled`` and ``steps0`` [b] override the drawn depth and start
-        steps. A variable-time batch takes its depth from ``loader``'s batch
-        sampler (0 without a loader)."""
+        """One pushforward step and optimizer update; returns (loss, None),
+        the global batch's loss under data parallelism. ``unrolled`` and
+        ``steps0`` [b] (this rank's elements) override the drawn depth and
+        start steps. A variable-time batch takes its depth from ``loader``'s
+        batch sampler (0 without a loader)."""
         if self._variable_time():
             *batch, _lengths = batch
             if unrolled is None:
@@ -187,7 +198,10 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                 f"t_res={t_res} needs at least tw*(unrolled+2)="
                 f"{tw * (unrolled + 2)} (tw={tw})")
         if steps0 is None:
-            steps0 = torch.randint(tw, hi, (b,), generator=self.start_rng)
+            # the global batch's draws; this rank's elements are its slice
+            steps0 = torch.randint(tw, hi, (b * self.world,),
+                                   generator=self.start_rng)
+            steps0 = steps0[self.rank * b:(self.rank + 1) * b]
         steps = torch.as_tensor(steps0, dtype=torch.long).cpu()
         cond_, t_cond_, sc_ = _opt(cond), _opt(t_cond), _opt(spatial_cond)
         self._ensure_graph_static(x, b)
@@ -220,7 +234,11 @@ class AutoregressivePushforwardTrainer(TrainInterface):
             pred = self._apply(data, cond_, bc, x, t_window(steps), sc_)
             pred, _ = self._process(pred, labels, None, get_bc=False,
                                     set_bc=True, set_min=True)
-            loss = torch.sqrt(self.criterion(pred, labels))
+            sq = self.criterion(pred, labels)
+            if self.data_parallel:
+                # the root is taken of the world's sum of squares
+                sq = parallel.global_sum(sq)
+            loss = torch.sqrt(sq)
         with record_function("train_step/backward"):
             loss.backward()
         with record_function("train_step/optimizer"):
@@ -291,7 +309,12 @@ class AutoregressivePushforwardTrainer(TrainInterface):
 
         vals = torch.cat([torch.stack([unrolled_sum, base_sum,
                                        step_losses.mean()]),
-                          step_losses]).tolist()
+                          step_losses])
+        if self.data_parallel:
+            # each value is a sum over the elements over b: the world's sums
+            # over the global batch
+            vals = parallel.global_sum(vals * b) / (b * self.world)
+        vals = vals.tolist()
         info = {"Unrolled base losses": vals[1],
                 "Unrolled forward losses": vals[0],
                 "Mean per-step loss": vals[2]}
@@ -300,11 +323,13 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         if include_data:
             pred0 = u_super[:, :, tw * self.config.nr_gt_steps - tw:
                             tw * self.config.nr_gt_steps]
-            data_pred = torch.cat([pred0, *sim["preds"]], dim=2)
-            data_gt = torch.cat([pred0, *sim["labels"]], dim=2)
+            data_pred = parallel.gather_rows(
+                torch.cat([pred0, *sim["preds"]], dim=2))
+            data_gt = parallel.gather_rows(
+                torch.cat([pred0, *sim["labels"]], dim=2))
             return vals[0], info, (data_gt.cpu().numpy(),
                                    data_pred.cpu().numpy(),
-                                   [{} for _ in range(b)])
+                                   [{} for _ in range(len(data_gt))])
         return vals[0], info
 
     def _simulate(self, u, cond, x, t_cond, spatial_cond, nr_gt_steps, t_res,

@@ -10,6 +10,17 @@ pickles the loss summary and runs the final test evaluation. It runs on the
 GPU unless ``--device cpu`` is given, and refuses to start without a CUDA
 device otherwise; the config's ``trainer.device`` is not read. Overrides use
 the JAX package's flag semantics (``nps_tpu_torch.configs.parse``).
+
+Several processes, one device each (data parallelism,
+``nps_tpu_torch.parallel``), as the JAX CLI's ``--trainer.distributed``:
+
+    torchrun --nproc_per_node=N -m nps_tpu_torch.train_cli -C CFG \\
+        --trainer.distributed=auto --trainer.data_parallel=true
+
+(``auto`` reads the launcher's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``), or one process per rank started by
+hand with ``--trainer.distributed=host:port,N,i`` (rank i of N, rank 0
+listening on host:port). The backend is NCCL on CUDA and gloo on the CPU.
 """
 
 import os
@@ -19,9 +30,12 @@ import tempfile
 from argparse import Namespace
 from datetime import datetime
 
+import torch
+
 import nps_tpu_torch.data as data
 import nps_tpu_torch.models as models
 import nps_tpu_torch.train as trainers
+from nps_tpu_torch import parallel
 from nps_tpu_torch.configs.parse import parse_args
 from nps_tpu_torch.data.memmap_dataset import SCRATCH_ENV
 from nps_tpu_torch.inference import resolve_device
@@ -78,12 +92,30 @@ def get_config_static(args, lazy_init=True, model_override=None,
             lr_scheduler)
 
 
+def init_from_flag(flag, device):
+    """Join the process group that ``--trainer.distributed`` names (see the
+    module note) and print the process line; return this rank's device, or
+    ``device`` where the flag asks for one process."""
+    flag = str(flag or "")
+    if flag.lower() in ("", "false", "0", "none"):
+        return device
+    if flag.lower() in ("auto", "true", "1"):
+        device = parallel.init_distributed("env://", device=device)
+    else:
+        coord, n_proc, proc_id = flag.split(",")
+        device = parallel.init_distributed(
+            f"tcp://{coord}", world_size=int(n_proc), rank=int(proc_id),
+            device=device)
+    rank, size = parallel.world()
+    print(f"Distributed: process {rank} of {size}, backend "
+          f"{torch.distributed.get_backend()}, device {device}")
+    return device
+
+
 def main(args, device="cuda"):
     device = resolve_device(device)
-    dist = str(args.get("trainer", {}).get("distributed", "") or "")
-    if dist and dist.lower() not in ("false", "0", "none"):
-        raise NotImplementedError("trainer.distributed is not ported yet "
-                                  "(ROADMAP P9b)")
+    device = init_from_flag(args.get("trainer", {}).get("distributed"),
+                            device)
     if PRINT_ARGS:
         print(util.dict_str(args, prefix="--", mapping="="))
     os.makedirs(args["experiment_path"], exist_ok=True)
@@ -121,10 +153,11 @@ def main(args, device="cuda"):
                 print(f"[{name}/{split}] loss: {loss}")
                 print(util.dict_str(stats, prefix=" • "))
                 summary[f"{name}/{split}"] = dict(loss=loss, **stats)
-        with open(os.path.join(args["experiment_path"],
-                               args["experiment_name"]
-                               + "_eval_summary.pickle"), "wb") as f:
-            pickle.dump(summary, f)
+        if trainer._is_writer_process():
+            with open(os.path.join(args["experiment_path"],
+                                   args["experiment_name"]
+                                   + "_eval_summary.pickle"), "wb") as f:
+                pickle.dump(summary, f)
         print("Eval Completed!")
         return trainer
 
@@ -147,10 +180,12 @@ def main(args, device="cuda"):
     print("Train losses:", util.to_floatlist(train_losses))
     first = list(val_losses.keys())[0]
     print("Validation losses:", util.to_floatlist(val_losses[first]))
-    with open(os.path.join(args["experiment_path"], args["experiment_name"]
-                           + "_train_summary.pickle"), "wb") as f:
-        pickle.dump(dict(train_losses=train_losses, val_losses=val_losses,
-                         val_stats=val_stats), f)
+    if trainer._is_writer_process():
+        with open(os.path.join(args["experiment_path"],
+                               args["experiment_name"]
+                               + "_train_summary.pickle"), "wb") as f:
+            pickle.dump(dict(train_losses=train_losses,
+                             val_losses=val_losses, val_stats=val_stats), f)
 
     test_loss, test_summary = trainer.test(test_loader)
     print("Test loss:", util.to_float(test_loss))
@@ -185,7 +220,8 @@ def pop_device(argv):
 def cli(argv=None):
     """Parse ``argv`` (default ``sys.argv``) and run inside a scratch
     directory that the dataset's preprocessing writes to and that is removed
-    afterwards, whatever happens. Returns the trainer."""
+    afterwards, whatever happens; leave the process group, if the run joined
+    one. Returns the trainer."""
     device, argv = pop_device(list(sys.argv if argv is None else argv))
     resolve_device(device)
     saved_argv, sys.argv = sys.argv, argv
@@ -205,6 +241,8 @@ def cli(argv=None):
                     os.environ[SCRATCH_ENV] = prev
     finally:
         sys.argv, sys.stdout = saved_argv, saved_stdout
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print("Run finished!")
     return trainer
 

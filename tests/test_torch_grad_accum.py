@@ -267,8 +267,11 @@ def test_accumulation_survives_epoch_and_resume(data_root, tmp_path):
 
 def test_data_parallel_in_one_process(data_root, tmp_path, monkeypatch):
     """``data_parallel=True`` in a world of one process trains as the
-    single-device step; a world of two refuses, naming P9b, whether the
-    launcher's ``WORLD_SIZE`` or an initialised process group says so."""
+    single-device step. A world of two is this rank's share of the global
+    batch (P9b items 1-2; tests/test_torch_distributed.py trains such
+    worlds); refused still: a launcher's ``WORLD_SIZE`` of two with no
+    process group, a world of two without ``data_parallel``, and tensor
+    parallelism (P9b item 4)."""
     tr = _port(data_root, tmp_path, data_parallel=True)
     tr.ensure_initialized()
     ref = _port(data_root, tmp_path, "ref")
@@ -280,13 +283,20 @@ def test_data_parallel_in_one_process(data_root, tmp_path, monkeypatch):
     loss_ref, _ = ref.train_step(batch, 0, 0, unrolled=0, steps0=steps0)
     assert float(loss) == float(loss_ref)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="P9b"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         _port(data_root, tmp_path, data_parallel=True)
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="P9b"):
-        train_base.refuse_unported(Namespace(data_parallel=True))
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
+    train_base.refuse_unported(Namespace(data_parallel=True))
+    two = _port(data_root, tmp_path, data_parallel=True)
+    assert (two.data_parallel, two.rank, two.world) == (True, 0, 2)
+    with pytest.raises(ValueError, match="data_parallel"):
+        train_base.refuse_unported(Namespace(data_parallel=False))
+    with pytest.raises(NotImplementedError, match="P9b item 4"):
+        train_base.refuse_unported(Namespace(data_parallel=True,
+                                             tensor_parallel=2))
 
 
 def test_cli_epoch_with_grad_accum_flag(data_root, tmp_path):

@@ -302,21 +302,35 @@ def _parse(fn, cfg, argv):
 
 
 def test_trainer_refuses_bf16_naming_p12b(split, tmp_path, monkeypatch):
-    """The name is older than bf16 training and than ``data_parallel`` in
-    one process: the trainer takes the config's bf16 (ROADMAP P12b is done)
-    as its compute dtype and the config's ``data_parallel=True`` as the
-    single-device step of a one-process world (P9a is done), and refuses a
-    world of more processes, naming P9b."""
-    trainer = train_cli.get_config_static(
-        _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path)),
-        device="cpu")[4]
+    """The name is older than bf16 training and than data parallelism: the
+    trainer takes the config's bf16 (ROADMAP P12b is done) as its compute
+    dtype and the config's ``data_parallel=True`` as the single-device step
+    of a one-process world (P9a is done), and as this rank's share of a
+    world of two (P9b items 1-2 are done; tests/test_torch_distributed.py
+    trains such worlds). Still refused: a launcher's world of two with no
+    process group, and spatial parallelism (P9b item 3)."""
+    def build(extra=()):
+        return train_cli.get_config_static(
+            _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path, extra)),
+            device="cpu")[4]
+
+    trainer = build()
     assert trainer.compute_dtype == torch.bfloat16
     assert trainer.config.data_parallel is True
+    assert (trainer.data_parallel, trainer.rank, trainer.world) == \
+        (False, 0, 1)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="P9b"):
-        train_cli.get_config_static(
-            _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path)),
-            device="cpu")
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        build()
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    trainer = build()
+    assert (trainer.data_parallel, trainer.rank, trainer.world) == \
+        (True, 1, 2)
+    assert trainer.compute_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="P9b item 3"):
+        build(["--trainer.spatial_parallel=2"])
 
 
 # the train-step parity: 1 block x 8 features (the JAX side compiles a

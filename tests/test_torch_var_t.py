@@ -272,9 +272,26 @@ def test_loaders_match_jax(datasets, mode):
             for a, r in zip(bg, bw):
                 assert a.dtype == np.asarray(r).dtype
                 np.testing.assert_array_equal(a, np.asarray(r))
-    with pytest.raises(NotImplementedError, match="P9b"):
+    # two processes (P9b item 1): the ranks' slices of every batch make up
+    # the one-process batch, trimmed to a multiple of the process count;
+    # a process index outside the world is refused
+    one = list(VariableTimeLoader(ds.train, VariableTimeBatchSampler(
+        ds.train, **kw), mode=mode, time_window=TW, seed=5))
+    ranks = [list(VariableTimeLoader(
+        ds.train, VariableTimeBatchSampler(ds.train, **kw), mode=mode,
+        time_window=TW, seed=5, process_index=i, process_count=2))
+        for i in range(2)]
+    assert len(ranks[0]) == len(ranks[1]) == len(one)
+    for whole, *parts in zip(one, *ranks):
+        n = len(whole[1]) - len(whole[1]) % 2
+        if n < len(whole[1]):
+            continue   # an odd batch's extent is the trimmed batch's
+        for k in (1, 2, 3, 6):
+            np.testing.assert_array_equal(
+                np.concatenate([p[k] for p in parts]), whole[k][:n])
+    with pytest.raises(ValueError, match="not one of the 2 processes"):
         VariableTimeLoader(ds.train, VariableTimeBatchSampler(ds.train, **kw),
-                           process_index=0, process_count=2)
+                           process_index=2, process_count=2)
 
 
 # ------------------------------------------------------------ the 1D op
