@@ -634,16 +634,25 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_bwd_apply(BwdArgs a) {
   }
 }
 
+// the backward's sums (gn1_bwd_sums, gn1_bwd_reduce: ws, coef, dgamma,
+// dbeta), then its apply (gn1_bwd_apply: dx)
 template <typename T, bool VEC>
-int launch_bwd(const BwdArgs& a, cudaStream_t st) {
-  const int planes = a.b * a.c;
-  gn1_bwd_sums<T, VEC><<<planes, kBwdThreads, 0, st>>>(a);
+int bwd_sums_stage(const BwdArgs& a, cudaStream_t st) {
+  gn1_bwd_sums<T, VEC><<<a.b * a.c, kBwdThreads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gn1_bwd_reduce<<<a.b + (a.c + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gn1_bwd_apply<T, VEC><<<planes, kBwdThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+template <typename T, bool VEC>
+int bwd_apply_stage(const BwdArgs& a, cudaStream_t st) {
+  gn1_bwd_apply<T, VEC><<<a.b * a.c, kBwdThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+template <typename T, bool VEC>
+int launch_bwd(const BwdArgs& a, cudaStream_t st) {
+  const int err = bwd_sums_stage<T, VEC>(a, st);
+  return err ? err : bwd_apply_stage<T, VEC>(a, st);
 }
 
 // ---- streaming forward ----------------------------------------------------------
@@ -652,10 +661,12 @@ struct StreamArgs {
   const float* gamma;
   const float* beta;
   void* y;
-  float* stats;       // [b, 2] (mean, inv)
+  float* stats;       // [b, 2] (mean, inv); with raw the sums (sum x, sum x^2)
   float2* partials;   // [b, chunks] (sum x, sum x^2)
   int n, hw, chunk, chunks, act;
   float eps;
+  float inv_count;    // 1 / the sample's element count (its whole count when split)
+  int raw;            // gn1_stream_stats writes the sums, not (mean, inv)
 };
 
 // the units (16-byte vectors, or single elements) of this CTA's chunk
@@ -703,8 +714,11 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_stream_stats(StreamArgs a) {
     acc.y += p.y;
   }
   acc = bwd_block_sum2(acc);
-  if (threadIdx.x == 0) {
-    const float inv_n = 1.0f / static_cast<float>(a.n);
+  if (threadIdx.x == 0 && a.raw) {
+    a.stats[2 * s] = acc.x;
+    a.stats[2 * s + 1] = acc.y;
+  } else if (threadIdx.x == 0) {
+    const float inv_n = a.inv_count;
     const float mean = acc.x * inv_n;
     const float var = fmaxf(acc.y * inv_n - mean * mean, 0.0f);
     a.stats[2 * s] = mean;
@@ -752,16 +766,37 @@ __global__ void __launch_bounds__(kBwdThreads) gn1_stream_apply(StreamArgs a) {
   }
 }
 
+// the streaming forward's stages: the chunks' partial sums and their sum per
+// sample (into stats: (mean, inv), or with a.raw the sums), then the stats
+// from `sums` [b] (the split forward's summed sums: one chunk a sample) and
+// the normalisation
 template <typename T, bool VEC>
-int launch_stream(const StreamArgs& a, int b, cudaStream_t st) {
-  const dim3 grid(a.chunks, b);
-  gn1_stream_sums<T, VEC><<<grid, kBwdThreads, 0, st>>>(a);
+int stream_sums_stage(const StreamArgs& a, int b, cudaStream_t st) {
+  gn1_stream_sums<T, VEC><<<dim3(a.chunks, b), kBwdThreads, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gn1_stream_stats<<<b, kBwdThreads, 0, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gn1_stream_apply<T, VEC><<<grid, kBwdThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+template <typename T, bool VEC>
+int stream_apply_stage(const StreamArgs& a, int b, cudaStream_t st) {
+  gn1_stream_apply<T, VEC><<<dim3(a.chunks, b), kBwdThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+template <typename T, bool VEC>
+int split_apply_stage(const StreamArgs& a, const float* sums, int b, cudaStream_t st) {
+  StreamArgs s = a;
+  s.partials = reinterpret_cast<float2*>(const_cast<float*>(sums));
+  s.chunks = 1;
+  s.raw = 0;
+  gn1_stream_stats<<<b, kBwdThreads, 0, st>>>(s);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? static_cast<int>(err) : stream_apply_stage<T, VEC>(a, b, st);
+}
+template <typename T, bool VEC>
+int launch_stream(const StreamArgs& a, int b, cudaStream_t st) {
+  const int err = stream_sums_stage<T, VEC>(a, b, st);
+  return err ? err : stream_apply_stage<T, VEC>(a, b, st);
 }
 
 }  // namespace
@@ -849,9 +884,120 @@ extern "C" int gn1_gelu_fwd_stream(const void* x, const float* gamma, const floa
   a.chunks = chunks;
   a.act = act;
   a.eps = eps;
+  a.inv_count = 1.0f / static_cast<float>(a.n);
+  a.raw = 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return vec ? launch_stream<__nv_bfloat16, true>(a, b, st)
                : launch_stream<__nv_bfloat16, false>(a, b, st);
   return vec ? launch_stream<float, true>(a, b, st) : launch_stream<float, false>(a, b, st);
+}
+
+// ---- split samples (spatial parallelism) ----------------------------------------
+// A sample split over the ranks of an x group (each holds some rows of every
+// plane) is normalised by the whole sample's statistics. The forward and the
+// backward each run as two launches with a sum over the x group between,
+// which the caller makes (ops/group_norm.py): the streaming forward's stages
+// (the persistent kernel has no point between its sums and its apply), and
+// the backward's. `count` is the whole sample's element count C * rows * W.
+
+// sums [b, 2] <- this rank's (sum x, sum x^2) of each sample, through
+// partials [b, chunks, 2]; chunk, chunks, vec as gn1_gelu_fwd_stream's.
+extern "C" int gn1_split_sums(const void* x, float* sums, float* partials, int b, int c,
+                              long long hw, int is_bf16, int chunk, int chunks, int vec,
+                              void* stream) {
+  StreamArgs a{};
+  a.x = x;
+  a.stats = sums;
+  a.partials = reinterpret_cast<float2*>(partials);
+  a.n = static_cast<int>(c * hw);
+  a.hw = static_cast<int>(hw);
+  a.chunk = chunk;
+  a.chunks = chunks;
+  a.raw = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return vec ? stream_sums_stage<__nv_bfloat16, true>(a, b, st)
+               : stream_sums_stage<__nv_bfloat16, false>(a, b, st);
+  return vec ? stream_sums_stage<float, true>(a, b, st) : stream_sums_stage<float, false>(a, b, st);
+}
+
+// stats [b, 2] (mean, inv) from the x group's summed sums [b, 2] over count
+// elements, then y = the normalised rows of this rank; the rest as
+// gn1_gelu_fwd_stream's.
+extern "C" int gn1_split_apply(const void* x, const float* gamma, const float* beta, void* y,
+                               const float* sums, float* stats, int b, int c, long long hw,
+                               double count, float eps, int act, int is_bf16, int chunk,
+                               int chunks, int vec, void* stream) {
+  StreamArgs a{};
+  a.x = x;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.y = y;
+  a.stats = stats;
+  a.n = static_cast<int>(c * hw);
+  a.hw = static_cast<int>(hw);
+  a.chunk = chunk;
+  a.chunks = chunks;
+  a.act = act;
+  a.eps = eps;
+  a.inv_count = static_cast<float>(1.0 / count);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return vec ? split_apply_stage<__nv_bfloat16, true>(a, sums, b, st)
+               : split_apply_stage<__nv_bfloat16, false>(a, sums, b, st);
+  return vec ? split_apply_stage<float, true>(a, sums, b, st)
+             : split_apply_stage<float, false>(a, sums, b, st);
+}
+
+// The backward's sums over this rank's rows: ws [b, c, 2], coef [b, 2] (this
+// rank's share of the per-sample means, over the whole sample's count), and
+// this rank's dgamma, dbeta; the rest as gn1_gelu_bwd's.
+extern "C" int gn1_split_bwd_sums(const void* x, const void* dy, const float* gamma,
+                                  const float* beta, const float* stats, float* ws, float* coef,
+                                  float* dgamma, float* dbeta, int b, int c, long long hw,
+                                  double count, int act, int is_bf16, int vec, void* stream) {
+  BwdArgs a{};
+  a.x = x;
+  a.dy = dy;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.stats = stats;
+  a.ws = ws;
+  a.coef = coef;
+  a.dgamma = dgamma;
+  a.dbeta = dbeta;
+  a.b = b;
+  a.c = c;
+  a.hw = static_cast<int>(hw);
+  a.act = act;
+  a.inv_n = static_cast<float>(1.0 / count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return vec ? bwd_sums_stage<__nv_bfloat16, true>(a, s) : bwd_sums_stage<__nv_bfloat16, false>(a, s);
+  return vec ? bwd_sums_stage<float, true>(a, s) : bwd_sums_stage<float, false>(a, s);
+}
+
+// dx of this rank's rows from the x group's summed coef [b, 2].
+extern "C" int gn1_split_bwd_apply(const void* x, const void* dy, const float* gamma,
+                                   const float* beta, const float* stats, const float* coef,
+                                   void* dx, int b, int c, long long hw, int act, int is_bf16,
+                                   int vec, void* stream) {
+  BwdArgs a{};
+  a.x = x;
+  a.dy = dy;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.stats = stats;
+  a.coef = const_cast<float*>(coef);
+  a.dx = dx;
+  a.b = b;
+  a.c = c;
+  a.hw = static_cast<int>(hw);
+  a.act = act;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return vec ? bwd_apply_stage<__nv_bfloat16, true>(a, s)
+               : bwd_apply_stage<__nv_bfloat16, false>(a, s);
+  return vec ? bwd_apply_stage<float, true>(a, s) : bwd_apply_stage<float, false>(a, s);
 }

@@ -1630,12 +1630,14 @@ int resident_grid(K* kernel, int threads, size_t smem, int work) {
   return max(1, min(work, occ * sms));
 }
 
-// Launch `kernel` with programmatic stream serialization: it may start while
-// the previous kernel on the stream finishes, and reads that kernel's
-// results only after nps::wait_for_previous_kernel().
+// Launch `kernel` with programmatic stream serialization (pdl): it may start
+// while the previous kernel on the stream finishes, and reads that kernel's
+// results only after nps::wait_for_previous_kernel(). Without pdl it is an
+// ordinary launch (for a kernel whose input a collective, not the previous
+// kernel, wrote).
 template <typename... Params, typename... Args>
-cudaError_t launch_after_previous(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
-                                  cudaStream_t st, Args... args) {
+cudaError_t launch_maybe_pdl(bool pdl, void (*kernel)(Params...), dim3 grid, dim3 block,
+                             size_t smem, cudaStream_t st, Args... args) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
@@ -1645,8 +1647,13 @@ cudaError_t launch_after_previous(void (*kernel)(Params...), dim3 grid, dim3 blo
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+template <typename... Params, typename... Args>
+cudaError_t launch_after_previous(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                  cudaStream_t st, Args... args) {
+  return launch_maybe_pdl(true, kernel, grid, block, smem, st, args...);
 }
 
 // the kernels' shared-memory opt-in, once per process and kernel
@@ -1661,19 +1668,19 @@ cudaError_t opt_in_once() {
 // the pack is [mode, 2, d.co, d.ci] there).
 template <bool ADJ, int BT, bool VEC>
 cudaError_t launch_mix(const Dims& d, const float* w, const Film& film, const float* xr,
-                       const float* xi, float* yr, float* yi, cudaStream_t st) {
+                       const float* xi, float* yr, float* yi, cudaStream_t st, bool pdl) {
   const dim3 grid(d.K * d.m2, (d.co + kCoTile - 1) / kCoTile);
   if constexpr (ADJ) {
     cudaError_t err = opt_in_once<mix_adj_kernel<BT, VEC>>();
     if (err != cudaSuccess) return err;
-    return launch_after_previous(mix_adj_kernel<BT, VEC>, grid, dim3(kMixThreads),
-                                 mix_adj_smem(d, BT), st, xr, xi, w, yr, yi, d.b, d.co, d.ci);
+    return launch_maybe_pdl(pdl, mix_adj_kernel<BT, VEC>, grid, dim3(kMixThreads),
+                            mix_adj_smem(d, BT), st, xr, xi, w, yr, yi, d.b, d.co, d.ci);
   } else {
     cudaError_t err = opt_in_once<mix_kernel<BT, VEC>>();
     if (err != cudaSuccess) return err;
-    return launch_after_previous(mix_kernel<BT, VEC>, grid, dim3(kMixThreads), mix_smem(d, BT),
-                                 st, xr, xi, w, film.f, film.mode, yr, yi, film.ur, film.ui, d.b,
-                                 d.ci, d.co, d.K, d.m2);
+    return launch_maybe_pdl(pdl, mix_kernel<BT, VEC>, grid, dim3(kMixThreads), mix_smem(d, BT),
+                            st, xr, xi, w, film.f, film.mode, yr, yi, film.ur, film.ui, d.b,
+                            d.ci, d.co, d.K, d.m2);
   }
 }
 
@@ -1681,17 +1688,18 @@ cudaError_t launch_mix(const Dims& d, const float* w, const Film& film, const fl
 // reads where the pack's rows allow.
 template <bool ADJ>
 cudaError_t mix_stage(const Dims& d, const float* w, const Film& film, const float* xr,
-                      const float* xi, float* yr, float* yi, bool w_vec, cudaStream_t st) {
+                      const float* xi, float* yr, float* yi, bool w_vec, cudaStream_t st,
+                      bool pdl = true) {
   const int bt = d.b > 4 ? 8 : d.b > 2 ? 4 : d.b;  // register tile in samples
   switch (bt * 2 + (w_vec ? 1 : 0)) {
-    case 2: return launch_mix<ADJ, 1, false>(d, w, film, xr, xi, yr, yi, st);
-    case 3: return launch_mix<ADJ, 1, true>(d, w, film, xr, xi, yr, yi, st);
-    case 4: return launch_mix<ADJ, 2, false>(d, w, film, xr, xi, yr, yi, st);
-    case 5: return launch_mix<ADJ, 2, true>(d, w, film, xr, xi, yr, yi, st);
-    case 8: return launch_mix<ADJ, 4, false>(d, w, film, xr, xi, yr, yi, st);
-    case 9: return launch_mix<ADJ, 4, true>(d, w, film, xr, xi, yr, yi, st);
-    case 16: return launch_mix<ADJ, 8, false>(d, w, film, xr, xi, yr, yi, st);
-    default: return launch_mix<ADJ, 8, true>(d, w, film, xr, xi, yr, yi, st);
+    case 2: return launch_mix<ADJ, 1, false>(d, w, film, xr, xi, yr, yi, st, pdl);
+    case 3: return launch_mix<ADJ, 1, true>(d, w, film, xr, xi, yr, yi, st, pdl);
+    case 4: return launch_mix<ADJ, 2, false>(d, w, film, xr, xi, yr, yi, st, pdl);
+    case 5: return launch_mix<ADJ, 2, true>(d, w, film, xr, xi, yr, yi, st, pdl);
+    case 8: return launch_mix<ADJ, 4, false>(d, w, film, xr, xi, yr, yi, st, pdl);
+    case 9: return launch_mix<ADJ, 4, true>(d, w, film, xr, xi, yr, yi, st, pdl);
+    case 16: return launch_mix<ADJ, 8, false>(d, w, film, xr, xi, yr, yi, st, pdl);
+    default: return launch_mix<ADJ, 8, true>(d, w, film, xr, xi, yr, yi, st, pdl);
   }
 }
 
@@ -1744,6 +1752,18 @@ size_t big_inv_smem(const Dims& d) {
   return sizeof(float2) * static_cast<size_t>(d.K + kBigInvRows) * d.m2;
 }
 
+// X = the row tiles' partial spectra pr, pi [tiles, modes, b, ci] summed,
+// when the rows take more than one tile
+cudaError_t sum_tiles_stage(const Dims& d, int tiles, const float* pr, const float* pi,
+                            float* xr, float* xi, cudaStream_t st) {
+  if (tiles <= 1) return cudaSuccess;
+  const int64_t n = static_cast<int64_t>(d.K) * d.m2 * d.b * d.ci;
+  const int64_t blocks = (n + kBigThreads - 1) / kBigThreads;
+  sum_tiles_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kBigThreads, 0,
+                     st>>>(pr, pi, xr, xi, tiles, n);
+  return cudaGetLastError();
+}
+
 // The stages between the two DFT stages of the large-plane variant:
 // sum_tiles_kernel when the rows take more than one tile (pr, pi [tiles,
 // modes, b, ci] hold the partial spectra), with ADJ the FiLM stage, then the
@@ -1752,14 +1772,8 @@ template <bool ADJ>
 cudaError_t big_middle(const Dims& d, int tiles, const float* w, const Film& film,
                        const float* pr, const float* pi, float* xr, float* xi, float* yr,
                        float* yi, bool w_vec, cudaStream_t st) {
-  cudaError_t err;
-  if (tiles > 1) {
-    const int64_t n = static_cast<int64_t>(d.K) * d.m2 * d.b * d.ci;
-    const int64_t blocks = (n + kBigThreads - 1) / kBigThreads;
-    sum_tiles_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), kBigThreads, 0,
-                       st>>>(pr, pi, xr, xi, tiles, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  cudaError_t err = sum_tiles_stage(d, tiles, pr, pi, xr, xi, st);
+  if (err != cudaSuccess) return err;
   if (ADJ && (err = film_stage(d, film, xr, xi, st)) != cudaSuccess) return err;
   return mix_stage<ADJ>(d, w, film, xr, xi, yr, yi, w_vec, st);
 }
@@ -1953,6 +1967,139 @@ int dispatch_dft(const float* x, const float* w_packed, const Film& film, const 
 #undef NPS_DFT
 }
 
+// ---- row-split stages (spatial parallelism) --------------------------------------
+// Under spatial parallelism a rank holds rows [r0, r0 + n1) of an N1-row
+// plane. The transform is linear in the rows, so it splits at the row
+// contraction: the forward DFT of the local rows through rows [r0, r0 + n1)
+// of the forward row tables gives a partial spectrum, the caller sums it
+// over the x group, and the mix and the inverse to the local rows (columns
+// [r0, r0 + n1) of the inverse row tables, scale 1 / (N1 n2)) follow. The
+// entries below run one stage each, with the kernels above at n1 = the
+// local rows; the caller passes the window's tables (ops/spectral.py:
+// dft_tables_rows, tc_tables). The first kernel of each entry is an
+// ordinary launch: what precedes it on the stream is the caller's
+// collective, not a kernel that writes its input.
+
+template <int M2, int V>
+int split_dft_res(const float* x, const float* c2, const float* s2, const float* c1,
+                  const float* s1, float* xr, float* xi, const Dims& d, cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_fwd_kernel<M2, V>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t fs = fwd_smem(d, M2, V);
+  const int grid = resident_grid(dft_fwd_kernel<M2, V>, kFwdThreads, fs, d.b * d.ci);
+  dft_fwd_kernel<M2, V><<<grid, kFwdThreads, fs, st>>>(x, c2, s2, c1, s1, xr, xi, d.b, d.ci,
+                                                       d.n1, d.n2, d.K, d.m2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M2, int V>
+int split_inv_res(const float* yr, const float* yi, const float* ic2, const float* is2,
+                  const float* ic1, const float* is1, float* out, const Dims& d, float scale,
+                  cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_inv_kernel<M2, V>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t is = inv_smem(d, M2);
+  const int grid = resident_grid(dft_inv_kernel<M2, V>, kThreads, is, d.b * d.co);
+  dft_inv_kernel<M2, V><<<grid, kThreads, is, st>>>(yr, yi, ic2, is2, ic1, is1, out, d.b, d.co,
+                                                    d.n1, d.n2, d.K, d.m2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int M2, bool VEC>
+int split_dft_big(const T* x, const float* c2, const float* s2, const float* c1,
+                  const float* s1, float* pr, float* pi, float* xr, float* xi, const Dims& d,
+                  cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_fwd_big_kernel<T, M2, VEC>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (d.n1 + kBigRows - 1) / kBigRows, planes = d.b * d.ci;
+  dft_fwd_big_kernel<T, M2, VEC><<<dim3(tiles, planes), kBigThreads, big_fwd_smem<T, M2>(),
+                                   st>>>(x, c2, s2, c1, s1, tiles == 1 ? xr : pr,
+                                         tiles == 1 ? xi : pi, planes, d.n1, d.n2, d.K, d.m2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sum_tiles_stage(d, tiles, pr, pi, xr, xi, st));
+}
+
+template <int MT>
+int split_dft_tc(const __nv_bfloat16* x, const TcTables& tc, float* pr, float* pi, float* xr,
+                 float* xi, const Dims& d, cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_fwd_tc_kernel<MT>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (d.n1 + kTcRows - 1) / kTcRows, planes = d.b * d.ci;
+  CUtensorMap xmap;
+  if ((err = tc_x_map(&xmap, x, d, planes)) != cudaSuccess) return static_cast<int>(err);
+  dft_fwd_tc_kernel<MT><<<dim3(tiles, planes), kTcThreads, tc_fwd_smem(MT, d), st>>>(
+      xmap, static_cast<const uint4*>(tc.ty), static_cast<const uint4*>(tc.te),
+      tiles == 1 ? xr : pr, tiles == 1 ? xi : pi, planes, d.n1, d.n2, d.K, d.m2, tc_nt(d));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sum_tiles_stage(d, tiles, pr, pi, xr, xi, st));
+}
+
+template <typename T, bool VEC>
+int split_inv_big(const float* yr, const float* yi, const float* ic2, const float* is2,
+                  const float* ic1, const float* is1, T* out, const Dims& d, float scale,
+                  cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_inv_big_kernel<T, VEC>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((d.n1 + kBigInvRows - 1) / kBigInvRows, d.b * d.co);
+  dft_inv_big_kernel<T, VEC><<<grid, kBigThreads, big_inv_smem(d), st>>>(
+      yr, yi, ic2, is2, ic1, is1, out, d.b * d.co, d.n1, d.n2, d.K, d.m2, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int split_inv_tc(const float* yr, const float* yi, const TcTables& tc, __nv_bfloat16* out,
+                 const Dims& d, float scale, cudaStream_t st) {
+  cudaError_t err = opt_in_once<dft_inv_tc_kernel<MT>>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (d.n1 + kTcRows - 1) / kTcRows;
+  dft_inv_tc_kernel<MT><<<dim3(tiles, d.b * d.co), kTcThreads, tc_inv_smem(MT, d), st>>>(
+      yr, yi, static_cast<const uint4*>(tc.ta), static_cast<const uint4*>(tc.tb), out,
+      d.b * d.co, d.n1, d.n2, d.K, d.m2, tc_ks1(d), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the large-plane forward DFT stage of a split call (tensor-core or FMA, as
+// dispatch_big chooses them, by x alone)
+template <typename T>
+int split_dft_large(const void* x, const float* c2, const float* s2, const float* c1,
+                    const float* s1, const TcTables& tc, float* pr, float* pi, float* xr,
+                    float* xi, const Dims& d, cudaStream_t st) {
+  if (tc_stages<T>(d, x, x)) {
+    if (!tc.ty || !tc.te) return static_cast<int>(cudaErrorInvalidValue);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    if (d.m2 <= 12) return split_dft_tc<3>(xb, tc, pr, pi, xr, xi, d, st);
+    if (d.m2 <= 20) return split_dft_tc<5>(xb, tc, pr, pi, xr, xi, d, st);
+    return split_dft_tc<8>(xb, tc, pr, pi, xr, xi, d, st);
+  }
+  const T* xt = static_cast<const T*>(x);
+  const bool vec = d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T))) == 0;
+#define NPS_SPLIT_BIG(M2)                                                                   \
+  return vec ? split_dft_big<T, M2, true>(xt, c2, s2, c1, s1, pr, pi, xr, xi, d, st)      \
+             : split_dft_big<T, M2, false>(xt, c2, s2, c1, s1, pr, pi, xr, xi, d, st)
+  if (d.m2 <= 12) NPS_SPLIT_BIG(12);
+  if (d.m2 <= 20) NPS_SPLIT_BIG(20);
+  NPS_SPLIT_BIG(32);
+#undef NPS_SPLIT_BIG
+}
+
+// the large-plane inverse stage of a split call (by out alone)
+template <typename T>
+int split_inv_large(const float* yr, const float* yi, const float* ic2, const float* is2,
+                    const float* ic1, const float* is1, const TcTables& tc, void* out,
+                    const Dims& d, float scale, cudaStream_t st) {
+  if (tc_stages<T>(d, out, out)) {
+    if (!tc.ta || !tc.tb) return static_cast<int>(cudaErrorInvalidValue);
+    auto* ob = static_cast<__nv_bfloat16*>(out);
+    if (d.m2 <= 12) return split_inv_tc<3>(yr, yi, tc, ob, d, scale, st);
+    if (d.m2 <= 20) return split_inv_tc<5>(yr, yi, tc, ob, d, scale, st);
+    return split_inv_tc<8>(yr, yi, tc, ob, d, scale, st);
+  }
+  T* ot = static_cast<T*>(out);
+  if (d.n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(out) % (4 * sizeof(T))) == 0)
+    return split_inv_big<T, true>(yr, yi, ic2, is2, ic1, is1, ot, d, scale, st);
+  return split_inv_big<T, false>(yr, yi, ic2, is2, ic1, is1, ot, d, scale, st);
+}
+
 }  // namespace
 
 // ur, ui [modes, b, co] (null: not kept) receive the pre-FiLM Y when film is
@@ -2061,4 +2208,90 @@ extern "C" int spectral_dw2d(const float* xr, const float* xi, const float* gr,
                                                                 dw2, b, ci, co, nm);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Stage A of a row-split call: x [b, c, n1, n2] (n1: this rank's rows, f32
+// or bf16) -> its partial truncated spectrum xr, xi [modes, b, c], through
+// the window's tables c1, s1 [n1, 2*m1] (and, for the tensor-core stage, ty,
+// te of the window; null otherwise). resident: the resident kernel (f32),
+// else the large-plane stage; pr, pi [ceil(n1 / 256), modes, b, c] take its
+// row tiles' partials (may be null when n1 <= 256).
+extern "C" int spectral_split_dft(const void* x, const float* c2, const float* s2,
+                                  const float* c1, const float* s1, const void* ty,
+                                  const void* te, float* pr, float* pi, float* xr, float* xi,
+                                  int b, int c, int n1, int n2, int m1, int m2, int is_bf16,
+                                  int resident, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d{b, c, c, n1, n2, 2 * m1, m2};
+  if (resident) {
+    const float* xf = static_cast<const float*>(x);
+    const bool v4 = n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+#define NPS_SPLIT_RES(M2)                                                                  \
+  return v4 ? split_dft_res<M2, 4>(xf, c2, s2, c1, s1, xr, xi, d, st)                     \
+            : split_dft_res<M2, 1>(xf, c2, s2, c1, s1, xr, xi, d, st)
+    if (m2 <= 4) NPS_SPLIT_RES(4);
+    if (m2 <= 8) NPS_SPLIT_RES(8);
+    if (m2 <= 10) NPS_SPLIT_RES(10);
+    NPS_SPLIT_RES(16);
+#undef NPS_SPLIT_RES
+  }
+  const TcTables tc{ty, te, nullptr, nullptr};
+  if (is_bf16)
+    return split_dft_large<__nv_bfloat16>(x, c2, s2, c1, s1, tc, pr, pi, xr, xi, d, st);
+  return split_dft_large<float>(x, c2, s2, c1, s1, tc, pr, pi, xr, xi, d, st);
+}
+
+// The mix of a split call, on the x group's summed spectrum xr, xi [modes,
+// b, c_in] -> yr, yi [modes, b, c_out]. Forward (adjoint 0): mix_kernel on
+// the pack [modes, 2, c_in, c_out] with FiLM as spectral_dft2d_fwd's (ur, ui
+// receive the pre-FiLM Y where given). Adjoint: xr, xi are this rank's
+// partial G of dy, scaled in place by the FiLM factor (dfilm written, as in
+// spectral_dft2d_bwd), then mix_adj_kernel on the forward's pack [modes, 2,
+// c_out, c_in] gives this rank's partial H.
+extern "C" int spectral_split_mix(float* xr, float* xi, const float* w_packed, const float* film,
+                                  int film_mode, float* ur, float* ui, const float* scale,
+                                  float* dfilm, float* yr, float* yi, int b, int c_in, int c_out,
+                                  int m1, int m2, int adjoint, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d{b, c_in, c_out, 0, 0, 2 * m1, m2};
+  const int w_co = adjoint ? c_in : c_out;
+  const bool w_vec = w_co % 4 == 0 && (reinterpret_cast<uintptr_t>(w_packed) & 15) == 0;
+  if (adjoint) {
+    const Film f{film, film_mode, ur, ui, scale, dfilm};
+    cudaError_t err = film_stage(d, f, xr, xi, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(mix_stage<true>(d, w_packed, f, xr, xi, yr, yi, w_vec, st, false));
+  }
+  const Film f{film, film_mode, film ? ur : nullptr, film ? ui : nullptr, nullptr, nullptr};
+  return static_cast<int>(mix_stage<false>(d, w_packed, f, xr, xi, yr, yi, w_vec, st, false));
+}
+
+// Stage B's inverse of a split call: yr, yi [modes, b, c] -> out [b, c, n1,
+// n2] (n1: this rank's rows, f32 or bf16) through the window's inverse
+// tables ic1, is1 [2*m1, n1] (and ta, tb for the tensor-core stage), scaled
+// by `scale` (1 / (N1 n2) of the whole plane); resident as in
+// spectral_split_dft.
+extern "C" int spectral_split_inv(const float* yr, const float* yi, const float* ic2,
+                                  const float* is2, const float* ic1, const float* is1,
+                                  const void* ta, const void* tb, void* out, int b, int c, int n1,
+                                  int n2, int m1, int m2, float scale, int is_bf16, int resident,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d{b, c, c, n1, n2, 2 * m1, m2};
+  if (resident) {
+    float* of = static_cast<float*>(out);
+    const bool v4 = n2 % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+#define NPS_SPLIT_RES(M2)                                                                  \
+  return v4 ? split_inv_res<M2, 4>(yr, yi, ic2, is2, ic1, is1, of, d, scale, st)          \
+            : split_inv_res<M2, 1>(yr, yi, ic2, is2, ic1, is1, of, d, scale, st)
+    if (m2 <= 4) NPS_SPLIT_RES(4);
+    if (m2 <= 8) NPS_SPLIT_RES(8);
+    if (m2 <= 10) NPS_SPLIT_RES(10);
+    NPS_SPLIT_RES(16);
+#undef NPS_SPLIT_RES
+  }
+  const TcTables tc{nullptr, nullptr, ta, tb};
+  if (is_bf16)
+    return split_inv_large<__nv_bfloat16>(yr, yi, ic2, is2, ic1, is1, tc, out, d, scale, st);
+  return split_inv_large<float>(yr, yi, ic2, is2, ic1, is1, tc, out, d, scale, st);
 }

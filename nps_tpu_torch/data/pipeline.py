@@ -19,7 +19,10 @@ device a process): every process derives the same global batches from the
 shared seed, trims each to a multiple of the process count and keeps its
 contiguous slice (``parallel.multihost.process_slice``); the defaults of
 ``process_index`` and ``process_count`` are the process group's rank and
-size.
+size. Under spatial parallelism the trainer passes the data slice's index
+and the data extent instead, so the K ranks of an x group load the same
+elements; each keeps its rows of the fields, ``pos`` and ``spatial_cond``
+(``parallel.mesh.Grid.shard_batch``, cut on the host before the copy).
 """
 
 import queue

@@ -1,15 +1,18 @@
 """Data-parallel training through the CLI against one process: every loss
 each run prints.
 
-    python -m nps_tpu_torch.dp_probe --world 4 [--repeats 1] \\
-        [--eval-batch N ...] [--cross-eval N ...] [--out DIR] \\
-        [CLI overrides]
+    python -m nps_tpu_torch.dp_probe --world 4 [--spatial K] \\
+        [--repeats 1] [--eval-batch N ...] [--cross-eval N ...] \\
+        [--out DIR] [CLI overrides]
 
 Generates one synthetic twophase split (``--sims`` simulations of ``--nt``
 frames, seed 0), then trains ``cfg_twophase_ufno`` on it for two epochs
 with the same seed and config: once with ``--world`` processes started by
 ``torchrun`` (``--trainer.distributed=auto``, data parallelism and ZeRO-1,
-one device a rank; skipped with ``--world 1``), ``--repeats`` times in one
+one device a rank; skipped with ``--world 1``; with ``--spatial K`` > 1
+spatial parallelism instead of ZeRO-1: a (data, x) grid of world / K
+data slices of K ranks, ``--trainer.spatial_parallel=K``), ``--repeats``
+times in one
 process, and once in one process for each ``--eval-batch`` (evaluation
 batch size; training does not read it). ``--cross-eval`` then evaluates
 the final weights of the ``--world`` run and of the first one-process run
@@ -109,6 +112,7 @@ def run(name, cmd, out_dir, env=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world", type=int, default=4)
+    ap.add_argument("--spatial", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--eval-batch", type=int, nargs="*", default=[])
     ap.add_argument("--cross-eval", type=int, nargs="*", default=[])
@@ -138,13 +142,15 @@ def main(argv=None):
                "--trainer.print_interval=1", "--experiment_name=run",
                *overrides]
         if args.world > 1:
+            regime = (f"--trainer.spatial_parallel={args.spatial}"
+                      if args.spatial > 1 else "--trainer.zero1=true")
             runs[f"world{args.world}"] = run(f"world{args.world}", [
                 sys.executable, "-m", "torch.distributed.run",
                 f"--nproc_per_node={args.world}", "--tee=3",
                 f"--master_port={_free_port()}", *cli,
                 f"--experiment_path={tmp}/w{args.world}",
                 "--trainer.distributed=auto", "--trainer.data_parallel=true",
-                "--trainer.zero1=true"], out_dir)
+                regime], out_dir)
         one = {"CUDA_VISIBLE_DEVICES": "0"} if args.device == "cuda" else {}
         for i in range(args.repeats):
             runs[f"one{i}"] = run(f"one{i}", [

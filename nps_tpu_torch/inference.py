@@ -47,8 +47,17 @@ Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, n_spatial, *sp]``. GNN configs (``data_structure="graph"``) convert
 grid windows to node space at the model boundary over a static graph built
 once per batch size; they serve eagerly and captured, and refuse export.
-The engine serves on one device; sharding it (spatial parallelism) is not
-ported yet (ROADMAP P9b item 3).
+
+:meth:`SurrogateEngine.shard` serves across the processes of a
+``torch.distributed`` group (``parallel.init_distributed``), one device
+each, as the JAX engine's ``shard`` serves over a device mesh:
+``spatial_parallel=0`` splits the rollout batch over the ranks,
+``spatial_parallel=K`` lays them out as a (data, x) grid and splits the
+first spatial axis of the fields over the K ranks of each x group as well
+(``parallel.spatial``). Every rank calls ``rollout`` with the whole inputs
+and gets the whole frames back. A sharded engine serves eagerly only: a
+gloo collective cannot be captured into a CUDA graph, so ``captured=True``
+and ``export_rollout`` raise (ROADMAP P9b item 3).
 """
 
 import io
@@ -69,6 +78,7 @@ from nps_tpu_torch.models.config import (compute_dtype_scope,
                                          resolve_compute_dtype)
 from nps_tpu_torch.models.fno import SpectralConvND, packed_spectral_weights
 from nps_tpu_torch.models.initializers import reset_parameters
+from nps_tpu_torch.parallel import spatial
 from nps_tpu_torch.pde import PDE2D
 
 # the port's artifact magic (the JAX package's NPSX0001 names a jax.export
@@ -133,6 +143,9 @@ class SurrogateEngine:
         self._graph_cache = {}
         self._captured = {}
         self._pos_grid = None
+        # shard(): the (data, x) grid, or the data split (index, extent)
+        self._grid = None
+        self._data = None
 
     @classmethod
     def from_config(cls, config_file, checkpoint=None, overrides=(),
@@ -195,6 +208,75 @@ class SurrogateEngine:
         self._captured.clear()
 
     # ------------------------------------------------------------------
+    def shard(self, spatial_parallel=0):
+        """Serve across the processes of the initialised ``torch.distributed``
+        group (a collective: every rank calls it, and then every rollout).
+        ``spatial_parallel`` 0 or 1 splits the rollout batch over the ranks;
+        K > 1 lays them out as a (data, x) grid of D x K (``parallel.Grid``)
+        and splits the fields' first spatial axis over each x group too.
+        Rank 0's weights are broadcast to every rank. The MP-GNN refuses,
+        as the JAX engine's ``shard`` does; so do the families without a
+        split form (``parallel.spatial.check_model``)."""
+        from nps_tpu_torch import parallel
+
+        if self._is_gnn():
+            raise NotImplementedError(
+                "sharded serving takes grid models; the MP-GNN's graph is "
+                "built per batch size (ROADMAP P9b item 3)")
+        if not torch.distributed.is_initialized():
+            raise RuntimeError("shard() serves across a torch.distributed "
+                               "group: call parallel.init_distributed first")
+        k = int(spatial_parallel or 0)
+        if k > 1:
+            spatial.check_model(self.model, None, k)
+            self._grid = parallel.Grid(k)
+            self._data = (self._grid.data_index, self._grid.data_size)
+        else:
+            self._grid, self._data = None, parallel.world()
+        parallel.replicate(self.model)
+        self.clear_captured()
+        return self
+
+    def _refuse_sharded(self, what):
+        if self._data is not None:
+            raise NotImplementedError(
+                f"{what} on a sharded engine is not ported (ROADMAP P9b item "
+                f"3): a gloo collective cannot be captured into a CUDA "
+                f"graph or an exported program; serve it eagerly")
+
+    def _sharded_rollout(self, u0, n_steps, cond, spatial_cond, include_init):
+        """The eager rollout of a sharded engine: this rank's elements (and
+        rows), then the whole frames gathered on every rank."""
+        from nps_tpu_torch import parallel
+
+        u0 = self._tensor(u0)
+        cond, sc = self._tensor(cond), self._tensor(spatial_cond)
+        index, extent = self._data
+        b = u0.shape[0]
+        if b % extent:
+            raise ValueError(f"a rollout batch of {b} does not split over "
+                             f"the {extent} data slices")
+        mine = slice(index * b // extent, (index + 1) * b // extent)
+        u = u0[mine]
+        c = None if cond is None else cond[mine]
+        s = None if sc is None else sc[mine]
+        pos = self._pos(u.shape[0])
+        axis = None
+        if self._grid is not None:
+            spatial.check_model(self.model, u.shape[3], self._grid.axis.size)
+            axis = self._grid.axis.at(u.shape[3])
+            _, u, pos, _, _, s = self._grid.shard_batch((u, u, pos, c, None,
+                                                         s))
+        with self._serving(), spatial.scope(axis):
+            pred, frames = u, []
+            for _ in range(n_steps):
+                pred = self._apply(pred, c, pos, s)
+                frames.append(pred)
+            out = torch.cat(frames, dim=2)
+            out = (parallel.gather_rows(out) if self._grid is None
+                   else self._grid.gather_frames(out))
+            return _frames([out], u0, include_init)
+
     def _is_gnn(self):
         return self.model.model_interface == M.AR_TB_GNN
 
@@ -243,6 +325,8 @@ class SurrogateEngine:
 
     def step(self, u, cond=None, spatial_cond=None):
         """One bundled step: [b, c, tw, *sp] -> the next tw frames."""
+        if self._data is not None:
+            return self._sharded_rollout(u, 1, cond, spatial_cond, False)
         with self._serving():
             u = self._tensor(u)
             out = self._apply(u, self._tensor(cond), self._pos(u.shape[0]),
@@ -258,8 +342,12 @@ class SurrogateEngine:
         per (n_steps, input shapes), captured at its first call.
         """
         if captured:
+            self._refuse_sharded("captured=True")
             return self._captured_rollout(u0, n_steps, cond, spatial_cond,
                                           include_init)
+        if self._data is not None:
+            return self._sharded_rollout(u0, n_steps, cond, spatial_cond,
+                                         include_init)
         with self._serving():
             pred = self._tensor(u0)
             cond, spatial_cond = self._tensor(cond), self._tensor(spatial_cond)
@@ -329,6 +417,7 @@ class SurrogateEngine:
         with :func:`load_exported` on the export's device type. Returns
         ``path``. (``torch.export`` keeps the tensor constants it traced,
         here the spectral packs, alive after the program is freed.)"""
+        self._refuse_sharded("export_rollout")
         if self._is_gnn():
             raise NotImplementedError(
                 "export_rollout supports grid models; the GNN rollout "

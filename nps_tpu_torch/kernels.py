@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+P, I, I64, F32, F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_float, ctypes.c_double)
 # C entry -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
     # b, n, bf16, out[6]
@@ -69,6 +70,27 @@ SIGNATURES = {
                                 + [I] * 8 + [P],
     # xr, xi, gr, gi, scale, dw1, dw2, b, ci, co, m1, m2, stream
     "spectral_dw2d": [P] * 7 + [I] * 5 + [P],
+    # the split samples of spatial parallelism (csrc/gn1_gelu.cu):
+    # x, sums, partials, b, c, hw, bf16, chunk, chunks, vec, stream
+    "gn1_split_sums": [P] * 3 + [I, I, I64, I, I, I, I] + [P],
+    # x, gamma, beta, y, sums, stats, b, c, hw, count, eps, act, bf16,
+    # chunk, chunks, vec, stream
+    "gn1_split_apply": [P] * 6 + [I, I, I64, F64, F32] + [I] * 5 + [P],
+    # x, dy, gamma, beta, stats, ws, coef, dgamma, dbeta, b, c, hw, count,
+    # act, bf16, vec, stream
+    "gn1_split_bwd_sums": [P] * 9 + [I, I, I64, F64, I, I, I] + [P],
+    # x, dy, gamma, beta, stats, coef, dx, b, c, hw, act, bf16, vec, stream
+    "gn1_split_bwd_apply": [P] * 7 + [I, I, I64, I, I, I] + [P],
+    # the row-split stages of spatial parallelism (csrc/spectral_dft2d.cu):
+    # x, c2, s2, c1, s1, ty, te, pr, pi, xr, xi, b, c, n1, n2, m1, m2, bf16,
+    # resident, stream
+    "spectral_split_dft": [P] * 11 + [I] * 8 + [P],
+    # xr, xi, w_packed, film, film_mode, ur, ui, scale, dfilm, yr, yi, b,
+    # c_in, c_out, m1, m2, adjoint, stream
+    "spectral_split_mix": [P, P, P, P, I] + [P] * 6 + [I] * 6 + [P],
+    # yr, yi, ic2, is2, ic1, is1, ta, tb, out, b, c, n1, n2, m1, m2, scale,
+    # bf16, resident, stream
+    "spectral_split_inv": [P] * 9 + [I] * 6 + [F32, I, I] + [P],
 }
 
 launches = Counter()

@@ -4,7 +4,8 @@ masking and approximate volume (mass) preservation.
 
 As in the PyTorch reference, the wrapper is a subclass of the wrapped model
 built on the fly, so its parameters keep the wrapped model's key names (no
-``inner.`` prefix) and the reference's checkpoints load unchanged.
+``inner.`` prefix) and the reference's checkpoints load unchanged. Under
+spatial parallelism the volume totals are sums over the x group.
 """
 
 from functools import lru_cache
@@ -12,11 +13,21 @@ from functools import lru_cache
 import torch
 
 from nps_tpu_torch.models.activations import resolve_activation
+from nps_tpu_torch.parallel import spatial
 
 
 def _apply_spatial_cond(spatial_cond, u, channel):
     to_zero = spatial_cond[:, channel][:, None, None, ...]  # [b, 1, 1, *sp]
     return u - to_zero * u
+
+
+def _domain_sum(t, dims):
+    """``t`` summed over the spatial ``dims``: under spatial parallelism
+    this rank's rows summed over the x group (``spatial_sum``, whose
+    backward sums over the x group too)."""
+    s = t.sum(dim=dims)
+    axis = spatial.current()
+    return s if axis is None else spatial.spatial_sum(s, axis)
 
 
 def volume_preserve(u, u_prev, mode, max_pct_dif):
@@ -29,8 +40,9 @@ def volume_preserve(u, u_prev, mode, max_pct_dif):
                          f"approx volume preserve")
     tw = u.shape[2]
     expand = (...,) + (None,) * len(sp_axes)
-    new_totals = u.sum(dim=sp_axes)                            # [b, c, tw]
-    prev_totals = u_prev[:, :, -1].sum(dim=tuple(a - 1 for a in sp_axes))
+    new_totals = _domain_sum(u, sp_axes)                       # [b, c, tw]
+    prev_totals = _domain_sum(u_prev[:, :, -1],
+                              tuple(a - 1 for a in sp_axes))
 
     def soft_clip(dif, limit):
         return torch.tanh(dif / limit) / 100.0 * limit

@@ -24,6 +24,17 @@ statistics and return the input's type.
 :func:`remat_block` is the counterpart of the JAX package's ``nn.remat``
 with ``resolve_remat_policy``: a processor wraps each block in it so that a
 backward pass recomputes the block instead of keeping its activations.
+
+Under spatial parallelism (:mod:`nps_tpu_torch.parallel.spatial`: a model
+apply inside ``spatial.scope``) a 2D field holds only this rank's rows of
+its first spatial axis, and the ops whose result crosses rows take the
+split into account: :class:`ConvND` and :class:`ConvTransposeND` fetch the
+rows their outputs need from the neighbours (wrapping around where the
+padding is circular, zeros only at the global edges), :func:`crop_nd`
+crops and pads at the global edges, and the GroupNorms sum their
+statistics over the x group. Each takes ``rows``, the global row count of
+its input (the grid's, where the caller passes none); ``out_rows`` gives
+its output's.
 """
 
 import math
@@ -39,7 +50,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.config import (compute_dtype, compute_dtype_scope,
                                          fast_forward_active)
-from nps_tpu_torch.ops.group_norm import gn_gelu, group_norm_plain  # noqa: F401
+from nps_tpu_torch.ops.group_norm import (gn_gelu, gn_gelu_split,  # noqa: F401
+                                          group_norm_plain, group_norm_split)
+from nps_tpu_torch.parallel import spatial
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
@@ -88,8 +101,9 @@ def remat_block(fn, policy=None):
     (``torch.utils.checkpoint``, non-reentrant). ``policy`` is one of
     :data:`REMAT_POLICIES`: None keeps nothing, ``"save_conv_outputs"``
     keeps the conv outputs (selective checkpointing). The recompute runs in
-    the compute dtype the forward ran in, whatever is set when the backward
-    runs. Without gradients ``fn`` runs as it is. The blocks draw no random
+    the compute dtype and the spatial split the forward ran in, whatever is
+    set when the backward runs (so it makes the forward's collectives again,
+    in the same order on every rank). Without gradients ``fn`` runs as it is. The blocks draw no random
     numbers, so the RNG state is not saved."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"Unknown remat policy {policy!r}")
@@ -100,10 +114,10 @@ def remat_block(fn, policy=None):
     def run(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        dtype = compute_dtype()
+        dtype, axis = compute_dtype(), spatial.current()
 
         def block(*a, **kw):
-            with compute_dtype_scope(dtype):
+            with compute_dtype_scope(dtype), spatial.scope(axis):
                 return fn(*a, **kw)
 
         return checkpoint(block, *args, use_reentrant=False,
@@ -140,15 +154,35 @@ def circular_pad(x, pad_widths, num_spatial_dims):
     return x
 
 
-def crop_nd(x, target_shape, num_spatial_dims):
-    """Center crop/zero-pad the trailing spatial dims of ``x`` to those of
-    ``target_shape``, with the reference's .5 tie-break: for an odd size
+def _crop_offset(cur, des):
+    """The leading pad (negative: crop) of a center crop/pad of ``cur``
+    cells to ``des``, with the reference's .5 tie-break: for an odd size
     difference the trailing side gets the extra cell when padding, and the
     leading side loses the extra cell when cropping."""
+    return int(round((des - cur) / 2.0 - 0.001))
+
+
+def crop_nd(x, target_shape, num_spatial_dims, rows=None, target_rows=None):
+    """Center crop/zero-pad the trailing spatial dims of ``x`` to those of
+    ``target_shape`` (see :func:`_crop_offset`). Under spatial parallelism
+    the first spatial axis of a 2D field is split: it goes from ``rows`` to
+    ``target_rows`` global rows (the grid's where None), each rank fetching
+    the rows of its output (zeros beyond the global edges)."""
     if hasattr(target_shape, "shape"):
         target_shape = target_shape.shape
     nd = num_spatial_dims
     s_des = tuple(target_shape[-nd:])
+    axis = spatial.current()
+    if axis is not None and nd == 2:
+        cur = axis.rows if rows is None else rows
+        des = axis.rows if target_rows is None else target_rows
+        if cur != des:
+            lo = _crop_offset(cur, des)
+            x = spatial.fetch_rows(
+                x, cur, [(o0 - lo, o1 - lo) for o0, o1 in
+                         (axis.part(des, q) for q in range(axis.size))],
+                False, axis)
+        s_des = (x.shape[-2],) + s_des[1:]
     pads = [(0, 0)] * nd
     slices = [slice(None)] * x.ndim
     changed = False
@@ -158,9 +192,8 @@ def crop_nd(x, target_shape, num_spatial_dims):
         if cur == des:
             continue
         changed = True
-        half = (des - cur) / 2.0
-        lo = int(round(half - 0.001))
-        hi = int(round(half + 0.001))
+        lo = _crop_offset(cur, des)
+        hi = des - cur - lo
         if lo >= 0 and hi >= 0:
             pads[d] = (lo, hi)
         elif lo <= 0 and hi <= 0:
@@ -215,13 +248,45 @@ class ConvND(nn.Module):
         if self.bias is not None:
             init.fan_in_uniform_(self.bias, fan_in, generator)
 
-    def forward(self, x):
-        if any(p != (0, 0) for p in self.pads):
-            x = (circular_pad(x, self.pads, self.nd)
+    def out_rows(self, rows):
+        """The output's length along the first spatial axis for an input of
+        ``rows``."""
+        (lo, hi), k = self.pads[0], self.k[0]
+        span = self.dilation[0] * (k - 1)
+        return (rows + lo + hi - span - 1) // self.strides[0] + 1
+
+    def forward(self, x, rows=None):
+        pads = self.pads
+        axis = spatial.current()
+        if axis is not None and self.nd == 2:
+            x = self._split_rows(x, axis, axis.rows if rows is None else rows)
+            pads = [(0, 0), pads[1]]
+        if any(p != (0, 0) for p in pads):
+            x = (circular_pad(x, pads, self.nd)
                  if self.padding_mode == "circular"
-                 else F.pad(x, _torch_pad(self.pads)))
+                 else F.pad(x, _torch_pad(pads)))
         return _CONV[self.nd](*_cast(x, self.weight, self.bias),
                               stride=self.strides, dilation=self.dilation)
+
+    def _split_rows(self, x, axis, rows):
+        """The rows of the padded input that this rank's output rows read
+        (its share of the :meth:`out_rows` output): fetched from the
+        neighbours, wrapped around or zero beyond the global edges."""
+        (lo, hi), k, s = self.pads[0], self.k[0], self.strides[0]
+        if k == 1 and lo == hi == 0 and s == 1:
+            return x
+        span = self.dilation[0] * (k - 1)
+        out = self.out_rows(rows)
+        needs = []
+        for q in range(axis.size):
+            o0, o1 = axis.part(out, q)
+            if o1 <= o0:
+                raise ValueError(
+                    f"a conv's output of {out} rows leaves rank {q} of "
+                    f"spatial_parallel={axis.size} no rows")
+            needs.append((o0 * s - lo, (o1 - 1) * s - lo + span + 1))
+        return spatial.fetch_rows(x, rows, needs,
+                                  self.padding_mode == "circular", axis)
 
 
 class ConvTransposeND(nn.Module):
@@ -247,12 +312,44 @@ class ConvTransposeND(nn.Module):
         if self.bias is not None:
             init.fan_in_uniform_(self.bias, fan_in, generator)
 
-    def forward(self, x):
+    def out_rows(self, rows):
+        """The output's length along the first spatial axis for an input of
+        ``rows``."""
+        return (rows + 2 * self.pre_pad - 1) * self.strides[0] + self.k[0]
+
+    def forward(self, x, rows=None):
+        axis = spatial.current()
+        if axis is not None and self.nd == 2:
+            return self._split_forward(x, axis,
+                                       axis.rows if rows is None else rows)
         if self.pre_pad > 0:
             x = circular_pad(x, [(self.pre_pad, self.pre_pad)] * self.nd,
                              self.nd)
         return _CONV_T[self.nd](*_cast(x, self.weight, self.bias),
                                 stride=self.strides)
+
+    def _split_forward(self, x, axis, rows):
+        """This rank's share of the :meth:`out_rows` output rows: the
+        (pre-padded) input rows they read, fetched from the neighbours and
+        wrapped around, the transposed conv of that slab, then the crop to
+        this rank's rows."""
+        p, s, k = self.pre_pad, self.strides[0], self.k[0]
+        last, out = rows + 2 * p - 1, self.out_rows(rows)
+        needs, first = [], []
+        for q in range(axis.size):
+            o0, o1 = axis.part(out, q)
+            j0 = max(0, -((k - 1 - o0) // s))   # ceil((o0 - k + 1) / s)
+            j1 = min(last, (o1 - 1) // s)
+            needs.append((j0 - p, j1 - p + 1))
+            first.append(j0)
+        x = spatial.fetch_rows(x, rows, needs, True, axis)
+        if p > 0:
+            x = circular_pad(x, [(0, 0), (p, p)], self.nd)
+        y = _CONV_T[self.nd](*_cast(x, self.weight, self.bias),
+                             stride=self.strides)
+        o0, o1 = axis.part(out)
+        j0 = first[axis.index]
+        return y[:, :, o0 - s * j0:o1 - s * j0]
 
 
 class Dense(nn.Module):
@@ -292,11 +389,17 @@ class GroupNorm(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
+        axis = spatial.current()
+        if axis is not None and x.ndim == 4:
+            return group_norm_split(x, self.num_groups, self.weight,
+                                    self.bias, axis,
+                                    axis.rows if rows is None else rows
+                                    ).to(x.dtype)
         return group_norm_plain(x, self.num_groups, self.weight,
                                 self.bias).to(x.dtype)
 
-    def with_gelu(self, x, gelu=True, approximate="none"):
+    def with_gelu(self, x, gelu=True, approximate="none", rows=None):
         """GroupNorm(1) [+ GELU, exact ("none") or "tanh"], fused. The
         exact form becomes "tanh" inside a no-grad pushforward step under
         ``trainer.pushforward_fast``, as ``activations.GELU`` does."""
@@ -304,5 +407,10 @@ class GroupNorm(nn.Module):
             raise ValueError("the fused op takes one group")
         if approximate == "none" and fast_forward_active():
             approximate = "tanh"
+        axis = spatial.current()
+        if axis is not None and x.ndim == 4:
+            return gn_gelu_split(x, self.weight, self.bias, gelu,
+                                 approximate=approximate, axis=axis,
+                                 rows=axis.rows if rows is None else rows)
         return gn_gelu(x, self.weight, self.bias, gelu,
                        approximate=approximate)

@@ -29,7 +29,10 @@ from nps_tpu_torch.models import initializers as init
 from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.common import ConvND, Dense, remat_block
 from nps_tpu_torch.models.config import compute_dtype
-from nps_tpu_torch.ops.spectral import pack_weights_2d, spectral_conv_nd
+from nps_tpu_torch.ops.spectral import (pack_weights_2d,
+                                       spectral_conv_2d_split,
+                                       spectral_conv_nd)
+from nps_tpu_torch.parallel import spatial
 
 
 @contextmanager
@@ -112,6 +115,13 @@ class SpectralConvND(nn.Module):
         dt = compute_dtype() or torch.float32
         if x.dtype != dt:
             x = x.to(dt)
+        axis = spatial.current()
+        if axis is not None:
+            # a row-split plane: the transform split at its row contraction
+            return spectral_conv_2d_split(
+                x, [self.weights1, self.weights2], self.modes, film=film,
+                film_mode=self.transform_mode, axis=axis,
+                w_packed=self.w_packed)
         # with gradients the CUDA path packs inside SpectralConv2dFn, so the
         # weights stay in the graph; there it ignores w_packed
         return spectral_conv_nd(x, [self.weights1, self.weights2], self.modes,

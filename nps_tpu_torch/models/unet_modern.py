@@ -12,6 +12,11 @@ activation is a GELU, the exact one or the tanh-approximate one of
 ``cfg_ns512_ufno``; with another one the kernel normalises and the
 activation follows.
 ``AttentionBlock`` is not ported yet: ``is_attn``/``mid_attn`` must be off.
+
+Every block passes on ``rows``, the global length of its input's first
+spatial axis: under spatial parallelism (a row-split field) the convs, the
+crops and the norms need it (:mod:`nps_tpu_torch.models.common`); unsplit
+it is the input's own length.
 """
 
 import torch
@@ -21,6 +26,7 @@ from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import fused_gelu, resolve_activation
 from nps_tpu_torch.models.common import (ConvND, ConvTransposeND, GroupNorm,
                                          crop_nd)
+from nps_tpu_torch.parallel.spatial import rows_of
 
 
 def _padding_kwargs(padding_mode):
@@ -57,20 +63,23 @@ class ResidualBlock(nn.Module):
         else:
             self.shortcut = None
 
-    def _norm_act(self, norm, x):
+    def _norm_act(self, norm, x, rows):
         if norm is None:
             return self.act(x)
         if norm.num_groups == 1:
             if self.fused_gelu is None:
-                return self.act(norm.with_gelu(x, gelu=False))
-            return norm.with_gelu(x, approximate=self.fused_gelu)
-        return self.act(norm(x))
+                return self.act(norm.with_gelu(x, gelu=False, rows=rows))
+            return norm.with_gelu(x, approximate=self.fused_gelu, rows=rows)
+        return self.act(norm(x, rows))
 
-    def forward(self, x):
-        h = self.conv1(self._norm_act(self.norm1, x))
-        h = self.conv2(self._norm_act(self.norm2, h))
+    def forward(self, x, rows=None):
+        rows = rows_of(x, rows)
+        h = self.conv1(self._norm_act(self.norm1, x, rows), rows)
+        mid = self.conv1.out_rows(rows)
+        h = self.conv2(self._norm_act(self.norm2, h, mid), mid)
         shortcut = x if self.shortcut is None else self.shortcut(x)
-        return crop_nd(h, shortcut.shape, self.nd) + shortcut
+        return crop_nd(h, shortcut.shape, self.nd, self.conv2.out_rows(mid),
+                       rows) + shortcut
 
 
 class DownBlock(nn.Module):
@@ -84,10 +93,10 @@ class DownBlock(nn.Module):
                                  num_spatial_dims=num_spatial_dims,
                                  padding_mode=padding_mode)
 
-    def forward(self, x, variables_broadcast=None):
+    def forward(self, x, variables_broadcast=None, rows=None):
         if variables_broadcast is not None:
             x = torch.cat([x, variables_broadcast], dim=1)
-        return self.res(x), variables_broadcast
+        return self.res(x, rows), variables_broadcast
 
 
 class UpBlock(nn.Module):
@@ -103,8 +112,8 @@ class UpBlock(nn.Module):
                                  num_spatial_dims=num_spatial_dims,
                                  padding_mode=padding_mode)
 
-    def forward(self, x):
-        return self.res(x)
+    def forward(self, x, rows=None):
+        return self.res(x, rows)
 
 
 class MiddleBlock(nn.Module):
@@ -120,10 +129,10 @@ class MiddleBlock(nn.Module):
         self.res2 = ResidualBlock(out_channels, out_channels, activation,
                                   norm, **kw)
 
-    def forward(self, x, variables_broadcast=None):
+    def forward(self, x, variables_broadcast=None, rows=None):
         if variables_broadcast is not None:
             x = torch.cat([x, variables_broadcast], dim=1)
-        return self.res2(self.res1(x)), variables_broadcast
+        return self.res2(self.res1(x, rows), rows), variables_broadcast
 
 
 class Downsample(nn.Module):
@@ -139,10 +148,10 @@ class Downsample(nn.Module):
             ConvND(n_cond, n_cond, 3, nd, strides=2, **pk) if n_cond > 0
             else None)
 
-    def forward(self, x, variables_broadcast=None):
-        y = self.conv(x)
+    def forward(self, x, variables_broadcast=None, rows=None):
+        y = self.conv(x, rows)
         if variables_broadcast is not None:
-            return y, self.conv_variables_broadcast(variables_broadcast)
+            return y, self.conv_variables_broadcast(variables_broadcast, rows)
         return y, None
 
 
@@ -156,8 +165,8 @@ class Upsample(nn.Module):
             n_channels, n_channels, 4, num_spatial_dims, strides=2,
             pre_pad=1 if padding_mode == "circular" else 0)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, rows=None):
+        return self.conv(x, rows)
 
 
 class UNetModern(nn.Module):
@@ -229,27 +238,33 @@ class UNetModern(nn.Module):
             variables_broadcast = None
         assert h.ndim == 2 + nd, "expects [b, c, *spatial]"
         h_shape = h.shape
-        h_feats = [h]
+        # the global length of the first spatial axis at each point
+        rows = h_rows = rows_of(h)
+        h_feats = [(h, rows)]
         vb_feats = [variables_broadcast]
 
         for block in self.down:
-            h, variables_broadcast = block(h, variables_broadcast)
-            h_feats.append(h)
+            h, variables_broadcast = block(h, variables_broadcast, rows)
+            if isinstance(block, Downsample):
+                rows = block.conv.out_rows(rows)
+            h_feats.append((h, rows))
             vb_feats.append(variables_broadcast)
 
-        h, variables_broadcast = self.middle(h, variables_broadcast)
+        h, variables_broadcast = self.middle(h, variables_broadcast, rows)
 
         for block in self.up:
             if isinstance(block, Upsample):
-                h = block(h)
+                h = block(h, rows)
+                rows = block.conv.out_rows(rows)
                 continue
-            parts = [h, crop_nd(h_feats.pop(), h.shape, nd)]
+            skip, skip_rows = h_feats.pop()
+            parts = [h, crop_nd(skip, h.shape, nd, skip_rows, rows)]
             vb = vb_feats.pop()
             if vb is not None:
-                parts.append(crop_nd(vb, h.shape, nd))
-            h = block(torch.cat(parts, dim=1))
+                parts.append(crop_nd(vb, h.shape, nd, skip_rows, rows))
+            h = block(torch.cat(parts, dim=1), rows)
 
         if self.norm is not None:
-            h = self.norm(h)
-        h = self.final(self.act(h))
-        return crop_nd(h, h_shape, nd)
+            h = self.norm(h, rows)
+        h = self.final(self.act(h), rows)
+        return crop_nd(h, h_shape, nd, self.final.out_rows(rows), h_rows)

@@ -260,3 +260,210 @@ def gn_gelu(x, weight, bias, gelu=True, eps=EPS, approximate="none"):
         return GNGeluFn.apply(x, weight, bias, bool(gelu), eps, approximate)
     return torch.ops.nps_torch.gn1_gelu_fwd(x, weight, bias, bool(gelu),
                                             float(eps), approximate)
+
+
+# ---- split samples (spatial parallelism) -----------------------------------
+# A rank holds some rows of every plane of a sample; the statistics are the
+# whole sample's. The fused op splits at its sums: this rank's (sum x, sum
+# x^2) per sample, a sum over the x group, then the statistics over the
+# whole sample's ``count`` = C * rows * W elements and the normalisation of
+# the local rows. The backward splits the same way at its per-sample means
+# (coef); dgamma and dbeta stay this rank's shares, which the optimizer's
+# sum over the world adds up. On CUDA the stages are the streaming forward's
+# and the backward's kernels (csrc/gn1_gelu.cu: gn1_split_*), with the sum
+# between them.
+
+
+def gn_split_sums_plain(x):
+    """Plain version of the split's first stage: this rank's (sum x, sum
+    x^2) of each sample of x [b, C, *sp], f32 [b, 2]."""
+    xf = x.float().reshape(x.shape[0], -1)
+    return torch.stack([xf.sum(-1), (xf * xf).sum(-1)], -1)
+
+
+def gn_split_apply_plain(x, sums, count, weight, bias, gelu=True, eps=EPS,
+                         approximate="none"):
+    """Plain version of the split's second stage: x normalised by the
+    statistics of the summed ``sums`` [b, 2] over ``count`` elements, the
+    affine and the activation, in f32, rounded once to x's type."""
+    _act(gelu, approximate)
+    aff = (-1,) + (1,) * (x.ndim - 1)
+    mean = (sums[:, 0] / count).reshape(aff)
+    var = torch.clamp(sums[:, 1] / count - mean.reshape(-1) ** 2, min=0.0)
+    inv = torch.rsqrt(var + eps).reshape(aff)
+    ch = (1, -1) + (1,) * (x.ndim - 2)
+    y = ((x.float() - mean) * inv * weight.float().reshape(ch)
+         + bias.float().reshape(ch))
+    if gelu:
+        y = F.gelu(y, approximate=approximate)
+    return y.to(x.dtype)
+
+
+def _split_vec(x, *more):
+    """The streaming stages' vector path: 16-byte units of the sample on
+    16-byte aligned tensors."""
+    per = 16 // x.element_size()
+    return int(x[0].numel() % per == 0
+               and all(t.data_ptr() % 16 == 0 for t in (x, *more)))
+
+
+def _split_check(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"the split GN kernels take CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the split GN kernels take f32 or bf16, got "
+                        f"{x.dtype}")
+    if x.ndim < 3 or not x.is_contiguous():
+        raise ValueError("the split GN kernels take a contiguous [b, C, *sp]")
+    return _check_sample_size(x)
+
+
+def gn1_split_sums(x):
+    """The first forward stage on CUDA: this rank's sums, f32 [b, 2]."""
+    n = _split_check(x)
+    b, c = x.shape[:2]
+    chunks = -(-n // STREAM_CHUNK)
+    sums = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    partials = torch.empty((b, chunks, 2), dtype=torch.float32,
+                           device=x.device)
+    rc = kernels.library().gn1_split_sums(
+        x.data_ptr(), sums.data_ptr(), partials.data_ptr(), b, c,
+        x[0, 0].numel(), int(x.dtype == torch.bfloat16), STREAM_CHUNK,
+        chunks, _split_vec(x), kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_split_sums")
+    kernels.launches["gn1_split_sums"] += 1
+    return sums
+
+
+def gn1_split_apply(x, sums, count, weight, bias, act, eps=EPS):
+    """The second forward stage on CUDA: (y, stats [b, 2] (mean, inv)) from
+    the summed ``sums``."""
+    n = _split_check(x)
+    b, c = x.shape[:2]
+    _check_affine(x, weight, bias)
+    chunks = -(-n // STREAM_CHUNK)
+    y = torch.empty_like(x)
+    stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    rc = kernels.library().gn1_split_apply(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        sums.data_ptr(), stats.data_ptr(), b, c, x[0, 0].numel(),
+        float(count), float(eps), act, int(x.dtype == torch.bfloat16),
+        STREAM_CHUNK, chunks, _split_vec(x, y), kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_split_apply")
+    kernels.launches["gn1_split_apply"] += 1
+    return y, stats
+
+
+def _bwd_vec(x, dy, dx):
+    align = 4 * x.element_size()
+    return int(x[0, 0].numel() % 4 == 0 and all(
+        t.data_ptr() % align == 0 for t in (x, dy, dx)))
+
+
+def gn1_split_bwd_sums(x, dy, weight, bias, stats, count, act):
+    """The first backward stage on CUDA: (this rank's coef [b, 2] over the
+    whole sample's ``count``, its dweight, its dbias)."""
+    _split_check(x)
+    b, c = x.shape[:2]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ws, coef = torch.empty((b, c, 2), **f32), torch.empty((b, 2), **f32)
+    dw, db = torch.empty_like(weight), torch.empty_like(bias)
+    rc = kernels.library().gn1_split_bwd_sums(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), b, c, x[0, 0].numel(), float(count), act,
+        int(x.dtype == torch.bfloat16), _bwd_vec(x, dy, x),
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_split_bwd_sums")
+    kernels.launches["gn1_split_bwd_sums"] += 1
+    return coef, dw, db
+
+
+def gn1_split_bwd_apply(x, dy, weight, bias, stats, coef, act):
+    """The second backward stage on CUDA: dx of this rank's rows from the
+    summed ``coef``."""
+    _split_check(x)
+    b, c = x.shape[:2]
+    dx = torch.empty_like(x)
+    rc = kernels.library().gn1_split_bwd_apply(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), coef.data_ptr(), dx.data_ptr(), b, c,
+        x[0, 0].numel(), act, int(x.dtype == torch.bfloat16),
+        _bwd_vec(x, dy, dx), kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_split_bwd_apply")
+    kernels.launches["gn1_split_bwd_apply"] += 1
+    return dx
+
+
+class GNGeluSplitFn(torch.autograd.Function):
+    """:class:`GNGeluFn` on a row-split sample (``axis``: the x group;
+    ``count``: the whole sample's elements), with the sums over the x group
+    inside its forward and its backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, act, eps, axis, count):
+        from nps_tpu_torch.parallel.spatial import sum_
+
+        sums = sum_(gn1_split_sums(x), axis)
+        y, stats = gn1_split_apply(x, sums, count, weight, bias, act, eps)
+        ctx.save_for_backward(x, weight, bias, stats)
+        ctx.act, ctx.axis, ctx.count = act, axis, count
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from nps_tpu_torch.parallel.spatial import sum_
+
+        x, weight, bias, stats = ctx.saved_tensors
+        dy = dy.contiguous()
+        coef, dw, db = gn1_split_bwd_sums(x, dy, weight, bias, stats,
+                                          ctx.count, ctx.act)
+        dx = gn1_split_bwd_apply(x, dy, weight, bias, stats,
+                                 sum_(coef, ctx.axis), ctx.act)
+        return dx, dw, db, None, None, None, None
+
+
+def gn_gelu_split(x, weight, bias, gelu=True, eps=EPS, approximate="none",
+                  axis=None, rows=None):
+    """:func:`gn_gelu` of a row-split x [b, C, local rows, *rest] whose
+    samples have ``rows`` rows in all (``axis``: the x group). The CPU
+    takes the plain stages around
+    :func:`~nps_tpu_torch.parallel.spatial.spatial_sum`; CUDA the split
+    kernels, through :class:`GNGeluSplitFn` where a gradient is wanted."""
+    from nps_tpu_torch.parallel.spatial import spatial_sum, sum_
+
+    act = _act(gelu, approximate)
+    count = x.shape[1] * rows * x[0, 0, 0].numel()
+    if x.device.type == "cpu":
+        sums = spatial_sum(gn_split_sums_plain(x), axis)
+        return gn_split_apply_plain(x, sums, count, weight, bias, gelu, eps,
+                                    approximate)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, weight, bias)):
+        return GNGeluSplitFn.apply(x, weight, bias, act, eps, axis, count)
+    sums = sum_(gn1_split_sums(x), axis)
+    return gn1_split_apply(x, sums, count, weight, bias, act, eps)[0]
+
+
+def group_norm_split(x, num_groups, weight, bias, axis, rows, eps=EPS):
+    """:func:`group_norm_plain` of a row-split x whose samples have
+    ``rows`` rows in all: the groups' sums over the x group
+    (:func:`~nps_tpu_torch.parallel.spatial.spatial_sum`). Returns f32."""
+    from nps_tpu_torch.parallel.spatial import spatial_sum
+
+    b, c = x.shape[:2]
+    g = num_groups
+    if c % g:
+        raise ValueError(f"{c} channels do not split into {g} groups")
+    xg = x.float().reshape(b, g, -1)
+    sums = spatial_sum(torch.stack([xg.sum(-1), (xg * xg).sum(-1)], -1),
+                       axis)
+    count = c // g * rows * x[0, 0, 0].numel()
+    mean = sums[..., :1] / count
+    inv = torch.rsqrt(torch.clamp(sums[..., 1:] / count - mean * mean,
+                                  min=0.0) + eps)
+    y = ((xg - mean) * inv).reshape(x.shape)
+    aff = (1, c) + (1,) * (x.ndim - 2)
+    return y * weight.float().reshape(aff) + bias.float().reshape(aff)

@@ -109,6 +109,24 @@ def dft_tables(n1, n2, m1, m2, device):
     return _TABLES[key]
 
 
+def dft_tables_rows(n1, n2, m1, m2, r0, nl, device):
+    """:func:`dft_tables` of the row window [r0, r0 + nl) of an n1-row plane
+    (a rank's rows under spatial parallelism): the column tables whole,
+    rows [r0, r0 + nl) of the forward row tables (c1, s1) and columns
+    [r0, r0 + nl) of the inverse ones (ic1, is1), as contiguous copies."""
+    device = torch.device(device)
+    key = ("rows", n1, n2, m1, m2, r0, nl, device)
+    if key not in _TABLES:
+        c2, s2, c1, s1, ic2, is2, ic1, is1 = dft_tables(n1, n2, m1, m2,
+                                                        device)
+        w = slice(r0, r0 + nl)
+        with torch.inference_mode(False):
+            _TABLES[key] = (c2, s2, c1[w].contiguous(), s1[w].contiguous(),
+                            ic2, is2, ic1[:, w].contiguous(),
+                            is1[:, w].contiguous())
+    return _TABLES[key]
+
+
 def dft_tables_1d(n1, m1, device):
     """The four f32 factor tables of one 1D transform, built in float64 on
     the host once per (n1, m1) and kept on ``device``: (c1, s1) [n1, m1],
@@ -206,7 +224,7 @@ def tc_mt(m2):
     return 3 if m2 <= 12 else 5 if m2 <= 20 else 8
 
 
-def tc_tables_np(n1, n2, m1, m2):
+def tc_tables_np(n1, n2, m1, m2, rows=None):
     """The tensor-core stages' tables (``csrc/spectral_dft2d.cu``:
     TcTables) from :func:`dft_tables`' f32 factors split by
     :func:`split_bf16`, in mma fragment order (uint32 words):
@@ -221,12 +239,17 @@ def tc_tables_np(n1, n2, m1, m2):
       [2*m2, n2] padded to 16 KSZ = 8 MT (+ 8) rows, {b0, b1} hi then lo.
 
     Rows are padded to whole row tiles (256) and columns to whole chunks (64),
-    with zeros; n2 % 8 == 0."""
+    with zeros; n2 % 8 == 0. With ``rows`` = (r0, nl) the row tables are
+    those of the window [r0, r0 + nl) (:func:`dft_tables_rows`)."""
     if n2 % 8:
         raise ValueError(f"the tensor-core stages take n2 % 8 == 0, got {n2}")
     c2, s2, c1, s1, ic2, is2, ic1, is1 = (
         *_dft_mats_fwd(n2, m2), *_dft_mats_fwd_rows(n1, m1),
         *_dft_mats_inv_half(n2, m2), *_dft_mats_inv_rows(n1, m1))
+    if rows is not None:
+        w = slice(rows[0], rows[0] + rows[1])
+        c1, s1, ic1, is1 = c1[w], s1[w], ic1[:, w], is1[:, w]
+        n1 = rows[1]
     mt, k = tc_mt(m2), 2 * m1
     n1p = -(-n1 // _LARGE_ROWS) * _LARGE_ROWS
     n2p = -(-n2 // 64) * 64
@@ -252,15 +275,15 @@ def tc_tables_np(n1, n2, m1, m2):
     return tuple(np.ascontiguousarray(t) for t in (ty, te, ta, tb))
 
 
-def tc_tables(n1, n2, m1, m2, device):
+def tc_tables(n1, n2, m1, m2, device, rows=None):
     """:func:`tc_tables_np` as int32 tensors on ``device``, built once per
-    (n1, n2, m1, m2, device) in the cache of :func:`dft_tables`."""
+    (n1, n2, m1, m2, device, rows) in the cache of :func:`dft_tables`."""
     device = torch.device(device)
-    key = ("tc", n1, n2, m1, m2, device)
+    key = ("tc", n1, n2, m1, m2, device, rows)
     if key not in _TABLES:
         with torch.inference_mode(False):
             _TABLES[key] = tuple(torch.from_numpy(t.view(np.int32)).to(device)
-                                 for t in tc_tables_np(n1, n2, m1, m2))
+                                 for t in tc_tables_np(n1, n2, m1, m2, rows))
     return _TABLES[key]
 
 
@@ -309,12 +332,22 @@ def _film_factor(film, k, m2, film_mode):
     return 1.0 + f if film_mode == 0 else f
 
 
-def _spectrum_plain(x, modes):
+def _tables(grid, modes, device, rows):
+    """The tables of the plane ``grid`` (its local rows and n2), whole or
+    (``rows`` = (n1, r0): rows [r0, r0 + local rows) of an n1-row plane)
+    the window's."""
+    (nl, n2), (m1, m2) = grid, modes
+    if rows is None:
+        return dft_tables(nl, n2, m1, m2, device)
+    return dft_tables_rows(rows[0], n2, m1, m2, rows[1], nl, device)
+
+
+def _spectrum_plain(x, modes, rows=None):
     """The truncated forward DFT of x [b, c, n1, n2]: real and imaginary
-    parts, each [b, c, 2*m1, m2]."""
-    m1, m2 = modes
-    n1, n2 = x.shape[2:]
-    c2, s2, c1, s1 = dft_tables(n1, n2, m1, m2, x.device)[:4]
+    parts, each [b, c, 2*m1, m2]. With ``rows`` = (n1, r0), x holds rows
+    [r0, r0 + its rows) of an n1-row plane, and the result is their share
+    of the plane's spectrum (stage A of the row split)."""
+    c2, s2, c1, s1 = _tables(x.shape[2:], modes, x.device, rows)[:4]
     ein = torch.einsum
     x = x.float()
     # contract the half axis (y) -> m2 modes, then rows -> 2*m1
@@ -325,11 +358,13 @@ def _spectrum_plain(x, modes):
     return x_re, x_im
 
 
-def _inverse_plain(y_re, y_im, grid, modes):
+def _inverse_plain(y_re, y_im, grid, modes, rows=None):
     """The truncated inverse DFT of [b, c, 2*m1, m2] (real, imaginary) with
-    Hermitian doubling and 1/(n1 n2): [b, c, n1, n2]."""
-    (n1, n2), (m1, m2) = grid, modes
-    ic2, is2, ic1, is1 = dft_tables(n1, n2, m1, m2, y_re.device)[4:]
+    Hermitian doubling and 1/(n1 n2): [b, c, n1, n2]. With ``rows`` = (n1,
+    r0), ``grid`` is (local rows, n2) and the result rows [r0, r0 + local
+    rows) of the n1-row plane's inverse (stage B of the row split)."""
+    n1, n2 = grid if rows is None else (rows[0], grid[1])
+    ic2, is2, ic1, is1 = _tables(grid, modes, y_re.device, rows)[4:]
     ein = torch.einsum
     # half axis with Hermitian doubling, then rows
     t_re = ein("bokm,my->boky", y_re, ic2) - ein("bokm,my->boky", y_im, is2)
@@ -338,14 +373,11 @@ def _inverse_plain(y_re, y_im, grid, modes):
     return out / (n1 * n2)
 
 
-def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
-    """Plain PyTorch version of K1 (``_spectral_conv_2d_dft``): every stage
-    in f32, the result in ``x``'s type (f32 or bf16), as the kernel
-    rounds it."""
+def _mix_plain(x_re, x_im, weights, modes, film=None, film_mode=1):
+    """The complex per-mode channel mix of the spectrum [b, ci, 2*m1, m2]
+    (real, imaginary) on the stacked row blocks, then FiLM: [b, co, ...]."""
     m1, m2 = modes
-    x_re, x_im = _spectrum_plain(x, modes)
     ein = torch.einsum
-    # complex per-mode channel mix on the stacked row blocks
     w = torch.cat([weights[0], weights[1]], dim=3)  # [2, i, o, 2m1, m2]
     wr, wi = w[0], w[1]
     y_re = ein("bikm,iokm->bokm", x_re, wr) - ein("bikm,iokm->bokm", x_im, wi)
@@ -354,6 +386,15 @@ def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
         f = _film_factor(film, 2 * m1, m2, film_mode)
         y_re = y_re * f
         y_im = y_im * f
+    return y_re, y_im
+
+
+def spectral_conv_2d_plain(x, weights, modes, film=None, film_mode=1):
+    """Plain PyTorch version of K1 (``_spectral_conv_2d_dft``): every stage
+    in f32, the result in ``x``'s type (f32 or bf16), as the kernel
+    rounds it."""
+    y_re, y_im = _mix_plain(*_spectrum_plain(x, modes), weights, modes, film,
+                            film_mode)
     return _inverse_plain(y_re, y_im, x.shape[2:], modes).to(x.dtype)
 
 
@@ -867,3 +908,207 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
         w_packed = pack_weights_2d(weights)
     return torch.ops.nps_torch.spectral_dft2d_fwd(x, w_packed, *modes, film,
                                                   film_mode)
+
+
+# ---- the row split of spatial parallelism ----------------------------------
+# A rank holds rows [r0, r0 + nl) of an n1-row plane. The transform is linear
+# in the rows, so it splits at the row contraction (nps_tpu/parallel/
+# spatial.py: a contraction of the local rows, then a sum over the x group):
+# stage A, the partial spectrum of the local rows; the sum; stage B, the mix
+# and the inverse to the local rows. Each stage is one C entry of
+# csrc/spectral_dft2d.cu over the kernels above, at the window's tables; the
+# backward is stage A on dy (a partial G), the adjoint mix (a partial H), the
+# weight gradient from the whole X and that partial G (so the optimizer's sum
+# over the x group counts it once), the sum of H, and the inverse.
+
+
+def _split_tc(x, variant, modes, n1, r0, which):
+    """The tensor-core tables of the window (``which``: 0 the forward's ty,
+    te; 1 the inverse's ta, tb) where the large-plane stage takes them for
+    ``x`` (an input or an output), else two nulls."""
+    nl, n2 = x.shape[2:]
+    if variant != "large" or large_stages(x.dtype, n2, x.data_ptr()) == "fma":
+        return (0, 0)
+    t = tc_tables(n1, n2, *modes, x.device, rows=(r0, nl))
+    return (t[0].data_ptr(), t[1].data_ptr()) if which == 0 else (
+        t[2].data_ptr(), t[3].data_ptr())
+
+
+def spectral_split_dft(x, modes, n1, r0, variant):
+    """Stage A on CUDA: x [b, c, nl, n2] (rows [r0, r0 + nl) of an n1-row
+    plane, f32 or bf16) -> its partial spectrum, f32 [2, 2*m1*m2, b, c]
+    (real, imaginary). ``variant`` is :func:`_check_kernel_fits`'s at the
+    local shape."""
+    (m1, m2), (b, c, nl, n2) = modes, x.shape
+    k = 2 * m1
+    tables = dft_tables_rows(n1, n2, m1, m2, r0, nl, x.device)
+    out = torch.empty((2, k * m2, b, c), dtype=torch.float32,
+                      device=x.device)
+    pr, pi = ((None, None) if variant == "resident"
+              else _row_tile_partials(nl, k * m2, b, c, x.device))
+    rc = kernels.library().spectral_split_dft(
+        x.data_ptr(), *(t.data_ptr() for t in tables[:4]),
+        *_split_tc(x, variant, modes, n1, r0, 0), _ptr(pr), _ptr(pi),
+        out[0].data_ptr(), out[1].data_ptr(), b, c, nl, n2, m1, m2,
+        int(x.dtype == torch.bfloat16), int(variant == "resident"),
+        kernels.stream_ptr(x.device))
+    kernels.check(rc, "spectral_split_dft")
+    kernels.launches["spectral_split_dft"] += 1
+    return out
+
+
+def spectral_split_mix(xr, xi, w_packed, modes, film=None, film_mode=1,
+                       u=None, scale=None, adjoint=False, out=None):
+    """The mix of the split on CUDA. Forward: the summed spectrum X [modes,
+    b, ci] and the pack [modes, 2, ci, co] -> Y [modes, b, co] with FiLM
+    (``u`` = (ur, ui) [modes, b, co] receive the pre-FiLM Y where given).
+    ``adjoint``: a partial G [modes, b, co] of dy (scaled in place by the
+    FiLM factor; with ``u`` and ``scale`` the FiLM gradient is returned too)
+    and the forward's pack -> the partial H [modes, b, ci]. Returns (yr, yi,
+    dfilm); ``out`` [2, modes, b, c] takes Y or H where given."""
+    b, c_in = xr.shape[1:]
+    c_out = w_packed.shape[2] if adjoint else w_packed.shape[3]
+    if out is None:
+        out = torch.empty((2, xr.shape[0], b, c_out), dtype=torch.float32,
+                          device=xr.device)
+    dfilm = (torch.empty_like(film) if adjoint and film is not None
+             and u is not None else None)
+    ur, ui = u if u is not None else (None, None)
+    rc = kernels.library().spectral_split_mix(
+        xr.data_ptr(), xi.data_ptr(), w_packed.data_ptr(), _ptr(film),
+        int(film_mode), _ptr(ur), _ptr(ui), _ptr(scale), _ptr(dfilm),
+        out[0].data_ptr(), out[1].data_ptr(), b, c_in, c_out, *modes,
+        int(adjoint), kernels.stream_ptr(xr.device))
+    kernels.check(rc, "spectral_split_mix")
+    kernels.launches["spectral_split_mix"] += 1
+    return out[0], out[1], dfilm
+
+
+def spectral_split_inv(yr, yi, modes, n1, r0, nl, n2, dtype, variant):
+    """Stage B's inverse on CUDA: Y [modes, b, c] -> rows [r0, r0 + nl) of
+    the n1-row plane's inverse, [b, c, nl, n2] in ``dtype``, scaled by
+    1 / (n1 n2)."""
+    (m1, m2), (b, c) = modes, yr.shape[1:]
+    out = torch.empty((b, c, nl, n2), dtype=dtype, device=yr.device)
+    tables = dft_tables_rows(n1, n2, m1, m2, r0, nl, yr.device)
+    rc = kernels.library().spectral_split_inv(
+        yr.data_ptr(), yi.data_ptr(), *(t.data_ptr() for t in tables[4:]),
+        *_split_tc(out, variant, modes, n1, r0, 1), out.data_ptr(), b, c,
+        nl, n2, m1, m2, 1.0 / (n1 * n2), int(dtype == torch.bfloat16),
+        int(variant == "resident"), kernels.stream_ptr(yr.device))
+    kernels.check(rc, "spectral_split_inv")
+    kernels.launches["spectral_split_inv"] += 1
+    return out
+
+
+def _split_check(x, w_packed, modes, n1):
+    """(forward variant, backward variant) of a split call at the local
+    shape; raises on a shape neither takes, before anything runs."""
+    _check_launch(x, w_packed, modes, "spectral_split_dft", 2,
+                  (torch.float32, torch.bfloat16))
+    b, ci, nl, n2 = x.shape
+    co, bf16 = w_packed.shape[3], x.dtype == torch.bfloat16
+    check_modes(modes, (n1, n2))
+    return (_check_kernel_fits(b, ci, nl, n2, *modes, bf16=bf16, c_out=co),
+            _check_kernel_fits(b, co, nl, n2, *modes, "spectral_dft2d_bwd",
+                               bf16=bf16, c_out=ci))
+
+
+def _split_forward(x, w_packed, modes, film, film_mode, axis, keep_y):
+    """The split forward on CUDA: (out, X (summed), u or None, the
+    backward's variant)."""
+    from nps_tpu_torch.parallel.spatial import sum_
+
+    n1 = axis.rows
+    r0 = axis.part(n1)[0]
+    variant, variant_bwd = _split_check(x, w_packed, modes, n1)
+    xs = sum_(spectral_split_dft(x, modes, n1, r0, variant), axis)
+    u = (tuple(torch.empty((2, xs.shape[1], x.shape[0], w_packed.shape[3]),
+                           dtype=torch.float32, device=x.device))
+         if keep_y else None)
+    yr, yi, _ = spectral_split_mix(xs[0], xs[1], w_packed, modes, film,
+                                   film_mode, u=u)
+    out = spectral_split_inv(yr, yi, modes, n1, r0, x.shape[2], x.shape[3],
+                             x.dtype, variant)
+    return out, xs, u, variant_bwd
+
+
+class SpectralConv2dSplitFn(torch.autograd.Function):
+    """:class:`SpectralConv2dFn` on a row-split plane (``axis``: the x group,
+    its ``rows`` the plane's n1): stage A, a sum over the x group, stage B;
+    the backward is stage A on dy, the adjoint mix, the weight gradient from
+    the summed X and this rank's partial G, a sum of H over the x group,
+    and the inverse to the local rows."""
+
+    @staticmethod
+    def forward(ctx, x, weights1, weights2, modes, film, film_mode, axis):
+        w_packed = pack_weights_2d((weights1, weights2))
+        keep_y = film is not None and film.requires_grad
+        out, xs, u, ctx.variant = _split_forward(x, w_packed, modes, film,
+                                                 film_mode, axis, keep_y)
+        ctx.save_for_backward(xs, w_packed,
+                              *([] if film is None else [film, *(u or ())]))
+        ctx.modes, ctx.axis, ctx.film_mode = modes, axis, film_mode
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        from nps_tpu_torch.parallel.spatial import sum_
+
+        xs, w_packed, *film_u = ctx.saved_tensors
+        axis, modes = ctx.axis, ctx.modes
+        (m1, m2), (b, _, nl, n2) = modes, dy.shape
+        n1 = axis.rows
+        r0 = axis.part(n1)[0]
+        dy, variant = dy.contiguous(), ctx.variant
+        scale = mode_scale(n1, n2, m1, m2, dy.device)
+        gr, gi = spectral_split_dft(dy, modes, n1, r0, variant)
+        film = film_u[0] if film_u else None
+        u = tuple(film_u[1:]) or None
+        hs = torch.empty((2, gr.shape[0], b, w_packed.shape[2]),
+                         dtype=torch.float32, device=dy.device)
+        _, _, dfilm = spectral_split_mix(gr, gi, w_packed, modes, film,
+                                         ctx.film_mode, u=u, scale=scale,
+                                         adjoint=True, out=hs)
+        dw1 = dw2 = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw1, dw2 = spectral_dw2d(xs[0], xs[1], gr, gi, scale, m1)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            hs = sum_(hs, axis)
+            dx = spectral_split_inv(hs[0], hs[1], modes, n1, r0, nl, n2,
+                                    dy.dtype, variant)
+        return dx, dw1, dw2, None, dfilm, None, None
+
+
+def spectral_conv_2d_split(x, weights, modes, film=None, film_mode=1,
+                           axis=None, w_packed=None):
+    """The 2D spectral conv of a row-split plane ``x`` [b, ci, nl, n2]
+    (``axis``: the x group, its ``rows`` the plane's n1). On the CPU the
+    plain stages around :func:`~nps_tpu_torch.parallel.spatial.spatial_sum`
+    (autograd gives the backward); on CUDA :class:`SpectralConv2dSplitFn`
+    where a gradient is wanted, else its forward stages on ``w_packed`` (or
+    the weights packed here)."""
+    from nps_tpu_torch.parallel.spatial import spatial_sum
+
+    n1 = axis.rows
+    r0 = axis.part(n1)[0]
+    check_modes(modes, (n1, x.shape[3]))
+    if film is not None:
+        film = film[:, :, :2 * modes[0], :modes[1]].float().contiguous()
+    if x.device.type == "cpu":
+        xs = spatial_sum(torch.stack(_spectrum_plain(x, modes, (n1, r0))),
+                         axis)
+        y_re, y_im = _mix_plain(xs[0], xs[1], weights, modes, film,
+                                film_mode)
+        return _inverse_plain(y_re, y_im, x.shape[2:], modes,
+                              (n1, r0)).to(x.dtype)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, *weights, film)):
+        return SpectralConv2dSplitFn.apply(x, weights[0], weights[1], modes,
+                                           film, film_mode, axis)
+    if w_packed is None:
+        w_packed = pack_weights_2d(weights)
+    return _split_forward(x, w_packed, modes, film, film_mode, axis,
+                          False)[0]

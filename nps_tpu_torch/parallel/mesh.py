@@ -12,15 +12,22 @@ with the collectives below.
 Only two collectives are used, ``all_reduce`` and ``broadcast``: they are
 what the ``gloo`` backend carries for CUDA tensors, so the same code runs a
 world of two ranks sharing one card under gloo and N cards under NCCL
-(which refuses two ranks on one device). The spatial mesh
-(``make_grid_mesh``, ``GridBatchSharding``) belongs to spatial parallelism,
-ROADMAP P9b item 3, and is not ported.
+(which refuses two ranks on one device).
+
+Spatial parallelism (``--trainer.spatial_parallel=K``) lays the world out
+as the JAX package's ``make_grid_mesh`` lays out its devices: a (data, x)
+grid of D x K processes, rank = d * K + s (:class:`Grid`). Rank (d, s) holds
+data slice d of every global batch and rows [s X / K, (s + 1) X / K) of the
+first spatial axis X of every field (:meth:`Grid.shard_batch`, the JAX
+package's ``GridBatchSharding`` role table).
 """
 
 import os
 
 import torch
 import torch.distributed as dist
+
+from nps_tpu_torch.parallel.spatial import SpatialAxis
 
 
 def init_distributed(init_method="env://", world_size=None, rank=None,
@@ -124,17 +131,75 @@ def global_sum(x):
     return x if world()[1] == 1 else _GlobalSum.apply(x)
 
 
-def gather_rows(x):
-    """Every rank's ``x`` [b, ...] (the same shape on each) stacked in rank
-    order along dim 0: [world * b, ...], on every rank (an all-reduce of a
-    zero-padded buffer)."""
-    rank, size = world()
+def gather_rows(x, dim=0, group=None, index=None, size=None):
+    """Every rank's ``x`` (the same shape on each) concatenated in rank
+    order along ``dim``, on every rank (an all-reduce of a zero-padded
+    buffer). The ranks are the world's, or ``group``'s with this rank's
+    ``index`` in it and its ``size``."""
+    if group is None:
+        index, size = world()
     if size == 1:
         return x
     buf = x.new_zeros((size, *x.shape))
-    buf[rank] = x
-    dist.all_reduce(buf)
-    return buf.reshape(size * x.shape[0], *x.shape[1:])
+    buf[index] = x
+    dist.all_reduce(buf, group=group)
+    return torch.cat(buf.unbind(0), dim=dim)
+
+
+# the axis of the first spatial dim X per position of the batch tuple
+# (u_base, u_super, x, cond, t_cond, spatial_cond[, lengths]); None: a
+# vector, split on the batch only (``nps_tpu/parallel/mesh.py``)
+_SPATIAL_AXIS = (3, 3, 1, None, None, 2, None)
+
+
+class Grid:
+    """The (data, x) grid of the world for ``spatial_parallel`` = K: D =
+    world / K data slices of K ranks each, rank = d * K + s. Every rank
+    creates every group, in the same order: the x group of each data slice
+    (:attr:`axis`, a :class:`~nps_tpu_torch.parallel.spatial.SpatialAxis`)
+    and the data group of each x index (:attr:`data_group`)."""
+
+    def __init__(self, spatial_parallel):
+        from nps_tpu_torch.parallel.multihost import validate_grid_layout
+
+        self.rank, size = world()
+        k = int(spatial_parallel)
+        validate_grid_layout(size, k)
+        self.data_size = size // k
+        self.data_index, s = divmod(self.rank, k)
+        x_groups = [dist.new_group(list(range(d * k, (d + 1) * k)))
+                    for d in range(self.data_size)]
+        data_groups = [dist.new_group(list(range(i, size, k)))
+                       for i in range(k)]
+        self.axis = SpatialAxis(x_groups[self.data_index], k, s)
+        self.data_group = data_groups[s]
+
+    def shard_batch(self, batch):
+        """This rank's rows of every field of the batch tuple (numpy arrays
+        or tensors: the fields, ``pos`` and ``spatial_cond``; the vectors
+        whole), as views. A field whose
+        rows do not split over K raises: no rank may hold another slice
+        than the one its peers assume."""
+        out = []
+        for i, a in enumerate(batch):
+            ax = _SPATIAL_AXIS[i] if i < len(_SPATIAL_AXIS) else None
+            if (a is None or ax is None or a.ndim < 4
+                    or ax >= a.ndim - 1):
+                out.append(a)
+                continue
+            self.axis.check(a.shape[ax], f"batch entry {i}")
+            lo, hi = self.axis.part(a.shape[ax])
+            out.append(a[(slice(None),) * ax + (slice(lo, hi),)])
+        return tuple(out)
+
+    def gather_frames(self, x):
+        """Frames [b, c, t, local rows, Y] of this rank -> the data slice's
+        whole frames (rows gathered in the x group), then every data
+        slice's in order along the batch: [D * b, c, t, X, Y]."""
+        x = gather_rows(x, 3, self.axis.group, self.axis.index,
+                        self.axis.size)
+        return gather_rows(x, 0, self.data_group, self.data_index,
+                           self.data_size)
 
 
 class AllReduceGrads:

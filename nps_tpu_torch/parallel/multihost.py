@@ -10,7 +10,10 @@ the global batch needs over the world (``parallel.mesh``). What
 ``assemble_global_batch`` checks is the loaders': every global batch is
 trimmed to a multiple of the process count, and a split whose batches all
 trim to zero is refused (no process holds the full batch to fall back on).
-The grid variants belong to spatial parallelism (ROADMAP P9b item 3).
+Under spatial parallelism (a (data, x) grid, ``parallel.mesh.Grid``) the
+loaders' process index and count are the data slice's index and the data
+extent: the K ranks of one x group load the same elements and each keeps
+its rows (:func:`validate_grid_layout` holds the layout's conditions).
 """
 
 from nps_tpu_torch.parallel.mesh import world
@@ -35,3 +38,20 @@ def shard_indices_for_process(idx, process_index=None, process_count=None):
     start, stop = process_slice(len(idx), process_index, process_count)
     return idx[start:stop]
 
+
+
+def validate_grid_layout(process_count, spatial_parallel):
+    """The grid's conditions (``validate_grid_mesh_process_layout`` in the
+    JAX package, one device per process here): K > 1 divides the world, so
+    that every process owns one (data slice, x index) cell and every data
+    slice is owned whole by the K processes of its x group."""
+    k = int(spatial_parallel)
+    if k < 2:
+        raise ValueError(f"a (data, x) grid needs spatial_parallel > 1, "
+                         f"got {k}")
+    if process_count % k:
+        raise ValueError(
+            f"spatial parallelism needs spatial_parallel ({k}) to divide the "
+            f"world of {process_count} processes: an x group split across "
+            f"data slices would need a spatial input slice no loader "
+            f"produces")

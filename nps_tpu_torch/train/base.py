@@ -30,9 +30,20 @@ boundary. Without a process group it is the single-device step, as the
 JAX trainer's mesh over the one device present is. ``grad_accum=N`` wraps
 the optimizer in :class:`~nps_tpu_torch.train.optim.MultiSteps` (the JAX
 trainer's ``optax.MultiSteps``); variable-time data (``D.sim1d_var_t``)
-takes the batch sampler and the min-crop / max-pad loaders. Not ported,
-and refused with ``NotImplementedError`` naming the ROADMAP item: spatial,
-tensor, pipeline and expert parallelism above 1 (P9b items 3-6).
+takes the batch sampler and the min-crop / max-pad loaders.
+
+``spatial_parallel=K`` (with ``data_parallel``) lays the world of D x K
+processes out as a (data, x) grid (``parallel.Grid``; the JAX trainer's
+``make_grid_mesh``): rank (d, s) trains on data slice d of each global
+batch (``rank`` and ``world`` are d and D) and holds rows [s X / K,
+(s + 1) X / K) of every field, and the model applies run inside
+``parallel.spatial.scope``, where the ops whose result crosses rows take
+their halos and partial sums from the x group. The optimizer's sum over
+the world adds the data slices' and the x ranks' shares of every gradient.
+The grid model families run it (``parallel.spatial.check_model``); the others,
+and rows that do not split over K * 2^levels of the U-Net, raise. Not
+ported, and refused with ``NotImplementedError`` naming the ROADMAP item:
+tensor, pipeline and expert parallelism above 1 (P9b items 4-6).
 Parameters are a ``state_dict`` of the PyTorch reference's key names
 (``.pt``), which ``nps_tpu.compat.convert_state_dict`` reads.
 """
@@ -61,6 +72,7 @@ from nps_tpu_torch.data.samplers import VariableTimeBatchSampler
 from nps_tpu_torch.inference import autotuned_convs, resolve_device
 from nps_tpu_torch.models.config import (compute_dtype_scope,
                                          resolve_compute_dtype)
+from nps_tpu_torch.parallel import spatial
 from nps_tpu_torch.models.initializers import reset_parameters
 from nps_tpu_torch.train import optim as optim_lib
 from nps_tpu_torch.utils import misc as util
@@ -73,8 +85,8 @@ except ModuleNotFoundError:
 
 # the parallel regimes the port does not have yet: (config key, its item
 # of ROADMAP P9b); a value above 1 asks for it
-_UNPORTED = (("spatial_parallel", 3), ("tensor_parallel", 4),
-             ("pipeline_parallel", 5), ("expert_parallel", 6))
+_UNPORTED = (("tensor_parallel", 4), ("pipeline_parallel", 5),
+             ("expert_parallel", 6))
 
 
 def world_size():
@@ -99,6 +111,17 @@ def refuse_unported(config):
                 f"trainer.{key}={value!r} is not ported yet (ROADMAP P9b "
                 f"item {item})")
     dp = bool(getattr(config, "data_parallel", False))
+    k = int(getattr(config, "spatial_parallel", 0) or 0)
+    if k > 1 and not dp:
+        raise ValueError(
+            f"spatial_parallel={k} splits the world into a (data, x) grid "
+            f"of processes: enable trainer.data_parallel")
+    if k > 1 and not dist.is_initialized():
+        raise RuntimeError(
+            f"spatial_parallel={k} (ROADMAP P9b item 3) needs a "
+            f"torch.distributed group of a multiple of {k} processes: call "
+            f"nps_tpu_torch.parallel.init_distributed first (the CLI's "
+            f"--trainer.distributed)")
     if getattr(config, "zero1", False) and not dp:
         raise ValueError(
             "zero1=true shards the optimizer state over the data-parallel "
@@ -157,11 +180,22 @@ class TrainInterface(metaclass=ABCMeta):
                 self.data.data_interface == D.sim1d_var_t
         refuse_unported(self.config)
         # the data-parallel world: this process's rank and the world's size
-        # (rank 0 of 1 without data parallelism or a process group)
+        # (rank 0 of 1 without data parallelism or a process group); under
+        # spatial parallelism rank and world are the data slice's index and
+        # the data extent, and ``grid`` holds the x group
         self.data_parallel = (bool(getattr(self.config, "data_parallel",
                                            False)) and dist.is_initialized())
-        self.rank, self.world = (parallel.world() if self.data_parallel
-                                 else (0, 1))
+        self.process_rank, self.process_count = (
+            parallel.world() if self.data_parallel else (0, 1))
+        self.rank, self.world = self.process_rank, self.process_count
+        self.grid = None
+        k = int(getattr(self.config, "spatial_parallel", 0) or 0)
+        if k > 1:
+            spatial.check_model(self.model,
+                                int(self.config.super_resolution[1]), k)
+            self.grid = parallel.Grid(k)
+            self.rank, self.world = (self.grid.data_index,
+                                     self.grid.data_size)
         self.compute_dtype = resolve_compute_dtype(
             getattr(self.config, "compute_dtype", None))
 
@@ -320,7 +354,8 @@ class TrainInterface(metaclass=ABCMeta):
 
     def _fleet(self):
         """The loaders' share of the world: this rank's slice of global
-        batches trimmed to a multiple of the world's size."""
+        batches trimmed to a multiple of the world's size (under spatial
+        parallelism the data slice's, of the data extent)."""
         return dict(process_index=self.rank, process_count=self.world)
 
     def _variable_time_loaders(self):
@@ -357,9 +392,22 @@ class TrainInterface(metaclass=ABCMeta):
                 loader(self.data.test, "max", False, ebs))
 
     def _batches(self, loader):
+        """The loader's batches on the device; under spatial parallelism
+        this rank's rows of each (cut on the host before the copy)."""
+        batches = iter(loader)
+        if self.grid is not None:
+            batches = map(self.grid.shard_batch, batches)
         if getattr(loader, "device_resident", False):
-            return iter(loader)
-        return prefetch_to_device(iter(loader), self.device)
+            return batches
+        return prefetch_to_device(batches, self.device)
+
+    def spatial_scope(self, x):
+        """The model applies' split: ``parallel.spatial.scope`` of this
+        rank's x group at the grid of the global batch's fields (``x`` the
+        position grid [b, local rows, Y, d]), or no split."""
+        if self.grid is None:
+            return spatial.scope(None)
+        return spatial.scope(self.grid.axis.at(x.shape[1] * self.grid.axis.size))
 
     # ------------------------------------------------------------------
     # the step contract
@@ -608,7 +656,7 @@ class TrainInterface(metaclass=ABCMeta):
     def _is_writer_process(self):
         """Only rank 0 writes checkpoints, exports and metrics (the ranks'
         writes to a shared filesystem would race)."""
-        return self.rank == 0
+        return self.process_rank == 0
 
     def _log_metrics_jsonl(self, epoch, epoch_log):
         """Append one JSON line per epoch to ``<save_path>_metrics.jsonl``,
@@ -761,7 +809,7 @@ class TrainInterface(metaclass=ABCMeta):
             parallel.all_reduce_([seen])
             if seen.min() > 0:
                 raise RuntimeError(
-                    f"{int(seen[0])} of {self.world} ranks found the "
+                    f"{int(seen[0])} of {self.process_count} ranks found the "
                     f"checkpoint {path}: a data-parallel resume reads rank "
                     f"0's checkpoint from a path every rank sees")
         if not found:

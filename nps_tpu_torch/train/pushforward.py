@@ -49,6 +49,13 @@ and each rank takes its slice, the loss is sqrt of the world's sum of
 squares (:func:`~nps_tpu_torch.parallel.global_sum`, whose backward leaves
 each rank its share of the gradient, which the optimizer's all-reduce
 sums), and ``test_step`` sums every rank's losses over the global batch.
+Under spatial parallelism (``TrainInterface.grid``) the ranks of one x
+group hold the same elements (the draws are the data slice's: ``rank`` and
+``world`` are the data index and extent) and their own rows of every field;
+each model apply runs inside the trainer's ``spatial_scope``; the loss and
+every evaluation value are sums over cells, so the world's sum adds the
+x ranks' shares; ``test_step``'s frames are gathered over the x group, then
+over the data slices.
 
 GNN models (``M.AR_TB_GNN``) take the same steps: at the model boundary the
 grid window goes to node space and back (two reshapes) over a static graph
@@ -149,6 +156,10 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         self._graph_hash[key] = chash
 
     def _apply(self, data, cond, bc, x, t_cond, spatial_cond):
+        if self.grid is not None:
+            with self.spatial_scope(x):
+                return self.model(data, cond=cond, bc=bc, pos=x,
+                                  t_cond=t_cond, spatial_cond=spatial_cond)
         if self._is_gnn():
             structure = self._graph_cache[(tuple(data.shape[3:]),
                                            data.shape[0])]
@@ -311,8 +322,8 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                                        step_losses.mean()]),
                           step_losses])
         if self.data_parallel:
-            # each value is a sum over the elements over b: the world's sums
-            # over the global batch
+            # each value is a sum over the elements (and, split, over this
+            # rank's cells) over b: the world's sums over the global batch
             vals = parallel.global_sum(vals * b) / (b * self.world)
         vals = vals.tolist()
         info = {"Unrolled base losses": vals[1],
@@ -323,10 +334,10 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         if include_data:
             pred0 = u_super[:, :, tw * self.config.nr_gt_steps - tw:
                             tw * self.config.nr_gt_steps]
-            data_pred = parallel.gather_rows(
-                torch.cat([pred0, *sim["preds"]], dim=2))
-            data_gt = parallel.gather_rows(
-                torch.cat([pred0, *sim["labels"]], dim=2))
+            gather = (parallel.gather_rows if self.grid is None
+                      else self.grid.gather_frames)
+            data_pred = gather(torch.cat([pred0, *sim["preds"]], dim=2))
+            data_gt = gather(torch.cat([pred0, *sim["labels"]], dim=2))
             return vals[0], info, (data_gt.cpu().numpy(),
                                    data_pred.cpu().numpy(),
                                    [{} for _ in range(len(data_gt))])
@@ -393,6 +404,11 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                  u_bc=None, u_mask=None, divide_by_t=True):
         """Rollout API on numpy inputs; returns numpy as the JAX package's:
         losses (a list), (losses, (gt, pred)) or pred."""
+        if self.grid is not None:
+            raise NotImplementedError(
+                "simulate() on a row-split trainer is not ported (ROADMAP "
+                "P9b item 3): evaluate with test(), or serve with "
+                "SurrogateEngine.shard")
         tw = self.tw
         if compute_loss and u.shape[2] < t_res:
             raise ValueError("Cannot compute loss if no ground-truth "

@@ -21,6 +21,13 @@ Several processes, one device each (data parallelism,
 ``MASTER_ADDR`` and ``MASTER_PORT``), or one process per rank started by
 hand with ``--trainer.distributed=host:port,N,i`` (rank i of N, rank 0
 listening on host:port). The backend is NCCL on CUDA and gloo on the CPU.
+Add ``--trainer.spatial_parallel=K`` for spatial parallelism: the N
+processes form a (data, x) grid of N / K data slices of K ranks, each
+holding 1 / K of the rows of every field (``nps_tpu_torch.parallel.spatial``):
+
+    torchrun --nproc_per_node=N -m nps_tpu_torch.train_cli -C CFG \
+        --trainer.distributed=auto --trainer.data_parallel=true \
+        --trainer.spatial_parallel=K
 """
 
 import os

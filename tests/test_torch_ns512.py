@@ -308,7 +308,9 @@ def test_trainer_refuses_bf16_naming_p12b(split, tmp_path, monkeypatch):
     of a one-process world (P9a is done), and as this rank's share of a
     world of two (P9b items 1-2 are done; tests/test_torch_distributed.py
     trains such worlds). Still refused: a launcher's world of two with no
-    process group, and spatial parallelism (P9b item 3)."""
+    process group, and spatial parallelism (P9b item 3 is done:
+    tests/test_torch_spatial.py trains this config's shape at K = 2) over
+    K ranks whose grid rows do not split at every U-Net level."""
     def build(extra=()):
         return train_cli.get_config_static(
             _parse(port_parse_args, PORT_CFG, _argv(split, tmp_path, extra)),
@@ -329,8 +331,9 @@ def test_trainer_refuses_bf16_naming_p12b(split, tmp_path, monkeypatch):
     assert (trainer.data_parallel, trainer.rank, trainer.world) == \
         (True, 1, 2)
     assert trainer.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="P9b item 3"):
-        build(["--trainer.spatial_parallel=2"])
+    with pytest.raises(ValueError, match="spatial_parallel=3: the grid's "
+                                         "32 rows"):
+        build(["--trainer.spatial_parallel=3"])
 
 
 # the train-step parity: 1 block x 8 features (the JAX side compiles a
