@@ -68,7 +68,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              same of the ranks and of the single process on the ranks'
              halves (their shapes) against it and against each other; a
              rank that fails or hangs fails the phase and its peer is
-             killed; then a world of one over NCCL through
+             killed; beside the ranks, a world of one over NCCL through
              the training CLI (--trainer.distributed=auto, WORLD_SIZE=1,
              data_parallel and zero1), one epoch (stdout to
              train_dp_nccl.log and dp_rank*.log in --out);
@@ -172,7 +172,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
              peak memory beside the one process's; step ms ("two ranks
              sharing one card": no scaling figure), halo and sum bytes and
              launches per rank printed on their own line;
-8b. var1d  - cfg_var1d_fno, the variable-time 1D FNO, at full width (2
+8b. tp, ep, pp - tensor, expert and pipeline parallelism
+             (nps_tpu_torch.parallel.tensor, .expert, .pipeline): ranks
+             sharing the card over gloo (each this script run with
+             --grid-worker, logs {tp,ep,pp}_rank*.log in --out), a (data,
+             axis) grid of D = 1 x K, the trainer the CLI builds with
+             data_parallel and the regime, full width, f32, TF32 off,
+             batch 16: tp the twophase U-FNO at K = 2 (each rank holds
+             half the output channels of every split weight; K1 on 96 of
+             the 192 channels, K2 on whole activations), steps at
+             depths 0 and 1 and the evaluation of 4 elements over 75
+             frames (every split layer's output goes through host memory
+             on gloo); ep cfg_twophase_moe at K = 2 (2 of the 4
+             experts of each block a rank), steps at depths 0 and 1; pp
+             the U-FNO at K = 3 (one block a stage) with 4
+             microbatches, steps at depths 0 and 8; the three phases'
+             7 ranks run at once. Each against one
+             process on the card from the same weights and starts: the
+             loss (1e-5) and every gradient,
+             gathered whole (1e-4); each rank's K1 and K2 launches (its
+             wrappers' counts, and the forward kernels counted by name with
+             torch.profiler in a forward apply) equal to its share of the
+             path; both kernel ops against their plain versions at every
+             shape the ranks gave them; per rank the step ms ("ranks
+             sharing one card": no scaling figure), parameter and
+             optimizer-state bytes beside one process's, peak memory and
+             collective bytes, printed on their own line;
+8c. var1d  - cfg_var1d_fno, the variable-time 1D FNO, at full width (2
              blocks x 64 features, 8 modes, time window 5, batch 8) on a
              ragged split from the port's generator at its config's size
              (64 simulations of 40-100 frames on 32 points): one epoch
@@ -205,7 +231,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              stages in bf16); kept in the kernels line under "stages".
 
 In the kernels phase the spectral conv runs at the serving batch (4) and
-the train batch (16), and the backward ops join the forward kernels at the
+the train batch (16), and at the train batch to 96 channels (a model
+rank's share under tp: under ``tp_shape`` in its record), and the backward
+ops join the forward kernels at the
 train batch: the gn1_gelu_bwd kernel and the spectral conv's backward (the
 adjoint launch spectral_dft2d_bwd on dy with the forward's saved weight
 pack, and the weight-gradient kernel spectral_dw2d), each against autograd
@@ -340,7 +368,7 @@ GN_ACT_KW = {"off": dict(gelu=False, approximate="none"),
 # activation and its U-Net's final one (after GroupNorm(8), not fused);
 # the 66 ResidualBlock norms take K2's tanh epilogue (their caller,
 # unet_modern.py:_norm_act, must not appear)
-NS_TANH_PER_APPLY = {"enc_grid.py:forward": 2, "ufno.py:forward": NS_BLOCKS,
+NS_TANH_PER_APPLY = {"enc_grid.py:forward": 2, "ufno.py:block": NS_BLOCKS,
                      "unet_modern.py:forward": NS_BLOCKS,
                      "dec_grid.py:forward": 1}
 
@@ -570,6 +598,11 @@ def phase_kernels(gen):
     # ---- spectral_dft2d_fwd (K1) --------------------------------------------
     recs = [spectral_fwd_record(gen, shape) for shape in SPEC_SHAPES]
     results["spectral_dft2d_fwd"] = recs[0]   # the serving shape's
+    # a model rank's share under tensor parallelism: co = HIDDEN / TP_K
+    results["spectral_dft2d_fwd"]["tp_shape"] = {
+        k: v for k, v in spectral_fwd_record(
+            gen, SPEC_SHAPES[-1], HIDDEN // TP_K).items()
+        if k not in ("phase", "name")}
     dispatch = dispatch_us(gen)
     for name in ("gn1_gelu_fwd", "spectral_dft2d_fwd"):
         results[name]["dispatch_host_us"] = dispatch[name]
@@ -646,16 +679,17 @@ def rfft_conv(x, w_c, modes):
     return torch.fft.irfft2(out_ft, s=(n1, n2))
 
 
-def spectral_fwd_record(gen, shape):
-    """spectral_dft2d_fwd at ``shape`` -> HIDDEN channels, with and without
-    FiLM, against its plain version; times beside the library call's."""
+def spectral_fwd_record(gen, shape, co=HIDDEN):
+    """spectral_dft2d_fwd at ``shape`` -> ``co`` channels (HIDDEN), with
+    and without FiLM, against its plain version; times beside the library
+    call's."""
     import torch
 
     from nps_tpu_torch.ops import spectral as sp
 
     dev = torch.device("cuda")
     b, ci, n1, n2 = shape
-    co, m1, m2 = HIDDEN, MODES, MODES
+    m1, m2 = MODES, MODES
     x = torch.randn(shape, device=dev, generator=gen)
     ws = [torch.rand((2, ci, co, m1, m2), device=dev, generator=gen)
           / (ci * co) for _ in range(2)]
@@ -3366,12 +3400,14 @@ DP_GRAD_FLOOR = 1e-3
 DP_EVAL_TOL = REL_TOL_STEP
 
 
-def eval_rollout(trainer, batch):
-    """``trainer.test_step`` over ``batch`` with its frames: (info, the
-    predicted frames [b, c, t, *sp] on the CPU)."""
+def eval_rollout(trainer, batch, max_test_len=None):
+    """``trainer.test_step`` over ``batch`` with its frames (its first
+    ``max_test_len``): (info, the predicted frames [b, c, t, *sp] on the
+    CPU)."""
     import torch
 
-    _, info, (_, pred, _) = trainer.test_step(batch, 0, include_data=True)
+    _, info, (_, pred, _) = trainer.test_step(
+        batch, 0, include_data=True, max_test_len=max_test_len)
     return info, torch.from_numpy(pred)
 
 
@@ -3396,18 +3432,20 @@ def eval_errors(info, pred, ref_info, ref_pred):
 def run_ranks(commands, logs, timeout, env=None):
     """Start one process per command (output to its log file) and wait for
     all within ``timeout`` seconds; when one fails or the time is up, kill
-    the others. Returns the exit codes (None for a rank killed at the
-    limit)."""
+    the others. ``env``: variables added for every command, or a list of
+    them, one per command. Returns the exit codes (None for a rank killed
+    at the limit)."""
     import os
 
+    envs = env if isinstance(env, list) else [env] * len(commands)
     procs = []
     try:
-        for cmd, log in zip(commands, logs):
+        for cmd, log, extra in zip(commands, logs, envs):
             with open(log, "w") as f:
                 procs.append(subprocess.Popen(
                     cmd, stdout=f, stderr=subprocess.STDOUT,
                     cwd=Path(__file__).resolve().parent,
-                    env=dict(os.environ, **(env or {}))))
+                    env=dict(os.environ, **(extra or {}))))
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline or any(
@@ -3618,8 +3656,9 @@ def dp_cli_nccl(seed, tmp, out_dir):
     launches a rank: --trainer.distributed=auto with WORLD_SIZE=1,
     data_parallel and zero1, one epoch on the split without the epoch's
     validation (the CLI's own evaluations before and after training stay;
-    stdout to train_dp_nccl.log in ``out_dir``). Returns (record,
-    failures)."""
+    stdout to train_dp_nccl.log in ``out_dir``). Returns (its command, its
+    log, its environment, the check of its exit code: fn(rc, seconds) ->
+    (record, failures))."""
     import math
 
     log = out_dir / "train_dp_nccl.log"
@@ -3628,34 +3667,37 @@ def dp_cli_nccl(seed, tmp, out_dir):
            family_cfg("ufno"), *argv, "--trainer.test_interval=99",
            "--trainer.distributed=auto", "--trainer.data_parallel=true",
            "--trainer.zero1=true"]
-    t0 = time.perf_counter()
-    rc, = run_ranks([cmd], [log], DP_TIMEOUT, env=dict(
-        WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-        MASTER_PORT=str(_free_port())))
-    seconds = time.perf_counter() - t0
-    text = log.read_text()
-    line = [ln for ln in text.splitlines() if ln.startswith("Distributed:")]
-    losses = [ln.split(":", 1)[1] for ln in text.splitlines()
-              if ln.startswith("Train losses:")]
-    losses = json.loads(losses[-1]) if losses else []
-    rec = {"rc": rc, "seconds": seconds, "process_line": line[:1],
-           "train_losses": losses}
-    failures = []
-    if rc != 0:
-        failures.append(f"CLI world of one exited {rc}:\n{_tail(log)}")
-    elif not (line and "backend nccl" in line[0]):
-        failures.append(f"CLI world of one: process line {line}")
-    elif len(losses) != 1 or not all(math.isfinite(v) for v in losses):
-        failures.append(f"CLI world of one: train losses {losses}")
-    return rec, failures
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+
+    def check(rc, seconds):
+        text = log.read_text()
+        line = [ln for ln in text.splitlines()
+                if ln.startswith("Distributed:")]
+        losses = [ln.split(":", 1)[1] for ln in text.splitlines()
+                  if ln.startswith("Train losses:")]
+        losses = json.loads(losses[-1]) if losses else []
+        rec = {"rc": rc, "seconds": seconds, "process_line": line[:1],
+               "train_losses": losses}
+        failures = []
+        if rc != 0:
+            failures.append(f"CLI world of one exited {rc}:\n{_tail(log)}")
+        elif not (line and "backend nccl" in line[0]):
+            failures.append(f"CLI world of one: process line {line}")
+        elif len(losses) != 1 or not all(math.isfinite(v) for v in losses):
+            failures.append(f"CLI world of one: train losses {losses}")
+        return rec, failures
+
+    return cmd, log, env, check
 
 
 def phase_dp(seed, card, out_dir, tmp):
     """Data parallelism and ZeRO-1 on the main path: (a) DP_WORLD ranks
     sharing the card over gloo (dp_worker) against the single-process step
     (dp_reference); (b) a world of one over NCCL through the CLI
-    (dp_cli_nccl). Returns the launches of one rank's zero1 steps and the
-    argv its trainers are built from."""
+    (dp_cli_nccl), run beside them (the record's seconds are the three
+    processes' together). Returns the launches of one rank's zero1 steps
+    and the argv its trainers are built from."""
     single, argv, weights = dp_reference(seed, tmp)
     port = _free_port()
     commands, logs, outs = [], [], []
@@ -3669,13 +3711,16 @@ def phase_dp(seed, card, out_dir, tmp):
         commands.append([sys.executable, str(Path(__file__).resolve()),
                          "--dp-worker", str(spec)])
         logs.append(out_dir / f"dp_rank{rank}.log")
+    nccl_cmd, nccl_log, nccl_env, nccl_check = dp_cli_nccl(seed, tmp,
+                                                           out_dir)
     t0 = time.perf_counter()
-    rcs = run_ranks(commands, logs, DP_TIMEOUT)
+    *rcs, nccl_rc = run_ranks([*commands, nccl_cmd], [*logs, nccl_log],
+                              DP_TIMEOUT, [None] * DP_WORLD + [nccl_env])
     seconds = time.perf_counter() - t0
     failures = [f"rank {r} exited {rc}:\n{_tail(log)}"
                 for r, (rc, log) in enumerate(zip(rcs, logs)) if rc != 0]
     ranks = [json.loads(o.read_text()) for o in outs] if not failures else []
-    nccl, nccl_failures = dp_cli_nccl(seed, tmp, out_dir)
+    nccl, nccl_failures = nccl_check(nccl_rc, seconds)
     failures += nccl_failures
     want = {depth: family_launches(*FAMILIES["ufno"][:2], depth + 1, True)
             for depth in TRAIN_DEPTHS}
@@ -4251,12 +4296,355 @@ def phase_sp(seed, card, gen, out_dir, tmp, dp_argv):
     return ranks[0]["steps"][str(TRAIN_DEPTHS[-1])]["launches"], kern
 
 
+# ---- tensor, expert and pipeline parallelism (the tp, ep and pp phases) ----
+# Each phase: K ranks sharing the card over gloo (every collective of
+# parallel.tensor, .expert and .pipeline is an all_reduce, which gloo
+# carries for CUDA tensors), each this script run with --grid-worker, a
+# (data, axis) grid of D = 1 x K, the trainer the CLI builds with
+# data_parallel and the phase's key, at full width and batch TRAIN_BATCH.
+# Bars, against one process on the card from the same weights and starts
+# (grid_reference; tp and pp from the dp phase's weights): the loss rel
+# <= DP_LOSS_TOL, every gradient (gathered whole) <= REL_TOL_GRAD above
+# DP_GRAD_FLOOR of the largest; each rank's K1 and K2 launches (its
+# wrappers' counts, and the kernels counted by name with torch.profiler in
+# a forward apply) equal to its share of the path
+# (grid_launches); both kernel ops against their plain versions at every
+# shape a rank's steps gave them (check_shapes). tp also evaluates the
+# first TP_EVAL_B elements of the batch over TP_EVAL_T frames (test_step:
+# per-step losses <= DP_LOSS_TOL, the first window <= DP_EVAL_TOL).
+TP_K, EP_K, PP_K, PP_MICRO = 2, 2, 3, 4
+GRID_TIMEOUT = 600
+# tp moves every split layer's output through host memory (gloo): a
+# depth-0 step of two ranks on one card takes 20-30 s, a depth-8 one 40-70
+# s and the whole batch's evaluation ~9 s a window (PERF.md), so tp takes
+# no warm-up step (its first step's ms includes cuDNN's algorithm search),
+# steps at depths 0 and 1 and evaluates 4 elements over 3 windows: at
+# depth 8 and the whole evaluation the script passes its 1200 s
+TP_DEPTHS, TP_EVAL_B, TP_EVAL_T = (0, 1), 4, 3 * TW
+EP_DEPTHS = (0, 1)
+GRID = {"tp": dict(cfg="ufno", key="tensor_parallel", k=TP_K,
+                   depths=TP_DEPTHS, flags=[]),
+        "ep": dict(cfg="moe", key="expert_parallel", k=EP_K,
+                   depths=EP_DEPTHS, flags=[]),
+        "pp": dict(cfg="ufno", key="pipeline_parallel", k=PP_K,
+                   depths=TRAIN_DEPTHS,
+                   flags=[f"--trainer.pipeline_microbatches={PP_MICRO}"])}
+
+
+def grid_launches(name, depth):
+    """One rank's K1 and K2 launches in a step at ``depth``: under tp the
+    path's own (K1 on the rank's output channels, K2 on whole
+    activations), under ep K1 once for each of the rank's experts, under
+    pp its stage's kernels once for each microbatch."""
+    gn, spec = FAMILIES["ufno"][:2]
+    if name == "tp":
+        return family_launches(gn, spec, depth + 1, True)
+    if name == "ep":
+        return family_launches(0, FAMILIES["moe"][1] // EP_K, depth + 1,
+                               True)
+    per = PP_MICRO * BLOCKS // PP_K   # (block, microbatch) pairs an apply
+    return family_launches(gn // BLOCKS * per, spec // BLOCKS * per,
+                           depth + 1, True)
+
+
+def grid_worker(spec_path):
+    """One rank of a grid phase (``chip_smoke.py --grid-worker SPEC``): join
+    the gloo world on the card, build the trainer with the phase's regime,
+    take the first global batch of the split (the whole batch: D = 1), then
+    from the reference weights with a fresh optimizer: a warm-up step, one
+    step at each of the phase's depths (loss, the gradients gathered whole
+    against the reference's, launches, collective bytes, ms, peak memory,
+    parameter and optimizer-state bytes, the shapes the kernels saw), under
+    tp the evaluation of a cut of the batch, and last one forward apply
+    under torch.profiler (K1's and K2's kernels counted by name). Writes
+    its record to the spec's ``out`` as JSON."""
+    import torch
+
+    from nps_tpu_torch import kernels, parallel
+    from nps_tpu_torch.inference import autotuned_convs
+    from nps_tpu_torch.parallel import spatial
+
+    spec = json.loads(Path(spec_path).read_text())
+    g = GRID[spec["phase"]]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = parallel.init_distributed(
+        f"tcp://127.0.0.1:{spec['port']}", world_size=g["k"],
+        rank=spec["rank"], backend="gloo", device="cuda",
+        timeout=GRID_TIMEOUT)
+    rank = parallel.world()[0]
+    rec = {"rank": rank, "device": str(device),
+           "backend": torch.distributed.get_backend(), "steps": {}}
+    try:
+        ref = torch.load(spec["ref"], weights_only=False)
+        with autotuned_convs(deterministic=True):
+            tr = build_trainer(family_cfg(g["cfg"]), [
+                *spec["argv"], "--trainer.data_parallel=true",
+                f"--trainer.{g['key']}={g['k']}", *g["flags"]], device)
+            tr.load_model(spec["weights"])
+            tr.ensure_initialized()
+            batch = first_batch(tr)
+            rec["batch"] = int(batch[1].shape[0])
+            rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                     for p in tr.model.parameters())
+
+            def step(depth):
+                tr.load_model(spec["weights"])
+                tr.set_optimizer(tr.optimizer_spec)
+                kernels.reset_launches()
+                spatial.traffic.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
+                                        steps0=ref["steps0"][depth])
+                torch.cuda.synchronize()
+                return {"loss": float(loss),
+                        "ms": 1e3 * (time.perf_counter() - t0),
+                        "launches": dict(kernels.launches),
+                        "collective_bytes": {
+                            k: v for k, v in spatial.traffic.items()
+                            if k.endswith("bytes")},
+                        "peak_mem_gib": torch.cuda.max_memory_allocated()
+                        / 2 ** 30}
+
+            if spec["phase"] != "tp":
+                step(g["depths"][0])   # warm-up: cuDNN's timing, gloo's rings
+            shapes = {"gn": set(), "spectral": set()}
+            for depth in g["depths"]:
+                with kernel_shapes() as seen:
+                    r = step(depth)
+                for key in shapes:
+                    shapes[key] |= seen[key]
+                r["state_bytes"] = parallel.state_bytes(tr.optimizer)
+                r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
+                    ref["loss"][depth])
+                r["grad_rel_err"], r["worst_grad"] = _grad_errors(
+                    tr.whole_grads(), ref["grads"][depth], DP_GRAD_FLOOR)
+                rec["steps"][str(depth)] = r
+            rec["shapes"] = {k: [list(v) for v in sorted(vs)]
+                             for k, vs in shapes.items()}
+            if spec["phase"] == "tp":
+                tr.load_model(spec["weights"])
+                info, pred = eval_rollout(
+                    tr, tuple(a[:TP_EVAL_B] for a in batch), TP_EVAL_T)
+                if rank == 0:
+                    ev = torch.load(spec["eval_ref"], weights_only=False)
+                    rec["eval"] = eval_errors(info, pred, ev["info"],
+                                              ev["pred"])
+            # last (a profiler session slows the host for the rest of the
+            # process): one forward apply's K1 and K2 kernels by name
+            tr.load_model(spec["weights"])
+            kernels.reset_launches()
+
+            def forward():
+                with torch.no_grad():
+                    tr._apply(batch[1][:, :, :TW], batch[3], None, batch[2],
+                              None, batch[5])
+
+            forward()
+            want = {k: v for k, v in kernels.launches.items()
+                    if k in ("gn1_gelu_fwd", "spectral_dft2d_fwd")}
+            counts, busy, ms, attempts = profiled_counts(forward, want)
+            rec["profiled"] = {"what": "one forward apply", "counts": counts,
+                               "want": want, "busy_share": busy, "ms": ms,
+                               "attempts": attempts}
+    finally:
+        torch.distributed.destroy_process_group()
+    Path(spec["out"]).write_text(json.dumps(rec))
+    return 0
+
+
+def grid_reference(name, seed, tmp, dp_argv):
+    """The one process the phase's ranks are held to, on the card: (the
+    paths of its argv, weights and reference file, its record). tp and pp
+    take the dp phase's cfg_twophase_ufno weights, ep draws the full-width
+    cfg_twophase_moe from the seed; each steps them at the phase's depths
+    (after a warm-up; start steps drawn from the seed: loss, gradients),
+    then records a depth-0 step's ms, parameter and optimizer-state bytes
+    and peak memory, and tp the evaluation of its cut of the batch."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch import parallel
+    from nps_tpu_torch.inference import autotuned_convs
+
+    g = GRID[name]
+    argv, weights = dp_argv, f"{tmp}/dp_weights.pt"
+    if g["cfg"] != "ufno":
+        argv = train_argv(tmp, seed, 1, f"{name}_single")
+        weights = f"{tmp}/{name}_weights.pt"
+    ref_path = f"{tmp}/{name}_ref.pt"
+    tr = build_trainer(family_cfg(g["cfg"]), argv, "cuda")
+    tr.ensure_initialized()
+    if g["cfg"] == "ufno":
+        tr.load_model(weights)
+    else:
+        torch.save({k: v.detach().cpu() for k, v in
+                    tr.model.state_dict().items()}, weights)
+    batch = first_batch(tr)
+    rec = {"param_bytes": sum(p.numel() * p.element_size()
+                              for p in tr.model.parameters())}
+    with autotuned_convs(deterministic=True):
+        gen = torch.Generator().manual_seed(seed + 4)
+        ref = {"steps0": {}, "loss": {}, "grads": {}}
+        tr.train_step(batch, 0, 0, unrolled=0)   # warm-up
+        for depth in g["depths"]:
+            steps0 = torch.randint(TW, TRAIN_NT - TW * (depth + 1) + 1,
+                                   (TRAIN_BATCH,), generator=gen)
+            tr.load_model(weights)
+            tr.set_optimizer(tr.optimizer_spec)
+            loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
+                                    steps0=steps0)
+            ref["steps0"][depth] = steps0
+            ref["loss"][depth] = float(loss)
+            ref["grads"][depth] = {k: p.grad.detach().cpu() for k, p in
+                                   tr.model.named_parameters()}
+        torch.save(ref, ref_path)
+        steps0 = ref["steps0"][0]
+        del ref
+        tr.load_model(weights)
+        tr.set_optimizer(tr.optimizer_spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.train_step(batch, 0, 0, unrolled=0, steps0=steps0)
+        torch.cuda.synchronize()
+        rec["depth0_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["state_bytes"] = parallel.state_bytes(tr.optimizer)
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        paths = {"argv": argv, "weights": weights, "ref": ref_path}
+        if name == "tp":
+            tr.load_model(weights)
+            info, pred = eval_rollout(
+                tr, tuple(a[:TP_EVAL_B] for a in batch), TP_EVAL_T)
+            paths["eval_ref"] = f"{tmp}/tp_eval_ref.pt"
+            torch.save({"info": info, "pred": pred}, paths["eval_ref"])
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, rec
+
+
+def phase_grids(seed, card, gen, out_dir, tmp, dp_argv):
+    """The tp, ep and pp phases (see GRID and the note above): each phase's
+    grid_reference in this process, then every phase's ranks (grid_worker)
+    at once, sharing the card (each phase's seconds are the 7 processes'
+    together), then each phase held to its reference (grid_check). Raises
+    if any phase failed; returns each phase's rank-0 launches at its last
+    depth."""
+    phases = {}
+    for name in GRID:
+        paths, single = grid_reference(name, seed, tmp, dp_argv)
+        port = _free_port()
+        commands, logs, outs = [], [], []
+        for rank in range(GRID[name]["k"]):
+            spec = Path(tmp) / f"{name}_spec{rank}.json"
+            outs.append(Path(tmp) / f"{name}_rank{rank}.json")
+            spec.write_text(json.dumps({"phase": name, "rank": rank,
+                                        "port": port, "out": str(outs[-1]),
+                                        **paths}))
+            commands.append([sys.executable, str(Path(__file__).resolve()),
+                             "--grid-worker", str(spec)])
+            logs.append(out_dir / f"{name}_rank{rank}.log")
+        phases[name] = (single, commands, logs, outs)
+    t0 = time.perf_counter()
+    rcs = run_ranks([c for ph in phases.values() for c in ph[1]],
+                    [log for ph in phases.values() for log in ph[2]],
+                    GRID_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    failures, launches = [], {}
+    for name, (single, commands, logs, outs) in phases.items():
+        mine, rcs = rcs[:len(commands)], rcs[len(commands):]
+        launches[name], bad = grid_check(name, card, gen, single, logs, outs,
+                                         mine, seconds)
+        failures += [f"{name}: {f}" for f in bad]
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
+def grid_check(name, card, gen, single, logs, outs, rcs, seconds):
+    """One grid phase's ranks held to its reference; both kernel ops then
+    against their plain versions at every shape the ranks' steps gave them.
+    Prints the phase's line and the per-rank lines; returns (rank 0's
+    launches at the phase's last depth, or None, the failures)."""
+    g = GRID[name]
+    failures = [f"rank {r} exited {rc}:\n{_tail(log)}"
+                for r, (rc, log) in enumerate(zip(rcs, logs)) if rc != 0]
+    ranks = ([json.loads(o.read_text()) for o in outs]
+             if all(rc == 0 for rc in rcs) else [])
+    for r in ranks:
+        if r["backend"] != "gloo" or r["batch"] != TRAIN_BATCH:
+            failures.append(f"rank {r['rank']}: {r['backend']}, batch "
+                            f"{r['batch']}")
+        for depth in g["depths"]:
+            s = r["steps"][str(depth)]
+            want = grid_launches(name, depth)
+            if not (s["loss_rel_err"] <= DP_LOSS_TOL
+                    and s["grad_rel_err"] <= REL_TOL_GRAD
+                    and s["launches"] == want):
+                failures.append(f"rank {r['rank']} depth {depth}: {s}, "
+                                f"launches want {want}")
+        p = r["profiled"]
+        fwd = {k: v for k, v in grid_launches(name, 0).items()
+               if k in ("gn1_gelu_fwd", "spectral_dft2d_fwd")}
+        if not p["counts"] == p["want"] == fwd:
+            failures.append(f"rank {r['rank']}: profiled {p}, want {fwd}")
+        share = r["param_bytes"] / single["param_bytes"]
+        if (share < 1) != (name != "pp"):
+            failures.append(f"rank {r['rank']}: parameter share {share}")
+    ev = ranks[0].get("eval") if ranks else None
+    if name == "tp" and ranks and not (
+            ev["step_loss_rel_err"] <= DP_LOSS_TOL
+            and ev["window_rel_err"][0] <= DP_EVAL_TOL):
+        failures.append(f"evaluation against the single process: {ev}")
+    seen = {k: {tuple((tuple(x) if isinstance(x, list) else x)
+                      for x in row) for r in ranks for row in r["shapes"][k]}
+            for k in ("gn", "spectral")}
+    shape_rows = check_shapes(seen, gen) if ranks else []
+    bad = [row for row in shape_rows if not (
+        row["rel_err_y"] < REL_TOL_F32 and row["rel_err_grad"] < REL_TOL_GRAD)]
+    if bad:
+        failures.append(f"kernel ops at the {name} shapes: {bad}")
+    emit({"phase": name, "config": family_cfg(g["cfg"]), "k": g["k"],
+          "data_slices": 1, "backend": "gloo", "global_batch": TRAIN_BATCH,
+          "depths": list(g["depths"]), "flags": g["flags"],
+          "timing": f"{g['k']} ranks sharing one card with the other grid "
+                    "phases' ranks: host clock around one synchronised step "
+                    "each, cuDNN's deterministic algorithms; says nothing "
+                    "about scaling",
+          "single_process": single, "seconds": seconds, "ranks": ranks,
+          "launches_per_rank_expected": {
+              str(d): grid_launches(name, d) for d in g["depths"]},
+          "kernel_shapes": shape_rows, "card": card, "tf32": False})
+    last = str(g["depths"][-1])
+    for r in ranks:
+        s = r["steps"][last]
+        print(f"{name} rank {r['rank']} ({g['k']} ranks sharing one card "
+              f"with the other grid phases'): "
+              f"step ms " + ", ".join(
+                  f"depth {d} {r['steps'][str(d)]['ms']:.1f}"
+                  for d in g["depths"])
+              + f"; parameter bytes {r['param_bytes']} of one process's "
+              f"{single['param_bytes']}, optimizer-state bytes "
+              f"{s['state_bytes']} of {single['state_bytes']}; peak GiB "
+              f"{s['peak_mem_gib']:.2f} (one process at depth 0 "
+              f"{single['peak_mem_gib']:.2f}); launches per rank at depth "
+              f"{last} {s['launches']}, profiled in a forward apply "
+              f"{r['profiled']['counts']}; "
+              f"collective bytes {s['collective_bytes']}", flush=True)
+    return (ranks[0]["steps"][last]["launches"] if ranks else None), failures
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/chip_smoke")
     ap.add_argument("--dp-worker", help=argparse.SUPPRESS)
     ap.add_argument("--sp-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--grid-worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4271,6 +4659,8 @@ def main():
         return dp_worker(args.dp_worker)
     if args.sp_worker:
         return sp_worker(args.sp_worker)
+    if args.grid_worker:
+        return grid_worker(args.grid_worker)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out_dir = Path(args.out)
@@ -4294,6 +4684,7 @@ def main():
             args.seed, card, gen, out_dir, tmp, gn_inputs)
         kern.update(ns_train_kern)
         sp, sp_kern = phase_sp(args.seed, card, gen, out_dir, tmp, dp_argv)
+        grid = phase_grids(args.seed, card, gen, out_dir, tmp, dp_argv)
         var1d = phase_var1d(args.seed, card, out_dir, tmp)
         kern["spectral_dw2d"]["ns512"] = kern.pop("spectral_dw2d_ns512")
         # after training: torch.export keeps the constants it traced (the
@@ -4376,6 +4767,8 @@ def main():
                          "var1d": var1d.get(key, 0),
                          "dp_rank": dp.get(key, 0),
                          "sp_rank": sp.get(key, 0),
+                         **{f"{g}_rank": n.get(key, 0)
+                            for g, n in grid.items()},
                          **{p: n.get(key, 0) for p, n in families.items()},
                          **{f"{f}_captured": n.get(key, 0)
                             for f, n in replays.items() if f != "ufno"},
@@ -4397,7 +4790,7 @@ def main():
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
                     "dispatch_host_us", "library_how", "dtype", "shape",
                     "act", "bound_f32_ops_ms", "f32", "shapes", "ns512", "stages",
-                    "step_calls"):
+                    "step_calls", "tp_shape"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

@@ -1,18 +1,22 @@
 """Data-parallel training through the CLI against one process: every loss
 each run prints.
 
-    python -m nps_tpu_torch.dp_probe --world 4 [--spatial K] \\
-        [--repeats 1] [--eval-batch N ...] [--cross-eval N ...] \\
-        [--out DIR] [CLI overrides]
+    python -m nps_tpu_torch.dp_probe --world 4 \\
+        [--spatial K | --tensor K | --pipeline K [--micro M] | --expert K] \\
+        [--config CFG] [--repeats 1] [--eval-batch N ...] \\
+        [--cross-eval N ...] [--out DIR] [CLI overrides]
 
 Generates one synthetic twophase split (``--sims`` simulations of ``--nt``
-frames, seed 0), then trains ``cfg_twophase_ufno`` on it for two epochs
-with the same seed and config: once with ``--world`` processes started by
+frames, seed 0), then trains ``--config`` (``cfg_twophase_ufno``; give
+``cfg_twophase_moe`` with ``--expert``) on it for two epochs with the
+same seed and config: once with ``--world`` processes started by
 ``torchrun`` (``--trainer.distributed=auto``, data parallelism and ZeRO-1,
-one device a rank; skipped with ``--world 1``; with ``--spatial K`` > 1
-spatial parallelism instead of ZeRO-1: a (data, x) grid of world / K
-data slices of K ranks, ``--trainer.spatial_parallel=K``), ``--repeats``
-times in one
+one device a rank; skipped with ``--world 1``; with ``--spatial``,
+``--tensor``, ``--pipeline`` or ``--expert`` K > 1 that grid regime
+instead of ZeRO-1: a (data, axis) grid of world / K data slices of K
+ranks, ``--trainer.spatial_parallel``, ``tensor_parallel``,
+``pipeline_parallel`` (with ``--micro``: ``pipeline_microbatches``) or
+``expert_parallel`` = K), ``--repeats`` times in one
 process, and once in one process for each ``--eval-batch`` (evaluation
 batch size; training does not read it). ``--cross-eval`` then evaluates
 the final weights of the ``--world`` run and of the first one-process run
@@ -109,10 +113,33 @@ def run(name, cmd, out_dir, env=None):
     return rec
 
 
+def regime_flags(args):
+    """The CLI flags of the several-process run's regime: the grid axis
+    asked for (at most one), else ZeRO-1."""
+    asked = [(key, k) for key, k in (
+        ("spatial_parallel", args.spatial), ("tensor_parallel", args.tensor),
+        ("pipeline_parallel", args.pipeline),
+        ("expert_parallel", args.expert)) if k > 1]
+    if len(asked) > 1:
+        raise SystemExit(f"dp_probe: one grid regime at a time, got {asked}")
+    if not asked:
+        return ["--trainer.zero1=true"]
+    key, k = asked[0]
+    flags = [f"--trainer.{key}={k}"]
+    if key == "pipeline_parallel" and args.micro:
+        flags.append(f"--trainer.pipeline_microbatches={args.micro}")
+    return flags
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world", type=int, default=4)
     ap.add_argument("--spatial", type=int, default=0)
+    ap.add_argument("--tensor", type=int, default=0)
+    ap.add_argument("--pipeline", type=int, default=0)
+    ap.add_argument("--micro", type=int, default=0)
+    ap.add_argument("--expert", type=int, default=0)
+    ap.add_argument("--config", default=CFG)
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--eval-batch", type=int, nargs="*", default=[])
     ap.add_argument("--cross-eval", type=int, nargs="*", default=[])
@@ -135,22 +162,20 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="dp_probe_") as tmp:
         generate(f"{tmp}/data/twophase", n_sims=args.sims, n_channels=1,
                  nt=args.nt, nx1=args.nx[0], nx2=args.nx[1], seed=0)
-        cli = ["-m", "nps_tpu_torch.train_cli", "-C", CFG,
+        cli = ["-m", "nps_tpu_torch.train_cli", "-C", args.config,
                "--device", args.device, f"--dataset.base_path={tmp}/data",
                "--dataset.c_filter=[0]", "--seed=0",
                "--trainer.num_epochs=2", "--trainer.test_interval=2",
                "--trainer.print_interval=1", "--experiment_name=run",
                *overrides]
         if args.world > 1:
-            regime = (f"--trainer.spatial_parallel={args.spatial}"
-                      if args.spatial > 1 else "--trainer.zero1=true")
             runs[f"world{args.world}"] = run(f"world{args.world}", [
                 sys.executable, "-m", "torch.distributed.run",
                 f"--nproc_per_node={args.world}", "--tee=3",
                 f"--master_port={_free_port()}", *cli,
                 f"--experiment_path={tmp}/w{args.world}",
                 "--trainer.distributed=auto", "--trainer.data_parallel=true",
-                regime], out_dir)
+                *regime_flags(args)], out_dir)
         one = {"CUDA_VISIBLE_DEVICES": "0"} if args.device == "cuda" else {}
         for i in range(args.repeats):
             runs[f"one{i}"] = run(f"one{i}", [

@@ -35,6 +35,13 @@ crops and pads at the global edges, and the GroupNorms sum their
 statistics over the x group. Each takes ``rows``, the global row count of
 its input (the grid's, where the caller passes none); ``out_rows`` gives
 its output's.
+
+Under tensor parallelism (a model apply inside ``parallel.scope`` of a
+model axis) a layer whose weight the partition rule splits (``tp_sharded``,
+set by ``parallel.tensor.setup``) holds its share of the output channels:
+:class:`ConvND`, :class:`ConvTransposeND` and :class:`Dense` compute that
+share (and their slice of the bias) from the whole input and gather it
+over the model group (``parallel.tensor.sharded_layer``).
 """
 
 import math
@@ -52,7 +59,7 @@ from nps_tpu_torch.models.config import (compute_dtype, compute_dtype_scope,
                                          fast_forward_active)
 from nps_tpu_torch.ops.group_norm import (gn_gelu, gn_gelu_split,  # noqa: F401
                                           group_norm_plain, group_norm_split)
-from nps_tpu_torch.parallel import spatial
+from nps_tpu_torch.parallel import spatial, tensor
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
@@ -101,7 +108,7 @@ def remat_block(fn, policy=None):
     (``torch.utils.checkpoint``, non-reentrant). ``policy`` is one of
     :data:`REMAT_POLICIES`: None keeps nothing, ``"save_conv_outputs"``
     keeps the conv outputs (selective checkpointing). The recompute runs in
-    the compute dtype and the spatial split the forward ran in, whatever is
+    the compute dtype and the grid axis the forward ran in, whatever is
     set when the backward runs (so it makes the forward's collectives again,
     in the same order on every rank). Without gradients ``fn`` runs as it is. The blocks draw no random
     numbers, so the RNG state is not saved."""
@@ -114,7 +121,7 @@ def remat_block(fn, policy=None):
     def run(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        dtype, axis = compute_dtype(), spatial.current()
+        dtype, axis = compute_dtype(), spatial.active()
 
         def block(*a, **kw):
             with compute_dtype_scope(dtype), spatial.scope(axis):
@@ -216,6 +223,8 @@ class ConvND(nn.Module):
     padding_mode: 'zeros' | 'circular' (consulted where padding occurs)
     """
 
+    tp_sharded = False   # the weight holds this rank's output channels
+
     def __init__(self, in_channels, features, kernel_size, num_spatial_dims,
                  strides=1, padding="same", padding_mode="zeros", dilation=1,
                  use_bias=True):
@@ -261,12 +270,20 @@ class ConvND(nn.Module):
         if axis is not None and self.nd == 2:
             x = self._split_rows(x, axis, axis.rows if rows is None else rows)
             pads = [(0, 0), pads[1]]
-        if any(p != (0, 0) for p in pads):
-            x = (circular_pad(x, pads, self.nd)
-                 if self.padding_mode == "circular"
-                 else F.pad(x, _torch_pad(pads)))
-        return _CONV[self.nd](*_cast(x, self.weight, self.bias),
-                              stride=self.strides, dilation=self.dilation)
+
+        def conv(x, weight, bias=None):
+            if any(p != (0, 0) for p in pads):
+                x = (circular_pad(x, pads, self.nd)
+                     if self.padding_mode == "circular"
+                     else F.pad(x, _torch_pad(pads)))
+            return _CONV[self.nd](x, weight, bias, stride=self.strides,
+                                  dilation=self.dilation)
+
+        x, weight, bias = _cast(x, self.weight, self.bias)
+        model_axis = tensor.current() if self.tp_sharded else None
+        if model_axis is not None:
+            return tensor.sharded_layer(conv, x, weight, bias, model_axis)
+        return conv(x, weight, bias)
 
     def _split_rows(self, x, axis, rows):
         """The rows of the padded input that this rank's output rows read
@@ -292,6 +309,8 @@ class ConvND(nn.Module):
 class ConvTransposeND(nn.Module):
     """Torch-semantics transposed conv: out = (n-1)*stride + kernel, after an
     optional circular pre-pad of ``pre_pad`` cells per side."""
+
+    tp_sharded = False
 
     def __init__(self, in_channels, features, kernel_size, num_spatial_dims,
                  strides=1, pre_pad=0, use_bias=True):
@@ -325,8 +344,14 @@ class ConvTransposeND(nn.Module):
         if self.pre_pad > 0:
             x = circular_pad(x, [(self.pre_pad, self.pre_pad)] * self.nd,
                              self.nd)
-        return _CONV_T[self.nd](*_cast(x, self.weight, self.bias),
-                                stride=self.strides)
+        x, weight, bias = _cast(x, self.weight, self.bias)
+        model_axis = tensor.current() if self.tp_sharded else None
+        if model_axis is not None:
+            return tensor.sharded_layer(
+                lambda x, w, b: _CONV_T[self.nd](x, w, b,
+                                                 stride=self.strides),
+                x, weight, bias, model_axis)
+        return _CONV_T[self.nd](x, weight, bias, stride=self.strides)
 
     def _split_forward(self, x, axis, rows):
         """This rank's share of the :meth:`out_rows` output rows: the
@@ -355,6 +380,8 @@ class ConvTransposeND(nn.Module):
 class Dense(nn.Module):
     """Linear layer, [..., in] -> [..., out], weight [out, in]."""
 
+    tp_sharded = False
+
     def __init__(self, in_features, features, use_bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, in_features))
@@ -369,7 +396,12 @@ class Dense(nn.Module):
             init.fan_in_uniform_(self.bias, fan_in, generator)
 
     def forward(self, x):
-        return F.linear(*_cast(x, self.weight, self.bias))
+        x, weight, bias = _cast(x, self.weight, self.bias)
+        model_axis = tensor.current() if self.tp_sharded else None
+        if model_axis is not None:
+            return tensor.sharded_layer(F.linear, x, weight, bias,
+                                        model_axis, dim=-1)
+        return F.linear(x, weight, bias)
 
 
 class GroupNorm(nn.Module):

@@ -62,6 +62,7 @@ class DilatedResnet(nn.Module):
                  num_spatial_dims=1, n_cond=0, remat=True):
         super().__init__()
         self.remat = bool(remat)
+        self.hidden_blocks = int(hidden_blocks)
         self.processor = nn.ModuleList(
             DilatedResnetBlock(
                 num_spatial_dims=num_spatial_dims,
@@ -71,11 +72,18 @@ class DilatedResnet(nn.Module):
                 hidden_features_out=hidden_features)
             for _ in range(hidden_blocks))
 
+    def block(self, i, h, variables=None, variables_broadcast=None,
+              pos=None):
+        """Residual block ``i`` on h."""
+        block = self.processor[i]
+        if self.remat:
+            block = remat_block(block)
+        enc_input = (torch.cat([h, variables_broadcast], dim=1)
+                     if variables_broadcast is not None else h)
+        return h + block(enc_input)
+
     def forward(self, h, variables_broadcast=None, pos=None):
-        for block in self.processor:
-            if self.remat:
-                block = remat_block(block)
-            enc_input = (torch.cat([h, variables_broadcast], dim=1)
-                         if variables_broadcast is not None else h)
-            h = h + block(enc_input)
+        for i in range(self.hidden_blocks):
+            h = self.block(i, h, variables_broadcast=variables_broadcast,
+                           pos=pos)
         return h

@@ -16,6 +16,10 @@ by ``batch``, node positions (time column dropped) and the shifted path's
 conditioning is warned about and ignored, as in the reference. The
 components' ``n_cond`` is then the static conditioning's width. The
 boundary-condition encoder is not ported yet.
+
+Under pipeline parallelism (``parallel.scope`` of a pipe axis) the processor
+chain runs pipelined over the pipe group (``parallel.pipeline.run``); the
+encoder and the decoder run as they are on every pipe rank.
 """
 
 import inspect
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from nps_tpu_torch.models.config import cast_compute
+from nps_tpu_torch.parallel import pipeline
 from nps_tpu_torch.utils.attr import getattr_nested
 from nps_tpu_torch.utils.broadcast import broadcast_to_grid
 
@@ -104,6 +109,7 @@ class EncProcDec(nn.Module):
                     time_window=time_window, n_cond=self.n_cond)
         specs = (list(processor) if isinstance(processor, (list, tuple))
                  else [processor])
+        self.processor_specs = specs
         self.encoder = create_model(encoder, pde, base)
         self.processor = nn.ModuleList(create_model(p, pde, base)
                                        for p in specs)
@@ -155,6 +161,16 @@ class EncProcDec(nn.Module):
             vb = cast_compute(vb)
 
         h = self.encoder(u=u, variables_broadcast=vb, pos=pos, **extra)
+        axis = pipeline.current()
+        if axis is not None:
+            h = pipeline.run(self, h, cond, vb, pos, axis)
+        else:
+            h = self._process(h, cond, vb, pos, extra)
+        return self.decoder(h, u, variables=cond, variables_broadcast=vb,
+                            pos=pos, **extra)
+
+    def _process(self, h, cond, vb, pos, extra):
+        """The processor chain on h."""
         for i, (proc, takes_vars) in enumerate(zip(self.processor,
                                                    self._takes_variables)):
             kwargs = dict(variables_broadcast=vb, pos=pos, **extra)
@@ -162,8 +178,7 @@ class EncProcDec(nn.Module):
                 kwargs["variables"] = cond
             h_next = proc(h, **kwargs)
             h = h_next + h if (self.processor_residual and i > 0) else h_next
-        return self.decoder(h, u, variables=cond, variables_broadcast=vb,
-                            pos=pos, **extra)
+        return h
 
     def _graph_inputs(self, graph, cond, spatial_cond, grid_meta):
         """The graph branch's (nodes, node conditioning, normalised node

@@ -16,6 +16,16 @@ into the CUDA kernel's layout, inside the autograd Function where a
 gradient is wanted. A caller that applies the model many times with fixed
 weights (a serving rollout) wraps the calls in
 :func:`packed_spectral_weights`, which packs once for the whole block.
+
+Under tensor parallelism (``parallel.scope`` of a model axis) a
+``SpectralConvND`` whose weights the rule splits (``tp_sharded``) holds
+``co / K`` of their output channels: it runs the spectral conv (K1 on the
+card) on the whole input with that share of the weights and of the FiLM
+factors, then gathers the output channels over the model group.
+
+Each processor applies its blocks through ``block(i, h, ...)``, which
+pipeline parallelism calls one stage at a time
+(``parallel.pipeline``).
 """
 
 import math
@@ -32,7 +42,7 @@ from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.ops.spectral import (pack_weights_2d,
                                        spectral_conv_2d_split,
                                        spectral_conv_nd)
-from nps_tpu_torch.parallel import spatial
+from nps_tpu_torch.parallel import spatial, tensor
 
 
 @contextmanager
@@ -65,6 +75,8 @@ def _modes_tuple(modes, nd):
 class SpectralConvND(nn.Module):
     """Mode-truncated spectral conv with optional FiLM conditioning;
     [b, ci, *sp] -> [b, co, *sp]."""
+
+    tp_sharded = False   # weights hold this rank's output channels
 
     def __init__(self, in_channels, out_channels, modes, num_spatial_dims,
                  feature_transform=False, feature_transform_dim=0,
@@ -106,6 +118,9 @@ class SpectralConvND(nn.Module):
         if self.weights_feat is not None:
             assert p is not None, "FiLM conditioning requires the cond vector"
             film = self.weights_feat(p).reshape((p.shape[0],) + self.film_grid)
+        model_axis = tensor.current() if self.tp_sharded else None
+        if model_axis is not None:
+            return self._sharded_forward(x, film, model_axis)
         if self.nd == 1:
             return spectral_conv_nd(x, self._weights(), self.modes, film=film,
                                     film_mode=self.transform_mode,
@@ -128,6 +143,22 @@ class SpectralConvND(nn.Module):
                                 film=film, film_mode=self.transform_mode,
                                 num_spatial_dims=self.nd,
                                 w_packed=self.w_packed)
+
+    def _sharded_forward(self, x, film, axis):
+        """This rank's output channels from the whole input (its share of
+        the weights and of the FiLM factors), gathered over the model
+        group."""
+        if self.nd == 2:
+            dt = compute_dtype() or torch.float32
+            x = x.to(dt) if x.dtype != dt else x
+        x = tensor.copy_in(x, axis)
+        if film is not None:
+            co = self.weights1.shape[2]
+            film = tensor.copy_in(film, axis).narrow(1, axis.index * co, co)
+        y = spectral_conv_nd(x, self._weights(), self.modes, film=film,
+                             film_mode=self.transform_mode,
+                             num_spatial_dims=self.nd)
+        return tensor.gather(y, 1, axis)
 
 
 class FNO_Layer(nn.Module):
@@ -190,6 +221,7 @@ class FNO(nn.Module):
             "Incorrect conditioning mode supplied"
         self.cond_mode = cond_mode
         self.remat = bool(remat)
+        self.hidden_blocks = int(hidden_blocks)
         film = cond_mode == "film" and n_cond > 0
         hidden_in = (hidden_features + n_cond if cond_mode == "concat"
                      else hidden_features)
@@ -202,13 +234,18 @@ class FNO(nn.Module):
                       padding_mode=pm)
             for _ in range(hidden_blocks))
 
+    def block(self, i, h, variables=None, variables_broadcast=None,
+              pos=None):
+        """Layer ``i`` on h."""
+        layer = self.fno_layers[i]
+        if self.remat:
+            layer = remat_block(layer)
+        if self.cond_mode == "film":
+            return layer(h, p=variables)
+        return layer(torch.cat([h, variables_broadcast], dim=1)
+                     if variables_broadcast is not None else h)
+
     def forward(self, h, variables=None, variables_broadcast=None, pos=None):
-        for layer in self.fno_layers:
-            if self.remat:
-                layer = remat_block(layer)
-            if self.cond_mode == "film":
-                h = layer(h, p=variables)
-            else:
-                h = layer(torch.cat([h, variables_broadcast], dim=1)
-                          if variables_broadcast is not None else h)
+        for i in range(self.hidden_blocks):
+            h = self.block(i, h, variables, variables_broadcast, pos)
         return h

@@ -23,6 +23,13 @@ the card) once per apply: ``hidden_blocks * n_experts`` calls.
 (:func:`~nps_tpu_torch.models.common.remat_block`), as the JAX package
 wraps ``FNO_Layer`` in ``nn.remat``. FiLM conditioning is refused.
 
+Under expert parallelism (``parallel.scope`` of an expert axis) rank r of K
+runs only its experts [r E / K, (r + 1) E / K) of each block (the others'
+parameters are empty there): their gated terms, summed in f32, are summed over
+the expert group (``parallel.expert.expert_sum``), and the block's input enters
+the block through ``parallel.tensor.copy_in``, ahead of the experts and of a
+gate that pools it: each rank's gradient into it is partial.
+
 Parameter names (the JAX package stacks each expert's leaves on a leading
 ``E`` axis; :func:`~nps_tpu_torch.compat.jax_weights.from_jax_params`
 splits it): ``processor.P.experts.i.e.<FNO_Layer keys>`` for expert ``e``
@@ -39,6 +46,7 @@ from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.common import REMAT_POLICIES, Dense, remat_block
 from nps_tpu_torch.models.config import compute_dtype_scope
 from nps_tpu_torch.models.fno import FNO_Layer
+from nps_tpu_torch.parallel import expert, tensor
 
 
 class MoEFNO(nn.Module):
@@ -61,6 +69,7 @@ class MoEFNO(nn.Module):
         self.cond_mode = cond_mode
         self.nd = num_spatial_dims
         self.remat, self.remat_policy = bool(remat), remat_policy
+        self.hidden_blocks = int(hidden_blocks)
         self.act = resolve_activation(activation)
         E = int(n_experts)
         hidden_in = (hidden_features + n_cond if cond_mode == "concat"
@@ -83,31 +92,47 @@ class MoEFNO(nn.Module):
                 for _ in range(E))
             for _ in range(hidden_blocks))
 
+    def block(self, i, h, variables=None, variables_broadcast=None,
+              pos=None):
+        """Block ``i`` (the gated mixture of its experts, activated) on h."""
+        gate, experts = self.gate[i], self.experts[i]
+        axis = expert.current()
+        local = range(len(experts))
+        if axis is not None:
+            # every use of h below (the experts and a pooled gate) gives
+            # only this rank's part of its gradient: summed over the group
+            local = range(*axis.part(len(experts)))
+            h = tensor.copy_in(h, axis)
+        h_in = (torch.cat([h, variables_broadcast], dim=1)
+                if (self.cond_mode == "concat"
+                    and variables_broadcast is not None) else h)
+        gate_in = (variables if variables is not None
+                   else h.mean(dim=tuple(range(2, 2 + self.nd))))
+        if gate_in.shape[-1] != self.n_gate_in:
+            raise ValueError(
+                f"the gate was built for {self.n_gate_in} inputs, got "
+                f"{gate_in.shape[-1]} (static conditioning given to a "
+                "model built without it, or the other way round)")
+        # f32 logits and softmax, whatever the compute dtype
+        with compute_dtype_scope(None):
+            g = torch.softmax(gate(gate_in.float()), dim=-1)
+        acc = None
+        for e in local:
+            layer = experts[e]
+            if self.remat:
+                layer = remat_block(layer, self.remat_policy)
+            out = layer(h_in)
+            # g[:, e] rounded to the expert's output type, [b, 1, ...];
+            # the mixture is summed in f32 and rounded once
+            ge = g[:, e].to(out.dtype).float().reshape(
+                (-1,) + (1,) * (out.ndim - 1))
+            term = out.float() * ge
+            acc = term if acc is None else acc + term
+        if axis is not None:
+            acc = expert.expert_sum(acc, axis)
+        return self.act(acc.to(out.dtype))
+
     def forward(self, h, variables=None, variables_broadcast=None, pos=None):
-        for gate, experts in zip(self.gate, self.experts):
-            h_in = (torch.cat([h, variables_broadcast], dim=1)
-                    if (self.cond_mode == "concat"
-                        and variables_broadcast is not None) else h)
-            gate_in = (variables if variables is not None
-                       else h.mean(dim=tuple(range(2, 2 + self.nd))))
-            if gate_in.shape[-1] != self.n_gate_in:
-                raise ValueError(
-                    f"the gate was built for {self.n_gate_in} inputs, got "
-                    f"{gate_in.shape[-1]} (static conditioning given to a "
-                    "model built without it, or the other way round)")
-            # f32 logits and softmax, whatever the compute dtype
-            with compute_dtype_scope(None):
-                g = torch.softmax(gate(gate_in.float()), dim=-1)
-            acc = None
-            for e, expert in enumerate(experts):
-                if self.remat:
-                    expert = remat_block(expert, self.remat_policy)
-                out = expert(h_in)
-                # g[:, e] rounded to the expert's output type, [b, 1, ...];
-                # the mixture is summed in f32 and rounded once
-                ge = g[:, e].to(out.dtype).float().reshape(
-                    (-1,) + (1,) * (out.ndim - 1))
-                term = out.float() * ge
-                acc = term if acc is None else acc + term
-            h = self.act(acc.to(out.dtype))
+        for i in range(self.hidden_blocks):
+            h = self.block(i, h, variables, variables_broadcast, pos)
         return h

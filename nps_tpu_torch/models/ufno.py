@@ -36,6 +36,7 @@ class UFNO(nn.Module):
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"Unknown remat policy {remat_policy!r}")
         self.remat, self.remat_policy = bool(remat), remat_policy
+        self.hidden_blocks = int(hidden_blocks)
         assert cond_mode in ("film", "concat", None), \
             "Incorrect conditioning mode supplied"
         if cond_mode == "film":
@@ -66,13 +67,19 @@ class UFNO(nn.Module):
                 is_attn=tuple(is_attn), mid_attn=mid_attn, n_blocks=n_blocks,
                 use1x1=use1x1, padding_mode=padding_mode))
 
+    def block(self, i, h, variables=None, variables_broadcast=None,
+              pos=None):
+        """Block ``i`` (FNO layer + U-Net, summed, activated) on h."""
+        fno_layer, unet = self.fno_layers[i], self.unet_layers[i]
+        if self.remat:
+            fno_layer = remat_block(fno_layer, self.remat_policy)
+            unet = remat_block(unet, self.remat_policy)
+        h_in = (torch.cat([h, variables_broadcast], dim=1)
+                if variables_broadcast is not None else h)
+        h_unet = unet(h, variables_broadcast=variables_broadcast, pos=pos)
+        return self.act(fno_layer(h_in) + h_unet)
+
     def forward(self, h, variables=None, variables_broadcast=None, pos=None):
-        for fno_layer, unet in zip(self.fno_layers, self.unet_layers):
-            if self.remat:
-                fno_layer = remat_block(fno_layer, self.remat_policy)
-                unet = remat_block(unet, self.remat_policy)
-            h_in = (torch.cat([h, variables_broadcast], dim=1)
-                    if variables_broadcast is not None else h)
-            h_unet = unet(h, variables_broadcast=variables_broadcast, pos=pos)
-            h = self.act(fno_layer(h_in) + h_unet)
+        for i in range(self.hidden_blocks):
+            h = self.block(i, h, variables, variables_broadcast, pos)
         return h

@@ -14,12 +14,24 @@ what the ``gloo`` backend carries for CUDA tensors, so the same code runs a
 world of two ranks sharing one card under gloo and N cards under NCCL
 (which refuses two ranks on one device).
 
-Spatial parallelism (``--trainer.spatial_parallel=K``) lays the world out
-as the JAX package's ``make_grid_mesh`` lays out its devices: a (data, x)
-grid of D x K processes, rank = d * K + s (:class:`Grid`). Rank (d, s) holds
-data slice d of every global batch and rows [s X / K, (s + 1) X / K) of the
-first spatial axis X of every field (:meth:`Grid.shard_batch`, the JAX
-package's ``GridBatchSharding`` role table).
+Spatial, tensor, pipeline and expert parallelism (``--trainer.
+spatial_parallel``, ``tensor_parallel``, ``pipeline_parallel``,
+``expert_parallel`` = K) lay the world out as the JAX package's
+``make_grid_mesh`` and ``make_dp_*_mesh`` lay out its devices: a (data,
+axis) grid of D x K processes, rank = d * K + s (:class:`Grid`), whose
+second axis is named ``x``, ``model``, ``pipe`` or ``expert``. Rank (d, s)
+holds data slice d of every global batch; on the x axis also rows [s X /
+K, (s + 1) X / K) of the first spatial axis X of every field
+(:meth:`Grid.shard_batch`, the JAX package's ``GridBatchSharding`` role
+table).
+
+The optimizer sums each parameter's gradient over the group its tag names
+(:class:`GradSums`): over the data group where every rank of the axis
+group holds the whole gradient of the parameter, or of its own shard
+(``whole``), and over the world where each axis rank holds a part that the
+others' complete (``partial``: every parameter under the x split, a
+pipeline stage, the expert gate). Plain data parallelism sums everything
+over the world.
 """
 
 import os
@@ -91,21 +103,22 @@ def replicate(module, src=0):
     return module
 
 
-def all_reduce_(tensors, op=None):
-    """Sum (or reduce by ``op``) ``tensors`` over the world, in place,
-    through one flat buffer per dtype; a no-op in a world of one."""
-    tensors = [t for t in tensors if t is not None]
-    if world()[1] == 1 or not tensors:
+def all_reduce_(tensors, op=None, group=None, size=None):
+    """Sum (or reduce by ``op``) ``tensors`` over the world (or ``group``
+    of ``size`` ranks), in place, through one flat buffer per dtype; a
+    no-op in a group of one."""
+    tensors = [t for t in tensors if t is not None and t.numel()]
+    if (world()[1] if group is None else size) == 1 or not tensors:
         return tensors
     op = dist.ReduceOp.SUM if op is None else op
     # dtypes in the order of first appearance: the same on every rank
     for dtype in dict.fromkeys(t.dtype for t in tensors):
-        group = [t for t in tensors if t.dtype == dtype]
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, op=op)
-        parts = flat.split([t.numel() for t in group])
-        torch._foreach_copy_(group, [p.view(t.shape)
-                                     for p, t in zip(parts, group)])
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, op=op, group=group)
+        parts = flat.split([t.numel() for t in same])
+        torch._foreach_copy_(same, [p.view(t.shape)
+                                    for p, t in zip(parts, same)])
     return tensors
 
 
@@ -115,20 +128,23 @@ class _GlobalSum(torch.autograd.Function):
     optimizer's all-reduce of the parameter gradients sums the shares."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
-        return grad
+        return grad, None
 
 
-def global_sum(x):
-    """``x`` summed over the world, with this rank's gradient path (see
-    :class:`_GlobalSum`); ``x`` itself in a world of one."""
-    return x if world()[1] == 1 else _GlobalSum.apply(x)
+def global_sum(x, group=None, size=None):
+    """``x`` summed over the world (or ``group`` of ``size`` ranks), with
+    this rank's gradient path (see :class:`_GlobalSum`); ``x`` itself in a
+    group of one."""
+    if (world()[1] if group is None else size) == 1:
+        return x
+    return _GlobalSum.apply(x, group)
 
 
 def gather_rows(x, dim=0, group=None, index=None, size=None):
@@ -153,26 +169,48 @@ _SPATIAL_AXIS = (3, 3, 1, None, None, 2, None)
 
 
 class Grid:
-    """The (data, x) grid of the world for ``spatial_parallel`` = K: D =
+    """The (data, axis) grid of the world for an axis of K ranks (``name``:
+    ``x`` for ``spatial_parallel``, ``model``, ``pipe`` or ``expert``): D =
     world / K data slices of K ranks each, rank = d * K + s. Every rank
-    creates every group, in the same order: the x group of each data slice
-    (:attr:`axis`, a :class:`~nps_tpu_torch.parallel.spatial.SpatialAxis`)
-    and the data group of each x index (:attr:`data_group`)."""
+    creates every group, in the same order: the axis group of each data
+    slice (:attr:`axis`, a
+    :class:`~nps_tpu_torch.parallel.spatial.SpatialAxis`: its group, K and
+    s) and the data group of each axis index (:attr:`data_group`)."""
 
-    def __init__(self, spatial_parallel):
+    def __init__(self, k, name="x"):
         from nps_tpu_torch.parallel.multihost import validate_grid_layout
 
         self.rank, size = world()
-        k = int(spatial_parallel)
-        validate_grid_layout(size, k)
+        k = int(k)
+        validate_grid_layout(size, k, name)
+        self.name = name
         self.data_size = size // k
         self.data_index, s = divmod(self.rank, k)
-        x_groups = [dist.new_group(list(range(d * k, (d + 1) * k)))
-                    for d in range(self.data_size)]
+        axis_groups = [dist.new_group(list(range(d * k, (d + 1) * k)))
+                       for d in range(self.data_size)]
         data_groups = [dist.new_group(list(range(i, size, k)))
                        for i in range(k)]
-        self.axis = SpatialAxis(x_groups[self.data_index], k, s)
+        self.axis = SpatialAxis(axis_groups[self.data_index], k, s,
+                                name=name)
         self.data_group = data_groups[s]
+
+    def sum_group(self):
+        """(group, size) of the step's sums over the batch: the world on
+        the x axis, whose ranks each hold a share of every element's cells;
+        the data group on the others, whose axis ranks hold the same
+        values."""
+        if self.name == "x":
+            return None, self.data_size * self.axis.size
+        return self.data_group, self.data_size
+
+    def broadcast_in_data(self, tensors):
+        """Data slice 0's ``tensors`` (this rank's axis index) on every
+        data slice: the replication of a shard over its data group."""
+        if self.data_size == 1:
+            return
+        for t in tensors:
+            if t.numel():
+                dist.broadcast(t, src=self.axis.index, group=self.data_group)
 
     def shard_batch(self, batch):
         """This rank's rows of every field of the batch tuple (numpy arrays
@@ -194,23 +232,78 @@ class Grid:
 
     def gather_frames(self, x):
         """Frames [b, c, t, local rows, Y] of this rank -> the data slice's
-        whole frames (rows gathered in the x group), then every data
-        slice's in order along the batch: [D * b, c, t, X, Y]."""
-        x = gather_rows(x, 3, self.axis.group, self.axis.index,
-                        self.axis.size)
+        whole frames (rows gathered in the x group; on another axis every
+        rank holds them whole), then every data slice's in order along the
+        batch: [D * b, c, t, X, Y]."""
+        if self.name == "x":
+            x = gather_rows(x, 3, self.axis.group, self.axis.index,
+                            self.axis.size)
         return gather_rows(x, 0, self.data_group, self.data_index,
                            self.data_size)
 
 
-class AllReduceGrads:
-    """The optimizer of plain data parallelism: ``step`` sums every
-    parameter's gradient over the world (the JAX step's gradient
-    all-reduce), then steps ``inner``. The parameter groups are the inner
-    optimizer's, so ``set_learning_rate`` and ``MultiSteps`` reach them."""
+class GradSums:
+    """Which group each parameter's gradient is summed over: entries of
+    (group, size, parameters, partial), group None for the world.
+    :meth:`world` sums every parameter over the world (plain data
+    parallelism). A grid's trainer puts each parameter whose gradient is
+    whole on each axis rank in an entry of the data group, and each whose
+    gradient is partial there (each axis rank holds a part of it) in a
+    ``partial`` entry of the world, where a rank that has no gradient for
+    it (a pipeline stage's, on the ranks that do not run it) adds zeros:
+    the same tensors are then summed on every rank, with no agreement at
+    run time."""
 
-    def __init__(self, inner):
+    def __init__(self, entries):
+        self.entries = [(g, int(n), list(ps), bool(partial))
+                        for g, n, ps, partial in entries]
+        self._size = {id(p): n for _, n, ps, _ in self.entries for p in ps}
+
+    @classmethod
+    def world(cls, params):
+        return cls([(None, world()[1], params, False)])
+
+    def size_of(self, p):
+        """The number of ranks ``p``'s gradient is summed over."""
+        return self._size[id(p)]
+
+    def reduce_(self, params, tensors):
+        """Sum ``tensors`` (one per parameter of ``params``, or None) in
+        place, each over its parameter's group, and return them (a
+        partial entry's None as zeros)."""
+        by_id = {id(p): t for p, t in zip(params, tensors, strict=True)}
+        for group, size, ps, partial in self.entries:
+            if partial and size > 1:
+                for p in ps:
+                    if by_id.get(id(p)) is None:
+                        by_id[id(p)] = torch.zeros_like(p)
+            all_reduce_([by_id.get(id(p)) for p in ps], group=group,
+                        size=size)
+        return [by_id.get(id(p)) for p in params]
+
+
+def sum_grads_(sums, params):
+    """Every parameter's ``.grad`` summed over its group (``sums``)."""
+    grads = sums.reduce_(params, [p.grad for p in params])
+    for p, g in zip(params, grads):
+        if p.grad is None:
+            p.grad = g
+
+
+class AllReduceGrads:
+    """The optimizer of data parallelism: ``step`` sums every parameter's
+    gradient over its group (``sums``, a :class:`GradSums`; the world by
+    default: the JAX step's gradient all-reduce), then steps ``inner``.
+    The parameter groups are the inner optimizer's, so
+    ``set_learning_rate`` and ``MultiSteps`` reach them."""
+
+    def __init__(self, inner, sums=None):
         self.inner = inner
         self.world = world()[1]
+        self.sums = sums or GradSums.world(self._params())
+
+    def _params(self):
+        return [p for g in self.inner.param_groups for p in g["params"]]
 
     @property
     def param_groups(self):
@@ -221,7 +314,7 @@ class AllReduceGrads:
 
     @torch.no_grad()
     def step(self):
-        all_reduce_([p.grad for g in self.param_groups for p in g["params"]])
+        sum_grads_(self.sums, self._params())
         self.inner.step()
 
     def state_dict(self):

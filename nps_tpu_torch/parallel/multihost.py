@@ -40,18 +40,21 @@ def shard_indices_for_process(idx, process_index=None, process_count=None):
 
 
 
-def validate_grid_layout(process_count, spatial_parallel):
+# the config key that sets each grid axis
+AXIS_KEYS = {"x": "spatial_parallel", "model": "tensor_parallel",
+             "pipe": "pipeline_parallel", "expert": "expert_parallel"}
+
+
+def validate_grid_layout(process_count, k, name="x"):
     """The grid's conditions (``validate_grid_mesh_process_layout`` in the
     JAX package, one device per process here): K > 1 divides the world, so
-    that every process owns one (data slice, x index) cell and every data
-    slice is owned whole by the K processes of its x group."""
-    k = int(spatial_parallel)
+    that every process owns one (data slice, axis index) cell and every
+    data slice is owned whole by the K processes of its axis group."""
+    k, key = int(k), AXIS_KEYS[name]
     if k < 2:
-        raise ValueError(f"a (data, x) grid needs spatial_parallel > 1, "
-                         f"got {k}")
+        raise ValueError(f"a (data, {name}) grid needs {key} > 1, got {k}")
     if process_count % k:
         raise ValueError(
-            f"spatial parallelism needs spatial_parallel ({k}) to divide the "
-            f"world of {process_count} processes: an x group split across "
-            f"data slices would need a spatial input slice no loader "
-            f"produces")
+            f"{key} ({k}) must divide the world of {process_count} "
+            f"processes: an {name} group split across data slices would "
+            f"need an input slice no loader produces")

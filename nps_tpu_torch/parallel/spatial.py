@@ -33,9 +33,11 @@ summed on its bit view (int32: gloo carries no int16), so the sum is exact
 in any float type. It moves K times the bytes of a send/receive pair
 (ROADMAP: point-to-point halos under NCCL).
 
-The model code reads the split from :func:`current`, set by the trainer
-and the engine with :func:`scope` around a model apply; without one every
-op runs unsplit. :data:`traffic` counts the collectives and their bytes.
+The model code reads the split from :func:`current`, set by the trainer and the
+engine with :func:`scope` around a model apply; without one every op runs
+unsplit. The one scope carries every regime's axis (tensor, pipeline and expert
+parallelism read theirs by name, ``current(name)``). :data:`traffic` counts the
+collectives and their bytes.
 """
 
 from collections import Counter, namedtuple
@@ -56,18 +58,21 @@ def part(n, k, s):
 
 
 class SpatialAxis:
-    """This rank's place on the x axis: the x group (a process group, or
-    None for the default one), its size K and this rank's index in it.
-    ``rows`` is the global row count of the grid a model apply runs on (set
-    by :meth:`at`)."""
+    """This rank's place on an axis of the grid (``name``: the x axis, or
+    the model, pipe or expert axis of ``parallel.mesh.Grid``): the axis
+    group (a process group, or None for the default one), its size K and
+    this rank's index in it. On the x axis ``rows`` is the global row count
+    of the grid a model apply runs on (set by :meth:`at`); on the pipe axis
+    ``micro`` is the microbatch count (0: one sample each)."""
 
-    def __init__(self, group, size, index, rows=None):
+    def __init__(self, group, size, index, rows=None, name="x", micro=0):
         self.group, self.size, self.index = group, int(size), int(index)
-        self.rows = rows
+        self.rows, self.name, self.micro = rows, name, int(micro)
 
     def at(self, rows):
         """This axis for a grid of ``rows`` global rows."""
-        return SpatialAxis(self.group, self.size, self.index, int(rows))
+        return SpatialAxis(self.group, self.size, self.index, int(rows),
+                           self.name, self.micro)
 
     def part(self, n, s=None):
         """Rows [lo, hi) of rank ``s`` (this rank by default) of ``n``."""
@@ -83,14 +88,22 @@ class SpatialAxis:
 _CURRENT = [None]
 
 
-def current():
-    """The :class:`SpatialAxis` of the model apply in progress, or None."""
+def active():
+    """The grid axis (a :class:`SpatialAxis`) of the model apply in
+    progress, whatever its name, or None."""
     return _CURRENT[-1]
+
+
+def current(name="x"):
+    """The axis named ``name`` of the model apply in progress, or None."""
+    axis = _CURRENT[-1]
+    return axis if axis is not None and axis.name == name else None
 
 
 @contextmanager
 def scope(axis):
-    """Run the model applies inside with ``axis`` (None: unsplit)."""
+    """Run the model applies inside on the grid axis ``axis`` (None:
+    unsplit): each regime's ops read it by its name."""
     _CURRENT.append(axis)
     try:
         yield
@@ -291,6 +304,21 @@ def sharded_spectral_rows_transform(x, c1, s1, axis=None):
     re = torch.einsum("bxmc,xk->bkmc", x, c1)
     im = -torch.einsum("bxmc,xk->bkmc", x, s1)
     return spatial_sum(re, axis), spatial_sum(im, axis)
+
+
+def check(model, k, config):
+    """:func:`check_model` at the grid of ``config`` (the trainer's hook of
+    each regime: ``check``, ``setup``, ``partial_params``)."""
+    check_model(model, int(config.super_resolution[1]), k)
+
+
+def setup(model, axis, config=None):
+    """No weight is split on the x axis (returns None)."""
+
+
+def partial_params(model):
+    """Every parameter: each x rank holds a share of every gradient."""
+    return list(model.parameters())
 
 
 def check_model(model, rows, k):

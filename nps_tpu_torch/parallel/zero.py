@@ -20,16 +20,17 @@ as in the JAX package.
 import torch
 from torch.distributed.optim import ZeroRedundancyOptimizer
 
-from nps_tpu_torch.parallel.mesh import all_reduce_
+from nps_tpu_torch.parallel.mesh import GradSums, sum_grads_
 
 
 class Zero1(ZeroRedundancyOptimizer):
     """The optimizer of ZeRO-1 data parallelism over the process group:
     ``Zero1(params, optimizer_class, **hyperparameters)``.
 
-    ``step`` sums every parameter's gradient over the world (the JAX
-    step's gradient all-reduce), steps this rank's share and broadcasts
-    it. ``param_groups`` hold every parameter, so ``set_learning_rate``
+    ``step`` sums every parameter's gradient over its group (``sums``, a
+    :class:`~nps_tpu_torch.parallel.mesh.GradSums`; the world by default:
+    the JAX step's gradient all-reduce), steps this rank's share and
+    broadcasts it. ``param_groups`` hold every parameter, so ``set_learning_rate``
     and ``MultiSteps`` see it as an unsharded optimizer. ``state_dict`` is
     a collective (every rank calls it): it returns the whole state in the
     unsharded optimizer's format on rank 0, where checkpoints are written,
@@ -37,13 +38,20 @@ class Zero1(ZeroRedundancyOptimizer):
     every rank and keeps this rank's share, so a checkpoint moves between
     ZeRO-1 and plain data parallelism."""
 
+    def __init__(self, params, optimizer_class, sums=None, **kwargs):
+        super().__init__(params, optimizer_class, **kwargs)
+        self.sums = sums or GradSums.world(self._params())
+
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
     @property
     def world(self):
         return self.world_size
 
     @torch.no_grad()
     def step(self, closure=None):
-        all_reduce_([p.grad for g in self.param_groups for p in g["params"]])
+        sum_grads_(self.sums, self._params())
         return super().step(closure)
 
     def state_dict(self):

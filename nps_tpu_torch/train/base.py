@@ -37,15 +37,33 @@ processes out as a (data, x) grid (``parallel.Grid``; the JAX trainer's
 ``make_grid_mesh``): rank (d, s) trains on data slice d of each global
 batch (``rank`` and ``world`` are d and D) and holds rows [s X / K,
 (s + 1) X / K) of every field, and the model applies run inside
-``parallel.spatial.scope``, where the ops whose result crosses rows take
-their halos and partial sums from the x group. The optimizer's sum over
-the world adds the data slices' and the x ranks' shares of every gradient.
-The grid model families run it (``parallel.spatial.check_model``); the others,
-and rows that do not split over K * 2^levels of the U-Net, raise. Not
-ported, and refused with ``NotImplementedError`` naming the ROADMAP item:
-tensor, pipeline and expert parallelism above 1 (P9b items 4-6).
-Parameters are a ``state_dict`` of the PyTorch reference's key names
-(``.pt``), which ``nps_tpu.compat.convert_state_dict`` reads.
+``parallel.scope`` of the x axis, where the ops whose result crosses rows
+take their halos and partial sums from the x group. The optimizer's sum
+over the world adds the data slices' and the x ranks' shares of every
+gradient. The grid model families run it (``parallel.spatial.check``); the
+others, and rows that do not split over K * 2^levels of the U-Net, raise.
+
+``tensor_parallel``, ``pipeline_parallel`` (with ``pipeline_microbatches``)
+and ``expert_parallel`` = K (with ``data_parallel``) lay the world out as a
+(data, model), (data, pipe) or (data, expert) grid the same way
+(``parallel.Grid``); rank (d, s) trains on data slice d, and the model
+applies run inside ``parallel.scope`` of the axis, whose regime reads it:
+``parallel.tensor`` (each rank holds its share of the split weights' output
+channels), ``parallel.pipeline`` (the processor's stages streamed over the
+pipe group, the parameters replicated) or ``parallel.expert`` (each rank
+holds its experts). The trainer reaches each regime through the same hooks
+of its module (:data:`_REGIME_MODULES`). Each parameter is tagged once, by
+the modules that own it (the regime's ``partial_params``;
+:meth:`TrainInterface._grad_sums`): ``whole`` (the same gradient, or the
+gradient of its own shard, on every axis rank: summed over the data group)
+or ``partial`` (a part on each axis rank: summed over the world). The step's
+loss and evaluation sum over the data group, whose axis ranks hold the same
+values. A regime combines with data parallelism only (a second regime
+raises); ``zero1`` is refused under tensor and expert parallelism, as in
+the JAX package. Parameters are a ``state_dict`` of the PyTorch reference's
+key names (``.pt``), which ``nps_tpu.compat.convert_state_dict`` reads; a
+sharded model's, and its optimizer state, are gathered whole before they
+are written.
 """
 
 import functools
@@ -72,7 +90,8 @@ from nps_tpu_torch.data.samplers import VariableTimeBatchSampler
 from nps_tpu_torch.inference import autotuned_convs, resolve_device
 from nps_tpu_torch.models.config import (compute_dtype_scope,
                                          resolve_compute_dtype)
-from nps_tpu_torch.parallel import spatial
+from nps_tpu_torch.parallel import expert, pipeline, spatial, tensor
+from nps_tpu_torch.parallel.multihost import AXIS_KEYS
 from nps_tpu_torch.models.initializers import reset_parameters
 from nps_tpu_torch.train import optim as optim_lib
 from nps_tpu_torch.utils import misc as util
@@ -83,10 +102,16 @@ try:
 except ModuleNotFoundError:
     wandb = None
 
-# the parallel regimes the port does not have yet: (config key, its item
-# of ROADMAP P9b); a value above 1 asks for it
-_UNPORTED = (("tensor_parallel", 4), ("pipeline_parallel", 5),
-             ("expert_parallel", 6))
+# each grid axis: (what the regime does, its item of ROADMAP P9b)
+_REGIMES = {"x": ("spatial parallelism", 3),
+            "model": ("tensor parallelism", 4),
+            "pipe": ("pipeline parallelism", 5),
+            "expert": ("expert parallelism", 6)}
+# each grid axis's module, with the trainer's hooks of its regime: check,
+# setup, partial_params (and under tensor and expert parallelism, whose
+# setup returns the specs of the split weights, shard_state and merge)
+_REGIME_MODULES = {"x": spatial, "model": tensor, "pipe": pipeline,
+                   "expert": expert}
 
 
 def world_size():
@@ -97,31 +122,49 @@ def world_size():
     return max(group, int(os.environ.get("WORLD_SIZE") or 1))
 
 
+def grid_axis(config):
+    """(axis name, K) of the config's grid regime (a value above 1), or
+    None; two regimes raise ``NotImplementedError`` naming their items:
+    each composes with data parallelism only."""
+    asked = [(name, int(getattr(config, key, 0) or 0))
+             for name, key in AXIS_KEYS.items()
+             if int(getattr(config, key, 0) or 0) > 1]
+    if len(asked) > 1:
+        raise NotImplementedError(
+            " and ".join(f"{AXIS_KEYS[n]}={k} ({_REGIMES[n][0]}, ROADMAP "
+                         f"P9b item {_REGIMES[n][1]})" for n, k in asked)
+            + ": each composes with data parallelism only; set one")
+    return asked[0] if asked else None
+
+
 def refuse_unported(config):
-    """Raise for a config the port cannot train as asked: a parallel regime
-    it does not have yet (``NotImplementedError`` naming its ROADMAP P9b
-    item), ``zero1`` without data parallelism, and a world of more than one
-    process without data parallelism or without a process group (each
-    process would train its own model; ``ValueError``, ``RuntimeError``).
-    ``expert_parallel`` 0 or 1 is the single-device step."""
-    for key, item in _UNPORTED:
-        value = getattr(config, key, None)
-        if int(value or 0) > 1:
-            raise NotImplementedError(
-                f"trainer.{key}={value!r} is not ported yet (ROADMAP P9b "
-                f"item {item})")
+    """Raise for a config the port cannot train as asked: two grid regimes
+    at once (``NotImplementedError`` naming their ROADMAP P9b items), a
+    regime or ``zero1`` without data parallelism, ``zero1`` under tensor or
+    expert parallelism (``ValueError``), a regime without a process group
+    (``RuntimeError`` naming its item), and a world of more than one process
+    without data parallelism or without a process group (each process would
+    train its own model; ``ValueError``, ``RuntimeError``). A regime of 0
+    or 1 is the single-device step."""
+    regime = grid_axis(config)
     dp = bool(getattr(config, "data_parallel", False))
-    k = int(getattr(config, "spatial_parallel", 0) or 0)
-    if k > 1 and not dp:
-        raise ValueError(
-            f"spatial_parallel={k} splits the world into a (data, x) grid "
-            f"of processes: enable trainer.data_parallel")
-    if k > 1 and not dist.is_initialized():
-        raise RuntimeError(
-            f"spatial_parallel={k} (ROADMAP P9b item 3) needs a "
-            f"torch.distributed group of a multiple of {k} processes: call "
-            f"nps_tpu_torch.parallel.init_distributed first (the CLI's "
-            f"--trainer.distributed)")
+    if regime is not None:
+        name, k = regime
+        key, (what, item) = AXIS_KEYS[name], _REGIMES[name]
+        if not dp:
+            raise ValueError(
+                f"{key}={k} splits the world into a (data, {name}) grid of "
+                f"processes: enable trainer.data_parallel")
+        if getattr(config, "zero1", False) and name in ("model", "expert"):
+            raise ValueError(
+                f"zero1 is redundant under {key}: the {what} already shards "
+                f"the optimizer state with the weights")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"{key}={k} (ROADMAP P9b item {item}) needs a "
+                f"torch.distributed group of a multiple of {k} processes: "
+                f"call nps_tpu_torch.parallel.init_distributed first (the "
+                f"CLI's --trainer.distributed)")
     if getattr(config, "zero1", False) and not dp:
         raise ValueError(
             "zero1=true shards the optimizer state over the data-parallel "
@@ -146,6 +189,17 @@ def in_compute_dtype(method):
         with compute_dtype_scope(self.compute_dtype):
             return method(self, *args, **kwargs)
     return run
+
+
+def _cpu(obj):
+    """``obj`` with every tensor in it on the CPU (dicts and lists)."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu(v) for v in obj)
+    return obj
 
 
 def _weighted_add(acc, v, bs):
@@ -188,14 +242,10 @@ class TrainInterface(metaclass=ABCMeta):
         self.process_rank, self.process_count = (
             parallel.world() if self.data_parallel else (0, 1))
         self.rank, self.world = self.process_rank, self.process_count
-        self.grid = None
-        k = int(getattr(self.config, "spatial_parallel", 0) or 0)
-        if k > 1:
-            spatial.check_model(self.model,
-                                int(self.config.super_resolution[1]), k)
-            self.grid = parallel.Grid(k)
-            self.rank, self.world = (self.grid.data_index,
-                                     self.grid.data_size)
+        self.grid = self._regime = self._specs = None
+        regime = grid_axis(self.config) if self.data_parallel else None
+        if regime is not None:
+            self._set_up_grid(*regime)
         self.compute_dtype = resolve_compute_dtype(
             getattr(self.config, "compute_dtype", None))
 
@@ -224,6 +274,106 @@ class TrainInterface(metaclass=ABCMeta):
         self.lr_scheduler = None
         self.start_epoch = 0
 
+    def _set_up_grid(self, name, k):
+        """The (data, ``name``) grid of K through the regime's hooks
+        (:data:`_REGIME_MODULES`): the model and config checked (what the
+        regime cannot take raises), the grid's groups, the data slice as
+        this trainer's rank and world, and under tensor and expert
+        parallelism this rank's share of the weights."""
+        regime = self._regime = _REGIME_MODULES[name]
+        regime.check(self.model, k, self.config)
+        self.grid = parallel.Grid(k, name)
+        self.rank, self.world = self.grid.data_index, self.grid.data_size
+        self._whole_shapes = {key: t.shape for key, t in
+                              self.model.state_dict().items()}
+        self._specs = regime.setup(self.model, self.grid.axis, self.config)
+        if self._specs is not None:
+            self._load_whole(self.model.state_dict())
+
+    def model_scope(self, x):
+        """The model applies' ``parallel.scope``: this rank's grid axis (on
+        the x axis at the grid of the global batch's fields, ``x`` the
+        position grid [b, local rows, Y, d]), or none."""
+        g = self.grid
+        if g is None:
+            return parallel.scope(None)
+        if g.name == "x":
+            return parallel.scope(g.axis.at(x.shape[1] * g.axis.size))
+        return parallel.scope(g.axis)
+
+    def _grad_sums(self, params):
+        """Each parameter's tag, as the group its gradient is summed over
+        (``parallel.GradSums``): everything over the world without a grid;
+        on a grid the regime's ``partial_params`` (a part of the gradient
+        on each axis rank: every parameter on the x axis, the encoder and
+        the stages under pipeline parallelism, the gates under expert
+        parallelism) over the world, the rest (whole, or its own shard's,
+        on each axis rank) over the data group."""
+        g = self.grid
+        if g is None:
+            return parallel.GradSums.world(params)
+        partial = {id(p) for p in self._regime.partial_params(self.model)}
+        return parallel.GradSums([
+            (g.data_group, g.data_size,
+             [p for p in params if id(p) not in partial], False),
+            (None, world_size(), [p for p in params if id(p) in partial],
+             True)])
+
+    def global_sum(self, x):
+        """``x`` summed over the global batch (``parallel.global_sum``: over
+        the world, or a grid's :meth:`~parallel.Grid.sum_group`)."""
+        if self.grid is None:
+            return parallel.global_sum(x)
+        return parallel.global_sum(x, *self.grid.sum_group())
+
+    # ------------------------------------------------------------------
+    # the weights of a sharded model (tensor and expert parallelism)
+    # ------------------------------------------------------------------
+    def _load_whole(self, state):
+        """Load a whole ``state_dict``: this rank's share of it under tensor
+        and expert parallelism."""
+        if self._specs is None:
+            self.model.load_state_dict(state)
+            return
+        local = self._regime.shard_state(state, self.grid.axis, self._specs)
+        with torch.no_grad():
+            for key, p in self.model.named_parameters():
+                p.data = local[key].to(p.device, p.dtype).clone()
+        for key, b in self.model.named_buffers():
+            b.copy_(local[key])
+
+    def whole_state(self):
+        """The model's whole ``state_dict`` (a collective under tensor and
+        expert parallelism: every rank calls it; the split tensors gathered
+        over the axis group, bit for bit)."""
+        return self._gather(self.model.state_dict())
+
+    def whole_grads(self):
+        """{parameter name: its whole gradient} (zeros where it has none;
+        a collective under tensor and expert parallelism, as
+        :meth:`whole_state`)."""
+        return self._gather({
+            k: (torch.zeros_like(p) if p.grad is None else p.grad).detach()
+            for k, p in self.model.named_parameters()})
+
+    def _gather(self, state):
+        """The whole tensors of ``state`` ({parameter or buffer name: this
+        rank's share}) from every axis rank's share, through the regime's
+        ``merge`` (a collective of the axis group under tensor and expert
+        parallelism, on the host), each on its share's device."""
+        if self._specs is None:
+            return state
+        shares = self._axis_shares(state)
+        return {key: self._regime.merge([s[key] for s in shares],
+                                        self._specs.get(key)).to(t.device)
+                for key, t in state.items()}
+
+    def _axis_shares(self, obj):
+        """Every axis rank's ``obj`` (on the host), in rank order."""
+        shares = [None] * self.grid.axis.size
+        dist.all_gather_object(shares, _cpu(obj), group=self.grid.axis.group)
+        return shares
+
     def __repr__(self):
         return self.__class__.__name__
 
@@ -245,19 +395,34 @@ class TrainInterface(metaclass=ABCMeta):
         config's seed by default), on the host, so a seed gives the same
         weights on any device."""
         seed = get_seed() if seed is None else seed
+        if self._specs is not None:
+            # the whole weights, drawn as one process draws them
+            with torch.no_grad():
+                for key, p in self.model.named_parameters():
+                    p.data = p.new_empty(self._whole_shapes[key])
         reset_parameters(self.model, torch.Generator().manual_seed(seed))
-        self._replicate()
+        if self._specs is not None:
+            parallel.replicate(self.model)
+            self._load_whole(self.model.state_dict())
+        else:
+            self._replicate()
         self.initialized = True
 
     def _replicate(self):
         """Data parallelism: every rank takes rank 0's parameters and
-        buffers (a collective: every rank calls it)."""
-        if self.data_parallel:
+        buffers (a collective: every rank calls it); under tensor and
+        expert parallelism every data slice takes data slice 0's shard."""
+        if not self.data_parallel:
+            return
+        if self._specs is not None:
+            self.grid.broadcast_in_data([*self.model.parameters(),
+                                         *self.model.buffers()])
+        else:
             parallel.replicate(self.model)
 
     def load_jax_params(self, tree):
         """Load an ``nps_tpu`` parameter tree (nested dicts of arrays)."""
-        self.model.load_state_dict(from_jax_params(tree))
+        self._load_whole(from_jax_params(tree))
         self._replicate()
         self.initialized = True
         return self
@@ -288,18 +453,21 @@ class TrainInterface(metaclass=ABCMeta):
             raise ValueError("zero1 builds its optimizer over this rank's "
                              "share of the parameters: give the optimizer "
                              "as a config dict")
+        params = list(self.model.parameters())
         if zero1:
             cls, kw = optim_lib.optimizer_class(**spec)
-            self.optimizer = parallel.Zero1(self.model.parameters(), cls,
+            self.optimizer = parallel.Zero1(params, cls,
+                                            sums=self._grad_sums(params),
                                             **kw)
             self.base_lr = float(kw["lr"])
         elif isinstance(spec, dict):
             self.optimizer, self.base_lr = optim_lib.build_optimizer(
-                self.model.parameters(), **spec)
+                params, **spec)
         else:
             self.optimizer, self.base_lr = spec
         if self.data_parallel and not zero1:
-            self.optimizer = parallel.AllReduceGrads(self.optimizer)
+            self.optimizer = parallel.AllReduceGrads(
+                self.optimizer, self._grad_sums(params))
         accum = int(getattr(self.config, "grad_accum", 0) or 0)
         if accum > 1:
             self.optimizer = optim_lib.MultiSteps(self.optimizer, accum)
@@ -395,19 +563,11 @@ class TrainInterface(metaclass=ABCMeta):
         """The loader's batches on the device; under spatial parallelism
         this rank's rows of each (cut on the host before the copy)."""
         batches = iter(loader)
-        if self.grid is not None:
+        if self.grid is not None and self.grid.name == "x":
             batches = map(self.grid.shard_batch, batches)
         if getattr(loader, "device_resident", False):
             return batches
         return prefetch_to_device(batches, self.device)
-
-    def spatial_scope(self, x):
-        """The model applies' split: ``parallel.spatial.scope`` of this
-        rank's x group at the grid of the global batch's fields (``x`` the
-        position grid [b, local rows, Y, d]), or no split."""
-        if self.grid is None:
-            return spatial.scope(None)
-        return spatial.scope(self.grid.axis.at(x.shape[1] * self.grid.axis.size))
 
     # ------------------------------------------------------------------
     # the step contract
@@ -739,18 +899,19 @@ class TrainInterface(metaclass=ABCMeta):
     def save_model(self, save_name):
         """Write the model's ``state_dict`` (CPU tensors) to
         ``save_name`` (``.pt`` unless it has an extension)."""
+        state = self.whole_state()
         if not self._is_writer_process():
             return
         root, ext = os.path.splitext(save_name)
         save_name = root + (ext or ".pt")
         os.makedirs(os.path.dirname(save_name) or ".", exist_ok=True)
-        torch.save({k: v.detach().cpu()
-                    for k, v in self.model.state_dict().items()}, save_name)
+        torch.save({k: v.detach().cpu() for k, v in state.items()},
+                   save_name)
         print(f"Saved model at {save_name}")
 
     def load_model(self, save_name):
         state = torch.load(save_name, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(state)
+        self._load_whole(state)
         self._replicate()
         self.initialized = True
 
@@ -771,14 +932,13 @@ class TrainInterface(metaclass=ABCMeta):
         parallelism every rank calls it (ZeRO-1's state is gathered on
         rank 0) and rank 0 writes it; the generators are the same on
         every rank."""
-        optimizer = (self.optimizer.state_dict()
-                     if self.optimizer is not None else None)
+        optimizer = self._optimizer_state()
+        model = self.whole_state()
         if not self._is_writer_process():
             return
         state = dict(
             epoch=epoch,
-            model={k: v.detach().cpu()
-                   for k, v in self.model.state_dict().items()},
+            model={k: v.detach().cpu() for k, v in model.items()},
             optimizer=optimizer,
             lr_epoch=getattr(self.lr_scheduler, "epoch", 0),
             min_val_loss=min_val_loss or {},
@@ -796,6 +956,67 @@ class TrainInterface(metaclass=ABCMeta):
         torch.save(state, tmp)
         os.replace(tmp, path)
         print(f"Saved checkpoint at {path} (epoch {epoch})")
+
+    def _optimizer_state(self):
+        """The optimizer's state for a checkpoint (a collective). Under
+        tensor and expert parallelism each parameter's state (Adam's
+        moments, an accumulated gradient) is gathered whole, as the weights
+        are, so that one process or any grid resumes it."""
+        if self.optimizer is None:
+            return None
+        state = self.optimizer.state_dict()
+        if self._specs is None:
+            return state
+        names = [name for name, _ in self.model.named_parameters()]
+        return self._map_param_state(
+            self._axis_shares(state),
+            lambda i, values: self._regime.merge(values,
+                                                 self._specs.get(names[i])))
+
+    def _shard_optimizer_state(self, state):
+        """This rank's share of a whole optimizer state (each tensor shaped
+        as its whole parameter split as the parameter is); the state of a
+        parameter this rank holds nothing of is dropped."""
+        if self._specs is None or state is None:
+            return state
+        axis, shapes = self.grid.axis, self._whole_shapes
+        names, held = zip(*((name, p.numel() > 0) for name, p
+                            in self.model.named_parameters()))
+
+        def share(i, values):
+            name, v = names[i], values[0]
+            if not held[i] or v is None:
+                return None
+            if v.shape != shapes[name]:   # a step count
+                return v
+            return self._regime.shard_state({name: v}, axis,
+                                            self._specs)[name]
+
+        return self._map_param_state([state], share)
+
+    @staticmethod
+    def _map_param_state(states, fn):
+        """One optimizer ``state_dict`` from ``states`` (several of the same
+        optimizer's, the first's structure kept: a torch optimizer's, or a
+        ``MultiSteps``' around one) with each per-parameter tensor
+        ``fn(index, [its value in each state, or None])``; an entry whose
+        tensors all map to None is left out."""
+        first = states[0]
+        if "inner" in first:
+            acc = [fn(i, [s["acc_grads"][i] for s in states])
+                   if any(s["acc_grads"][i] is not None for s in states)
+                   else None for i in range(len(first["acc_grads"]))]
+            return dict(first, acc_grads=acc, inner=TrainInterface.
+                        _map_param_state([s["inner"] for s in states], fn))
+        out = {}
+        for i in sorted({i for s in states for i in s["state"]}):
+            entries = [s["state"].get(i) for s in states]
+            fields = next(e for e in entries if e is not None)
+            entry = {f: fn(i, [None if e is None else e[f] for e in entries])
+                     for f in fields}
+            if any(v is not None for v in entry.values()):
+                out[i] = entry
+        return dict(first, state=out)
 
     def maybe_resume(self, train_loader=None):
         if not getattr(self.config, "resume", False):
@@ -817,10 +1038,11 @@ class TrainInterface(metaclass=ABCMeta):
         # this program's own file: it holds numpy and python RNG states,
         # which the weights-only loader refuses
         state = torch.load(path, map_location="cpu", weights_only=False)
-        self.model.load_state_dict(state["model"])
+        self._load_whole(state["model"])
         self.initialized = True
-        if self.optimizer is not None and state["optimizer"] is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
+        optimizer = self._shard_optimizer_state(state["optimizer"])
+        if self.optimizer is not None and optimizer is not None:
+            self.optimizer.load_state_dict(optimizer)
         self.start_epoch = state["epoch"]
         self._resumed_min_val_loss = dict(state.get("min_val_loss", {}))
         if train_loader is not None and "loader_rng" in state \

@@ -22,8 +22,6 @@ nothing, and the boundary syncs once.
 import numpy as np
 import torch
 
-from nps_tpu_torch.parallel.mesh import all_reduce_
-
 
 def optimizer_class(object="optim.Adam", lr=1e-3, **kwargs):
     """-> (torch optimizer class, its keyword arguments) of a config's
@@ -123,11 +121,11 @@ class MultiSteps:
     sum and its counter belong to the state: :meth:`state_dict` holds them,
     so they carry over an epoch's end and through a checkpoint.
 
-    Under data parallelism (an inner optimizer with ``world`` > 1) each
-    rank's partial sum is its own until the boundary: :meth:`state_dict`
-    sums them over the world (every rank calls it) and
-    :meth:`load_state_dict` gives each rank 1/world of that sum, which the
-    boundary's all-reduce adds up to the same total."""
+    Under data parallelism (an inner optimizer with ``sums``) each rank's
+    partial sum is its own until the boundary: :meth:`state_dict` sums them,
+    each over its parameter's group (every rank calls it), and
+    :meth:`load_state_dict` gives each rank 1/n of that sum (n the group's
+    ranks), which the boundary's all-reduce adds up to the same total."""
 
     def __init__(self, optimizer, every):
         if int(every) < 2:
@@ -159,14 +157,15 @@ class MultiSteps:
         self.inner.step()
         self.mini_step = 0
 
-    def _world(self):
-        return getattr(self.inner, "world", 1)
+    def _sums(self):
+        return getattr(self.inner, "sums", None)
 
     def state_dict(self):
+        params = self._params()
         acc = [None if p.grad is None or self.mini_step == 0
-               else p.grad.detach().clone() for p in self._params()]
-        if self._world() > 1:
-            all_reduce_(acc)
+               else p.grad.detach().clone() for p in params]
+        if self._sums() is not None:
+            acc = self._sums().reduce_(params, acc)
         return {"inner": self.inner.state_dict(), "every": self.every,
                 "mini_step": self.mini_step,
                 "acc_grads": [None if g is None else g.cpu() for g in acc]}
@@ -177,8 +176,9 @@ class MultiSteps:
                              f"mini-steps, this run over {self.every}")
         self.inner.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
-        n = self._world()
+        sums = self._sums()
         for p, g in zip(self._params(), state["acc_grads"], strict=True):
+            n = 1 if sums is None else sums.size_of(p)
             p.grad = None if g is None else g.to(p.device, p.dtype) / n
 
 

@@ -52,10 +52,16 @@ sums), and ``test_step`` sums every rank's losses over the global batch.
 Under spatial parallelism (``TrainInterface.grid``) the ranks of one x
 group hold the same elements (the draws are the data slice's: ``rank`` and
 ``world`` are the data index and extent) and their own rows of every field;
-each model apply runs inside the trainer's ``spatial_scope``; the loss and
+each model apply runs inside the trainer's ``model_scope``; the loss and
 every evaluation value are sums over cells, so the world's sum adds the
 x ranks' shares; ``test_step``'s frames are gathered over the x group, then
-over the data slices.
+over the data slices. Under tensor, pipeline and expert parallelism the
+ranks of one axis group hold the same elements and compute the same loss
+and evaluation, so those sum over the data group only
+(``TrainInterface.global_sum``); every model apply, the no-grad pushforward
+and ``simulate``'s included, runs inside ``model_scope`` (pipelined,
+sharded or split over the experts); the MP-GNN refuses pipeline
+parallelism.
 
 GNN models (``M.AR_TB_GNN``) take the same steps: at the model boundary the
 grid window goes to node space and back (two reshapes) over a static graph
@@ -157,7 +163,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
 
     def _apply(self, data, cond, bc, x, t_cond, spatial_cond):
         if self.grid is not None:
-            with self.spatial_scope(x):
+            with self.model_scope(x):
                 return self.model(data, cond=cond, bc=bc, pos=x,
                                   t_cond=t_cond, spatial_cond=spatial_cond)
         if self._is_gnn():
@@ -247,8 +253,8 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                                     set_bc=True, set_min=True)
             sq = self.criterion(pred, labels)
             if self.data_parallel:
-                # the root is taken of the world's sum of squares
-                sq = parallel.global_sum(sq)
+                # the root is taken of the global batch's sum of squares
+                sq = self.global_sum(sq)
             loss = torch.sqrt(sq)
         with record_function("train_step/backward"):
             loss.backward()
@@ -324,7 +330,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         if self.data_parallel:
             # each value is a sum over the elements (and, split, over this
             # rank's cells) over b: the world's sums over the global batch
-            vals = parallel.global_sum(vals * b) / (b * self.world)
+            vals = self.global_sum(vals * b) / (b * self.world)
         vals = vals.tolist()
         info = {"Unrolled base losses": vals[1],
                 "Unrolled forward losses": vals[0],
@@ -404,7 +410,7 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                  u_bc=None, u_mask=None, divide_by_t=True):
         """Rollout API on numpy inputs; returns numpy as the JAX package's:
         losses (a list), (losses, (gt, pred)) or pred."""
-        if self.grid is not None:
+        if self.grid is not None and self.grid.name == "x":
             raise NotImplementedError(
                 "simulate() on a row-split trainer is not ported (ROADMAP "
                 "P9b item 3): evaluate with test(), or serve with "

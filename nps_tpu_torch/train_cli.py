@@ -28,6 +28,13 @@ holding 1 / K of the rows of every field (``nps_tpu_torch.parallel.spatial``):
     torchrun --nproc_per_node=N -m nps_tpu_torch.train_cli -C CFG \
         --trainer.distributed=auto --trainer.data_parallel=true \
         --trainer.spatial_parallel=K
+
+or, in its place, ``--trainer.tensor_parallel=K`` (each rank holds 1 / K of
+the output channels of the split weights, ``parallel.tensor``),
+``--trainer.pipeline_parallel=K`` with ``--trainer.pipeline_microbatches=M``
+(the processor's stages streamed over K ranks, ``parallel.pipeline``) or
+``--trainer.expert_parallel=K`` (the MoE's experts split over K ranks,
+``parallel.expert``): a (data, model), (data, pipe) or (data, expert) grid.
 """
 
 import os

@@ -747,14 +747,14 @@ def test_two_rank_var_t_epoch(tmp_path):
                                       ("pipeline_parallel", 5),
                                       ("expert_parallel", 6)])
 def test_other_regimes_refused_naming_their_item(key, item):
-    """Tensor, pipeline and expert parallelism above 1 are not ported
-    (``NotImplementedError``); spatial parallelism is (item 3,
-    tests/test_torch_spatial.py), and without a process group for its grid
-    it is refused with a ``RuntimeError`` that names its item."""
+    """Spatial, tensor, pipeline and expert parallelism are ported (items
+    3-6: tests/test_torch_spatial.py, test_torch_tensor_parallel.py,
+    test_torch_pipeline_parallel.py, test_torch_expert_parallel.py);
+    without a process group for its grid each is refused with a
+    ``RuntimeError`` that names its item."""
     from nps_tpu_torch.train import base as train_base
 
-    kind = RuntimeError if key == "spatial_parallel" else NotImplementedError
-    with pytest.raises(kind, match=f"P9b item {item}"):
+    with pytest.raises(RuntimeError, match=f"P9b item {item}"):
         train_base.refuse_unported(Namespace(data_parallel=True, **{key: 2}))
     train_base.refuse_unported(Namespace(data_parallel=True, **{key: 1}))
 

@@ -270,8 +270,9 @@ def test_data_parallel_in_one_process(data_root, tmp_path, monkeypatch):
     single-device step. A world of two is this rank's share of the global
     batch (P9b items 1-2; tests/test_torch_distributed.py trains such
     worlds); refused still: a launcher's ``WORLD_SIZE`` of two with no
-    process group, a world of two without ``data_parallel``, and tensor
-    parallelism (P9b item 4)."""
+    process group and a world of two without ``data_parallel``. In that
+    world tensor parallelism (P9b item 4) is accepted, and refused with
+    ``zero1`` or beside a second regime."""
     tr = _port(data_root, tmp_path, data_parallel=True)
     tr.ensure_initialized()
     ref = _port(data_root, tmp_path, "ref")
@@ -294,9 +295,15 @@ def test_data_parallel_in_one_process(data_root, tmp_path, monkeypatch):
     assert (two.data_parallel, two.rank, two.world) == (True, 0, 2)
     with pytest.raises(ValueError, match="data_parallel"):
         train_base.refuse_unported(Namespace(data_parallel=False))
+    train_base.refuse_unported(Namespace(data_parallel=True,
+                                         tensor_parallel=2))
+    with pytest.raises(ValueError, match="zero1"):
+        train_base.refuse_unported(Namespace(data_parallel=True,
+                                             tensor_parallel=2, zero1=True))
     with pytest.raises(NotImplementedError, match="P9b item 4"):
         train_base.refuse_unported(Namespace(data_parallel=True,
-                                             tensor_parallel=2))
+                                             tensor_parallel=2,
+                                             spatial_parallel=2))
 
 
 def test_cli_epoch_with_grad_accum_flag(data_root, tmp_path):

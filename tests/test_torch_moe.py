@@ -371,11 +371,13 @@ def test_film_is_refused():
 
 @pytest.mark.parametrize("ep", [0, 1, 2])
 def test_expert_parallel_above_one_is_refused(ep):
-    """expert_parallel 0 and 1 are the single-device step; 2 shards the
-    experts over devices, not ported (P9b)."""
+    """expert_parallel 0 and 1 are the single-device step; 2 splits the
+    experts over the ranks of a (data, expert) grid
+    (tests/test_torch_expert_parallel.py), and without data parallelism it
+    is refused."""
     config = Namespace(expert_parallel=ep, data_parallel=False)
     if ep > 1:
-        with pytest.raises(NotImplementedError, match="P9b"):
+        with pytest.raises(ValueError, match="data_parallel"):
             train_base.refuse_unported(config)
     else:
         train_base.refuse_unported(config)
