@@ -211,6 +211,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              It runs neither K1 nor K2 (its spectral conv is
              torch.einsum, as JAX's is XLA's): every launch count stays 0,
              and the kernels line gains no entry for it;
+8d. p13a   - the model pieces no shipped config uses, at full width, f32,
+             TF32 off, on the twophase split (one line each): the
+             time-conditioned U-FNO (cfg_twophase_ufno_tcond: a BC
+             encoder of 8 outputs over the split's 2-channel x 501-frame
+             t_conditioning memmap, named by --dataset.t_conditioning, so
+             K1 takes 204 channels and the U-Net blocks' K2 8 more)
+             trained by the family path (one epoch at batch 16 with its
+             evaluation's test_step, steps at depths 0 and 8, a depth-1
+             step card vs CPU, both kernel ops at every train-step shape),
+             then K1 and K2 (forward and backward) timed and held at its
+             largest new shapes (kept in the kernels line under
+             tcond_shape); the engine serves no BC encoder, as the JAX
+             package's cannot; cfg_twophase_unet with attention on its two
+             deepest levels and in the middle, served (eager, captured)
+             and trained by the family paths; the 3D FNO and Dilated
+             ResNet (32 features, 2 blocks, 8x8x8 modes, 64x64x32, time
+             window 4, batch 2; no shipped config): forward and one grad
+             step card vs CPU (forward and loss 1e-4, gradients 5e-3),
+             with their times;
 9. export  - the slice's U-FNO exported on the card (torch.export of one
              bundled step, symbolic batch, 19 steps; the kernels stay the
              custom ops nps_torch::gn1_gelu_fwd and
@@ -248,9 +267,10 @@ backwards run through the autograd engine, which a graph captured apart
 from its forward cannot replay, so theirs are eager calls between two CUDA
 events.
 
-Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Exits non-zero, printing no result, without a CUDA device or outside
-a checkout of the repo. Longer outputs (ptxas reports) go to ``--out``.
+Then each phase's seconds on one line, a ``{"kernels": [...]}`` line and,
+last, the ``{"ok": true, ...}`` line. Exits non-zero, printing no result,
+without a CUDA device or outside a checkout of the repo. Longer outputs
+(ptxas reports) go to ``--out``.
 """
 
 import argparse
@@ -319,6 +339,29 @@ FAMILIES = {"ufno": (48, 3, TRAIN_EPOCHS, 5), "drn": (0, 0, 1, 3),
 # recomputes too, with no hand kernel; the U-FNO configs of twophase and
 # the mixture of experts leave remat off
 RECOMPUTED = {"ufno_fno": {"spectral_dft2d_fwd": 1}}
+# the pieces no shipped config uses (P13a), on the same split and paths as
+# the families: (config, overrides, the FAMILIES fields). The time-
+# conditioned U-FNO (cfg_twophase_ufno + a BC encoder of the split's
+# TCOND_CHANNELS x TRAIN_NT t_conditioning memmap: 8 outputs, so K1 takes
+# 196 + 8 channels and the U-Net blocks' K2 8 more) trains only, since the
+# engine serves no BC encoder (as the JAX package's); the U-Net with
+# attention on its two deepest levels and in the middle is served and
+# trained
+TCOND_CHANNELS = 2
+P13A = {"ufno_tcond": (
+            "nps_tpu_torch/configs/train/cfg_twophase_ufno_tcond.py",
+            ["--dataset.t_conditioning=t_conditioning"], (48, 3, 1, 3)),
+        "unet_attn": (
+            "nps_tpu_torch/configs/train/cfg_twophase_unet.py",
+            ["--model.is_attn=[False,False,True,True]",
+             "--model.mid_attn=true"], (44, 0, 1, 3))}
+# the 3D models (no shipped config): FNO and Dilated ResNet, hidden 32, 2
+# blocks, 8x8x8 modes, a 64x64x32 grid, time window 4, batch 2
+D3_GRID, D3_TW, D3_BATCH, D3_HIDDEN, D3_MODES = (64, 64, 32), 4, 2, 32, 8
+# their card-vs-CPU gradients: about ten times the worst reading of a sound
+# run on the H100 (1.006e-4, the 3D FNO's decoder weight, a sum over
+# 262,144 cells; the DRN's worst 1.26e-5)
+REL_TOL_3D_GRAD = 1e-3
 # cfg_ns512_ufno: 512x512, 3 blocks x 128 features, 20x20 modes, bf16,
 # batch 8; the spectral conv's input [8, 132, 512, 512] -> 128 (128
 # features + 2 static + 2 spatial conditioning channels). A split of NS_SIMS
@@ -554,45 +597,11 @@ def phase_build(out_dir):
 
 
 def phase_kernels(gen):
-    import torch
-    import torch.nn.functional as F
-
-    from nps_tpu_torch.ops import group_norm as gn
-
-    dev = torch.device("cuda")
     results = {}
 
     # ---- gn1_gelu_fwd (K2) -------------------------------------------------
     for shape in GN_SHAPES:
-        c = shape[1]
-        x = torch.randn(shape, device=dev, generator=gen) * 1.5 + 0.3
-        gamma = 1.0 + 0.2 * torch.randn(c, device=dev, generator=gen)
-        beta = 0.1 * torch.randn(c, device=dev, generator=gen)
-        y_k = gn.gn1_gelu_fwd(x, gamma, beta)
-        y_p = gn.gn_gelu_plain(x, gamma, beta)
-        torch.cuda.synchronize()
-        err = rel_err(y_k, y_p)
-        xb = x.to(torch.bfloat16)
-        err_bf16 = rel_err(gn.gn1_gelu_fwd(xb, gamma, beta),
-                           gn.gn_gelu_plain(xb, gamma, beta))
-        bound_ms, bound_by = gn_bound([shape])
-        rec = {"phase": "kernel", "name": "gn1_gelu_fwd", "shape": shape,
-               "rel_err": err, "rel_err_bf16": err_bf16,
-               "max_abs_err": float((y_k - y_p).abs().max()),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bound_how": "x read once + y written once, f32, at 3.35 TB/s"}
-        timed(rec, lambda: gn.gn1_gelu_fwd(x, gamma, beta), "ms")
-        timed(rec, lambda: gn.gn_gelu_plain(x, gamma, beta), "plain_ms")
-        timed(rec, lambda: F.gelu(F.group_norm(x, 1, gamma, beta)),
-              "library_ms")
-        # a yardstick for the bound: a device copy moves the same bytes
-        flat, dst = x.view(-1), torch.empty_like(x).view(-1)
-        timed(rec, lambda: dst.copy_(flat), "copy_ms")
-        rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
-        emit(rec)
-        if not (err < REL_TOL_F32 and err_bf16 < REL_TOL_BF16):
-            raise AssertionError(f"gn1_gelu_fwd disagrees at {shape}: "
-                                 f"f32 {err}, bf16 {err_bf16}")
+        rec = gn_fwd_record(gen, shape)
         results.setdefault("gn1_gelu_fwd", rec)   # the largest shape
 
     # ---- spectral_dft2d_fwd (K1) --------------------------------------------
@@ -616,6 +625,46 @@ def phase_kernels(gen):
         results[name]["unet_shapes"] = [
             {"shape": r["shape"], **r[name]} for r in unet]
     return results
+
+
+def gn_fwd_record(gen, shape):
+    """gn1_gelu_fwd at ``shape`` against its plain version (f32 and bf16),
+    its device time beside the plain version's, F.group_norm + F.gelu's and
+    a device copy of x (a yardstick: the same bytes), and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    c = shape[1]
+    x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
+    gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
+    beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    y_k = gn.gn1_gelu_fwd(x, gamma, beta)
+    y_p = gn.gn_gelu_plain(x, gamma, beta)
+    torch.cuda.synchronize()
+    err = rel_err(y_k, y_p)
+    xb = x.to(torch.bfloat16)
+    err_bf16 = rel_err(gn.gn1_gelu_fwd(xb, gamma, beta),
+                       gn.gn_gelu_plain(xb, gamma, beta))
+    bound_ms, bound_by = gn_bound([shape])
+    rec = {"phase": "kernel", "name": "gn1_gelu_fwd", "shape": shape,
+           "rel_err": err, "rel_err_bf16": err_bf16,
+           "max_abs_err": float((y_k - y_p).abs().max()),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_how": "x read once + y written once, f32, at 3.35 TB/s"}
+    timed(rec, lambda: gn.gn1_gelu_fwd(x, gamma, beta), "ms")
+    timed(rec, lambda: gn.gn_gelu_plain(x, gamma, beta), "plain_ms")
+    timed(rec, lambda: F.gelu(F.group_norm(x, 1, gamma, beta)),
+          "library_ms")
+    flat, dst = x.view(-1), torch.empty_like(x).view(-1)
+    timed(rec, lambda: dst.copy_(flat), "copy_ms")
+    rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
+    emit(rec)
+    if not (err < REL_TOL_F32 and err_bf16 < REL_TOL_BF16):
+        raise AssertionError(f"gn1_gelu_fwd disagrees at {shape}: "
+                             f"f32 {err}, bf16 {err_bf16}")
+    return rec
 
 
 def gn_shape_record(gen, shape):
@@ -743,15 +792,16 @@ def _errors(got, ref):
             max(float((a - r).abs().max()) for a, r in zip(got, ref)))
 
 
-def gn_bwd_record(gen):
-    """gn1_gelu_bwd at the train step's largest GroupNorm input against
-    autograd through the plain version and through F.group_norm + F.gelu."""
+def gn_bwd_record(gen, shape=GN_BWD_SHAPE):
+    """gn1_gelu_bwd at ``shape`` (the train step's largest GroupNorm input)
+    against autograd through the plain version and through F.group_norm +
+    F.gelu."""
     import torch
     import torch.nn.functional as F
 
     from nps_tpu_torch.ops import group_norm as gn
 
-    shape, c = GN_BWD_SHAPE, GN_BWD_SHAPE[1]
+    c = shape[1]
     x = torch.randn(shape, device="cuda", generator=gen) * 1.5 + 0.3
     gamma = 1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)
     beta = 0.1 * torch.randn(c, device="cuda", generator=gen)
@@ -790,9 +840,9 @@ def gn_bwd_record(gen):
     return rec
 
 
-def spectral_bwd_records(gen):
+def spectral_bwd_records(gen, shape=SPEC_SHAPES[-1]):
     """SpectralConv2dFn's backward (dx and both weight gradients) at the
-    train step's shape, called as autograd calls it on the node its forward
+    train step's ``shape``, called as autograd calls it on the node its forward
     built (so it reads what the forward saved), against autograd through
     the plain version and through rfft2 + einsum + irfft2; then its two
     launches apart, each against its plain version and beside its bound:
@@ -802,7 +852,6 @@ def spectral_bwd_records(gen):
 
     from nps_tpu_torch.ops import spectral as sp
 
-    shape = SPEC_SHAPES[-1]
     b, ci, n1, n2 = shape
     co, m1, m2 = HIDDEN, MODES, MODES
     modes = (m1, m2)
@@ -1041,7 +1090,13 @@ def gn_step_time(eng, u0, cond, sc):
 def _grad_errors(got, ref, floor_frac=1e-5):
     """Per parameter max|d| / max|ref|, a tensor whose gradient is below
     ``floor_frac`` of the model's largest held at that floor (zero in exact
-    arithmetic, f32 noise on both sides); the worst one: (err, name)."""
+    arithmetic, f32 noise on both sides); the worst one: (err, name). A
+    parameter no gradient reaches (an attention block's unused norm) must
+    have none on both sides."""
+    none = {k for k, r in ref.items() if r is None}
+    if none != {k for k, g in got.items() if g is None}:
+        return float("inf"), f"no gradient on one side: {sorted(none)}"
+    ref = {k: r for k, r in ref.items() if r is not None}
     floor = floor_frac * max(float(r.abs().max()) for r in ref.values())
     return max((float((got[k].cpu() - r).abs().max())
                 / max(float(r.abs().max()), floor), k)
@@ -1122,13 +1177,21 @@ def check_shapes(seen, gen):
 
 def make_split(tmp, seed):
     """The synthetic twophase split both training phases read: TRAIN_SIMS
-    simulations of TRAIN_NT frames on the full grid, one channel. Returns
-    the seconds it took."""
+    simulations of TRAIN_NT frames on the full grid, one channel, and a
+    ``t_conditioning`` memmap of TCOND_CHANNELS beside them (the P13a
+    phase's). Returns the seconds it took."""
+    import numpy as np
+
     from nps_tpu_torch.data.synthetic import generate
 
     t0 = time.perf_counter()
     generate(f"{tmp}/data/twophase", n_sims=TRAIN_SIMS, n_channels=1,
              nt=TRAIN_NT, nx1=NX1, nx2=NX2, seed=seed)
+    # the time conditioning the generator does not write, beside its files
+    rng = np.random.default_rng(seed + 11)
+    np.save(f"{tmp}/data/twophase/t_conditioning.npy",
+            rng.standard_normal((TRAIN_SIMS, TCOND_CHANNELS, TRAIN_NT))
+            .astype(np.float32))
     return time.perf_counter() - t0
 
 
@@ -1219,6 +1282,14 @@ def step_vs_cpu(cfg, argv, trainer, batch, seed, tw=TW, nt=TRAIN_NT):
 
 def family_cfg(name):
     return f"nps_tpu_torch/configs/train/cfg_twophase_{name}.py"
+
+
+def family_spec(name):
+    """(config, overrides, the FAMILIES fields) of a family or a P13a
+    model."""
+    if name in P13A:
+        return P13A[name]
+    return family_cfg(name), [], FAMILIES[name]
 
 
 def family_launches(gn, spec, applies, backward, recomputed=None):
@@ -1422,9 +1493,9 @@ def family_serve(name, seed):
     from nps_tpu_torch.inference import SurrogateEngine
 
     warnings.filterwarnings("ignore", message="spatial conditioning")
-    gn_calls, spec_calls = FAMILIES[name][:2]
+    cfg, over, (gn_calls, spec_calls, *_) = family_spec(name)
     pde = twophase_pde()
-    eng = SurrogateEngine.from_config(family_cfg(name), pde=pde,
+    eng = SurrogateEngine.from_config(cfg, overrides=over, pde=pde,
                                       device="cuda")
     eng.init_params(seed=seed)
     u0, cond, sc = serving_inputs(seed)
@@ -1465,7 +1536,8 @@ def family_serve(name, seed):
     captured_err = float(np.abs(out_c - out).max() / np.abs(out).max())
     eng.clear_captured()
 
-    cpu = SurrogateEngine.from_config(family_cfg(name), pde=pde, device="cpu")
+    cpu = SurrogateEngine.from_config(cfg, overrides=over, pde=pde,
+                                      device="cpu")
     cpu.model.load_state_dict({k: v.cpu()
                                for k, v in eng.model.state_dict().items()})
     step_cpu = cpu.step(u0[:1], cond=cond[:1], spatial_cond=sc[:1])
@@ -1523,9 +1595,9 @@ def family_train(name, seed, out_dir, tmp):
     from nps_tpu_torch import kernels
     from nps_tpu_torch.inference import autotuned_convs
 
-    gn_calls, spec_calls, epochs, n_timed = FAMILIES[name]
-    argv = train_argv(tmp, seed, epochs, f"train_{name}")
-    trainer = build_trainer(family_cfg(name), argv, "cuda")
+    cfg, over, (gn_calls, spec_calls, epochs, n_timed) = family_spec(name)
+    argv = [*train_argv(tmp, seed, epochs, f"train_{name}"), *over]
+    trainer = build_trainer(cfg, argv, "cuda")
     failures = []
     if trainer.config.batch_size != TRAIN_BATCH:
         failures.append(f"config batch {trainer.config.batch_size}")
@@ -1558,8 +1630,8 @@ def family_train(name, seed, out_dir, tmp):
                                 n_timed)
                  for d in TRAIN_DEPTHS}
         # one depth-1 step at batch 2, card against CPU
-        vs_cpu, loss_err, grad_err = step_vs_cpu(family_cfg(name), argv,
-                                                 trainer, batch, seed)
+        vs_cpu, loss_err, grad_err = step_vs_cpu(cfg, argv, trainer, batch,
+                                                 seed)
     shape_checks = check_shapes(
         seen, torch.Generator(device="cuda").manual_seed(seed + 1))
 
@@ -1576,7 +1648,7 @@ def family_train(name, seed, out_dir, tmp):
            "steps": {str(d): v for d, v in steps.items()},
            "step_vs_cpu": vs_cpu, "kernels_at_train_shapes": shape_checks}
     if spec_calls:
-        rec["weight_pack"] = weight_pack_record(rec["steps"])
+        rec["weight_pack"] = weight_pack_record(rec["steps"], trainer.model)
     if not (np.isfinite(train_losses).all()
             and np.isfinite(val_losses["default"]).all()
             and len(val_losses["default"]) == epochs):
@@ -1802,18 +1874,21 @@ def phase_train(seed, card, out_dir, tmp, gen_s):
     return launches
 
 
-def weight_pack_record(steps):
+def weight_pack_record(steps, model):
     """The spectral conv's weight pack (``pack_weights_2d``: two permuting
     copies into the kernel's layout), which every K1 forward launch with
     gradients, and every one in a train step's no-grad pushforward, makes
-    anew: device ms per call at the twophase weight shape (graph replay),
-    its calls in each timed train step of ``steps`` (its K1 forward
-    launches) and their share of that step's time."""
+    anew: device ms per call at the weight shape of ``model``'s first 2D
+    spectral conv (graph replay), its calls in each timed train step of
+    ``steps`` (its K1 forward launches) and their share of that step's
+    time."""
     import torch
 
+    from nps_tpu_torch.models.fno import SpectralConvND
     from nps_tpu_torch.ops.spectral import pack_weights_2d
 
-    shape = (2, SPEC_CI, HIDDEN, MODES, MODES)
+    shape = next(tuple(m.weights1.shape) for m in model.modules()
+                 if isinstance(m, SpectralConvND) and m.nd == 2)
     w = [torch.rand(shape, device="cuda") for _ in range(2)]
     rec = {"shape": list(shape)}
     timed(rec, lambda: pack_weights_2d(w), "ms")
@@ -1850,6 +1925,165 @@ def phase_families(seed, card, out_dir, tmp):
     if failures:
         raise AssertionError("; ".join(failures))
     return paths
+
+
+def phase_p13a(seed, card, gen, out_dir, tmp):
+    """The model pieces no shipped config uses, at full width: the
+    time-conditioned U-FNO trained (family_train, with test_step in its
+    epoch's evaluation) and K1 and K2 timed and held at its train step's
+    largest new shapes; the U-Net with attention served and trained
+    (family_serve, family_train); the 3D FNO and Dilated ResNet card
+    against CPU (d3_record). One line each. Returns each path's launches
+    (by "<model>_serve" and "<model>_train") and the kernel records at the
+    time-conditioned shapes (by kernel)."""
+    import gc
+
+    import torch
+
+    paths, failures = {}, []
+    train, paths["ufno_tcond_train"], bad = family_train(
+        "ufno_tcond", seed, out_dir, tmp)
+    failures += [f"ufno_tcond: {f}" for f in bad]
+    rows = train["kernels_at_train_shapes"]
+    gn_shape = max((tuple(r["shape"]) for r in rows if r["op"] == "GNGeluFn"),
+                   key=math.prod)
+    sp_shape = next(tuple(r["shape"]) for r in rows
+                    if r["op"] == "SpectralConv2dFn")
+    kern = {"gn1_gelu_fwd": gn_fwd_record(gen, gn_shape),
+            "gn1_gelu_bwd": gn_bwd_record(gen, gn_shape),
+            "spectral_dft2d_fwd": spectral_fwd_record(gen, sp_shape)}
+    kern["spectral_dft2d_bwd"], kern["spectral_dw2d"] = (
+        spectral_bwd_records(gen, sp_shape))
+    cfg, over, (gn_calls, spec_calls, *_) = family_spec("ufno_tcond")
+    emit({"phase": "p13a", "model": "ufno_tcond", "config": cfg,
+          "overrides": over, "t_conditioning": [TRAIN_SIMS, TCOND_CHANNELS,
+                                                TRAIN_NT],
+          "per_apply": {"gn1_gelu_fwd": gn_calls,
+                        "spectral_dft2d_fwd": spec_calls},
+          "spectral_input": list(sp_shape), "largest_gn_input":
+          list(gn_shape), "train": train, "card": card, "tf32": False})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve, paths["unet_attn_serve"], bad_serve = family_serve("unet_attn",
+                                                              seed)
+    train, paths["unet_attn_train"], bad_train = family_train(
+        "unet_attn", seed, out_dir, tmp)
+    cfg, over, _ = family_spec("unet_attn")
+    emit({"phase": "p13a", "model": "unet_attn", "config": cfg,
+          "overrides": over, "serve": serve, "train": train, "card": card,
+          "tf32": False})
+    failures += [f"unet_attn: {f}" for f in bad_serve + bad_train]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name in ("fno", "drn"):
+        rec, bad = d3_record(name, seed)
+        emit({"phase": "p13a", "model": f"{name}_3d", **rec, "card": card,
+              "tf32": False})
+        failures += [f"{name}_3d: {f}" for f in bad]
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths, kern
+
+
+def d3_record(name, seed):
+    """The 3D ``name`` model ("fno" or "drn": an EncProcDec of D3_HIDDEN
+    features, 2 blocks, D3_MODES modes a dimension, on D3_GRID; no shipped
+    config) on the card and on the CPU from the same seeded weights and
+    inputs: the forward (REL_TOL_STEP) and one grad step, its loss
+    sqrt(sum (pred - labels)^2) (REL_TOL_STEP) and every gradient
+    (REL_TOL_3D_GRAD; a tensor below 1e-5 of the largest held at that
+    floor), with the card's forward
+    and step times (median of 3 after a warm-up, host clock around
+    synchronised calls). Returns (record, failures)."""
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch.models.enc_proc_dec import EncProcDec
+    from nps_tpu_torch.models.initializers import reset_parameters
+    from nps_tpu_torch.pde import PDE3D
+
+    n1, n2, n3 = D3_GRID
+    pde = PDE3D(tmin=0.0, tmax=1.0, nt=11, L1=1.0, L2=1.0, L3=0.5, nx1=n1,
+                nx2=n2, nx3=n3, x=None, name="box3d", n_cond_static=N_STATIC)
+    cfg = dict(num_c=1, num_spatial_dims=3, time_window=D3_TW,
+               encoder="enc_grid.ElementWise",
+               decoder="dec_grid.TimeConvDense",
+               dec_delta_mode="per_step", activation="gelu",
+               hidden_features=D3_HIDDEN, hidden_blocks=2)
+    cfg.update(dict(processor="FNO", fno_modes=D3_MODES) if name == "fno"
+               else dict(processor="DilatedResnet", kernel_size=3,
+                         padding_mode="circular"))
+    rng = np.random.default_rng(seed + 3)
+    u = (0.5 + rng.random((D3_BATCH, 1, D3_TW, *D3_GRID))).astype(np.float32)
+    cond = rng.random((D3_BATCH, N_STATIC)).astype(np.float32)
+    pos = np.broadcast_to(pde.x.astype(np.float32)[None],
+                          (D3_BATCH, *D3_GRID, 3)).copy()
+    labels = np.roll(u, -1, axis=2)
+
+    def run(device):
+        model = EncProcDec(pde=pde, **cfg)
+        reset_parameters(model, torch.Generator().manual_seed(seed))
+        model.to(device)
+        t = {k: torch.from_numpy(v).to(device) for k, v in
+             dict(u=u, cond=cond, pos=pos, labels=labels).items()}
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+
+        def forward():
+            with torch.no_grad():
+                return model(t["u"], cond=t["cond"], pos=t["pos"])
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            pred = model(t["u"], cond=t["cond"], pos=t["pos"])
+            loss = torch.sqrt(torch.sum((pred - t["labels"]) ** 2))
+            loss.backward()
+            return loss.detach()
+
+        out = forward().cpu().numpy()
+        loss = float(step())
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        times = {}
+        if device == "cuda":
+            for key, fn in (("forward_ms", forward), ("step_ms", step)):
+                ms = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                times[key] = sorted(ms)[1]
+            times["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in model.parameters())
+        return out, loss, grads, times, n_params
+
+    out_gpu, loss_gpu, grads_gpu, times, n_params = run("cuda")
+    out_cpu, loss_cpu, grads_cpu, _, _ = run("cpu")
+    fwd_err = float(np.abs(out_gpu - out_cpu).max() / np.abs(out_cpu).max())
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    grad_err, grad_worst = _grad_errors(grads_gpu, grads_cpu)
+    rec = {"grid": list(D3_GRID), "batch": D3_BATCH, "time_window": D3_TW,
+           "hidden": D3_HIDDEN, "blocks": 2, "parameters": n_params,
+           **({"modes": [D3_MODES] * 3} if name == "fno" else
+              {"kernel_size": 3}),
+           "out_shape": list(out_gpu.shape),
+           "finite": bool(np.isfinite(out_gpu).all()),
+           "forward_rel_err_vs_cpu": fwd_err, "loss_gpu": loss_gpu,
+           "loss_cpu": loss_cpu, "loss_rel_err_vs_cpu": loss_err,
+           "grad_rel_err_vs_cpu": grad_err, "worst_grad": grad_worst,
+           **times}
+    failures = []
+    if tuple(out_gpu.shape) != u.shape or not rec["finite"]:
+        failures.append(f"output {out_gpu.shape}, finite {rec['finite']}")
+    if not (fwd_err < REL_TOL_STEP and loss_err < REL_TOL_STEP
+            and grad_err < REL_TOL_3D_GRAD):
+        failures.append(f"card vs CPU: forward {fwd_err}, loss {loss_err}, "
+                        f"gradients {grad_err} ({grad_worst})")
+    return rec, failures
 
 
 def first_batch(trainer):
@@ -4667,33 +4901,59 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    card = phase_device()
-    phase_build(out_dir)
-    kern = phase_kernels(gen)
-    serve = phase_slice(args.seed, card)
+    started, seconds = time.perf_counter(), {}
+
+    def clocked(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    card = clocked("device", phase_device)
+    clocked("build", phase_build, out_dir)
+    kern = clocked("kernels", phase_kernels, gen)
+    serve = clocked("slice", phase_slice, args.seed, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        gen_s = make_split(tmp, args.seed)
-        train = phase_train(args.seed, card, out_dir, tmp, gen_s)
-        dp, dp_argv = phase_dp(args.seed, card, out_dir, tmp)
-        phase_pushforward_fast(args.seed, card, gen, tmp)
-        families = phase_families(args.seed, card, out_dir, tmp)
-        gnn_bf16(args.seed, card, tmp)
-        ns512, ns_kern, gn_inputs = phase_ns512(args.seed, card, gen, tmp)
+        gen_s = clocked("split", make_split, tmp, args.seed)
+        train = clocked("train", phase_train, args.seed, card, out_dir, tmp,
+                        gen_s)
+        dp, dp_argv = clocked("dp", phase_dp, args.seed, card, out_dir, tmp)
+        clocked("pushforward_fast", phase_pushforward_fast, args.seed, card,
+                gen, tmp)
+        families = clocked("families", phase_families, args.seed, card,
+                           out_dir, tmp)
+        p13a, p13a_kern = clocked("p13a", phase_p13a, args.seed, card, gen,
+                                  out_dir, tmp)
+        families.update(p13a)
+        for name, rec in p13a_kern.items():
+            kern[name]["tcond_shape"] = {k: v for k, v in rec.items()
+                                         if k not in ("phase", "name")}
+        clocked("gnn_bf16", gnn_bf16, args.seed, card, tmp)
+        ns512, ns_kern, gn_inputs = clocked("ns512", phase_ns512, args.seed,
+                                            card, gen, tmp)
         kern.update(ns_kern)
-        ns512_train, ns512_accum, ns_train_kern = phase_ns512_train(
-            args.seed, card, gen, out_dir, tmp, gn_inputs)
+        ns512_train, ns512_accum, ns_train_kern = clocked(
+            "ns512_train", phase_ns512_train, args.seed, card, gen, out_dir,
+            tmp, gn_inputs)
         kern.update(ns_train_kern)
-        sp, sp_kern = phase_sp(args.seed, card, gen, out_dir, tmp, dp_argv)
-        grid = phase_grids(args.seed, card, gen, out_dir, tmp, dp_argv)
-        var1d = phase_var1d(args.seed, card, out_dir, tmp)
+        sp, sp_kern = clocked("sp", phase_sp, args.seed, card, gen, out_dir,
+                              tmp, dp_argv)
+        grid = clocked("grids", phase_grids, args.seed, card, gen, out_dir,
+                       tmp, dp_argv)
+        var1d = clocked("var1d", phase_var1d, args.seed, card, out_dir, tmp)
         kern["spectral_dw2d"]["ns512"] = kern.pop("spectral_dw2d_ns512")
         # after training: torch.export keeps the constants it traced (the
         # spectral packs) alive for the rest of the process
-        export, artifact = phase_export(args.seed, card, tmp)
-        replays = phase_profile(args.seed, card, artifact)
-    for name, by_dtype in phase_stages(gen).items():
+        export, artifact = clocked("export", phase_export, args.seed, card,
+                                   tmp)
+        replays = clocked("profile", phase_profile, args.seed, card,
+                          artifact)
+    for name, by_dtype in clocked("stages", phase_stages, gen).items():
         kern[name]["stages"] = by_dtype["torch.bfloat16"]
         kern[name]["f32"]["stages"] = by_dtype["torch.float32"]
+    emit({"phase": "seconds", **seconds,
+          "total": time.perf_counter() - started})
 
     # name -> (source, TPU kernel replaced, the path whose run gives
     # "launches"[, the counter it reads when not its own name]); the forward
@@ -4790,7 +5050,7 @@ def main():
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
                     "dispatch_host_us", "library_how", "dtype", "shape",
                     "act", "bound_f32_ops_ms", "f32", "shapes", "ns512", "stages",
-                    "step_calls", "tp_shape"):
+                    "step_calls", "tp_shape", "tcond_shape"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

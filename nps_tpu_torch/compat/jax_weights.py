@@ -19,8 +19,12 @@ names and layouts:
   above (so an expert's 2D 1x1 conv kernel ``[E, 1, 1, I, O]`` is read as
   the ``[1, 1, I, O]`` kernel it is, not as a 3D one); the gate
   ``gate_I`` is a Dense
+- a BC encoder ``bc_encoder/{conv_in, conv_hK, out}`` -> the reference's
+  Sequential ``bc_encoder.bc_encoder.{0, 2K + 2, 2N + 3}`` (N hidden convs:
+  activations at the odd slots, the flatten before the ``Linear``)
 
-Spectral weights stay split real ``[2, i, o, *modes]``.
+Spectral weights stay split real ``[2, i, o, *modes]`` (``weights1..4``
+in 3D).
 """
 
 import re
@@ -32,6 +36,7 @@ _INDEXED = re.compile(r"^(.*)_(\d+)$")
 _TRANSPOSE_CONV = re.compile(r"(^|/)up_\d+/conv$")
 _DRN_CONV = re.compile(r"(^|/)block_(\d+)/conv_(\d+)(?=/|$)")
 _EXPERTS = re.compile(r"^experts_\d+$")
+_BC_LAYER = re.compile(r"(^|/)bc_encoder/(conv_in|conv_h(\d+)|out)(?=/|$)")
 
 
 def _leaves(tree, path=()):
@@ -63,6 +68,10 @@ def from_jax_params(tree):
     if set(tree) == {"inner"}:
         tree = tree["inner"]
     state = {}
+    # the hidden convs of a BC encoder place its Linear in the Sequential
+    n_hidden = len({m.group(3) for path, _ in _leaves(tree)
+                    for m in [_BC_LAYER.search("/".join(path[:-1]))]
+                    if m and m.group(3) is not None})
     for path, val in _split_experts(_leaves(tree)):
         arr = np.asarray(val, dtype=np.float32)
         *mods, leaf = path
@@ -79,6 +88,11 @@ def from_jax_params(tree):
         elif leaf == "scale":
             leaf = "weight"
         if mods:
+            mod_path = _BC_LAYER.sub(
+                lambda m: f"{m.group(1)}bc_encoder/bc_encoder/" + str(
+                    0 if m.group(2) == "conv_in" else 2 * n_hidden + 3
+                    if m.group(2) == "out" else 2 * int(m.group(3)) + 2),
+                mod_path)
             mods = _DRN_CONV.sub(
                 lambda m: f"{m.group(1)}processor_{m.group(2)}/layers_"
                           f"{2 * int(m.group(3))}", mod_path).split("/")

@@ -44,7 +44,10 @@ are f32 either way. The MP-GNN refuses bf16 (ROADMAP P12c).
 
 Inputs and outputs are numpy arrays in the JAX package's layout: ``u`` is
 ``[b, c, tw, *sp]``, ``cond`` ``[b, n_static]``, ``spatial_cond``
-``[b, n_spatial, *sp]``. GNN configs (``data_structure="graph"``) convert
+``[b, n_spatial, *sp]``. A model with a BC encoder (boundary or time
+conditioning) is refused at construction, since a rollout here takes
+neither signal, as in the JAX package. GNN configs
+(``data_structure="graph"``) convert
 grid windows to node space at the model boundary over a static graph built
 once per batch size; they serve eagerly and captured, and refuse export.
 
@@ -134,6 +137,15 @@ def _frames(frames, u0, include_init):
 class SurrogateEngine:
     def __init__(self, model, pde, time_window, device="cuda", neighbors=3,
                  compute_dtype=None):
+        if getattr(model, "bc_encoder", None) is not None:
+            # the JAX engine applies the model with bc=None, t_cond=None: it
+            # cannot feed a BC encoder, and a rollout of such a model's
+            # weights fails there
+            raise ValueError(
+                "SurrogateEngine serves no model with a BC encoder: its "
+                "rollout takes no bc or t_cond (as the JAX package's "
+                "engine); roll it out with the trainer's simulate(..., "
+                "t_conditioning=...)")
         self.device = resolve_device(device)
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.model = model.to(self.device).eval()

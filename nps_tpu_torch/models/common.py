@@ -12,7 +12,9 @@ Padding geometry follows the reference exactly:
 Parameters keep the PyTorch reference's names and layouts (conv
 ``weight [O, I, *k]``, transposed conv ``[I, O, *k]``, linear ``[O, I]``,
 GroupNorm ``weight``/``bias``), so ``nps_tpu.compat.convert_state_dict``
-maps a port ``state_dict`` onto the ``nps_tpu`` tree.
+maps a port ``state_dict`` onto the ``nps_tpu`` tree. :class:`BCEncoder`
+keeps the reference's ``nn.Sequential`` named ``bc_encoder`` (conv_in at
+index 0, conv_h*k* at 2k + 2, the ``Linear`` at the highest index).
 
 Under a bf16 compute dtype (:mod:`nps_tpu_torch.models.config`) the convs,
 transposed convs and dense layers cast their input and their f32 weights
@@ -55,6 +57,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from nps_tpu_torch.models import initializers as init
+from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.config import (compute_dtype, compute_dtype_scope,
                                          fast_forward_active)
 from nps_tpu_torch.ops.group_norm import (gn_gelu, gn_gelu_split,  # noqa: F401
@@ -446,3 +449,46 @@ class GroupNorm(nn.Module):
                                  rows=axis.rows if rows is None else rows)
         return gn_gelu(x, self.weight, self.bias, gelu,
                        approximate=approximate)
+
+
+class _Activation(nn.Module):
+    """An activation callable as a parameter-free module (a Sequential
+    slot)."""
+
+    def __init__(self, activation):
+        super().__init__()
+        self.fn = resolve_activation(activation)
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+class BCEncoder(nn.Module):
+    """Encode a boundary-condition or time-conditioning signal [b, c_bc,
+    tw] to [b, bc_encoder_out] (counterpart of the JAX package's
+    ``BCEncoder``): conv_in, the activation, ``bc_encoder_n_hidden`` x
+    (conv, activation), all 1D over the time axis with "same" zero padding,
+    then a channel-major flatten and one ``Linear(tw * hidden -> out)``.
+    ``bc_encoder_in`` is the number of channels that arrive (the JAX
+    package's conv takes it from the data)."""
+
+    def __init__(self, bc_encoder_in, bc_encoder_out, bc_encoder_hidden,
+                 bc_encoder_kernel, time_window, num_spatial_dims=1,
+                 activation="gelu", bc_encoder_n_hidden=1, **_ignored):
+        super().__init__()
+        self.n_in, self.n_out = int(bc_encoder_in), int(bc_encoder_out)
+        hidden, k = int(bc_encoder_hidden), int(bc_encoder_kernel)
+        layers = [ConvND(self.n_in, hidden, k, 1), _Activation(activation)]
+        for _ in range(int(bc_encoder_n_hidden)):
+            layers += [ConvND(hidden, hidden, k, 1), _Activation(activation)]
+        layers += [nn.Flatten(), Dense(int(time_window) * hidden,
+                                       self.n_out)]
+        self.bc_encoder = nn.Sequential(*layers)
+
+    def forward(self, x):
+        if x.shape[1] != self.n_in:
+            raise ValueError(
+                f"the BC encoder was built for {self.n_in} input channels "
+                f"and got {x.shape[1]}: set bc_encoder_in in its spec to the "
+                f"channels of bc and t_cond together")
+        return self.bc_encoder(x)

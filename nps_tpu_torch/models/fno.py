@@ -2,17 +2,21 @@
 
 ``SpectralConvND`` holds the split-complex weights ``weights1``/``weights2``
 (real ``[2, ci, co, m1, m2]``; in 1D ``weights1`` alone, ``[2, ci, co,
-m1]``, as the JAX package's one mode block) and calls
-``ops.spectral.spectral_conv_nd``.
-``FNO_Layer`` adds the pointwise-conv bypass, and the ``FNO`` processor
+m1]``, as the JAX package's one mode block; in 3D ``weights1..4``, ``[2,
+ci, co, m1, m2, m3]``, its four corner blocks) and calls
+``ops.spectral.spectral_conv_nd``. The port has one route per dimension,
+so the layers take no ``mix_impl``: a model spec's value is checked where
+the spec is read (``enc_proc_dec.resolve_component``). ``FNO_Layer`` adds
+the pointwise-conv bypass, and the ``FNO`` processor
 stacks ``hidden_blocks`` of them, conditioned by channel concat of the
 broadcast grid (``cond_mode='concat'``) or by FiLM on the spectrum
 (``cond_mode='film'``).
 
 The 2D spectral conv runs in the compute dtype (:mod:`.config`; f32 when
-none is set) with its weights and their pack in f32; the 1D one in f32,
-whatever the compute dtype, as the JAX package's. Each call packs the weights
-into the CUDA kernel's layout, inside the autograd Function where a
+none is set) with its weights and their pack in f32; the 1D and the 3D
+one in f32, whatever the compute dtype, as the JAX package's. Each 2D
+call packs the weights into the CUDA kernel's layout, inside the
+autograd Function where a
 gradient is wanted. A caller that applies the model many times with fixed
 weights (a serving rollout) wraps the calls in
 :func:`packed_spectral_weights`, which packs once for the whole block.
@@ -83,20 +87,22 @@ class SpectralConvND(nn.Module):
                  transform_mode=1):
         super().__init__()
         nd = num_spatial_dims
-        if nd not in (1, 2):
+        if nd not in (1, 2, 3):
+            raise NotImplementedError(f"no {nd}D spectral conv (1D, 2D, 3D)")
+        if nd == 3 and feature_transform:
             raise NotImplementedError(
-                f"the {nd}D spectral conv is not ported yet (1D and 2D only)")
+                "FiLM conditioning for 3D spectral convs is not supported "
+                "(as in the JAX package)")
         self.nd = nd
         self.modes = _modes_tuple(modes, nd)
         self.transform_mode = transform_mode
         self.scale = 1.0 / (in_channels * out_channels)
         shape = (2, in_channels, out_channels, *self.modes)
-        self.weights1 = nn.Parameter(torch.empty(shape))
-        if nd == 2:
-            self.weights2 = nn.Parameter(torch.empty(shape))
-            self.film_grid = (out_channels, 2 * self.modes[0], self.modes[1])
-        else:
-            self.film_grid = (out_channels, self.modes[0])
+        # one mode block in 1D, two in 2D, four in 3D
+        for i in range({1: 1, 2: 2, 3: 4}[nd]):
+            setattr(self, f"weights{i + 1}", nn.Parameter(torch.empty(shape)))
+        self.film_grid = ((out_channels, 2 * self.modes[0], self.modes[1])
+                          if nd == 2 else (out_channels, self.modes[0]))
         self.weights_feat = (Dense(feature_transform_dim,
                                    math.prod(self.film_grid))
                              if feature_transform else None)
@@ -110,8 +116,8 @@ class SpectralConvND(nn.Module):
                 w.mul_(self.scale)
 
     def _weights(self):
-        return ([self.weights1] if self.nd == 1
-                else [self.weights1, self.weights2])
+        return [getattr(self, f"weights{i + 1}")
+                for i in range({1: 1, 2: 2, 3: 4}[self.nd])]
 
     def forward(self, x, p=None):
         film = None
@@ -121,10 +127,10 @@ class SpectralConvND(nn.Module):
         model_axis = tensor.current() if self.tp_sharded else None
         if model_axis is not None:
             return self._sharded_forward(x, film, model_axis)
-        if self.nd == 1:
+        if self.nd != 2:
             return spectral_conv_nd(x, self._weights(), self.modes, film=film,
                                     film_mode=self.transform_mode,
-                                    num_spatial_dims=1)
+                                    num_spatial_dims=self.nd)
         # in the compute dtype (f32 when none is set), as the JAX package
         # casts x to f32 and then to the compute dtype; the output has it
         dt = compute_dtype() or torch.float32

@@ -9,8 +9,9 @@ applied after the sum::
 
 where ``h_in`` is ``h`` with the broadcast conditioning concatenated
 (``cond_mode="concat"``). The gate is a ``Dense(n_gate_in -> E)`` on the
-model-level conditioning vector (``variables``, the static conditioning),
-or, for a model without static conditioning, on the spatial mean of ``h``;
+model-level conditioning vector (``variables``: the static conditioning
+and a BC encoder's code),
+or, for a model without one, on the spatial mean of ``h``;
 its logits go through the softmax in f32 and the gate is then cast to the
 experts' output type; the weighted outputs are summed in f32 and rounded
 once to that type. With ``n_experts=1`` the gate is the constant 1 and a
@@ -60,7 +61,7 @@ class MoEFNO(nn.Module):
                  hidden_features=128, hidden_blocks=4, cond_mode="concat",
                  padding_mode="circular", activation="gelu", n_experts=4,
                  fno_modes=48, fno_kernel_size=1, fno_conv_mode="single",
-                 remat=False, remat_policy=None):
+                 remat=False, remat_policy=None, n_vars=None):
         super().__init__()
         assert cond_mode in ("concat", None), \
             "MoEFNO conditions by concat (+ the gate); FiLM is not supported"
@@ -75,10 +76,13 @@ class MoEFNO(nn.Module):
         hidden_in = (hidden_features + n_cond if cond_mode == "concat"
                      else hidden_features)
         pm = padding_mode if padding_mode != "ones" else "zeros"
-        # the gate reads the static conditioning where the model has it,
-        # else the pooled hidden state
-        n_static = int(getattr(pde, "n_cond_static", 0) or 0)
-        self.n_gate_in = n_static or hidden_features
+        # the gate reads the model-level conditioning vector (n_vars wide,
+        # from the EncProcDec: the static conditioning and a BC encoder's
+        # code; the static conditioning's where none is given) where the
+        # model has one, else the pooled hidden state
+        if n_vars is None:
+            n_vars = int(getattr(pde, "n_cond_static", 0) or 0)
+        self.n_gate_in = n_vars or hidden_features
         self.gate = nn.ModuleList(Dense(self.n_gate_in, E)
                                   for _ in range(hidden_blocks))
         self.experts = nn.ModuleList(

@@ -11,7 +11,11 @@ after it run as one fused op (the GN+GELU kernel for CUDA tensors) when the
 activation is a GELU, the exact one or the tanh-approximate one of
 ``cfg_ns512_ufno``; with another one the kernel normalises and the
 activation follows.
-``AttentionBlock`` is not ported yet: ``is_attn``/``mid_attn`` must be off.
+
+``is_attn`` (per level) and ``mid_attn`` add an :class:`AttentionBlock`
+after the level's (or the middle's first) ResidualBlock: single-head
+spatial self-attention over every cell of the field, with the reference's
+softmax over the query axis.
 
 Every block passes on ``rows``, the global length of its input's first
 spatial axis: under spatial parallelism (a row-split field) the convs, the
@@ -24,8 +28,8 @@ from torch import nn
 
 from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import fused_gelu, resolve_activation
-from nps_tpu_torch.models.common import (ConvND, ConvTransposeND, GroupNorm,
-                                         crop_nd)
+from nps_tpu_torch.models.common import (ConvND, ConvTransposeND, Dense,
+                                         GroupNorm, crop_nd)
 from nps_tpu_torch.parallel.spatial import rows_of
 
 
@@ -82,21 +86,51 @@ class ResidualBlock(nn.Module):
                        rows) + shortcut
 
 
+class AttentionBlock(nn.Module):
+    """Single-head spatial self-attention, [b, c, *sp] -> [b, c, *sp], as
+    the U-Net's blocks build it (one head, d_k = c): the cells as a
+    sequence, a ``projection`` to q, k, v, the scores q k^T c^-0.5 in f32,
+    their softmax over the QUERY axis (the reference's ``softmax(dim=1)``
+    of its ``bijh`` scores, kept), the weighted sum of v, an ``output``
+    projection and an identity shortcut. ``norm`` is the reference's
+    GroupNorm, never applied: its parameters are kept so that checkpoints
+    carry across both ways."""
+
+    def __init__(self, in_channels):
+        super().__init__()
+        self.d_k = in_channels
+        self.norm = GroupNorm(1, in_channels)
+        self.projection = Dense(in_channels, 3 * self.d_k)
+        self.output = Dense(self.d_k, in_channels)
+
+    def forward(self, x, rows=None):
+        b, c, *sp = x.shape
+        h = x.reshape(b, c, -1).transpose(1, 2)               # [b, seq, c]
+        q, k, v = self.projection(h).float().split(self.d_k, dim=-1)
+        scores = torch.matmul(q, k.transpose(1, 2)) * self.d_k ** -0.5
+        res = torch.matmul(torch.softmax(scores, dim=1), v)   # [b, seq, d_k]
+        res = self.output(res) + h
+        # NCHW again, contiguous as the GN+GELU kernel takes it
+        return res.transpose(1, 2).reshape(b, c, *sp).contiguous()
+
+
 class DownBlock(nn.Module):
     def __init__(self, in_channels, out_channels, has_attn=False,
                  activation="gelu", norm=False, num_spatial_dims=1,
                  padding_mode="ones"):
         super().__init__()
-        if has_attn:
-            raise NotImplementedError("AttentionBlock is not ported yet")
         self.res = ResidualBlock(in_channels, out_channels, activation, norm,
                                  num_spatial_dims=num_spatial_dims,
                                  padding_mode=padding_mode)
+        self.attn = AttentionBlock(out_channels) if has_attn else None
 
     def forward(self, x, variables_broadcast=None, rows=None):
         if variables_broadcast is not None:
             x = torch.cat([x, variables_broadcast], dim=1)
-        return self.res(x, rows), variables_broadcast
+        x = self.res(x, rows)
+        if self.attn is not None:
+            x = self.attn(x, rows)
+        return x, variables_broadcast
 
 
 class UpBlock(nn.Module):
@@ -104,16 +138,16 @@ class UpBlock(nn.Module):
                  activation="gelu", norm=False, num_spatial_dims=1,
                  padding_mode="ones"):
         super().__init__()
-        if has_attn:
-            raise NotImplementedError("AttentionBlock is not ported yet")
         # input channels include the concatenated skip (in + out)
         self.res = ResidualBlock(in_channels + out_channels, out_channels,
                                  activation, norm,
                                  num_spatial_dims=num_spatial_dims,
                                  padding_mode=padding_mode)
+        self.attn = AttentionBlock(out_channels) if has_attn else None
 
     def forward(self, x, rows=None):
-        return self.res(x, rows)
+        x = self.res(x, rows)
+        return x if self.attn is None else self.attn(x, rows)
 
 
 class MiddleBlock(nn.Module):
@@ -121,18 +155,20 @@ class MiddleBlock(nn.Module):
                  activation="gelu", norm=False, num_spatial_dims=1,
                  padding_mode="ones"):
         super().__init__()
-        if has_attn:
-            raise NotImplementedError("AttentionBlock is not ported yet")
         kw = dict(num_spatial_dims=num_spatial_dims, padding_mode=padding_mode)
         self.res1 = ResidualBlock(in_channels, out_channels, activation, norm,
                                   **kw)
+        self.attn = AttentionBlock(out_channels) if has_attn else None
         self.res2 = ResidualBlock(out_channels, out_channels, activation,
                                   norm, **kw)
 
     def forward(self, x, variables_broadcast=None, rows=None):
         if variables_broadcast is not None:
             x = torch.cat([x, variables_broadcast], dim=1)
-        return self.res2(self.res1(x, rows), rows), variables_broadcast
+        x = self.res1(x, rows)
+        if self.attn is not None:
+            x = self.attn(x, rows)
+        return self.res2(x, rows), variables_broadcast
 
 
 class Downsample(nn.Module):

@@ -14,15 +14,26 @@ the low and the high row modes. FiLM ``[b, co, 2*m1, m2]``.
 Without gradients, a CPU tensor takes the plain version and a CUDA tensor
 the kernel ``spectral_dft2d_fwd`` (``csrc/spectral_dft2d.cu``, the port of
 the TPU kernel K1), both through the custom op
-``nps_torch::spectral_dft2d_fwd``. The 3D path is not ported yet and
-raises.
+``nps_torch::spectral_dft2d_fwd``.
 
-The 1D path (:func:`spectral_conv_1d`, ``_spectral_conv_1d_dft``) never had
-a TPU kernel: the JAX package computes it with XLA einsums. Here it is
-``torch.einsum`` in f32 on the CPU and on the card alike (PyTorch's matmuls
-run without TF32 unless a caller turns it on), and autograd gives its
-backward. x ``[b, ci, n1]`` -> ``[b, co, n1]`` f32, with ``weights1`` real
-``[2, ci, co, m1]`` and FiLM ``[b, co, m1]``.
+The 1D and 3D paths never had a TPU kernel: the JAX package computes the 1D
+conv with XLA einsums and the 3D one through its FFT route. Here both run
+in f32 on the CPU and on the card alike, with autograd for their backward.
+
+The 1D path (:func:`spectral_conv_1d`, ``_spectral_conv_1d_dft``) is
+``torch.einsum`` (PyTorch's matmuls run without TF32 unless a caller turns
+it on): x ``[b, ci, n1]`` -> ``[b, co, n1]`` f32, with ``weights1`` real
+``[2, ci, co, m1]`` and FiLM ``[b, co, m1]``. The 3D path
+(:func:`spectral_conv_3d`) is ``torch.fft.rfftn``, a complex mix of the four
+corner blocks of ``m1 x m2 x m3`` modes (``weights1..4``, real ``[2, ci,
+co, m1, m2, m3]``: low/high first-axis modes, then low/high second-axis
+modes), zeros elsewhere and ``irfftn``: x ``[b, ci, n1, n2, n3]`` ->
+``[b, co, n1, n2, n3]`` f32; FiLM raises there, as in the JAX package.
+
+``mix_impl`` (:data:`MIX_IMPLS`, the JAX package's ``"dft"``, ``"xla"`` and
+its alias ``"pallas"``) names the JAX route; the port has one route per
+dimension, so the three values compute the same here, and a model spec's
+value is only checked (:func:`check_mix_impl`, where the spec is read).
 
 Gradients on CUDA go through :class:`SpectralConv2dFn`. The map is linear,
 and its adjoint is the same three stages with the conjugate-transposed
@@ -165,6 +176,51 @@ def spectral_conv_1d(x, weights1, m1, film=None, film_mode=1):
         y_im = y_im * f
     out = ein("bom,mx->box", y_re, ic1) - ein("bom,mx->box", y_im, is1)
     return out / n1
+
+
+def spectral_conv_3d(x, weights, modes, film=None):
+    """The 3D mode-truncated spectral conv (the JAX package's FFT route):
+    ``rfftn`` over the three spatial axes, the complex ci->co mix of each
+    corner block of ``modes`` (low/high first-axis modes x low/high
+    second-axis modes, the low third-axis half-spectrum modes) with its
+    weights of ``weights`` [4 x [2, ci, co, m1, m2, m3]], zeros elsewhere,
+    ``irfftn`` to the input's size. x [b, ci, n1, n2, n3] in any float
+    type; the result in f32."""
+    if film is not None:
+        raise NotImplementedError(
+            "FiLM conditioning for 3D spectral convs is not supported (as "
+            "in the JAX package: the reference is inconsistent there)")
+    m1, m2, m3 = modes
+    b, _, n1, n2, n3 = x.shape
+    xf = torch.fft.rfftn(x.float(), dim=(2, 3, 4))
+    rows = (slice(0, m1), slice(n1 - m1, n1))
+    cols = (slice(0, m2), slice(n2 - m2, n2))
+    # weights1..4: (low, low), (high, low), (low, high), (high, high)
+    blocks = [(r, c) for c in cols for r in rows]
+    outs = [torch.einsum("bixyz,ioxyz->boxyz", xf[:, :, r, c, :m3],
+                         torch.complex(w[0], w[1]))
+            for (r, c), w in zip(blocks, weights)]
+    co = outs[0].shape[1]
+    z1 = xf.new_zeros((b, co, n1 - 2 * m1, m2, m3))
+    left = torch.cat([outs[0], z1, outs[1]], dim=2)
+    right = torch.cat([outs[2], z1, outs[3]], dim=2)
+    z2 = xf.new_zeros((b, co, n1, n2 - 2 * m2, m3))
+    plane = torch.cat([left, z2, right], dim=3)
+    z3 = xf.new_zeros((b, co, n1, n2, n3 // 2 + 1 - m3))
+    return torch.fft.irfftn(torch.cat([plane, z3], dim=4), s=(n1, n2, n3),
+                            dim=(2, 3, 4))
+
+
+# the JAX package's mix_impl values; "pallas" is its alias of "dft"
+MIX_IMPLS = ("dft", "xla", "pallas")
+
+
+def check_mix_impl(mix_impl):
+    """Raise on a ``mix_impl`` outside :data:`MIX_IMPLS`."""
+    if mix_impl not in MIX_IMPLS:
+        raise ValueError(f"mix_impl must be one of {MIX_IMPLS}, got "
+                         f"{mix_impl!r}")
+    return mix_impl
 
 
 def _bf16_round(a):
@@ -885,17 +941,19 @@ def spectral_conv_nd(x, weights, modes, film=None, film_mode=1,
     Where a gradient is wanted the CUDA path takes :class:`SpectralConv2dFn`
     and the CPU path plain autograd; both ignore ``w_packed``. ``x`` is f32 or
     bf16, and the output has its type. A 1D call (``weights`` is
-    [weights1]) is :func:`spectral_conv_1d` on either device, with or
-    without gradients, and returns f32.
+    [weights1]) is :func:`spectral_conv_1d` and a 3D one (``weights1..4``)
+    :func:`spectral_conv_3d`, on either device, with or without gradients;
+    both return f32.
     """
     nd = num_spatial_dims or (x.ndim - 2)
     modes = tuple(int(m) for m in modes)
     check_modes(modes, x.shape[2:2 + nd])
     if nd == 1:
         return spectral_conv_1d(x, weights[0], modes[0], film, film_mode)
+    if nd == 3:
+        return spectral_conv_3d(x, weights, modes, film)
     if nd != 2:
-        raise NotImplementedError(
-            f"the {nd}D spectral conv is not ported yet (1D and 2D only)")
+        raise NotImplementedError(f"no {nd}D spectral conv (1D, 2D, 3D)")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, *weights, film)):
         if x.device.type == "cpu":

@@ -24,7 +24,7 @@ and are summed over the data group only.
 """
 
 from nps_tpu_torch.parallel import spatial
-from nps_tpu_torch.parallel.mesh import global_sum
+from nps_tpu_torch.parallel.mesh import global_sum, refuse_pieces
 
 
 def current():
@@ -100,4 +100,5 @@ def check(model, k, config=None):
         raise ValueError(
             f"expert_parallel={k} splits the experts of a mixture of "
             f"spectral experts (MoEFNO); {type(model).__name__} has none")
+    refuse_pieces(model, "expert", ("bc_encoder", "3d"))
     partition_specs(model, k)

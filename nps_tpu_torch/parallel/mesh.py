@@ -322,3 +322,32 @@ class AllReduceGrads:
 
     def load_state_dict(self, state):
         self.inner.load_state_dict(state)
+
+
+def _pieces():
+    """The model pieces of P13a that a grid regime does not take yet: the
+    test on a module that marks each (ROADMAP P9b). Imported here, as the
+    models import this module."""
+    from nps_tpu_torch.models.common import BCEncoder
+    from nps_tpu_torch.models.unet_modern import AttentionBlock
+
+    return {
+        "attention": ("the U-Net's AttentionBlock (it reads the whole field)",
+                      lambda m: isinstance(m, AttentionBlock)),
+        "bc_encoder": ("the BC encoder", lambda m: isinstance(m, BCEncoder)),
+        "3d": ("the 3D models",
+               lambda m: getattr(m, "num_spatial_dims", 2) == 3),
+    }
+
+
+def refuse_pieces(model, regime, pieces):
+    """Raise ``NotImplementedError`` naming ROADMAP P9b for the first of
+    ``pieces`` (keys of :func:`_pieces`) that ``model`` holds: a regime
+    that is not held against one process with it refuses it."""
+    known = _pieces()
+    for piece in pieces:
+        what, holds = known[piece]
+        if any(holds(m) for m in model.modules()):
+            raise NotImplementedError(
+                f"{regime} parallelism of {what} is not ported (ROADMAP "
+                f"P9b: the P13a pieces under the grid regimes)")

@@ -30,7 +30,12 @@ gradient is whole on each of them (summed over the data group only); a
 stage's comes from its owner alone, and the encoder's from pipe rank 0 (the
 one that feeds it), so both are summed over the pipe group too, where only
 one rank's is non-zero (:func:`partial_params`; a rank that holds no
-gradient for one adds zeros). A local batch that microbatches do not tile runs
+gradient for one adds zeros). A BC encoder runs replicated too, in the
+encoder's stage; its code reaches the encoder and every stage, each pipe
+rank's share of its gradient coming from what that rank runs, so it is
+summed over the pipe group as well (the grid decoders read no
+conditioning, as in the JAX package, so none of it comes from the
+replicated decoder). A local batch that microbatches do not tile runs
 the sequential chain on every rank (the JAX package's remainder path),
 behind :class:`_OwnerGrad`, which keeps that chain's gradient on pipe rank
 0 alone for the same sums. Every collective is an ``all_reduce``, which
@@ -43,7 +48,7 @@ from argparse import Namespace
 import torch
 
 from nps_tpu_torch.parallel import spatial
-from nps_tpu_torch.parallel.mesh import world
+from nps_tpu_torch.parallel.mesh import refuse_pieces, world
 from nps_tpu_torch.parallel.spatial import _exact_sum, _slot_buffer, traffic
 
 # the processors that decompose into blocks (their ``block`` method)
@@ -121,6 +126,7 @@ def check(model, k, config=None):
     """Raise unless ``model`` pipelines over ``k`` ranks, and for a
     ``pipeline_microbatches`` that never divides the steady-state batch of
     a data slice: every batch would take the sequential remainder path."""
+    refuse_pieces(model, "pipeline", ("attention", "3d"))
     StageSplit(model).check(k)
     n_micro = int(getattr(config, "pipeline_microbatches", 0) or 0)
     if not n_micro:
@@ -143,9 +149,11 @@ def setup(model, axis, config=None):
 
 def partial_params(model):
     """The parameters whose gradient is partial on a pipe rank: the
-    encoder's (pipe rank 0's) and the processor chain's (each stage's
-    owner's)."""
-    return [*model.encoder.parameters(), *model.processor.parameters()]
+    encoder's (pipe rank 0's), the processor chain's (each stage's
+    owner's) and the BC encoder's (each rank's stages' share)."""
+    bc = model.bc_encoder
+    return [*model.encoder.parameters(), *model.processor.parameters(),
+            *([] if bc is None else bc.parameters())]
 
 
 class _Shift(torch.autograd.Function):

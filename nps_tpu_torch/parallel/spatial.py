@@ -330,6 +330,7 @@ def check_model(model, rows, k):
     None checks the family alone."""
     from nps_tpu_torch.common.interfaces import D, M
     from nps_tpu_torch.models.moe_fno import MoEFNO
+    from nps_tpu_torch.parallel.mesh import refuse_pieces
     from nps_tpu_torch.models.unet_modern import Downsample
 
     if model.model_interface != M.AR_TB or D.sim2d not in set(
@@ -339,12 +340,13 @@ def check_model(model, rows, k):
         raise NotImplementedError(
             f"spatial parallelism splits 2D grid fields; "
             f"{type(model).__name__} is not one (ROADMAP P9b item 3: the "
-            f"graph and 1D families)")
+            f"graph and 1D families, and the 3D models)")
     if any(isinstance(m, MoEFNO) for m in model.modules()):
         raise NotImplementedError(
             "spatial parallelism of the mixture of spectral experts (its "
             "gate pools over the grid) is not ported yet (ROADMAP P9b item "
             "3: MoEFNO)")
+    refuse_pieces(model, "spatial", ("attention", "bc_encoder"))
     levels = max([0] + [sum(isinstance(b, Downsample) for b in m.down)
                         for m in model.modules() if hasattr(m, "down")])
     if rows is not None and rows % (k * 2 ** levels):

@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from nps_tpu_torch.parallel import spatial
+from nps_tpu_torch.parallel.mesh import refuse_pieces
 from nps_tpu_torch.parallel.spatial import _exact_sum, _slot_buffer, traffic
 
 
@@ -194,3 +195,4 @@ def check(model, k, config=None):
         raise NotImplementedError(
             "tensor parallelism of the MP-GNN is not ported (ROADMAP P9b "
             "item 4: the grid families only)")
+    refuse_pieces(model, "tensor", ("attention", "bc_encoder", "3d"))

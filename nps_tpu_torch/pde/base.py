@@ -83,3 +83,38 @@ class PDE2D(PDE):
     @property
     def spatial_shape(self):
         return (self.nx1, self.nx2)
+
+
+class PDE3D(PDE):
+    """3D metadata with PDE2D's derived quantities (its ``dt`` quirk too)
+    and the grid ``x`` [nx1, nx2, nx3, 3]."""
+
+    def __init__(self, tmin, tmax, nt, L1, L2, L3, nx1, nx2, nx3, x, name,
+                 n_cond_static=0, n_cond_dynamic=0, n_cond_spatial=0,
+                 **kwargs):
+        super().__init__(tmin, tmax, nt, name, n_cond_static, n_cond_dynamic,
+                         n_cond_spatial, **kwargs)
+        self.L1, self.L2, self.L3 = float(L1), float(L2), float(L3)
+        self.L = [self.L1, self.L2, self.L3]
+        self.nx1, self.nx2, self.nx3 = int(nx1), int(nx2), int(nx3)
+
+        # tmax/(nt-1), as PDE2D
+        self.dt = self.tmax / (self.nt - 1)
+        self.dx1 = self.L1 / (self.nx1 - 1)
+        self.dx2 = self.L2 / (self.nx2 - 1)
+        self.dx3 = self.L3 / (self.nx3 - 1)
+        self.dxs = [self.dx1, self.dx2, self.dx3]
+
+        if x is None:
+            grids = [np.linspace(0.0, L, n, dtype=np.float32)
+                     for L, n in zip(self.L, (self.nx1, self.nx2, self.nx3))]
+            x = np.stack(np.meshgrid(*grids, indexing="ij"), axis=-1)
+        self.x = np.asarray(x)
+
+    @property
+    def num_spatial_dims(self):
+        return 3
+
+    @property
+    def spatial_shape(self):
+        return (self.nx1, self.nx2, self.nx3)

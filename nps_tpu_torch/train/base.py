@@ -872,15 +872,18 @@ class TrainInterface(metaclass=ABCMeta):
         all-reduce (max) of the flags, which every rank makes at every batch
         boundary, so all stop at the same one (a rank that went on alone
         would wait in its next step's collectives forever); the local flag
-        in one process."""
+        in one process. The answer is the all-reduce's, never the local
+        flag read after it: a signal caught between the two is the next
+        boundary's, on every rank."""
         if not self.data_parallel:
             return self._preempt_requested
         flag = torch.tensor([float(self._preempt_requested)],
                             device=self.device)
         parallel.all_reduce_([flag], op=dist.ReduceOp.MAX)
-        if flag.item():
+        agreed = bool(flag.item())
+        if agreed:
             self._preempt_requested = True
-        return self._preempt_requested
+        return agreed
 
     def _preempt_exit(self, epoch, min_val_loss, train_loader,
                       train_losses, val_losses, val_stats_list):

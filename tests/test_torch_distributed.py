@@ -175,9 +175,8 @@ def _worker(spec_path):
     torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
-    init_distributed(f"tcp://127.0.0.1:{spec['port']}",
-                     world_size=spec["world"], rank=spec["rank"],
-                     device="cpu", timeout=WORKER_TIMEOUT)
+    init_distributed(spec["rendezvous"], world_size=spec["world"],
+                     rank=spec["rank"], device="cpu", timeout=WORKER_TIMEOUT)
     assert world() == (spec["rank"], spec["world"])
     try:
         _worker_steps(spec, spec["rank"])
@@ -186,10 +185,43 @@ def _worker(spec_path):
 
 
 # ------------------------------------------------------------ the harness
+def _rendezvous(out):
+    """A world's rendezvous: a file store in its own directory ``out``, so
+    no other world (of this test run or any other process) can join it."""
+    path = os.path.join(str(out), "rendezvous")
+    if os.path.exists(path):
+        os.remove(path)
+    return f"file://{path}"
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+# a CLI world's rank 0 binds its port seconds after _free_port closed it
+# (the ranks are fresh processes that import torch); in that window another
+# process may take it
+BIND_RETRIES = 2
+
+
+def _bind_failed(results):
+    """Whether a rank's output shows rank 0's store failing to bind."""
+    return any("eaddrinuse" in out.lower()
+               or "address already in use" in out.lower()
+               for _, out in results)
+
+
+def _run_cli_world(commands_for_port, **kwargs):
+    """``_run_world`` of ``commands_for_port(port)`` on a free port, started
+    again on a fresh port when, and only when, its output shows the
+    rendezvous failing to bind, at most ``BIND_RETRIES`` times."""
+    for _ in range(BIND_RETRIES + 1):
+        results = _run_world(commands_for_port(_free_port()), **kwargs)
+        if not _bind_failed(results):
+            break
+    return results
 
 
 def _env():
@@ -393,12 +425,13 @@ def two_ranks(data_dir, reference):
     """Both ranks' results of the step scenarios (``_worker_steps``)."""
     out = data_dir / "world"
     out.mkdir()
-    port = _free_port()
+    rendezvous = _rendezvous(out)
     commands = []
     for rank in range(WORLD):
         spec = out / f"spec{rank}.json"
         spec.write_text(json.dumps(dict(
-            rank=rank, world=WORLD, port=port, data=str(data_dir / "data"),
+            rank=rank, world=WORLD, rendezvous=rendezvous,
+            data=str(data_dir / "data"),
             out=str(out), inputs=str(reference["inputs"]),
             weights=str(data_dir / "weights.pt"))))
         commands.append([sys.executable, os.path.abspath(__file__),
@@ -672,11 +705,12 @@ def test_cli_two_processes_writer_guard(data_dir, tmp_path):
     (1e-5), and only rank 0's directory gets the models, the checkpoint,
     the metrics and the summary."""
     epochs = ["--trainer.num_epochs=2", "--trainer.test_interval=2"]
-    port = _free_port()
     one = [sys.executable, "-m", "nps_tpu_torch.train_cli", "-C", PORT_CFG,
            "--device", "cpu", *_overrides(data_dir / "data", tmp_path),
            *epochs, f"--experiment_path={tmp_path}/one"]
-    results = _run_world([
+    # a world whose port was taken before rank 0 bound it starts again on
+    # another (_run_cli_world, at most BIND_RETRIES times)
+    results = _run_cli_world(lambda port: [
         *(_cli(data_dir / "data", tmp_path, r, port, epochs)
           for r in range(WORLD)), one])
     _assert_ok(results)
@@ -703,12 +737,14 @@ def test_sigterm_to_one_rank_stops_both(data_dir, tmp_path):
     """SIGTERM to rank 1 alone: at the next batch boundary both ranks agree
     to stop, rank 0 writes the checkpoint, and both exit as preempted
     (143)."""
-    port = _free_port()
     metrics = tmp_path / "p0" / "run_metrics.jsonl"
-    results = _run_world(
-        [_cli(data_dir / "data", tmp_path, r, port,
-              ["--trainer.num_epochs=500", "--trainer.test_interval=999"])
-         for r in range(WORLD)],
+    # restarted on another port if rank 0 could not bind its own
+    # (_run_cli_world, at most BIND_RETRIES times)
+    results = _run_cli_world(
+        lambda port: [
+            _cli(data_dir / "data", tmp_path, r, port,
+                 ["--trainer.num_epochs=500", "--trainer.test_interval=999"])
+            for r in range(WORLD)],
         signal_when=(lambda: metrics.exists()
                      and len(metrics.read_text().splitlines()) >= 1, 1))
     _assert_ok(results, codes=(143,))
@@ -716,6 +752,54 @@ def test_sigterm_to_one_rank_stops_both(data_dir, tmp_path):
         assert "Preempted at epoch" in text
     assert (tmp_path / "p0" / "run_checkpoint.pt").exists()
     assert not (tmp_path / "p1" / "run_checkpoint.pt").exists()
+
+
+def test_cli_world_restarts_only_on_a_failed_bind():
+    """``_run_cli_world`` starts a world again on a fresh port when a rank's
+    output shows its store failing to bind, at most ``BIND_RETRIES`` times,
+    and never for another failure."""
+    ports = []
+
+    def world(text):
+        def commands(port):
+            ports.append(port)
+            return [[sys.executable, "-c",
+                     f"print({text!r}); raise SystemExit(1)"]]
+        return commands
+
+    results = _run_cli_world(world(
+        "DistNetworkError: The server socket has failed to listen on any "
+        "local network address. name: EADDRINUSE"))
+    assert len(ports) == BIND_RETRIES + 1 and results[0][0] == 1
+    ports.clear()
+    results = _run_cli_world(world("RuntimeError: a rank failed"))
+    assert len(ports) == 1 and results[0][0] == 1
+
+
+def test_stop_agreement_answers_the_all_reduce(monkeypatch):
+    """The stop agreement at a batch boundary is the all-reduce's answer: a
+    stop signal handled right after the all-reduce returned (Python runs a
+    handler between bytecodes, so one that arrives during the blocking
+    collective lands there) stops this rank at the next boundary, with the
+    others, and not at this one, where they go on into the next step's
+    collectives (the lost ``test_sigterm_to_one_rank_stops_both`` run: rank
+    0 in its next ``global_sum``, its peer gone)."""
+    from types import SimpleNamespace
+
+    from nps_tpu_torch.train import base as train_base
+
+    rank = SimpleNamespace(data_parallel=True, device="cpu",
+                           _preempt_requested=False)
+
+    def all_reduce_(tensors, op=None):   # the world's flags: none raised
+        rank._preempt_requested = True   # ... then this rank's signal
+        return tensors
+
+    monkeypatch.setattr(train_base.parallel, "all_reduce_", all_reduce_)
+    assert train_base.TrainInterface._preempt_fleet_agreed(rank) is False
+    monkeypatch.setattr(train_base.parallel, "all_reduce_",
+                        lambda tensors, op=None: tensors)
+    assert train_base.TrainInterface._preempt_fleet_agreed(rank) is True
 
 
 def test_two_rank_var_t_epoch(tmp_path):
@@ -729,9 +813,11 @@ def test_two_rank_var_t_epoch(tmp_path):
             "--model.hidden_features=16", "--model.fno_modes=4",
             "--batch_size=4", "--trainer.num_epochs=1",
             "--trainer.test_interval=1", "--experiment_name=run"]
-    port = _free_port()
-    results = _run_world([_cli(None, tmp_path, r, port, cfg=V1_CFG,
-                               overrides=argv) for r in range(WORLD)])
+    # restarted on another port if rank 0 could not bind its own
+    # (_run_cli_world, at most BIND_RETRIES times)
+    results = _run_cli_world(lambda port: [
+        _cli(None, tmp_path, r, port, cfg=V1_CFG, overrides=argv)
+        for r in range(WORLD)])
     _assert_ok(results)
     texts = [out for _, out in results]
     losses = [_losses(t) for t in texts]

@@ -11,8 +11,8 @@ blocks, heterogeneous chains refused, never-dividing microbatches refused,
 the train step against one process, the trainer end to end; besides, a
 batch the microbatches do not tile runs the sequential chain (forward and
 gradients), each parameter tag's gradient is reduced once, and the MP-GNN
-is refused. The BC-encoder case of the JAX tests has no counterpart: the
-port has no ``BCEncoder`` yet (ROADMAP P13).
+is refused. The BC-encoder case of the JAX tests is
+``tests/test_torch_conditioning.py::test_pipelined_bc_encoder_path``.
 """
 
 import os

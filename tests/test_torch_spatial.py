@@ -37,7 +37,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_torch_distributed import (  # noqa: E402
-    JAX_CFG, NT, PORT_CFG, TW, _assert_grads_close, _assert_ok, _free_port,
+    JAX_CFG, NT, PORT_CFG, TW, _assert_grads_close, _assert_ok, _rendezvous,
     _grads, _overrides, _parse, _rel, _run_world, _tensors, port_trainer)
 
 NS_CFG = "nps_tpu_torch/configs/train/cfg_ns512_ufno.py"
@@ -329,9 +329,8 @@ def _worker(spec_path):
     torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
-    init_distributed(f"tcp://127.0.0.1:{spec['port']}",
-                     world_size=spec["world"], rank=spec["rank"],
-                     device="cpu", timeout=WORKER_TIMEOUT)
+    init_distributed(spec["rendezvous"], world_size=spec["world"],
+                     rank=spec["rank"], device="cpu", timeout=WORKER_TIMEOUT)
     try:
         g = torch.load(spec["inputs"], weights_only=False)
         res = {name: SCENARIOS[name](spec, g) for name in spec["scenarios"]}
@@ -442,12 +441,13 @@ def reference(data_dir):
 def _world(data_dir, reference, n, scenarios):
     out = data_dir / f"world{n}"
     out.mkdir()
-    port = _free_port()
+    rendezvous = _rendezvous(out)
     commands = []
     for rank in range(n):
         spec = out / f"spec{rank}.json"
         spec.write_text(json.dumps(dict(
-            rank=rank, world=n, k=K, port=port, data=str(data_dir / "data"),
+            rank=rank, world=n, k=K, rendezvous=rendezvous,
+            data=str(data_dir / "data"),
             ns=str(data_dir / "ns"), out=str(out),
             inputs=str(reference["inputs"]),
             weights=str(reference["weights"]), scenarios=scenarios)))

@@ -82,24 +82,22 @@ def test_spectral_mode_range_errors(grid, modes):
 @pytest.mark.parametrize("shape,modes", [((2, 3, 16), (4,)),
                                          ((2, 3, 8, 8, 8), (2, 2, 2))])
 def test_spectral_1d_3d_not_ported(shape, modes):
-    """The name is older than the 1D path: the 1D case (ported with the
-    variable-time data, ROADMAP P11) now matches the JAX package's
-    ``_spectral_conv_1d_dft`` on the same inputs; the 3D case still
-    raises."""
-    if len(modes) == 3:
-        with pytest.raises(NotImplementedError):
-            port.spectral_conv_nd(torch.zeros(shape), [], modes)
-        return
-    b, ci, n1 = shape
+    """The name is older than both paths: the 1D case (ported with the
+    variable-time data, ROADMAP P11) matches the JAX package's
+    ``_spectral_conv_1d_dft``, and the 3D case (ported with the 3D models,
+    P13a) its FFT route with four corner blocks, on the same inputs."""
+    b, ci, *sp = shape
+    nd = len(modes)
     rng = np.random.default_rng(4)
-    x = rng.standard_normal((b, n1, ci)).astype(np.float32)
-    w = (rng.random((2, ci, 5, *modes)) / (ci * 5)).astype(np.float32)
+    x = rng.standard_normal((b, *sp, ci)).astype(np.float32)
+    ws = [(rng.random((2, ci, 5, *modes)) / (ci * 5)).astype(np.float32)
+          for _ in range({1: 1, 3: 4}[nd])]
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(jax_spectral(x, [w], modes, precision="highest"))
-    out = port.spectral_conv_nd(torch.from_numpy(x).permute(0, 2, 1),
-                                [torch.from_numpy(w)], modes)
+        ref = np.asarray(jax_spectral(x, ws, modes, precision="highest"))
+    out = port.spectral_conv_nd(torch.from_numpy(x).movedim(-1, 1),
+                                [torch.from_numpy(w) for w in ws], modes)
     assert out.dtype == torch.float32
-    assert _rel(out.permute(0, 2, 1).numpy(), ref) < REL
+    assert _rel(out.movedim(1, -1).numpy(), ref) < REL
 
 
 @pytest.mark.parametrize("b,ci,co,grid,modes", [

@@ -27,7 +27,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_torch_distributed import (  # noqa: E402
-    NT, TW, _assert_grads_close, _assert_ok, _free_port, _overrides, _parse,
+    NT, TW, _assert_grads_close, _assert_ok, _overrides, _parse, _rendezvous,
     _rel, _run_world, _tensors)
 
 B, NX, K = 4, 16, 2
@@ -237,9 +237,8 @@ def worker(spec_path, scenarios):
     torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
-    init_distributed(f"tcp://127.0.0.1:{spec['port']}",
-                     world_size=spec["world"], rank=spec["rank"],
-                     device="cpu", timeout=WORKER_TIMEOUT)
+    init_distributed(spec["rendezvous"], world_size=spec["world"],
+                     rank=spec["rank"], device="cpu", timeout=WORKER_TIMEOUT)
     try:
         g = torch.load(spec["inputs"], weights_only=False)
         res = {name: scenarios[name](spec, g) for name in spec["scenarios"]}
@@ -253,12 +252,12 @@ def run_world(test_file, data_dir, single, n, cfg, flags, scenarios):
     rank's results (and the world's directory under ``out``)."""
     out = data_dir / f"world{n}"
     out.mkdir()
-    port = _free_port()
+    rendezvous = _rendezvous(out)
     commands = []
     for rank in range(n):
         spec = out / f"spec{rank}.json"
         spec.write_text(json.dumps(dict(
-            rank=rank, world=n, port=port, cfg=cfg, flags=flags,
+            rank=rank, world=n, rendezvous=rendezvous, cfg=cfg, flags=flags,
             data=str(data_dir / "data"), out=str(out),
             inputs=str(single["inputs"]), weights=str(single["weights"]),
             scenarios=scenarios)))
