@@ -154,24 +154,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
              its adjoint, _inv; K2's gn1_split_sums, _apply, _bwd_sums,
              _bwd_apply) against its plain version at the twophase U-FNO's
              and cfg_ns512_ufno's local shapes at K = 2, beside its bound
-             and the plain version's time; then two ranks sharing the card
-             over gloo (each this script run with --sp-worker, logs
-             sp_rank*.log in --out), a (data, x) grid of 1 x 2, the
-             trainer the CLI builds with data_parallel and
-             spatial_parallel=2: the full-width twophase U-FNO (f32, TF32
+             and the plain version's time; then two worlds of two ranks
+             sharing the card over gloo (each rank this script run with
+             --sp-worker, logs sp_rank*.log and sp_others_rank*.log in
+             --out; the second world takes simulate(), the engine and the
+             other families, so that the two run side by side), each a
+             (data, x) grid of 1 x 2, the trainer the CLI builds with
+             data_parallel and spatial_parallel=2: the full-width
+             twophase U-FNO (f32, TF32
              off, batch 16, 48 of the 96 rows a rank) from the dp phase's
              weights and starts: the first window's forward (1e-4), one
              step at depths 0 and 8 (loss 1e-5, every gradient 1e-4,
              every split entry launched), the evaluation of the batch
              (per-step losses 1e-5, first window 1e-4); the engine's
              shard(2) rollout of 8 bundled steps against one device's
-             (nRMSE 1e-3; captured=True refused); cfg_ns512_ufno as
-             shipped with spatial_parallel=2 (bf16, remat, batch 8, 256 of
-             512 rows a rank), one depth-0 step against the single-process
+             (nRMSE 1e-3; captured=True refused); simulate() on the
+             row-split trainer (4 elements, 5 bundled steps, the whole
+             inputs given) against one process's (losses and frames,
+             1e-3); then the other families at full width against one
+             process on the card (steps: loss 1e-5, every gradient 1e-4;
+             every split entry of the family launched, every other one
+             not): cfg_twophase_moe (3 x 4 experts x 192, its gate on the
+             static conditioning; the ep phase's weights and reference)
+             and the time-conditioned U-FNO (K1 at 204 channels, K2 at
+             396) at depths 0 and 1, the U-Net with attention on its two
+             deepest levels and in the middle at depths 0 and 1 and its
+             shard(2) rollout of 8 bundled steps (nRMSE 1e-3), the
+             MP-GNN and cfg_var1d_fno at depth 0, whole on each x rank
+             (no row fetched, nothing summed over the x group, no split
+             entry, the trainer's log line saying so); last, after the
+             grid phases' ranks have ended, cfg_ns512_ufno as shipped
+             with spatial_parallel=2 (bf16, remat, batch 8, 256 of 512
+             rows a rank), one depth-0 step against the single-process
              bf16 step (loss 8e-3, gradients' nRMSE 5e-2), each rank's
-             peak memory beside the one process's; step ms ("two ranks
+             peak memory beside the one process's, then the MP-GNN (whole
+             on each rank at batch 16: ~29 GiB a rank); step ms ("two ranks
              sharing one card": no scaling figure), halo and sum bytes and
-             launches per rank printed on their own line;
+             launches per rank printed on their own line; the split
+             stages are held at the time-conditioned shapes too
+             ([16, 204, 48, 64] and [16, 396, 50, 68]);
 8b. tp, ep, pp - tensor, expert and pipeline parallelism
              (nps_tpu_torch.parallel.tensor, .expert, .pipeline): ranks
              sharing the card over gloo (each this script run with
@@ -187,7 +208,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              experts of each block a rank), steps at depths 0 and 1; pp
              the U-FNO at K = 3 (one block a stage) with 4
              microbatches, steps at depths 0 and 8; the three phases'
-             7 ranks run at once. Each against one
+             7 ranks run at once, with the sp phase's 4 (one batch of
+             ranks, "sp_grids" on the seconds line). Each against one
              process on the card from the same weights and starts: the
              loss (1e-5) and every gradient,
              gathered whole (1e-4); each rank's K1 and K2 launches (its
@@ -270,12 +292,14 @@ events.
 Then each phase's seconds on one line, a ``{"kernels": [...]}`` line and,
 last, the ``{"ok": true, ...}`` line. Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repo. Longer outputs
-(ptxas reports) go to ``--out``.
+(ptxas reports) go to ``--out``, and every JSON line of the run to
+``lines.jsonl`` there too.
 """
 
 import argparse
 import collections
 import contextlib
+import io
 import json
 import math
 import subprocess
@@ -422,8 +446,18 @@ def gn_act(gelu, approximate="none"):
                                    else "erf")
 
 
+# the open file main() writes every JSON line to besides stdout
+# (lines.jsonl in --out): a runner that keeps only the end of a run's
+# output would lose the earlier lines, and the kernels line alone is long
+LINES = {"file": None}
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LINES["file"] is not None:
+        LINES["file"].write(line + "\n")
+        LINES["file"].flush()
 
 
 def rel_err(a, ref):
@@ -1195,9 +1229,11 @@ def make_split(tmp, seed):
     return time.perf_counter() - t0
 
 
-def build_trainer(cfg, argv, device):
-    """The trainer the CLI builds from ``cfg`` and ``argv``, with its
-    optimizer and scheduler set."""
+def build_trainer(cfg, argv, device, trainer_keys=None):
+    """The trainer the CLI builds from ``cfg`` and ``argv`` (and
+    ``trainer_keys`` set in the parsed config's trainer section: keys such
+    as spatial_parallel that cfg_var1d_fno, like its JAX original, does not
+    declare), with its optimizer and scheduler set."""
     from nps_tpu_torch import train_cli
     from nps_tpu_torch.configs.parse import parse_args
 
@@ -1208,6 +1244,7 @@ def build_trainer(cfg, argv, device):
             args = parse_args(cfg)
     finally:
         sys.argv = saved
+    args["trainer"].update(trainer_keys or {})
     trainer = train_cli.get_config_static(args, device=device)[4]
     trainer.set_optimizer(dict(args["optimizer"]))
     trainer.set_lr_scheduler(dict(args["lr_scheduler"]))
@@ -4044,7 +4081,36 @@ SP_SHAPES = {
                      gn=(TRAIN_BATCH, 2 * HIDDEN + 4, 50, 68), act="erf"),
     "ns512": dict(spec=(NS_BATCH, NS_HIDDEN + 4, NS_N // 2, NS_N), n1=NS_N,
                   co=NS_HIDDEN, modes=(NS_MODES, NS_MODES), dtype="bfloat16",
-                  gn=(NS_BATCH, 2 * NS_HIDDEN + 4, 263, 526), act="tanh")}
+                  gn=(NS_BATCH, 2 * NS_HIDDEN + 4, 263, 526), act="tanh"),
+    # the time-conditioned U-FNO's: 8 more channels (the BC encoder's code)
+    "tcond": dict(spec=(TRAIN_BATCH, SPEC_CI + 8, NX1 // 2, NX2), n1=NX1,
+                  co=HIDDEN, modes=(MODES, MODES), dtype="float32",
+                  gn=(TRAIN_BATCH, 2 * HIDDEN + 12, 50, 68), act="erf")}
+# the sp world's other families (besides the U-FNO and ns512), each from
+# one process's weights and starts on the card: name -> (config,
+# overrides, depths, the split entries its steps launch; every other entry
+# must stay at 0). The MoE takes the ep phase's weights and reference
+# (grid_reference: the same config, batch and depths); the MP-GNN and the
+# 1D model run whole on each x rank (no row fetched, nothing summed over
+# the x group, no split entry)
+SP_SPECTRAL = ("spectral_split_dft", "spectral_split_mix",
+               "spectral_split_inv")
+SP_GN = ("gn1_split_sums", "gn1_split_apply", "gn1_split_bwd_sums",
+         "gn1_split_bwd_apply")
+SP_FAMILIES = {
+    "moe": (family_cfg("moe"), [], (0, 1), SP_SPECTRAL),
+    "ufno_tcond": (*P13A["ufno_tcond"][:2], (0, 1), SP_SPECTRAL + SP_GN),
+    "unet_attn": (*P13A["unet_attn"][:2], (0, 1), SP_GN),
+    "gnn": (family_cfg("gnn"), [], (0,), ()),
+    "var1d": (V1_CFG, [], (0,), ())}
+SP_WHOLE = {"gnn": "the MP-GNN (a graph)", "var1d": "a 1D model"}
+# the MP-GNN whole on each of two ranks at batch 16 holds ~29 GiB a rank:
+# it runs in the main sp world after ns512, once the grid ranks have ended
+SP_HEAVY = ("gnn",)
+SP_GRID_KEYS = {"data_parallel": True, "spatial_parallel": SP_K}
+# simulate() on the row-split U-FNO: the first SP_SIM_B elements of the
+# batch from their first window over SP_SIM_T frames (5 bundled steps)
+SP_SIM_B, SP_SIM_T = 4, 6 * TW
 
 
 def _modes_first_plain(re, im):
@@ -4223,9 +4289,10 @@ def sp_gn_records(gen, shape):
 
 
 def sp_stage_records(gen):
-    """Every split entry against its plain version at both local shapes;
-    returns {entry: its record at the twophase shape, with the ns512 one
-    under "ns512"} and the failures."""
+    """Every split entry against its plain version at each local shape;
+    returns {entry: its record at the twophase shape, with the ns512 and
+    the time-conditioned ones under "ns512" and "tcond"} and the
+    failures."""
     import gc
 
     import torch
@@ -4240,37 +4307,272 @@ def sp_stage_records(gen):
               "gn": gnr})
         for name in SP_ENTRIES:
             r = spec.get(name) or gnr.get(name)
+            where = SP_SHAPES[shape]["spec" if name.startswith("spectral")
+                                     else "gn"]
             if shape == "twophase":
-                recs[name] = dict(r, shape=SP_SHAPES[shape]["spec"
-                                  if name.startswith("spectral") else "gn"])
+                recs[name] = dict(r, shape=where)
             else:
-                recs[name]["ns512"] = r
+                recs[name][shape] = dict(r, shape=where)
         gc.collect()
         torch.cuda.empty_cache()
     return recs, failures
 
 
-def sp_worker(spec_path):
-    """One rank of the sp phase (``chip_smoke.py --sp-worker SPEC``): join
-    the gloo world on the card, build the shipped trainer with
-    data_parallel and spatial_parallel=2 (a grid of D = 1 x K = 2), take
-    this rank's rows of the dp phase's first global batch, then from the dp
-    reference's weights: the forward of the first window, a warm-up step,
-    one step at each of TRAIN_DEPTHS (loss, gradients, launches, halo and
-    sum bytes, ms, peak memory), the evaluation of the batch; the sharded
-    engine's rollout; and cfg_ns512_ufno as shipped with spatial_parallel=2
-    (one depth-0 step at NS_BATCH from the ns512 reference's weights).
-    Rank 0 holds each against its reference. Writes its record as JSON."""
+def sp_step(tr, batch, depth, steps0, weights):
+    """One step of an sp rank from the reference weights with a fresh
+    optimizer: loss, host ms around it (synchronised), the launches and
+    the collectives counted in it, peak memory."""
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.parallel import spatial
+
+    tr.load_model(weights)
+    tr.set_optimizer(tr.optimizer_spec)
+    kernels.reset_launches()
+    spatial.traffic.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = tr.train_step(batch, 0, 0, unrolled=depth, steps0=steps0)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
+            "launches": dict(kernels.launches),
+            "traffic": dict(spatial.traffic),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def sp_simulate(tr, batch):
+    """``tr.simulate()`` of the first SP_SIM_B elements of the whole
+    ``batch`` (numpy, as a user passes them) from their first window over
+    SP_SIM_T frames: (losses, frames)."""
+    import numpy as np
+
+    u, x, cond, sc = (batch[i][:SP_SIM_B].cpu().numpy() for i in (1, 2, 3, 5))
+    losses, (_, pred) = tr.simulate(u, cond, x, compute_loss=True,
+                                    include_data=True, nr_gt_steps=1,
+                                    t_res=SP_SIM_T, spatial_conditioning=sc)
+    return np.asarray(losses), pred
+
+
+def sp_family(name, paths, device, seed):
+    """One family of SP_FAMILIES on this rank's (data, x) grid: the
+    trainer the CLI builds with spatial_parallel=SP_K, its rows of the
+    first batch, one step at each of its depths from the reference's
+    weights and starts (loss, gradients against the reference's,
+    launches, collectives); for the attention U-Net the engine's shard(2)
+    rollout of SP_ENGINE_STEPS bundled steps against one device's."""
     import gc
 
     import numpy as np
     import torch
 
-    from nps_tpu_torch import kernels, parallel
-    from nps_tpu_torch.data.pipeline import collate, prefetch_to_device
-    from nps_tpu_torch.inference import SurrogateEngine, autotuned_convs
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
     from nps_tpu_torch.parallel import spatial
 
+    cfg, over, depths, _ = SP_FAMILIES[name]
+    ref = torch.load(paths["ref"], weights_only=False)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        tr = build_trainer(cfg, paths["argv"], device, SP_GRID_KEYS)
+    tr.load_model(paths["weights"])
+    tr.ensure_initialized()
+    batch = tr.grid.shard_batch(first_batch(tr))
+    rec = {"whole": tr.grid.whole, "log": log.getvalue().strip(),
+           "rows": int(batch[1].shape[3]), "steps": {}}
+    for depth in depths:
+        r = sp_step(tr, batch, depth, ref["steps0"][depth], paths["weights"])
+        r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
+            ref["loss"][depth])
+        r["grad_rel_err"], r["worst_grad"] = _grad_errors(
+            {k: p.grad for k, p in tr.model.named_parameters()},
+            ref["grads"][depth], DP_GRAD_FLOOR)
+        rec["steps"][str(depth)] = r
+    del tr, batch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name == "unet_attn":
+        eng = SurrogateEngine.from_config(cfg, overrides=over,
+                                          pde=twophase_pde(), device=device)
+        eng.load(paths["weights"]).shard(SP_K)
+        u0, cond, sc = serving_inputs(seed)
+        kernels.reset_launches()
+        spatial.traffic.clear()
+        t0 = time.perf_counter()
+        frames = eng.rollout(u0, SP_ENGINE_STEPS, cond=cond, spatial_cond=sc)
+        want = np.load(paths["engine_ref"])
+        rec["engine"] = {"seconds": time.perf_counter() - t0,
+                         "launches": dict(kernels.launches),
+                         "traffic": dict(spatial.traffic),
+                         "nrmse": float(np.linalg.norm(frames - want)
+                                        / np.linalg.norm(want))}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def wait_for(paths, limit):
+    """Wait until every one of ``paths`` exists, at most ``limit`` seconds;
+    returns the seconds waited."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + limit
+    while (not all(Path(p).exists() for p in paths)
+           and time.monotonic() < deadline):
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def sp_main(spec, rec, device, flags):
+    """The sp world's main part: the twophase U-FNO from the dp phase's
+    weights and starts (the first window's forward, a warm-up step, one
+    step at each of TRAIN_DEPTHS, the evaluation of the batch, held by
+    rank 0); last, once the grid phases' ranks have written their records
+    (their peaks and these would not fit the card together),
+    cfg_ns512_ufno as shipped (one depth-0 step at NS_BATCH), then the
+    families of SP_HEAVY (sp_family)."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch.data.pipeline import collate, prefetch_to_device
+
+    ref = torch.load(spec["ref"], weights_only=False)
+    tr = build_trainer(family_cfg("ufno"), [*spec["argv"], *flags], device)
+    tr.load_model(spec["weights"])
+    tr.ensure_initialized()
+    batch = tr.grid.shard_batch(first_batch(tr))
+    rec["rows"] = int(batch[1].shape[3])
+    with torch.no_grad():
+        fwd = tr.grid.gather_frames(tr._apply(
+            batch[1][:, :, :TW], batch[3], None, batch[2], None, batch[5]))
+    rec["forward_rel_err"] = rel_err(fwd, ref["forward"].cuda())
+    sp_step(tr, batch, 0, ref["steps0"][0], spec["weights"])  # warm-up
+    rec["steps"] = {}
+    for depth in TRAIN_DEPTHS:
+        r = sp_step(tr, batch, depth, ref["steps0"][depth], spec["weights"])
+        r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
+            ref["loss"][depth])
+        r["grad_rel_err"], r["worst_grad"] = _grad_errors(
+            {k: p.grad for k, p in tr.model.named_parameters()},
+            ref["grads"][depth], DP_GRAD_FLOOR)
+        rec["steps"][str(depth)] = r
+    tr.load_model(spec["weights"])
+    info, pred = eval_rollout(tr, batch)
+    if rec["rank"] == 0:
+        ev = torch.load(spec["eval_ref"], weights_only=False)
+        rec["eval"] = eval_errors(info, pred, ev["info"], ev["pred"])
+    del tr, batch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["ns512_waited_s"] = wait_for(spec["after"], SP_TIMEOUT)
+    ns_ref = torch.load(spec["ns_ref"], weights_only=False)
+    ns = build_trainer(NS_CFG, [*spec["ns_argv"], *flags], device)
+    ns.load_model(spec["ns_weights"])
+    ns.ensure_initialized()
+    ds = ns.data.train
+    host = collate([ds[i % len(ds)] for i in range(NS_BATCH)])
+    batches = prefetch_to_device(iter([host]), device)
+    nsb = ns.grid.shard_batch(next(batches))
+    batches.close()
+    sp_step(ns, nsb, 0, ns_ref["steps0"], spec["ns_weights"])  # warm-up
+    r = sp_step(ns, nsb, 0, ns_ref["steps0"], spec["ns_weights"])
+    r["loss_rel_err"] = abs(r["loss"] - ns_ref["loss"]) / abs(ns_ref["loss"])
+    r["grad_nrmse"], r["worst_grad_nrmse"] = _grad_nrmse(
+        {k: p.grad.cpu() for k, p in ns.model.named_parameters()},
+        ns_ref["grads"])
+    r["batch"] = NS_BATCH
+    r["compute_dtype"] = str(ns.compute_dtype)
+    rec["ns512"] = r
+    del ns, nsb, batches, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["families"] = {}
+    for name in SP_HEAVY:
+        t0 = time.perf_counter()
+        rec["families"][name] = sp_family(name, spec["families"][name],
+                                          device, spec["seed"])
+        rec["families"][name]["seconds"] = time.perf_counter() - t0
+
+
+def sp_others(spec, rec, device, flags):
+    """The sp world's other part: simulate() of a cut of the U-FNO's first
+    batch on its row-split trainer (the whole inputs given), the sharded
+    engine's rollout, and each family of SP_FAMILIES but SP_HEAVY
+    (sp_family)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine
+
+    tr = build_trainer(family_cfg("ufno"), [*spec["argv"], *flags], device)
+    tr.load_model(spec["weights"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    losses, frames = sp_simulate(tr, first_batch(tr))
+    launches = dict(kernels.launches)
+    seconds = time.perf_counter() - t0
+    sim_ref = torch.load(spec["sim_ref"], weights_only=False)
+    rec["simulate"] = {
+        "seconds": seconds, "launches": launches,
+        "shape": list(frames.shape),
+        "loss_rel_err": float(np.max(np.abs(losses - sim_ref[0])
+                                     / np.abs(sim_ref[0]))),
+        "nrmse": float(np.linalg.norm(frames - sim_ref[1])
+                       / np.linalg.norm(sim_ref[1]))}
+    del tr, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    eng = SurrogateEngine.from_config(family_cfg("ufno"), pde=twophase_pde(),
+                                      device=device)
+    eng.load(spec["weights"]).shard(SP_K)
+    u0, cond, sc = serving_inputs(spec["seed"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    frames = eng.rollout(u0, SP_ENGINE_STEPS, cond=cond, spatial_cond=sc)
+    rec["engine"] = {"seconds": time.perf_counter() - t0,
+                     "launches": dict(kernels.launches)}
+    try:
+        eng.rollout(u0, 1, cond=cond, spatial_cond=sc, captured=True)
+        rec["engine"]["captured"] = None
+    except NotImplementedError as e:
+        rec["engine"]["captured"] = str(e)
+    want = np.load(spec["engine_ref"])
+    rec["engine"]["nrmse"] = float(np.linalg.norm(frames - want)
+                                   / np.linalg.norm(want))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["families"] = {}
+    for name in SP_FAMILIES:
+        if name in SP_HEAVY:
+            continue
+        t0 = time.perf_counter()
+        rec["families"][name] = sp_family(name, spec["families"][name],
+                                          device, spec["seed"])
+        rec["families"][name]["seconds"] = time.perf_counter() - t0
+
+
+def sp_worker(spec_path):
+    """One rank of an sp world (``chip_smoke.py --sp-worker SPEC``): join
+    the gloo world on the card, build trainers with data_parallel and
+    spatial_parallel=2 (a grid of D = 1 x K = 2), run the spec's part
+    (sp_main or sp_others; two worlds of two ranks each, beside the grid
+    phases' ranks) and write its record as JSON, with the wall-clock
+    times it started and ended."""
+    import torch
+
+    from nps_tpu_torch import parallel
+    from nps_tpu_torch.inference import autotuned_convs
+
+    started = time.time()
     spec = json.loads(Path(spec_path).read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4278,124 +4580,27 @@ def sp_worker(spec_path):
         f"tcp://127.0.0.1:{spec['port']}", world_size=spec["world"],
         rank=spec["rank"], backend="gloo", device="cuda",
         timeout=SP_TIMEOUT)
-    rank = parallel.world()[0]
     flags = ["--trainer.data_parallel=true",
              f"--trainer.spatial_parallel={SP_K}"]
-    rec = {"rank": rank, "device": str(device),
-           "backend": torch.distributed.get_backend(), "steps": {}}
-
-    def step(tr, batch, depth, steps0, weights):
-        """A step from the reference weights with a fresh optimizer."""
-        tr.load_model(weights)
-        tr.set_optimizer(tr.optimizer_spec)
-        kernels.reset_launches()
-        spatial.traffic.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        loss, _ = tr.train_step(batch, 0, 0, unrolled=depth, steps0=steps0)
-        torch.cuda.synchronize()
-        return {"loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
-                "launches": dict(kernels.launches),
-                "traffic": dict(spatial.traffic),
-                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-
+    rec = {"rank": parallel.world()[0], "device": str(device),
+           "backend": torch.distributed.get_backend()}
     try:
-        ref = torch.load(spec["ref"], weights_only=False)
         with autotuned_convs(deterministic=True):
-            tr = build_trainer(family_cfg("ufno"), [*spec["argv"], *flags],
-                               device)
-            tr.load_model(spec["weights"])
-            tr.ensure_initialized()
-            batch = tr.grid.shard_batch(first_batch(tr))
-            rec["rows"] = int(batch[1].shape[3])
-            with torch.no_grad():
-                fwd = tr.grid.gather_frames(tr._apply(
-                    batch[1][:, :, :TW], batch[3], None, batch[2], None,
-                    batch[5]))
-            rec["forward_rel_err"] = rel_err(fwd, ref["forward"].cuda())
-            step(tr, batch, 0, ref["steps0"][0], spec["weights"])  # warm-up
-            for depth in TRAIN_DEPTHS:
-                r = step(tr, batch, depth, ref["steps0"][depth],
-                         spec["weights"])
-                r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
-                    ref["loss"][depth])
-                r["grad_rel_err"], r["worst_grad"] = _grad_errors(
-                    {k: p.grad for k, p in tr.model.named_parameters()},
-                    ref["grads"][depth], DP_GRAD_FLOOR)
-                rec["steps"][str(depth)] = r
-            tr.load_model(spec["weights"])
-            info, pred = eval_rollout(tr, batch)
-            if rank == 0:
-                ev = torch.load(spec["eval_ref"], weights_only=False)
-                rec["eval"] = eval_errors(info, pred, ev["info"], ev["pred"])
-            del tr, batch, ref
-            gc.collect()
-            torch.cuda.empty_cache()
-
-            eng = SurrogateEngine.from_config(family_cfg("ufno"),
-                                              pde=twophase_pde(),
-                                              device=device)
-            eng.load(spec["weights"]).shard(SP_K)
-            u0, cond, sc = serving_inputs(spec["seed"])
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            frames = eng.rollout(u0, SP_ENGINE_STEPS, cond=cond,
-                                 spatial_cond=sc)
-            rec["engine"] = {"seconds": time.perf_counter() - t0,
-                             "launches": dict(kernels.launches)}
-            for name, call in (("captured", lambda: eng.rollout(
-                    u0, 1, cond=cond, spatial_cond=sc, captured=True)),):
-                try:
-                    call()
-                    rec["engine"][name] = None
-                except NotImplementedError as e:
-                    rec["engine"][name] = str(e)
-            want = np.load(spec["engine_ref"])
-            rec["engine"]["nrmse"] = float(np.linalg.norm(frames - want)
-                                           / np.linalg.norm(want))
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
-
-            ns_ref = torch.load(spec["ns_ref"], weights_only=False)
-            ns = build_trainer(NS_CFG, [*spec["ns_argv"], *flags], device)
-            ns.load_model(spec["ns_weights"])
-            ns.ensure_initialized()
-            ds = ns.data.train
-            host = collate([ds[i % len(ds)] for i in range(NS_BATCH)])
-            batches = prefetch_to_device(iter([host]), device)
-            nsb = ns.grid.shard_batch(next(batches))
-            batches.close()
-            step(ns, nsb, 0, ns_ref["steps0"], spec["ns_weights"])  # warm-up
-            r = step(ns, nsb, 0, ns_ref["steps0"], spec["ns_weights"])
-            r["loss_rel_err"] = abs(r["loss"] - ns_ref["loss"]) / abs(
-                ns_ref["loss"])
-            r["grad_nrmse"], r["worst_grad_nrmse"] = _grad_nrmse(
-                {k: p.grad.cpu() for k, p in ns.model.named_parameters()},
-                ns_ref["grads"])
-            r["batch"] = NS_BATCH
-            r["compute_dtype"] = str(ns.compute_dtype)
-            rec["ns512"] = r
+            (sp_main if spec["part"] == "main" else sp_others)(
+                spec, rec, device, flags)
     finally:
         torch.distributed.destroy_process_group()
+    rec["clock_" + spec["part"]] = [started, time.time()]
     Path(spec["out"]).write_text(json.dumps(rec))
     return 0
 
 
-def sp_references(seed, tmp):
-    """The single-device references the sp ranks are held to, besides the
-    dp phase's: the engine's SP_ENGINE_STEPS-step rollout from the dp
-    weights, and one depth-0 step of cfg_ns512_ufno as shipped at NS_BATCH
-    (after a warm-up, from the saved weights: loss, gradients, ms, peak
-    memory). Returns (record, the ns512 argv, the paths)."""
-    import gc
-
+def sp_engine_reference(seed, tmp):
+    """The engine's SP_ENGINE_STEPS-step rollout from the dp weights on one
+    device, which the sp ranks' sharded rollout is held to."""
     import numpy as np
-    import torch
 
-    from nps_tpu_torch.data.pipeline import collate, prefetch_to_device
-    from nps_tpu_torch.inference import SurrogateEngine, autotuned_convs
+    from nps_tpu_torch.inference import SurrogateEngine
 
     eng = SurrogateEngine.from_config(family_cfg("ufno"), pde=twophase_pde(),
                                       device="cuda")
@@ -4403,9 +4608,20 @@ def sp_references(seed, tmp):
     u0, cond, sc = serving_inputs(seed)
     np.save(f"{tmp}/sp_engine_ref.npy",
             eng.rollout(u0, SP_ENGINE_STEPS, cond=cond, spatial_cond=sc))
-    del eng
-    argv = ns512_train_argv(tmp, seed)
-    ns = build_trainer(NS_CFG, argv, "cuda")
+
+
+def sp_ns512_reference(seed, tmp):
+    """One depth-0 step of cfg_ns512_ufno as shipped at NS_BATCH on one
+    device (after a warm-up, from the weights it saves: loss, gradients,
+    ms, peak memory). Returns the record."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch.data.pipeline import collate, prefetch_to_device
+    from nps_tpu_torch.inference import autotuned_convs
+
+    ns = build_trainer(NS_CFG, ns512_train_argv(tmp, seed), "cuda")
     ns.ensure_initialized()
     weights = f"{tmp}/sp_ns_weights.pt"
     torch.save({k: v.detach().cpu() for k, v in
@@ -4427,50 +4643,109 @@ def sp_references(seed, tmp):
         loss, _ = ns.train_step(batch, 0, 0, unrolled=0, steps0=steps0)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-    rec = {"ns512": {"loss": float(loss), "ms": ms, "batch": NS_BATCH,
-                     "peak_mem_gib": torch.cuda.max_memory_allocated()
-                     / 2 ** 30}}
-    torch.save({"steps0": steps0, "loss": float(loss),
-                "grads": {k: p.grad.detach().float().cpu() for k, p in
-                          ns.model.named_parameters()}},
-               f"{tmp}/sp_ns_ref.pt")
+    rec = {"loss": float(loss), "ms": ms, "batch": NS_BATCH,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    ref = {"steps0": steps0, "loss": float(loss),
+           "grads": {k: p.grad.detach().float().cpu() for k, p in
+                     ns.model.named_parameters()}}
     del ns, batch, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return rec, argv, weights
+    torch.save(ref, f"{tmp}/sp_ns_ref.pt")
+    return rec
 
 
-def phase_sp(seed, card, gen, out_dir, tmp, dp_argv):
-    """Spatial parallelism on the main path: the split stages against their
-    plain versions (sp_stage_records); the single-device references
-    (sp_references, and the dp phase's); then SP_K ranks sharing the card
-    over gloo (sp_worker), held as the module note says. Returns (the
-    twophase depth-8 step's launches on rank 0, the split entries'
-    records)."""
-    kern, failures = sp_stage_records(gen)
-    single, ns_argv, ns_weights = sp_references(seed, tmp)
-    port = _free_port()
-    commands, logs, outs = [], [], []
-    for rank in range(SP_K):
-        spec = Path(tmp) / f"sp_spec{rank}.json"
-        outs.append(Path(tmp) / f"sp_rank{rank}.json")
-        spec.write_text(json.dumps({
-            "rank": rank, "world": SP_K, "port": port, "seed": seed,
-            "argv": dp_argv, "weights": f"{tmp}/dp_weights.pt",
-            "ref": f"{tmp}/dp_ref.pt", "eval_ref": f"{tmp}/dp_eval_ref.pt",
-            "engine_ref": f"{tmp}/sp_engine_ref.npy", "ns_argv": ns_argv,
-            "ns_weights": ns_weights, "ns_ref": f"{tmp}/sp_ns_ref.pt",
-            "out": str(outs[-1])}))
-        commands.append([sys.executable, str(Path(__file__).resolve()),
-                         "--sp-worker", str(spec)])
-        logs.append(out_dir / f"sp_rank{rank}.log")
-    t0 = time.perf_counter()
-    rcs = run_ranks(commands, logs, SP_TIMEOUT)
-    seconds = time.perf_counter() - t0
-    failures += [f"rank {r} exited {rc}:\n{_tail(log)}"
-                 for r, (rc, log) in enumerate(zip(rcs, logs)) if rc != 0]
-    ranks = ([json.loads(o.read_text()) for o in outs]
-             if all(rc == 0 for rc in rcs) else [])
+def sp_family_paths(seed, tmp, ep_paths):
+    """{family: its argv, weights and reference paths} of SP_FAMILIES: the
+    MoE's the ep phase's (``ep_paths``), the others' written by
+    sp_family_references."""
+    paths = {"moe": dict(ep_paths)}
+    for name, (_, over, _, _) in SP_FAMILIES.items():
+        if name == "moe":
+            continue
+        if name == "var1d":
+            argv = ["chip_smoke", f"--dataset.base_path={tmp}/sp_var1d",
+                    f"--seed={seed}", f"--experiment_path={tmp}/out",
+                    "--experiment_name=sp_var1d_single"]
+        else:
+            argv = [*train_argv(tmp, seed, 1, f"sp_{name}_single"), *over]
+        paths[name] = {"argv": argv, "weights": f"{tmp}/sp_{name}_weights.pt",
+                       "ref": f"{tmp}/sp_{name}_ref.pt"}
+    paths["unet_attn"]["engine_ref"] = f"{tmp}/sp_unet_attn_engine.npy"
+    return paths
+
+
+def sp_family_references(seed, tmp, dp_argv, paths):
+    """The one-process references of the sp worlds' other cases, on the
+    card: simulate() of the U-FNO from the dp weights (sp_simulate); then
+    for each family of SP_FAMILIES but the MoE (whose reference is the ep
+    phase's) its weights drawn from the seed, one step at each of its
+    depths from start steps drawn from the seed (loss, gradients), and for
+    the attention U-Net the engine's SP_ENGINE_STEPS rollout
+    (cfg_var1d_fno on a ragged split of its own, as the var1d phase
+    generates it). ``paths``: sp_family_paths."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch.data.synthetic import generate_var_t
+    from nps_tpu_torch.inference import SurrogateEngine, autotuned_convs
+
+    tr = build_trainer(family_cfg("ufno"), dp_argv, "cuda")
+    tr.load_model(f"{tmp}/dp_weights.pt")
+    with autotuned_convs(deterministic=True):
+        sim = sp_simulate(tr, first_batch(tr))
+    torch.save(sim, f"{tmp}/sp_sim_ref.pt")
+    del tr
+    generate_var_t(f"{tmp}/sp_var1d/var1d", n_sims=V1_SIMS, nx=V1_NX,
+                   t_min=V1_T_MIN, t_max=V1_T_MAX, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 5)
+    for name, (cfg, over, depths, _) in SP_FAMILIES.items():
+        if name == "moe":
+            continue
+        mine = paths[name]
+        tr = build_trainer(cfg, mine["argv"], "cuda")
+        tr.ensure_initialized()
+        torch.save({k: v.detach().cpu() for k, v in
+                    tr.model.state_dict().items()}, mine["weights"])
+        batch = first_batch(tr)
+        b, t_res = int(batch[1].shape[0]), int(batch[1].shape[2])
+        ref = {"steps0": {}, "loss": {}, "grads": {}}
+        with autotuned_convs(deterministic=True):
+            for depth in depths:
+                steps0 = torch.randint(tr.tw, t_res - tr.tw * (depth + 1) + 1,
+                                       (b,), generator=gen)
+                tr.load_model(mine["weights"])
+                tr.set_optimizer(tr.optimizer_spec)
+                loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
+                                        steps0=steps0)
+                ref["steps0"][depth] = steps0
+                ref["loss"][depth] = float(loss)
+                # zeros where a parameter has none (the attention block's
+                # unused norm), as the ranks' gradient sums give them
+                ref["grads"][depth] = {k: g.cpu() for k, g in
+                                       tr.whole_grads().items()}
+            del tr, batch
+            if name == "unet_attn":
+                eng = SurrogateEngine.from_config(
+                    cfg, overrides=over, pde=twophase_pde(), device="cuda")
+                eng.load(mine["weights"])
+                u0, cond, sc = serving_inputs(seed)
+                frames = eng.rollout(u0, SP_ENGINE_STEPS, cond=cond,
+                                     spatial_cond=sc)
+                np.save(mine["engine_ref"], frames)
+                del eng
+        torch.save(ref, mine["ref"])
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sp_check(ranks, rcs, logs, single, seconds, card):
+    """The sp ranks held as the module note says; prints the sp line and
+    the per-rank lines; returns the failures."""
+    failures = [f"sp rank {r} exited {rc}:\n{_tail(log)}"
+                for r, (rc, log) in enumerate(zip(rcs, logs)) if rc != 0]
     for r in ranks:
         if r["backend"] != "gloo" or r["rows"] != NX1 // SP_K:
             failures.append(f"rank {r['rank']}: {r['backend']}, rows "
@@ -4489,6 +4764,40 @@ def phase_sp(seed, card, gen, out_dir, tmp, dp_argv):
         if not (e["nrmse"] < SP_NRMSE and e["captured"]
                 and "P9b item 3" in e["captured"]):
             failures.append(f"rank {r['rank']}: engine {e}")
+        sim = r["simulate"]
+        unlaunched = [k for k in ("spectral_split_dft", "spectral_split_inv",
+                                  "gn1_split_sums", "gn1_split_apply")
+                      if not sim["launches"].get(k)]
+        if not (sim["nrmse"] < SP_NRMSE and sim["loss_rel_err"] < SP_NRMSE
+                and sim["shape"][3] == NX1 and not unlaunched):
+            failures.append(f"rank {r['rank']}: simulate {sim}; not "
+                            f"launched: {unlaunched}")
+        for name, f in r["families"].items():
+            want = SP_FAMILIES[name][3]
+            whole = SP_WHOLE.get(name)
+            if f["whole"] != whole or (whole is None) != (
+                    f["rows"] == NX1 // SP_K) or (
+                    whole and "whole on each x rank" not in f["log"]):
+                failures.append(f"rank {r['rank']} {name}: whole "
+                                f"{f['whole']}, rows {f['rows']}, log "
+                                f"{f['log']!r}")
+            for depth, s in f["steps"].items():
+                wrong = [k for k in SP_ENTRIES
+                         if bool(s["launches"].get(k)) != (k in want)]
+                moved = whole and s["traffic"]
+                attn = name == "unet_attn" and not s["traffic"].get("max")
+                if not (s["loss_rel_err"] <= DP_LOSS_TOL
+                        and s["grad_rel_err"] <= REL_TOL_GRAD
+                        and not wrong and not moved and not attn):
+                    failures.append(
+                        f"rank {r['rank']} {name} depth {depth}: {s}; "
+                        f"launches off their share: {wrong}")
+            e = f.get("engine")
+            if e and not (e["nrmse"] < SP_NRMSE
+                          and all(e["launches"].get(k)
+                                  for k in ("gn1_split_sums",
+                                            "gn1_split_apply"))):
+                failures.append(f"rank {r['rank']} {name}: engine {e}")
         n = r["ns512"]
         unlaunched = [k for k in SP_ENTRIES if not n["launches"].get(k)]
         if not (n["loss_rel_err"] <= BF16_FLOOR
@@ -4501,12 +4810,27 @@ def phase_sp(seed, card, gen, out_dir, tmp, dp_argv):
         failures.append(f"evaluation against the single process: {ev}")
     emit({"phase": "sp", "config": family_cfg("ufno"), "k": SP_K,
           "data_slices": 1, "backend": "gloo", "global_batch": TRAIN_BATCH,
-          "timing": f"{SP_K} ranks sharing one card: host clock around one "
-                    "synchronised step each, cuDNN's deterministic "
-                    "algorithms; says nothing about scaling",
+          "families": {name: {"config": cfg, "overrides": over,
+                              "depths": list(depths),
+                              "split_entries": list(want),
+                              "whole_on_each_x_rank": SP_WHOLE.get(name)}
+                       for name, (cfg, over, depths, want)
+                       in SP_FAMILIES.items()},
+          "simulate": {"elements": SP_SIM_B, "frames": SP_SIM_T},
+          "timing": f"two worlds of {SP_K} ranks (the U-FNO's steps, "
+                    "evaluation and ns512; simulate, the engine and the "
+                    "other families) sharing one card with the grid "
+                    "phases' ranks: host clock around one synchronised "
+                    "step each, cuDNN's deterministic algorithms; says "
+                    "nothing about scaling",
           "single_process": single, "seconds": seconds, "ranks": ranks,
           "card": card, "tf32": False})
     for r in ranks:
+        fam = {name: {d: (round(s["ms"], 1),
+                          {k: s["launches"].get(k, 0) for k in SP_ENTRIES
+                           if s["launches"].get(k)})
+                      for d, s in f["steps"].items()}
+               for name, f in r["families"].items()}
         print(f"sp rank {r['rank']} (two ranks sharing one card): twophase "
               f"step ms " + ", ".join(
                   f"depth {d} {r['steps'][str(d)]['ms']:.1f}"
@@ -4517,17 +4841,121 @@ def phase_sp(seed, card, gen, out_dir, tmp, dp_argv):
               f"{r['steps'][str(TRAIN_DEPTHS[-1])]['peak_mem_gib']:.2f}, "
               f"ns512 {r['ns512']['peak_mem_gib']:.2f} (one process "
               f"{single['ns512']['peak_mem_gib']:.2f}); launches per rank "
-              f"{ {k: r['steps'][str(TRAIN_DEPTHS[-1])]['launches'].get(k, 0) for k in SP_ENTRIES} }",
+              f"{ {k: r['steps'][str(TRAIN_DEPTHS[-1])]['launches'].get(k, 0) for k in SP_ENTRIES} }"
+              f"; the other families (depth: ms, split launches) {fam}; "
+              f"whole on each x rank: "
+              f"{ {n: f['whole'] for n, f in r['families'].items() if f['whole']} }",
               flush=True)
+    return failures
+
+
+def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
+    """Spatial parallelism and the tp, ep and pp phases in one batch of
+    ranks: the split stages against their plain versions
+    (sp_stage_records); the one-process references of every world
+    (sp_engine_reference, sp_ns512_reference, grid_reference,
+    sp_family_references, and the dp phase's); then two sp worlds of SP_K
+    ranks (sp_worker: sp_main and sp_others, side by side) and the grid
+    phases' 7 ranks (grid_worker) at once, all sharing the card over gloo;
+    then each world held to its references (sp_check, grid_check).
+    Returns (the sp U-FNO's depth-8 step launches on rank 0, the split
+    entries' records, each grid phase's rank-0 launches at its last depth,
+    the seconds of the references and of the ranks)."""
+    t0 = time.perf_counter()
+    kern, failures = sp_stage_records(gen)
+    sp_engine_reference(seed, tmp)
+    single = {"ns512": sp_ns512_reference(seed, tmp)}
+    phases = {name: grid_reference(name, seed, tmp, dp_argv) for name in GRID}
+    fam_paths = sp_family_paths(seed, tmp, phases["ep"][0])
+    sp_family_references(seed, tmp, dp_argv, fam_paths)
+    seconds = {"references": time.perf_counter() - t0}
+    grid_cmds, grid_logs, grid_outs = {}, {}, {}
+    for name, (paths, _) in phases.items():
+        port = _free_port()
+        grid_cmds[name], grid_logs[name], grid_outs[name] = [], [], []
+        for rank in range(GRID[name]["k"]):
+            spec = Path(tmp) / f"{name}_spec{rank}.json"
+            grid_outs[name].append(Path(tmp) / f"{name}_rank{rank}.json")
+            spec.write_text(json.dumps({"phase": name, "rank": rank,
+                                        "port": port,
+                                        "out": str(grid_outs[name][-1]),
+                                        **paths}))
+            grid_cmds[name].append([sys.executable,
+                                    str(Path(__file__).resolve()),
+                                    "--grid-worker", str(spec)])
+            grid_logs[name].append(out_dir / f"{name}_rank{rank}.log")
+    after = [str(o) for outs in grid_outs.values() for o in outs]
+    sp_cmds, sp_logs, sp_outs = [], [], {}
+    for part, tag in (("main", "sp"), ("others", "sp_others")):
+        port = _free_port()
+        sp_outs[part] = []
+        for rank in range(SP_K):
+            spec = Path(tmp) / f"{tag}_spec{rank}.json"
+            sp_outs[part].append(Path(tmp) / f"{tag}_rank{rank}.json")
+            spec.write_text(json.dumps({
+                "part": part, "rank": rank, "world": SP_K, "port": port,
+                "seed": seed, "argv": dp_argv,
+                "weights": f"{tmp}/dp_weights.pt", "ref": f"{tmp}/dp_ref.pt",
+                "eval_ref": f"{tmp}/dp_eval_ref.pt",
+                "engine_ref": f"{tmp}/sp_engine_ref.npy",
+                "ns_argv": ns512_train_argv(tmp, seed),
+                "ns_weights": f"{tmp}/sp_ns_weights.pt",
+                "ns_ref": f"{tmp}/sp_ns_ref.pt",
+                "sim_ref": f"{tmp}/sp_sim_ref.pt", "families": fam_paths,
+                "after": after, "out": str(sp_outs[part][-1])}))
+            sp_cmds.append([sys.executable, str(Path(__file__).resolve()),
+                            "--sp-worker", str(spec)])
+            sp_logs.append(out_dir / f"{tag}_rank{rank}.log")
+    launched = time.time()
+    t1 = time.perf_counter()
+    rcs = run_ranks(sp_cmds + [c for n in GRID for c in grid_cmds[n]],
+                    sp_logs + [lg for n in GRID for lg in grid_logs[n]],
+                    max(SP_TIMEOUT, GRID_TIMEOUT))
+    seconds["ranks"] = time.perf_counter() - t1
+    n_sp = 2 * SP_K
+    sp_rcs, rcs = rcs[:n_sp], rcs[n_sp:]
+    ranks = []
+    if all(rc == 0 for rc in sp_rcs):
+        # each rank's records of the two worlds, as one
+        for m, o in zip(sp_outs["main"], sp_outs["others"]):
+            main, others = (json.loads(f.read_text()) for f in (m, o))
+            families = {**others.pop("families"), **main.pop("families")}
+            ranks.append(dict(main, **others, families={
+                name: families[name] for name in SP_FAMILIES}))
+    grid_ends = [json.loads(Path(o).read_text())["clock"][1]
+                 for o in after if Path(o).exists()]
+    seconds["ended"] = {
+        "sp_main": max((r["clock_main"][1] for r in ranks), default=None),
+        "sp_others": max((r["clock_others"][1] for r in ranks),
+                         default=None),
+        "grids": max(grid_ends, default=None)}
+    seconds["ended"] = {k: None if v is None else v - launched
+                        for k, v in seconds["ended"].items()}
+    failures += sp_check(ranks, sp_rcs, sp_logs, single, seconds, card)
+    launches = {}
+    for name, (_, grid_single) in phases.items():
+        mine, rcs = rcs[:GRID[name]["k"]], rcs[GRID[name]["k"]:]
+        launches[name], bad = grid_check(name, card, gen, grid_single,
+                                         grid_logs[name], grid_outs[name],
+                                         mine, seconds["ranks"])
+        failures += [f"{name}: {f}" for f in bad]
     if failures:
         raise AssertionError("; ".join(failures))
+    r0 = ranks[0]
     for name, r in kern.items():
         r["launches_by_path"] = {
-            "sp_twophase_depth8": ranks[0]["steps"][str(TRAIN_DEPTHS[-1])][
+            "sp_twophase_depth8": r0["steps"][str(TRAIN_DEPTHS[-1])][
                 "launches"].get(name, 0),
-            "sp_ns512": ranks[0]["ns512"]["launches"].get(name, 0),
-            "sp_engine": ranks[0]["engine"]["launches"].get(name, 0)}
-    return ranks[0]["steps"][str(TRAIN_DEPTHS[-1])]["launches"], kern
+            "sp_ns512": r0["ns512"]["launches"].get(name, 0),
+            "sp_engine": r0["engine"]["launches"].get(name, 0),
+            "sp_simulate": r0["simulate"]["launches"].get(name, 0),
+            **{f"sp_{fam}_depth{d}": s["launches"].get(name, 0)
+               for fam, f in r0["families"].items()
+               for d, s in f["steps"].items()},
+            "sp_unet_attn_engine": r0["families"]["unet_attn"]["engine"][
+                "launches"].get(name, 0)}
+    return (r0["steps"][str(TRAIN_DEPTHS[-1])]["launches"], kern, launches,
+            {k: v for k, v in seconds.items() if k != "ended"})
 
 
 # ---- tensor, expert and pipeline parallelism (the tp, ep and pp phases) ----
@@ -4591,13 +5019,15 @@ def grid_worker(spec_path):
     parameter and optimizer-state bytes, the shapes the kernels saw), under
     tp the evaluation of a cut of the batch, and last one forward apply
     under torch.profiler (K1's and K2's kernels counted by name). Writes
-    its record to the spec's ``out`` as JSON."""
+    its record to the spec's ``out`` as JSON, with the wall-clock times it
+    started and ended."""
     import torch
 
     from nps_tpu_torch import kernels, parallel
     from nps_tpu_torch.inference import autotuned_convs
     from nps_tpu_torch.parallel import spatial
 
+    started = time.time()
     spec = json.loads(Path(spec_path).read_text())
     g = GRID[spec["phase"]]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4685,6 +5115,7 @@ def grid_worker(spec_path):
                                "attempts": attempts}
     finally:
         torch.distributed.destroy_process_group()
+    rec["clock"] = [started, time.time()]
     Path(spec["out"]).write_text(json.dumps(rec))
     return 0
 
@@ -4759,44 +5190,6 @@ def grid_reference(name, seed, tmp, dp_argv):
     gc.collect()
     torch.cuda.empty_cache()
     return paths, rec
-
-
-def phase_grids(seed, card, gen, out_dir, tmp, dp_argv):
-    """The tp, ep and pp phases (see GRID and the note above): each phase's
-    grid_reference in this process, then every phase's ranks (grid_worker)
-    at once, sharing the card (each phase's seconds are the 7 processes'
-    together), then each phase held to its reference (grid_check). Raises
-    if any phase failed; returns each phase's rank-0 launches at its last
-    depth."""
-    phases = {}
-    for name in GRID:
-        paths, single = grid_reference(name, seed, tmp, dp_argv)
-        port = _free_port()
-        commands, logs, outs = [], [], []
-        for rank in range(GRID[name]["k"]):
-            spec = Path(tmp) / f"{name}_spec{rank}.json"
-            outs.append(Path(tmp) / f"{name}_rank{rank}.json")
-            spec.write_text(json.dumps({"phase": name, "rank": rank,
-                                        "port": port, "out": str(outs[-1]),
-                                        **paths}))
-            commands.append([sys.executable, str(Path(__file__).resolve()),
-                             "--grid-worker", str(spec)])
-            logs.append(out_dir / f"{name}_rank{rank}.log")
-        phases[name] = (single, commands, logs, outs)
-    t0 = time.perf_counter()
-    rcs = run_ranks([c for ph in phases.values() for c in ph[1]],
-                    [log for ph in phases.values() for log in ph[2]],
-                    GRID_TIMEOUT)
-    seconds = time.perf_counter() - t0
-    failures, launches = [], {}
-    for name, (single, commands, logs, outs) in phases.items():
-        mine, rcs = rcs[:len(commands)], rcs[len(commands):]
-        launches[name], bad = grid_check(name, card, gen, single, logs, outs,
-                                         mine, seconds)
-        failures += [f"{name}: {f}" for f in bad]
-    if failures:
-        raise AssertionError("; ".join(failures))
-    return launches
 
 
 def grid_check(name, card, gen, single, logs, outs, rcs, seconds):
@@ -4899,6 +5292,19 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lines.jsonl", "w") as lines:
+        LINES["file"] = lines
+        try:
+            return run_phases(args, out_dir)
+        finally:
+            LINES["file"] = None
+
+
+def run_phases(args, out_dir):
+    """Every phase in turn (the module note), then the seconds, kernels,
+    card and device lines."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
     started, seconds = time.perf_counter(), {}
@@ -4937,10 +5343,13 @@ def main():
             "ns512_train", phase_ns512_train, args.seed, card, gen, out_dir,
             tmp, gn_inputs)
         kern.update(ns_train_kern)
-        sp, sp_kern = clocked("sp", phase_sp, args.seed, card, gen, out_dir,
-                              tmp, dp_argv)
-        grid = clocked("grids", phase_grids, args.seed, card, gen, out_dir,
-                       tmp, dp_argv)
+        # the sp and grid worlds share one batch of ranks: its references
+        # and its ranks' seconds under "sp_grids_references" and
+        # "sp_grids_ranks"
+        sp, sp_kern, grid, parts = clocked(
+            "sp_grids", phase_worlds, args.seed, card, gen, out_dir, tmp,
+            dp_argv)
+        seconds.update({f"sp_grids_{k}": v for k, v in parts.items()})
         var1d = clocked("var1d", phase_var1d, args.seed, card, out_dir, tmp)
         kern["spectral_dw2d"]["ns512"] = kern.pop("spectral_dw2d_ns512")
         # after training: torch.export keeps the constants it traced (the
@@ -5063,7 +5472,8 @@ def main():
                                    "spectral") else "gn1_gelu.cu")
                                + " (a stage of the row split, spatial "
                                  "parallelism; its twophase local shape, "
-                                 "the ns512 one under ns512)",
+                                 "the ns512 and time-conditioned ones under "
+                                 "ns512 and tcond)",
                      "replaces": SP_ENTRIES[name],
                      "launches": sp.get(name, 0),
                      "launches_by_path": r.pop("launches_by_path"),
@@ -5073,8 +5483,9 @@ def main():
                      "parity": "ok",
                      "timing": "device: CUDA graph of 20 calls (5 for the "
                                "GroupNorm stages), replayed",
-                     **{k: r[k] for k in ("shape", "ns512", "adjoint",
-                                          "plain", "timing_refused")
+                     **{k: r[k] for k in ("shape", "ns512", "tcond",
+                                          "adjoint", "plain",
+                                          "timing_refused")
                         if k in r}})
     with open(out_dir / "kernels.json", "w") as f:
         json.dump({"card": card, "kernels": line}, f, indent=1)

@@ -5,8 +5,10 @@ A conditioning-gated mixture of spectral experts
 (``nps_tpu_torch/models/moe_fno.py``): 3 blocks of 4 FNO-layer experts at
 192 features and 10x10 modes, the gate on the static conditioning, the
 tanh-approximate GELU after each mixture. One device trains it
-(``expert_parallel`` 0 or 1); sharding the expert axis over several
-devices is not ported (ROADMAP P9b item 6).
+(``expert_parallel`` 0 or 1); ``expert_parallel=K`` with
+``data_parallel`` splits the experts over a (data, expert) grid of
+processes (``parallel/expert.py``), and ``spatial_parallel=K`` splits the
+fields' rows over a (data, x) grid (``parallel/spatial.py``).
 """
 
 from nps_tpu_torch.configs.parse_component import load_config_modules, compose_config

@@ -57,8 +57,9 @@ each, as the JAX engine's ``shard`` serves over a device mesh:
 ``spatial_parallel=0`` splits the rollout batch over the ranks,
 ``spatial_parallel=K`` lays them out as a (data, x) grid and splits the
 first spatial axis of the fields over the K ranks of each x group as well
-(``parallel.spatial``). Every rank calls ``rollout`` with the whole inputs
-and gets the whole frames back. A sharded engine serves eagerly only: a
+(``parallel.spatial``; a 1D model runs whole on each x rank). Every rank
+calls ``rollout`` with the whole inputs and gets the whole frames back. A
+sharded engine serves eagerly only: a
 gloo collective cannot be captured into a CUDA graph, so ``captured=True``
 and ``export_rollout`` raise (ROADMAP P9b item 3).
 """
@@ -227,21 +228,22 @@ class SurrogateEngine:
         K > 1 lays them out as a (data, x) grid of D x K (``parallel.Grid``)
         and splits the fields' first spatial axis over each x group too.
         Rank 0's weights are broadcast to every rank. The MP-GNN refuses,
-        as the JAX engine's ``shard`` does; so do the families without a
-        split form (``parallel.spatial.check_model``)."""
+        as the JAX engine's ``shard`` does; a 1D model runs whole on each
+        x rank (``parallel.spatial.whole``), and a 3D model refuses
+        (``parallel.spatial.check_model``)."""
         from nps_tpu_torch import parallel
 
         if self._is_gnn():
             raise NotImplementedError(
-                "sharded serving takes grid models; the MP-GNN's graph is "
-                "built per batch size (ROADMAP P9b item 3)")
+                "sharded serving takes grid models, as the JAX engine's "
+                "shard does: the MP-GNN's graph is built per batch size")
         if not torch.distributed.is_initialized():
             raise RuntimeError("shard() serves across a torch.distributed "
                                "group: call parallel.init_distributed first")
         k = int(spatial_parallel or 0)
         if k > 1:
             spatial.check_model(self.model, None, k)
-            self._grid = parallel.Grid(k)
+            self._grid = parallel.Grid(k, whole=spatial.whole(self.model))
             self._data = (self._grid.data_index, self._grid.data_size)
         else:
             self._grid, self._data = None, parallel.world()
@@ -274,7 +276,7 @@ class SurrogateEngine:
         s = None if sc is None else sc[mine]
         pos = self._pos(u.shape[0])
         axis = None
-        if self._grid is not None:
+        if self._grid is not None and self._grid.split:
             spatial.check_model(self.model, u.shape[3], self._grid.axis.size)
             axis = self._grid.axis.at(u.shape[3])
             _, u, pos, _, _, s = self._grid.shard_batch((u, u, pos, c, None,

@@ -31,6 +31,12 @@ the expert group (``parallel.expert.expert_sum``), and the block's input enters
 the block through ``parallel.tensor.copy_in``, ahead of the experts and of a
 gate that pools it: each rank's gradient into it is partial.
 
+Under spatial parallelism (``parallel.scope`` of an x axis: h holds this
+rank's rows) each expert's spectral conv runs split (K1's split entries on
+the card), and a pooled gate reads the grid's mean: the local rows' sums
+summed over the x group (``parallel.spatial.spatial_sum``), over the
+global cell count, as the JAX package's ``jnp.mean`` of the whole field.
+
 Parameter names (the JAX package stacks each expert's leaves on a leading
 ``E`` axis; :func:`~nps_tpu_torch.compat.jax_weights.from_jax_params`
 splits it): ``processor.P.experts.i.e.<FNO_Layer keys>`` for expert ``e``
@@ -38,6 +44,8 @@ of block ``i`` (JAX ``processor_P/experts_i/...`` at index ``e``), and
 ``processor.P.gate.i.weight`` ``[E, n_gate_in]`` / ``.bias`` ``[E]`` (JAX
 ``gate_i/kernel`` ``[n_gate_in, E]`` / ``bias``).
 """
+
+import math
 
 import torch
 from torch import nn
@@ -47,7 +55,7 @@ from nps_tpu_torch.models.activations import resolve_activation
 from nps_tpu_torch.models.common import REMAT_POLICIES, Dense, remat_block
 from nps_tpu_torch.models.config import compute_dtype_scope
 from nps_tpu_torch.models.fno import FNO_Layer
-from nps_tpu_torch.parallel import expert, tensor
+from nps_tpu_torch.parallel import expert, spatial, tensor
 
 
 class MoEFNO(nn.Module):
@@ -111,7 +119,7 @@ class MoEFNO(nn.Module):
                 if (self.cond_mode == "concat"
                     and variables_broadcast is not None) else h)
         gate_in = (variables if variables is not None
-                   else h.mean(dim=tuple(range(2, 2 + self.nd))))
+                   else self._pooled(h))
         if gate_in.shape[-1] != self.n_gate_in:
             raise ValueError(
                 f"the gate was built for {self.n_gate_in} inputs, got "
@@ -135,6 +143,17 @@ class MoEFNO(nn.Module):
         if axis is not None:
             acc = expert.expert_sum(acc, axis)
         return self.act(acc.to(out.dtype))
+
+    def _pooled(self, h):
+        """The spatial mean of h [b, c, *sp] -> [b, c]; under a row split
+        the grid's: the local rows' f32 sums summed over the x group
+        (``spatial_sum``), over the global cell count."""
+        dims = tuple(range(2, 2 + self.nd))
+        axis = spatial.current()
+        if axis is None or self.nd != 2:
+            return h.mean(dim=dims)
+        total = spatial.spatial_sum(h.float().sum(dim=dims), axis)
+        return (total / (axis.rows * math.prod(h.shape[3:]))).to(h.dtype)
 
     def forward(self, h, variables=None, variables_broadcast=None, pos=None):
         for i in range(self.hidden_blocks):

@@ -15,7 +15,8 @@ activation follows.
 ``is_attn`` (per level) and ``mid_attn`` add an :class:`AttentionBlock`
 after the level's (or the middle's first) ResidualBlock: single-head
 spatial self-attention over every cell of the field, with the reference's
-softmax over the query axis.
+softmax over the query axis (under a row split: every rank's keys and
+values fetched, the softmax's shift and sum taken over the x group).
 
 Every block passes on ``rows``, the global length of its input's first
 spatial axis: under spatial parallelism (a row-split field) the convs, the
@@ -30,6 +31,7 @@ from nps_tpu_torch.common.interfaces import D, M
 from nps_tpu_torch.models.activations import fused_gelu, resolve_activation
 from nps_tpu_torch.models.common import (ConvND, ConvTransposeND, Dense,
                                          GroupNorm, crop_nd)
+from nps_tpu_torch.parallel import spatial
 from nps_tpu_torch.parallel.spatial import rows_of
 
 
@@ -107,11 +109,35 @@ class AttentionBlock(nn.Module):
         b, c, *sp = x.shape
         h = x.reshape(b, c, -1).transpose(1, 2)               # [b, seq, c]
         q, k, v = self.projection(h).float().split(self.d_k, dim=-1)
-        scores = torch.matmul(q, k.transpose(1, 2)) * self.d_k ** -0.5
-        res = torch.matmul(torch.softmax(scores, dim=1), v)   # [b, seq, d_k]
-        res = self.output(res) + h
+        axis = spatial.current()
+        if axis is not None and len(sp) == 2:
+            res = self._split_attention(q, k, v, axis, rows_of(x, rows),
+                                        sp[1])
+        else:
+            scores = torch.matmul(q, k.transpose(1, 2)) * self.d_k ** -0.5
+            res = torch.matmul(torch.softmax(scores, dim=1), v)
+        res = self.output(res) + h                            # [b, seq, c]
         # NCHW again, contiguous as the GN+GELU kernel takes it
         return res.transpose(1, 2).reshape(b, c, *sp).contiguous()
+
+    def _split_attention(self, q, k, v, axis, rows, width):
+        """The attention of this rank's queries (its rows' cells) under a
+        row split of ``rows`` global rows of ``width`` cells: every rank's
+        keys and values fetched (``spatial.fetch_all_rows``; the backward
+        adds each row's gradient into its owner), and the softmax over the
+        queries of every rank: its shift the maximum over the x group
+        (``spatial.max_``), its sum a ``spatial_sum`` of the local sums of
+        ``exp``. Returns [b, local seq, d_k]."""
+        b, n, d = k.shape
+        kv = torch.cat([k, v], dim=-1).reshape(b, 1, n // width, -1)
+        kv = spatial.fetch_all_rows(kv, rows, axis).reshape(b, -1, 2 * d)
+        k, v = kv.split(d, dim=-1)
+        scores = torch.matmul(q, k.transpose(1, 2)) * self.d_k ** -0.5
+        shift = spatial.max_(scores.detach().amax(dim=1, keepdim=True)
+                             .contiguous(), axis)
+        e = torch.exp(scores - shift)
+        total = spatial.spatial_sum(e.sum(dim=1, keepdim=True), axis)
+        return torch.matmul(e / total, v)
 
 
 class DownBlock(nn.Module):

@@ -23,13 +23,15 @@ second axis is named ``x``, ``model``, ``pipe`` or ``expert``. Rank (d, s)
 holds data slice d of every global batch; on the x axis also rows [s X /
 K, (s + 1) X / K) of the first spatial axis X of every field
 (:meth:`Grid.shard_batch`, the JAX package's ``GridBatchSharding`` role
-table).
+table), but for a model with no row axis to split (the MP-GNN, a 1D
+model: ``Grid.whole``), whose x ranks each hold the whole field, as
+``GridBatchSharding`` leaves such arrays on the data axis.
 
 The optimizer sums each parameter's gradient over the group its tag names
 (:class:`GradSums`): over the data group where every rank of the axis
 group holds the whole gradient of the parameter, or of its own shard
 (``whole``), and over the world where each axis rank holds a part that the
-others' complete (``partial``: every parameter under the x split, a
+others' complete (``partial``: every parameter under a row split, a
 pipeline stage, the expert gate). Plain data parallelism sums everything
 over the world.
 """
@@ -177,13 +179,17 @@ class Grid:
     :class:`~nps_tpu_torch.parallel.spatial.SpatialAxis`: its group, K and
     s) and the data group of each axis index (:attr:`data_group`)."""
 
-    def __init__(self, k, name="x"):
+    def __init__(self, k, name="x", whole=None):
         from nps_tpu_torch.parallel.multihost import validate_grid_layout
 
         self.rank, size = world()
         k = int(k)
         validate_grid_layout(size, k, name)
         self.name = name
+        # on the x axis: why the model runs whole on each x rank
+        # (``spatial.whole``), or None where its fields split over the rows
+        self.whole = whole
+        self.split = name == "x" and not whole
         self.data_size = size // k
         self.data_index, s = divmod(self.rank, k)
         axis_groups = [dist.new_group(list(range(d * k, (d + 1) * k)))
@@ -196,10 +202,10 @@ class Grid:
 
     def sum_group(self):
         """(group, size) of the step's sums over the batch: the world on
-        the x axis, whose ranks each hold a share of every element's cells;
-        the data group on the others, whose axis ranks hold the same
+        a row split, whose ranks each hold a share of every element's
+        cells; the data group otherwise, whose axis ranks hold the same
         values."""
-        if self.name == "x":
+        if self.split:
             return None, self.data_size * self.axis.size
         return self.data_group, self.data_size
 
@@ -215,9 +221,11 @@ class Grid:
     def shard_batch(self, batch):
         """This rank's rows of every field of the batch tuple (numpy arrays
         or tensors: the fields, ``pos`` and ``spatial_cond``; the vectors
-        whole), as views. A field whose
-        rows do not split over K raises: no rank may hold another slice
-        than the one its peers assume."""
+        whole), as views; the batch itself for a model that runs whole on
+        each x rank. A field whose rows do not split over K raises: no rank
+        may hold another slice than the one its peers assume."""
+        if not self.split:
+            return tuple(batch)
         out = []
         for i, a in enumerate(batch):
             ax = _SPATIAL_AXIS[i] if i < len(_SPATIAL_AXIS) else None
@@ -232,14 +240,19 @@ class Grid:
 
     def gather_frames(self, x):
         """Frames [b, c, t, local rows, Y] of this rank -> the data slice's
-        whole frames (rows gathered in the x group; on another axis every
-        rank holds them whole), then every data slice's in order along the
-        batch: [D * b, c, t, X, Y]."""
-        if self.name == "x":
-            x = gather_rows(x, 3, self.axis.group, self.axis.index,
-                            self.axis.size)
+        whole frames (rows gathered in the x group of a row split; else
+        every rank holds them whole), then every data slice's in order
+        along the batch: [D * b, c, t, X, Y]."""
+        if self.split:
+            x = self.gather_x(x)
         return gather_rows(x, 0, self.data_group, self.data_index,
                            self.data_size)
+
+    def gather_x(self, x, dim=3):
+        """This rank's rows of ``x`` (along ``dim``) -> the x group's whole
+        field, on every rank of the group."""
+        return gather_rows(x, dim, self.axis.group, self.axis.index,
+                           self.axis.size)
 
 
 class GradSums:
@@ -325,9 +338,9 @@ class AllReduceGrads:
 
 
 def _pieces():
-    """The model pieces of P13a that a grid regime does not take yet: the
-    test on a module that marks each (ROADMAP P9b). Imported here, as the
-    models import this module."""
+    """The model pieces of P13a that some grid regime does not take yet:
+    the test on a module that marks each (ROADMAP P9b). Imported here, as
+    the models import this module."""
     from nps_tpu_torch.models.common import BCEncoder
     from nps_tpu_torch.models.unet_modern import AttentionBlock
 

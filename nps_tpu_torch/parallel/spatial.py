@@ -4,19 +4,26 @@ ranks of an x group (counterpart of ``nps_tpu/parallel/spatial.py``).
 In the JAX package GSPMD partitions the jitted step: it inserts the halo
 exchanges of the stencil convs and the partial sums of the spectral
 contractions and the norm statistics by itself. PyTorch has no such
-partitioner, so the port writes each op's sharded form by hand, out of two
-collectives of this module:
+partitioner, so the port writes each op's sharded form by hand, chiefly out
+of two collectives of this module:
 
 - :func:`fetch_rows`: the rows of a split tensor that a rank needs beyond
   its own (a conv's halo, a crop's shifted window, a transposed conv's
-  input), as an autograd op whose backward adds each fetched row's
-  gradient into its owner's rows;
+  input, every row of the attention's keys and values), as an autograd op
+  whose backward adds each fetched row's gradient into its owner's rows;
 - :func:`spatial_sum`: a sum over the x group of partial sums (a spectrum
-  over the local rows, the norm statistics, the volume totals) whose
+  over the local rows, the norm statistics, the volume totals, the MoE
+  gate's pooled mean, the attention softmax's sums over the queries) whose
   backward is a sum over the x group too. The loss's ``global_sum``
   (``parallel.mesh``) passes its gradient through instead: every rank seeds
   the same loss there, while a partial sum's gradient reaches each rank
   only from the ranks that read the total.
+
+A third, :func:`max_`, takes the attention softmax's shift (the maximum
+over the queries of every rank) outside autograd.
+
+The MP-GNN and the 1D models have no row axis to split: on an x axis they
+run whole on each rank (:func:`whole`), and the 3D models are refused.
 
 A split tensor of ``rows`` global rows holds on rank s of K the rows
 [s * rows // K, (s + 1) * rows // K) (:func:`part`). Each op decides from
@@ -24,14 +31,14 @@ the global row counts alone (which every rank knows) which rows each rank
 needs, so every rank makes the same collectives in the same order, the
 recompute of a rematerialized block included.
 
-Both collectives are ``all_reduce``: gloo carries only ``all_reduce`` and
+All three are ``all_reduce``: gloo carries only ``all_reduce`` and
 ``broadcast`` for CUDA tensors, and two ranks sharing one card can only
 use gloo (NCCL refuses two ranks on one device), so the same code runs
 there and on K cards under NCCL. A fetch is an all-reduce of a zeroed
-[K, 2, halo rows ...] buffer in which each slot has one writer; it is
-summed on its bit view (int32: gloo carries no int16), so the sum is exact
-in any float type. It moves K times the bytes of a send/receive pair
-(ROADMAP: point-to-point halos under NCCL).
+buffer of every rank's halo rows, rank after rank, in which each row has
+one writer (its owner); it is summed on its bit view (int32: gloo carries
+no int16), so the sum is exact in any float type. It moves K times the
+bytes of a send/receive pair (ROADMAP: point-to-point halos under NCCL).
 
 The model code reads the split from :func:`current`, set by the trainer and the
 engine with :func:`scope` around a model apply; without one every op runs
@@ -48,7 +55,8 @@ import torch
 import torch.distributed as dist
 
 # calls and bytes of the collectives since the last reset: "fetch",
-# "fetch_bytes", "sum", "sum_bytes" (a backward's count under its own name)
+# "fetch_bytes", "sum", "sum_bytes", "max", "max_bytes" (a backward's
+# count under its own name)
 traffic = Counter()
 
 
@@ -138,14 +146,19 @@ def _slot_buffer(shape, like):
     return flat, flat[:n].view(shape)
 
 
-Plan = namedtuple("Plan", "halo sends left right keep n_local")
+Plan = namedtuple("Plan", "size sends left left_at right right_at keep "
+                           "n_local")
 
 
 @lru_cache(maxsize=None)
 def _plan(size, index, rows, needs, wrap):
     """What rank ``index`` of ``size`` sends and keeps when every rank q
     needs the global rows ``needs[q]`` = [lo, hi) of a split of ``rows``;
-    rows outside [0, rows) wrap (``wrap``) or are zeros."""
+    rows outside [0, rows) wrap (``wrap``) or are zeros. The buffer holds,
+    rank after rank, each rank's left and right halo rows (those before
+    and after its own), each row written by its owner alone: ``size``
+    rows, ``sends`` (this rank's (buffer rows, its local rows) per halo it
+    serves), and where its own halos lie (``left_at``, ``right_at``)."""
     owns = [part(rows, size, q) for q in range(size)]
     a, b = owns[index]
     halos = []
@@ -153,23 +166,27 @@ def _plan(size, index, rows, needs, wrap):
         left = (lo, min(qa, hi)) if lo < qa else (lo, lo)
         right = (max(qb, lo), hi) if hi > qb else (hi, hi)
         halos.append((left, right))
-    halo = max(max(l1 - l0, r1 - r0) for (l0, l1), (r0, r1) in halos)
-    sends = []
-    for q, sides in enumerate(halos):
-        for side, (lo, hi) in enumerate(sides):
+    at, sends = 0, []
+    starts = []
+    for sides in halos:
+        starts.append([])
+        for lo, hi in sides:
             ts, srcs = [], []
             for t, i in enumerate(range(lo, hi)):
                 g = i % rows if wrap else i
                 if 0 <= g < rows and a <= g < b:
-                    ts.append(t)
+                    ts.append(at + t)
                     srcs.append(g - a)
             if ts:
-                sends.append((q, side, tuple(ts), tuple(srcs)))
+                sends.append((tuple(ts), tuple(srcs)))
+            starts[-1].append(at)
+            at += hi - lo
     lo, hi = needs[index]
     (l0, l1), (r0, r1) = halos[index]
     k0 = max(lo, a) - a
     keep = (k0, max(k0, min(hi, b) - a))
-    return Plan(halo, tuple(sends), l1 - l0, r1 - r0, keep, b - a)
+    return Plan(at, tuple(sends), l1 - l0, starts[index][0], r1 - r0,
+                starts[index][1], keep, b - a)
 
 
 def _index(t, idx):
@@ -179,40 +196,34 @@ def _index(t, idx):
 def _gather(x, axis, plan):
     k0, k1 = plan.keep
     mine = x[:, :, k0:k1]
-    if plan.halo == 0:
+    if plan.size == 0:
         return mine
-    b, c = x.shape[:2]
-    flat, buf = _slot_buffer((axis.size, 2, b, c, plan.halo, *x.shape[3:]),
-                             x)
-    for q, side, ts, srcs in plan.sends:
-        buf[q, side].index_copy_(2, _index(x, ts),
-                                 x.index_select(2, _index(x, srcs)))
+    flat, buf = _slot_buffer((*x.shape[:2], plan.size, *x.shape[3:]), x)
+    for ts, srcs in plan.sends:
+        buf.index_copy_(2, _index(x, ts), x.index_select(2, _index(x, srcs)))
     _exact_sum(flat, axis.group)
     traffic["fetch"] += 1
     traffic["fetch_bytes"] += flat.numel() * flat.element_size()
-    me = buf[axis.index]
-    return torch.cat([me[0, :, :, :plan.left], mine,
-                      me[1, :, :, :plan.right]], dim=2)
+    return torch.cat([buf[:, :, plan.left_at:plan.left_at + plan.left], mine,
+                      buf[:, :, plan.right_at:plan.right_at + plan.right]],
+                     dim=2)
 
 
 def _scatter(g, axis, plan):
     k0, k1 = plan.keep
     gx = g.new_zeros((*g.shape[:2], plan.n_local, *g.shape[3:]))
     gx[:, :, k0:k1] = g[:, :, plan.left:plan.left + k1 - k0]
-    if plan.halo == 0:
+    if plan.size == 0:
         return gx
-    b, c = g.shape[:2]
-    flat, buf = _slot_buffer((axis.size, 2, b, c, plan.halo, *g.shape[3:]),
-                             g)
-    me = buf[axis.index]
-    me[0, :, :, :plan.left] = g[:, :, :plan.left]
-    me[1, :, :, :plan.right] = g[:, :, g.shape[2] - plan.right:]
+    flat, buf = _slot_buffer((*g.shape[:2], plan.size, *g.shape[3:]), g)
+    buf[:, :, plan.left_at:plan.left_at + plan.left] = g[:, :, :plan.left]
+    buf[:, :, plan.right_at:plan.right_at + plan.right] = g[
+        :, :, g.shape[2] - plan.right:]
     _exact_sum(flat, axis.group)
     traffic["fetch_bwd"] += 1
     traffic["fetch_bwd_bytes"] += flat.numel() * flat.element_size()
-    for q, side, ts, srcs in plan.sends:
-        gx.index_add_(2, _index(g, srcs), buf[q, side].index_select(
-            2, _index(g, ts)))
+    for ts, srcs in plan.sends:
+        gx.index_add_(2, _index(g, srcs), buf.index_select(2, _index(g, ts)))
     return gx
 
 
@@ -272,6 +283,25 @@ def spatial_sum(x, axis=None):
     return _SpatialSum.apply(x, axis or current())
 
 
+def fetch_all_rows(x, rows, axis=None):
+    """Every global row of the split tensor ``x`` [b, c, local rows, ...]
+    on every rank (what a cell that reads every other cell needs, as the
+    U-Net's attention reads every key): a fetch of all ``rows``, whose
+    backward adds each row's gradient into its owner's rows."""
+    axis = axis or current()
+    return fetch_rows(x, rows, [(0, rows)] * axis.size, False, axis)
+
+
+def max_(t, axis):
+    """``t`` (contiguous) reduced by its maximum over the x group in place,
+    outside autograd (a softmax's shift: its gradient is zero). Counted in
+    :data:`traffic` under ``max``."""
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=axis.group)
+    traffic["max"] += 1
+    traffic["max_bytes"] += t.numel() * t.element_size()
+    return t
+
+
 def halo_exchange(x, halo, axis=None):
     """[b, c, halo + n + halo, ...]: this rank's n rows (of an even split)
     with ``halo`` rows of its ring neighbours on each side, wrapping around
@@ -317,36 +347,39 @@ def setup(model, axis, config=None):
 
 
 def partial_params(model):
-    """Every parameter: each x rank holds a share of every gradient."""
-    return list(model.parameters())
+    """Every parameter of a row-split model (each x rank holds a share of
+    every gradient); none of a model that runs whole on each x rank."""
+    return [] if whole(model) else list(model.parameters())
+
+
+def whole(model):
+    """Why ``model`` runs whole on each x rank, or None where its fields
+    split over the rows. The MP-GNN's graph and the 1D fields have no
+    row axis the port splits: as the JAX package's ``GridBatchSharding``
+    leaves such arrays on the data axis, every x rank then holds the whole
+    field, computes the whole step, and its gradients are summed over the
+    data group alone."""
+    if getattr(model, "data_structure", "grid") == "graph":
+        return "the MP-GNN (a graph)"
+    if getattr(model, "num_spatial_dims", 2) == 1:
+        return "a 1D model"
+    return None
 
 
 def check_model(model, rows, k):
-    """Raise unless ``model`` runs row-split over ``k`` ranks on a grid of
-    ``rows`` rows: the model families whose ops have no split form
-    (``NotImplementedError`` naming ROADMAP P9b item 3's remainder), and
-    rows that do not split evenly at every level of a U-Net
-    (``ValueError``: rows % (k * 2^levels), no quiet fallback); ``rows``
-    None checks the family alone."""
-    from nps_tpu_torch.common.interfaces import D, M
-    from nps_tpu_torch.models.moe_fno import MoEFNO
+    """Raise unless ``model`` runs over an x axis of ``k`` ranks on a grid
+    of ``rows`` rows: the 3D models (``NotImplementedError`` naming ROADMAP
+    P9b: a split 3D FFT is not written), and, for a row-split model, rows
+    that do not split evenly at every level of a U-Net (``ValueError``:
+    rows % (k * 2^levels), no quiet fallback); ``rows`` None checks the
+    family alone. A model that runs whole on each x rank (:func:`whole`)
+    passes at any rows."""
     from nps_tpu_torch.parallel.mesh import refuse_pieces
     from nps_tpu_torch.models.unet_modern import Downsample
 
-    if model.model_interface != M.AR_TB or D.sim2d not in set(
-            getattr(model, "data_interface", ())) or getattr(
-            model, "data_structure", "grid") != "grid" or getattr(
-            model, "num_spatial_dims", 2) != 2:
-        raise NotImplementedError(
-            f"spatial parallelism splits 2D grid fields; "
-            f"{type(model).__name__} is not one (ROADMAP P9b item 3: the "
-            f"graph and 1D families, and the 3D models)")
-    if any(isinstance(m, MoEFNO) for m in model.modules()):
-        raise NotImplementedError(
-            "spatial parallelism of the mixture of spectral experts (its "
-            "gate pools over the grid) is not ported yet (ROADMAP P9b item "
-            "3: MoEFNO)")
-    refuse_pieces(model, "spatial", ("attention", "bc_encoder"))
+    refuse_pieces(model, "spatial", ("3d",))
+    if whole(model):
+        return
     levels = max([0] + [sum(isinstance(b, Downsample) for b in m.down)
                         for m in model.modules() if hasattr(m, "down")])
     if rows is not None and rows % (k * 2 ** levels):

@@ -40,8 +40,10 @@ batch (``rank`` and ``world`` are d and D) and holds rows [s X / K,
 ``parallel.scope`` of the x axis, where the ops whose result crosses rows
 take their halos and partial sums from the x group. The optimizer's sum
 over the world adds the data slices' and the x ranks' shares of every
-gradient. The grid model families run it (``parallel.spatial.check``); the
-others, and rows that do not split over K * 2^levels of the U-Net, raise.
+gradient. The 2D grid families split so (``parallel.spatial.check``); the
+MP-GNN and the 1D models run whole on each x rank (their batch uncut,
+their gradients summed over the data group, said on a log line); the 3D
+models, and rows that do not split over K * 2^levels of the U-Net, raise.
 
 ``tensor_parallel``, ``pipeline_parallel`` (with ``pipeline_microbatches``)
 and ``expert_parallel`` = K (with ``data_parallel``) lay the world out as a
@@ -282,8 +284,15 @@ class TrainInterface(metaclass=ABCMeta):
         parallelism this rank's share of the weights."""
         regime = self._regime = _REGIME_MODULES[name]
         regime.check(self.model, k, self.config)
-        self.grid = parallel.Grid(k, name)
+        whole = spatial.whole(self.model) if name == "x" else None
+        self.grid = parallel.Grid(k, name, whole=whole)
         self.rank, self.world = self.grid.data_index, self.grid.data_size
+        if whole:
+            # said out loud: such a model is not row-split, each x rank
+            # computes the whole field
+            print(f"spatial_parallel={k}: {whole} runs whole on each x rank "
+                  f"(no row axis to split); its gradients are summed over "
+                  f"the data group")
         self._whole_shapes = {key: t.shape for key, t in
                               self.model.state_dict().items()}
         self._specs = regime.setup(self.model, self.grid.axis, self.config)
@@ -293,11 +302,12 @@ class TrainInterface(metaclass=ABCMeta):
     def model_scope(self, x):
         """The model applies' ``parallel.scope``: this rank's grid axis (on
         the x axis at the grid of the global batch's fields, ``x`` the
-        position grid [b, local rows, Y, d]), or none."""
+        position grid [b, local rows, Y, d]), or none (no grid, or a model
+        that runs whole on each x rank)."""
         g = self.grid
-        if g is None:
+        if g is None or g.whole:
             return parallel.scope(None)
-        if g.name == "x":
+        if g.split:
             return parallel.scope(g.axis.at(x.shape[1] * g.axis.size))
         return parallel.scope(g.axis)
 
@@ -305,7 +315,7 @@ class TrainInterface(metaclass=ABCMeta):
         """Each parameter's tag, as the group its gradient is summed over
         (``parallel.GradSums``): everything over the world without a grid;
         on a grid the regime's ``partial_params`` (a part of the gradient
-        on each axis rank: every parameter on the x axis, the encoder and
+        on each axis rank: every parameter under a row split, the encoder and
         the stages under pipeline parallelism, the gates under expert
         parallelism) over the world, the rest (whole, or its own shard's,
         on each axis rank) over the data group."""
@@ -561,9 +571,10 @@ class TrainInterface(metaclass=ABCMeta):
 
     def _batches(self, loader):
         """The loader's batches on the device; under spatial parallelism
-        this rank's rows of each (cut on the host before the copy)."""
+        this rank's rows of each (cut on the host before the copy), where
+        the model splits over the rows."""
         batches = iter(loader)
-        if self.grid is not None and self.grid.name == "x":
+        if self.grid is not None and self.grid.split:
             batches = map(self.grid.shard_batch, batches)
         if getattr(loader, "device_resident", False):
             return batches

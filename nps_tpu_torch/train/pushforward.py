@@ -55,7 +55,11 @@ group hold the same elements (the draws are the data slice's: ``rank`` and
 each model apply runs inside the trainer's ``model_scope``; the loss and
 every evaluation value are sums over cells, so the world's sum adds the
 x ranks' shares; ``test_step``'s frames are gathered over the x group, then
-over the data slices. Under tensor, pipeline and expert parallelism the
+over the data slices; ``simulate`` rolls out this rank's rows of the whole
+inputs it is given and returns the whole result on every rank (the losses
+summed over the x group, the frames gathered along the rows). The MP-GNN
+and the 1D models run whole on each x rank, their sums over the data group
+as under the other regimes. Under tensor, pipeline and expert parallelism the
 ranks of one axis group hold the same elements and compute the same loss
 and evaluation, so those sum over the data group only
 (``TrainInterface.global_sum``); every model apply, the no-grad pushforward
@@ -162,18 +166,16 @@ class AutoregressivePushforwardTrainer(TrainInterface):
         self._graph_hash[key] = chash
 
     def _apply(self, data, cond, bc, x, t_cond, spatial_cond):
-        if self.grid is not None:
-            with self.model_scope(x):
-                return self.model(data, cond=cond, bc=bc, pos=x,
-                                  t_cond=t_cond, spatial_cond=spatial_cond)
-        if self._is_gnn():
-            structure = self._graph_cache[(tuple(data.shape[3:]),
-                                           data.shape[0])]
-            return G.apply_on_grid(self.model, data, structure, cond=cond,
-                                   bc=bc, pos=x, t_cond=t_cond,
-                                   spatial_cond=spatial_cond)
-        return self.model(data, cond=cond, bc=bc, pos=x, t_cond=t_cond,
-                          spatial_cond=spatial_cond)
+        with self.model_scope(x):
+            if self._is_gnn():
+                structure = self._graph_cache[(tuple(data.shape[3:]),
+                                               data.shape[0])]
+                return G.apply_on_grid(self.model, data, structure,
+                                       cond=cond, bc=bc, pos=x,
+                                       t_cond=t_cond,
+                                       spatial_cond=spatial_cond)
+            return self.model(data, cond=cond, bc=bc, pos=x, t_cond=t_cond,
+                              spatial_cond=spatial_cond)
 
     def _process(self, *args, **kwargs):
         return process_step(self.data.pde, self.model.model_interface, *args,
@@ -409,12 +411,10 @@ class AutoregressivePushforwardTrainer(TrainInterface):
                  spatial_conditioning=None, clip_min=True, use_bc=True,
                  u_bc=None, u_mask=None, divide_by_t=True):
         """Rollout API on numpy inputs; returns numpy as the JAX package's:
-        losses (a list), (losses, (gt, pred)) or pred."""
-        if self.grid is not None and self.grid.name == "x":
-            raise NotImplementedError(
-                "simulate() on a row-split trainer is not ported (ROADMAP "
-                "P9b item 3): evaluate with test(), or serve with "
-                "SurrogateEngine.shard")
+        losses (a list), (losses, (gt, pred)) or pred. On a row-split
+        trainer every rank takes the whole inputs, rolls out its rows, and
+        returns the whole result: the losses summed over the x group, the
+        frames gathered along the rows."""
         tw = self.tw
         if compute_loss and u.shape[2] < t_res:
             raise ValueError("Cannot compute loss if no ground-truth "
@@ -434,22 +434,38 @@ class AutoregressivePushforwardTrainer(TrainInterface):
             return _opt(torch.as_tensor(np.asarray(a, np.float32),
                                         device=self.device))
 
-        u = dev(u)
+        u, x, sc = dev(u), dev(x), dev(spatial_conditioning)
+        u_bc, u_mask = dev(u_bc), dev(u_mask)
+        split = self.grid is not None and self.grid.split
+        if split:
+            # this rank's rows of every field (the vectors whole)
+            u, u_bc, x, _, _, sc = self.grid.shard_batch(
+                (u, u_bc, x, None, None, sc))
+            u_mask = self.grid.shard_batch((u_mask,))[0]
         with torch.no_grad():
             res = self._simulate(
-                u, dev(conditioning), dev(x), dev(t_conditioning),
-                dev(spatial_conditioning), nr_gt_steps=nr_gt_steps,
-                t_res=t_res, compute_loss=compute_loss,
-                include_data=include_data, use_bc=use_bc, clip_min=clip_min,
-                divide_by_t=divide_by_t, batch_size=int(u.shape[0]),
-                u_bc=dev(u_bc), u_mask=dev(u_mask))
-            losses = (list(res["losses"].cpu().numpy()) if compute_loss
-                      else None)
+                u, dev(conditioning), x, dev(t_conditioning), sc,
+                nr_gt_steps=nr_gt_steps, t_res=t_res,
+                compute_loss=compute_loss, include_data=include_data,
+                use_bc=use_bc, clip_min=clip_min, divide_by_t=divide_by_t,
+                batch_size=int(u.shape[0]), u_bc=u_bc, u_mask=u_mask)
+            losses = None
+            if compute_loss:
+                losses = res["losses"]
+                if split:
+                    # each rank's losses are sums over its rows' cells
+                    axis = self.grid.axis
+                    parallel.all_reduce_([losses], group=axis.group,
+                                         size=axis.size)
+                losses = list(losses.cpu().numpy())
             if not include_data:
                 return losses
             pred0 = u[:, :, tw * nr_gt_steps - tw: tw * nr_gt_steps]
-            data_pred = torch.cat([pred0, *res["preds"]], dim=2).cpu().numpy()
+            whole = self.grid.gather_x if split else (lambda t: t)
+            data_pred = whole(torch.cat([pred0, *res["preds"]], dim=2)
+                              ).cpu().numpy()
             if not compute_loss:
                 return data_pred
-            data_gt = torch.cat([pred0, *res["labels"]], dim=2).cpu().numpy()
+            data_gt = whole(torch.cat([pred0, *res["labels"]], dim=2)
+                            ).cpu().numpy()
         return losses, (data_gt, data_pred)

@@ -338,15 +338,17 @@ def _grid_model(piece):
 
 
 @pytest.mark.parametrize("regime,piece,refused", [
-    ("spatial", "attention", True), ("spatial", "bc", True),
+    ("spatial", "attention", False), ("spatial", "bc", False),
     ("spatial", "3d", True), ("tensor", "attention", True),
     ("tensor", "bc", True), ("tensor", "3d", True),
     ("expert", "moe_bc", True), ("pipeline", "attention", True),
     ("pipeline", "3d", True), ("pipeline", "bc", False)])
 def test_grid_regimes_take_or_refuse_the_pieces(regime, piece, refused):
     """Each grid regime's check: the pipeline takes the BC encoder (held in
-    a world by test_pipelined_bc_encoder_path); every other combination
-    of these pieces is refused naming ROADMAP P9b."""
+    a world by test_pipelined_bc_encoder_path), spatial parallelism the
+    attention block and the BC encoder (held in worlds by
+    test_torch_spatial_families.py); every other combination of these
+    pieces is refused naming ROADMAP P9b."""
     from nps_tpu_torch.parallel import expert, pipeline, spatial, tensor
 
     model = _grid_model(piece)

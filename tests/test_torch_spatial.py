@@ -694,19 +694,23 @@ def test_refusals():
     """Rows that do not split over K * 2^levels raise; K with tensor,
     pipeline or expert parallelism raises naming their P9b items; spatial
     parallelism without data parallelism or without a process group
-    raises; the families without a split form (the MP-GNN, the mixture of
-    spectral experts, a 1D model) raise naming P9b item 3, and so does the
-    MP-GNN's sharded engine."""
+    raises; the MP-GNN, the mixture of spectral experts and a 1D model are
+    taken (the MP-GNN and the 1D model whole on each x rank, at any rows);
+    a 3D model is refused naming P9b; the MP-GNN's sharded engine is
+    refused, as JAX's."""
     from nps_tpu_torch.parallel import spatial, validate_grid_layout
     from nps_tpu_torch.train.base import refuse_unported
+    from test_torch_conditioning import _grid_model
 
     ufno = _engine(*FAMILIES["ufno"])
     with pytest.raises(ValueError, match="rows % 4"):
         spatial.check_model(ufno.model, 18, 2)
     spatial.check_model(ufno.model, 16, 2)
+    assert spatial.whole(ufno.model) is None
     ufno.model.num_spatial_dims = 1   # a 1D model of the same family
-    with pytest.raises(NotImplementedError, match="1D families"):
-        spatial.check_model(ufno.model, 16, 2)
+    spatial.check_model(ufno.model, 18, 2)
+    assert spatial.whole(ufno.model) == "a 1D model"
+    assert spatial.partial_params(ufno.model) == []
     with pytest.raises(ValueError, match="divide the world"):
         validate_grid_layout(3, 2)
     for key, item in (("tensor_parallel", 4), ("pipeline_parallel", 5),
@@ -724,11 +728,15 @@ def test_refusals():
                                              "--model.hidden_blocks=2",
                                              "--model.fno_modes=4"])):
         eng = _engine(cfg, NX, ov)
-        with pytest.raises(NotImplementedError, match="P9b item 3"):
-            spatial.check_model(eng.model, NX, 2)
+        spatial.check_model(eng.model, NX, 2)
         if "gnn" in cfg:
-            with pytest.raises(NotImplementedError, match="P9b item 3"):
+            assert spatial.whole(eng.model) == "the MP-GNN (a graph)"
+            with pytest.raises(NotImplementedError, match="JAX engine"):
                 eng.shard(2)
+        else:
+            assert spatial.whole(eng.model) is None
+    with pytest.raises(NotImplementedError, match="P9b"):
+        spatial.check_model(_grid_model("3d"), 8, 2)
 
 
 if __name__ == "__main__":

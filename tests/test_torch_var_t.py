@@ -376,6 +376,14 @@ def _trainer_kwargs(tag, tmp):
 
 @pytest.fixture(scope="module")
 def trainers(datasets, tmp_path_factory):
+    from nps_tpu.utils.seed import set_seed as jax_set_seed
+    from nps_tpu_torch.utils.seed import set_seed
+
+    # each package's samplers and start keys read its own global seed,
+    # which a config an earlier test in this process parsed in one package
+    # alone leaves unequal: both start from a fresh process's seed
+    jax_set_seed(0)
+    set_seed(0)
     jds, ds = datasets
     tmp = tmp_path_factory.mktemp("vart_out")
     jt = JaxTrainer(
