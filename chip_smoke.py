@@ -201,25 +201,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
              data_parallel and the regime, full width, f32, TF32 off,
              batch 16: tp the twophase U-FNO at K = 2 (each rank holds
              half the output channels of every split weight; K1 on 96 of
-             the 192 channels, K2 on whole activations), steps at
-             depths 0 and 1 and the evaluation of 4 elements over 75
+             the 192 channels, K2 on whole activations), a step at
+             depth 0 and the evaluation of 2 elements over 50
              frames (every split layer's output goes through host memory
              on gloo); ep cfg_twophase_moe at K = 2 (2 of the 4
              experts of each block a rank), steps at depths 0 and 1; pp
              the U-FNO at K = 3 (one block a stage) with 4
-             microbatches, steps at depths 0 and 8; the three phases'
-             7 ranks run at once, with the sp phase's 4 (one batch of
-             ranks, "sp_grids" on the seconds line). Each against one
-             process on the card from the same weights and starts: the
-             loss (1e-5) and every gradient,
+             microbatches, steps at depths 0 and 2; then each rank's
+             model cases (GRID_CASES), each against one process on the
+             card: tp the time-conditioned U-FNO (K1 at 204 input
+             channels to the rank's 96) at depths 0 and 1 and the U-Net
+             with attention on its two deepest levels and in the middle
+             at depth 0, from the sp world's references, the MP-GNN (6
+             x 128, whole activations on each rank) at batch 4, depth 0,
+             and, on the ep world's two ranks once their ep cases end,
+             the 3D FNO and Dilated ResNet (32 features, 3 blocks,
+             64x64x32, batch 2) at depths 0 and 1; ep cfg_twophase_moe
+             with a BC encoder of 8 outputs over the split's
+             t_conditioning and a 3D MoE (4 experts a block), depths 0
+             and 1; pp the U-FNO
+             with attention on its mini U-Nets' lower level and middle
+             (depths 0 and 1), a list of 3 attention U-Nets, one a stage
+             (depth 0), and the 3D FNO and DRN (2 microbatches); the
+             three phases' 7 ranks run at once, with the sp phase's 4
+             (one batch of ranks, "sp_grids" on the seconds line). Each
+             against one process on the card from the same weights and
+             starts: the loss (1e-5) and every gradient,
              gathered whole (1e-4); each rank's K1 and K2 launches (its
              wrappers' counts, and the forward kernels counted by name with
              torch.profiler in a forward apply) equal to its share of the
              path; both kernel ops against their plain versions at every
-             shape the ranks gave them; per rank the step ms ("ranks
+             shape the ranks gave them, and timed at the cases' new ones
+             (K1 at the tcond tp share and at the ep MoE's 204 input
+             channels, K2 at the attention U-FNO's largest pp input:
+             the kernels line's tp_ufno_tcond_shape, ep_moe_bc_shape and
+             pp_ufno_attn_shape); per rank the step ms ("ranks
              sharing one card": no scaling figure), parameter and
              optimizer-state bytes beside one process's, peak memory and
-             collective bytes, printed on their own line;
+             collective bytes, printed on their own line, and a line per
+             rank and model case;
 8c. var1d  - cfg_var1d_fno, the variable-time 1D FNO, at full width (2
              blocks x 64 features, 8 modes, time window 5, batch 8) on a
              ragged split from the port's generator at its config's size
@@ -1229,11 +1249,15 @@ def make_split(tmp, seed):
     return time.perf_counter() - t0
 
 
-def build_trainer(cfg, argv, device, trainer_keys=None):
+def build_trainer(cfg, argv, device, trainer_keys=None, updates=None,
+                  model=None):
     """The trainer the CLI builds from ``cfg`` and ``argv`` (and
     ``trainer_keys`` set in the parsed config's trainer section: keys such
     as spatial_parallel that cfg_var1d_fno, like its JAX original, does not
-    declare), with its optimizer and scheduler set."""
+    declare; ``updates``, {section: entries}, the entries no flag reaches,
+    such as a processor list or a key the config lacks; ``model`` a model
+    that replaces the config's, the CLI's ``model_override``), with its
+    optimizer and scheduler set."""
     from nps_tpu_torch import train_cli
     from nps_tpu_torch.configs.parse import parse_args
 
@@ -1245,7 +1269,10 @@ def build_trainer(cfg, argv, device, trainer_keys=None):
     finally:
         sys.argv = saved
     args["trainer"].update(trainer_keys or {})
-    trainer = train_cli.get_config_static(args, device=device)[4]
+    for section, entries in (updates or {}).items():
+        args[section].update(entries)
+    trainer = train_cli.get_config_static(args, device=device,
+                                          model_override=model)[4]
     trainer.set_optimizer(dict(args["optimizer"]))
     trainer.set_lr_scheduler(dict(args["lr_scheduler"]))
     return trainer
@@ -3718,9 +3745,12 @@ def run_ranks(commands, logs, timeout, env=None):
                     cwd=Path(__file__).resolve().parent,
                     env=dict(os.environ, **(extra or {}))))
         deadline = time.monotonic() + timeout
-        while any(p.poll() is None for p in procs):
-            if time.monotonic() > deadline or any(
-                    p.returncode not in (None, 0) for p in procs):
+        while True:
+            # every rank polled (any() would stop at the first running one
+            # and miss a later rank's failure)
+            codes = [p.poll() for p in procs]
+            if (None not in codes or time.monotonic() > deadline
+                    or any(c not in (None, 0) for c in codes)):
                 break
             time.sleep(0.5)
     finally:
@@ -4710,22 +4740,8 @@ def sp_family_references(seed, tmp, dp_argv, paths):
         torch.save({k: v.detach().cpu() for k, v in
                     tr.model.state_dict().items()}, mine["weights"])
         batch = first_batch(tr)
-        b, t_res = int(batch[1].shape[0]), int(batch[1].shape[2])
-        ref = {"steps0": {}, "loss": {}, "grads": {}}
         with autotuned_convs(deterministic=True):
-            for depth in depths:
-                steps0 = torch.randint(tr.tw, t_res - tr.tw * (depth + 1) + 1,
-                                       (b,), generator=gen)
-                tr.load_model(mine["weights"])
-                tr.set_optimizer(tr.optimizer_spec)
-                loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
-                                        steps0=steps0)
-                ref["steps0"][depth] = steps0
-                ref["loss"][depth] = float(loss)
-                # zeros where a parameter has none (the attention block's
-                # unused norm), as the ranks' gradient sums give them
-                ref["grads"][depth] = {k: g.cpu() for k, g in
-                                       tr.whole_grads().items()}
+            ref = reference_steps(tr, batch, depths, mine["weights"], gen)
             del tr, batch
             if name == "unet_attn":
                 eng = SurrogateEngine.from_config(
@@ -4739,6 +4755,35 @@ def sp_family_references(seed, tmp, dp_argv, paths):
         torch.save(ref, mine["ref"])
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def reference_steps(tr, batch, depths, weights, gen):
+    """One process's steps that a world's ranks are held to: a step at each
+    of ``depths`` from ``weights`` and a fresh optimizer, from start steps
+    drawn from ``gen`` for the batch: {"steps0", "loss", "grads" (zeros
+    where a parameter has none, the attention block's unused norm, as the
+    ranks' gradient sums give them)}, and the batch, parameter bytes and
+    optimizer-state bytes, beside a rank's."""
+    import torch
+
+    from nps_tpu_torch import parallel
+
+    b, t_res = int(batch[1].shape[0]), int(batch[1].shape[2])
+    ref = {"steps0": {}, "loss": {}, "grads": {}}
+    for depth in depths:
+        steps0 = torch.randint(tr.tw, t_res - tr.tw * (depth + 1) + 1, (b,),
+                               generator=gen)
+        tr.load_model(weights)
+        tr.set_optimizer(tr.optimizer_spec)
+        loss, _ = tr.train_step(batch, 0, 0, unrolled=depth, steps0=steps0)
+        ref["steps0"][depth] = steps0
+        ref["loss"][depth] = float(loss)
+        ref["grads"][depth] = {k: g.cpu() for k, g in
+                               tr.whole_grads().items()}
+    ref.update(batch=b, param_bytes=sum(p.numel() * p.element_size()
+                                        for p in tr.model.parameters()),
+               state_bytes=parallel.state_bytes(tr.optimizer))
+    return ref
 
 
 def sp_check(ranks, rcs, logs, single, seconds, card):
@@ -4854,13 +4899,15 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
     ranks: the split stages against their plain versions
     (sp_stage_records); the one-process references of every world
     (sp_engine_reference, sp_ns512_reference, grid_reference,
-    sp_family_references, and the dp phase's); then two sp worlds of SP_K
-    ranks (sp_worker: sp_main and sp_others, side by side) and the grid
-    phases' 7 ranks (grid_worker) at once, all sharing the card over gloo;
-    then each world held to its references (sp_check, grid_check).
-    Returns (the sp U-FNO's depth-8 step launches on rank 0, the split
-    entries' records, each grid phase's rank-0 launches at its last depth,
-    the seconds of the references and of the ranks)."""
+    sp_family_references, case_reference, and the dp phase's); then two
+    sp worlds of SP_K ranks (sp_worker: sp_main and sp_others, side by
+    side) and the grid phases' 7 ranks (grid_worker, each with its
+    phase's model cases) at once, all sharing the card over gloo; then
+    each world held to its references (sp_check, grid_check). Returns
+    (the sp U-FNO's depth-8 step launches on rank 0, the split entries'
+    records, each grid phase's and model case's rank-0 launches at its
+    last depth, the kernel records at the cases' new shapes, the seconds
+    of the references and of the ranks)."""
     t0 = time.perf_counter()
     kern, failures = sp_stage_records(gen)
     sp_engine_reference(seed, tmp)
@@ -4868,7 +4915,14 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
     phases = {name: grid_reference(name, seed, tmp, dp_argv) for name in GRID}
     fam_paths = sp_family_paths(seed, tmp, phases["ep"][0])
     sp_family_references(seed, tmp, dp_argv, fam_paths)
-    seconds = {"references": time.perf_counter() - t0}
+    cases = case_paths(seed, tmp, fam_paths)
+    seconds = {"case_references": {}}
+    for name, case in CASES.items():
+        if case.get("ref") != "sp":
+            t1 = time.perf_counter()
+            case_reference(name, seed, cases[name])
+            seconds["case_references"][name] = time.perf_counter() - t1
+    seconds["references"] = time.perf_counter() - t0
     grid_cmds, grid_logs, grid_outs = {}, {}, {}
     for name, (paths, _) in phases.items():
         port = _free_port()
@@ -4876,10 +4930,10 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
         for rank in range(GRID[name]["k"]):
             spec = Path(tmp) / f"{name}_spec{rank}.json"
             grid_outs[name].append(Path(tmp) / f"{name}_rank{rank}.json")
-            spec.write_text(json.dumps({"phase": name, "rank": rank,
-                                        "port": port,
-                                        "out": str(grid_outs[name][-1]),
-                                        **paths}))
+            spec.write_text(json.dumps({
+                "phase": name, "rank": rank, "port": port, "seed": seed,
+                "out": str(grid_outs[name][-1]), **paths,
+                "cases": {c: cases[c] for _, c in GRID_CASES[name]}}))
             grid_cmds[name].append([sys.executable,
                                     str(Path(__file__).resolve()),
                                     "--grid-worker", str(spec)])
@@ -4932,12 +4986,15 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
     seconds["ended"] = {k: None if v is None else v - launched
                         for k, v in seconds["ended"].items()}
     failures += sp_check(ranks, sp_rcs, sp_logs, single, seconds, card)
-    launches = {}
+    launches, case_kern = {}, {}
     for name, (_, grid_single) in phases.items():
         mine, rcs = rcs[:GRID[name]["k"]], rcs[GRID[name]["k"]:]
-        launches[name], bad = grid_check(name, card, gen, grid_single,
-                                         grid_logs[name], grid_outs[name],
-                                         mine, seconds["ranks"])
+        got, got_kern, bad = grid_check(name, card, gen, grid_single,
+                                        grid_logs[name], grid_outs[name],
+                                        mine, seconds["ranks"], cases)
+        launches.update(got)
+        for kernel, recs in got_kern.items():
+            case_kern.setdefault(kernel, {}).update(recs)
         failures += [f"{name}: {f}" for f in bad]
     if failures:
         raise AssertionError("; ".join(failures))
@@ -4955,7 +5012,7 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
             "sp_unet_attn_engine": r0["families"]["unet_attn"]["engine"][
                 "launches"].get(name, 0)}
     return (r0["steps"][str(TRAIN_DEPTHS[-1])]["launches"], kern, launches,
-            {k: v for k, v in seconds.items() if k != "ended"})
+            case_kern, {k: v for k, v in seconds.items() if k != "ended"})
 
 
 # ---- tensor, expert and pipeline parallelism (the tp, ep and pp phases) ----
@@ -4974,23 +5031,80 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
 # shape a rank's steps gave them (check_shapes). tp also evaluates the
 # first TP_EVAL_B elements of the batch over TP_EVAL_T frames (test_step:
 # per-step losses <= DP_LOSS_TOL, the first window <= DP_EVAL_TOL).
+# After its phase's own steps each rank runs the phase's model cases
+# (GRID_CASES) to the same bars.
 TP_K, EP_K, PP_K, PP_MICRO = 2, 2, 3, 4
 GRID_TIMEOUT = 600
 # tp moves every split layer's output through host memory (gloo): a
-# depth-0 step of two ranks on one card takes 20-30 s, a depth-8 one 40-70
+# depth-0 step of two ranks on one card takes 20-50 s, a depth-1 one 40-70
 # s and the whole batch's evaluation ~9 s a window (PERF.md), so tp takes
 # no warm-up step (its first step's ms includes cuDNN's algorithm search),
-# steps at depths 0 and 1 and evaluates 4 elements over 3 windows: at
-# depth 8 and the whole evaluation the script passes its 1200 s
-TP_DEPTHS, TP_EVAL_B, TP_EVAL_T = (0, 1), 4, 3 * TW
-EP_DEPTHS = (0, 1)
+# steps the U-FNO at depth 0 (its depth-1 path is the time-conditioned
+# U-FNO case's, 8 channels wider) and evaluates 2 elements over 2
+# windows (~40 s, most of it cuDNN timing the convs at their shapes; the
+# whole batch took ~70 s); pp steps at depths 0 and 2 (one block a stage:
+# depth 8 adds 6 more pipelined no-grad applies of the same stages)
+TP_DEPTHS, TP_EVAL_B, TP_EVAL_T = (0,), 2, 2 * TW
+EP_DEPTHS, PP_DEPTHS = (0, 1), (0, 2)
 GRID = {"tp": dict(cfg="ufno", key="tensor_parallel", k=TP_K,
                    depths=TP_DEPTHS, flags=[]),
         "ep": dict(cfg="moe", key="expert_parallel", k=EP_K,
                    depths=EP_DEPTHS, flags=[]),
         "pp": dict(cfg="ufno", key="pipeline_parallel", k=PP_K,
-                   depths=TRAIN_DEPTHS,
+                   depths=PP_DEPTHS,
                    flags=[f"--trainer.pipeline_microbatches={PP_MICRO}"])}
+# the model cases (ROADMAP P9b's model-axis remainders), each at full
+# width against one process on the card: name -> its config, overrides,
+# parsed-config entries, depths and reference ("sp": the sp world's
+# reference of the same family, weights and starts: sp_family_references;
+# "own": case_reference). The MP-GNN runs whole on each tp rank at batch
+# GNN_TP_BATCH: at batch 16 two ranks would hold ~29 GiB each beside the
+# other ranks. The U-FNO's mini U-Nets take attention on their lower level
+# and in the middle: on the 100 x 68 level a block's f32 scores alone are
+# 16 x 6800^2 x 4 B = 3 GB. A list of PP_K attention U-Nets is one stage a
+# processor. The 3D models are D3_HIDDEN features, D3_CASE_BLOCKS blocks
+# (K = 3 stages under pp), D3_MODES modes, on D3_GRID at batch D3_BATCH
+# (the MoE 4 experts a block), the trainer of cfg_twophase_ufno taking
+# them through model_override on a generated batch of D3_CASE_NT frames.
+# GRID_CASES: each phase's ranks -> their cases, each (its regime, its
+# name): the ep world's 2 ranks, idle once their own cases end, take the
+# tp cases of the 3D models too (a (data, model) grid of 1 x 2 on the same
+# world; 2 GiB a rank), beside the tp ranks' longer cases. The MP-GNN's
+# tp case (10 GiB a rank) stays last on the tp ranks: run by the ep ranks
+# beside the others' peaks it ran the card out of memory.
+GNN_TP_BATCH, D3_CASE_BLOCKS, D3_CASE_NT = 4, 3, 3 * D3_TW
+GRID_CASES = {"tp": (("tp", "ufno_tcond"), ("tp", "unet_attn"),
+                     ("tp", "gnn")),
+              "ep": (("ep", "moe_bc"), ("ep", "moe3d"), ("tp", "fno3d"),
+                     ("tp", "drn3d")),
+              "pp": (("pp", "ufno_attn"), ("pp", "unet_attn_list"),
+                     ("pp", "fno3d"), ("pp", "drn3d"))}
+CASES = {
+    "ufno_tcond": dict(cfg=P13A["ufno_tcond"][0], ref="sp", depths=(0, 1)),
+    "unet_attn": dict(cfg=P13A["unet_attn"][0], ref="sp", depths=(0,)),
+    "gnn": dict(cfg=family_cfg("gnn"), over=[f"--batch_size={GNN_TP_BATCH}"],
+                depths=(0,)),
+    "moe_bc": dict(cfg=family_cfg("moe"), updates={
+        "dataset": {"t_conditioning": "t_conditioning"},
+        "model": {"bc_encoder": dict(object="BCEncoder", bc_encoder_out=8,
+                                     bc_encoder_hidden=32,
+                                     bc_encoder_kernel=3,
+                                     bc_encoder_n_hidden=1)}},
+        depths=(0, 1)),
+    "ufno_attn": dict(cfg=family_cfg("ufno"), over=[
+        "--model.is_attn=[False,True]", "--model.mid_attn=true"],
+        depths=(0, 1)),
+    "unet_attn_list": dict(cfg=P13A["unet_attn"][0], over=P13A[
+        "unet_attn"][1], updates={"model": {
+            "processor": [dict(object="UNetModern")] * PP_K,
+            "processor_residual": True}}, depths=(0,)),
+    "fno3d": dict(d3=dict(processor="FNO", fno_modes=D3_MODES),
+                  depths=(0, 1)),
+    "drn3d": dict(d3=dict(processor="DilatedResnet", kernel_size=3,
+                          padding_mode="circular"), depths=(0, 1)),
+    "moe3d": dict(d3=dict(processor="MoEFNO", n_experts=4,
+                          fno_modes=D3_MODES), depths=(0, 1)),
+}
 
 
 def grid_launches(name, depth):
@@ -5009,6 +5123,175 @@ def grid_launches(name, depth):
                            depth + 1, True)
 
 
+def case_launches(name, depth):
+    """One rank's K1 and K2 launches in a model case's step at ``depth``:
+    the time-conditioned U-FNO's and the attention U-Net's whole path on
+    each tp rank, the attention U-FNO's as the U-FNO's under pp (attention
+    launches neither), one attention U-Net of the list a pp rank over
+    PP_MICRO microbatches, half the MoE's experts an ep rank; none for the
+    MP-GNN and the 3D models (dense layers, Conv3d, torch.fft)."""
+    if name in ("ufno_tcond", "unet_attn"):
+        gn, spec = P13A[name][2][:2]
+        return family_launches(gn, spec, depth + 1, True)
+    if name == "ufno_attn":
+        return grid_launches("pp", depth)
+    if name == "unet_attn_list":
+        return family_launches(P13A["unet_attn"][2][0] * PP_MICRO, 0,
+                               depth + 1, True)
+    if name == "moe_bc":
+        return grid_launches("ep", depth)
+    return {}
+
+
+def case_model(name, seed):
+    """A 3D case's EncProcDec on the D3 PDE, or None for a 2D case."""
+    spec = CASES[name].get("d3")
+    if spec is None:
+        return None
+    from nps_tpu_torch.models.enc_proc_dec import EncProcDec
+    from nps_tpu_torch.pde import PDE3D
+
+    n1, n2, n3 = D3_GRID
+    pde = PDE3D(tmin=0.0, tmax=1.0, nt=D3_CASE_NT, L1=1.0, L2=1.0, L3=0.5,
+                nx1=n1, nx2=n2, nx3=n3, x=None, name="box3d",
+                n_cond_static=N_STATIC)
+    return EncProcDec(pde=pde, num_c=1, num_spatial_dims=3,
+                      time_window=D3_TW, encoder="enc_grid.ElementWise",
+                      decoder="dec_grid.TimeConvDense",
+                      dec_delta_mode="per_step", activation="gelu",
+                      hidden_features=D3_HIDDEN,
+                      hidden_blocks=D3_CASE_BLOCKS, **spec)
+
+
+def case_trainer(name, argv, device, seed, keys=None):
+    """A model case's trainer (``keys``: the grid's trainer entries)."""
+    case = CASES[name]
+    cfg = case.get("cfg", family_cfg("ufno"))
+    if "d3" in case:
+        argv = [*argv, f"--time_window={D3_TW}"]
+    return build_trainer(cfg, argv, device, keys, case.get("updates"),
+                         case_model(name, seed))
+
+
+def case_batch(name, tr, seed):
+    """A model case's batch on the trainer's device: its split's first, or
+    a 3D case's generated one (u_base, u_super, pos, cond, an empty t_cond
+    and spatial_cond)."""
+    import numpy as np
+    import torch
+
+    if "d3" not in CASES[name]:
+        return first_batch(tr)
+    pde = tr.model.pde
+    rng = np.random.default_rng(seed + 17)
+    u = (0.5 + rng.random((D3_BATCH, 1, D3_CASE_NT, *D3_GRID))).astype(
+        np.float32)
+    cond = rng.random((D3_BATCH, N_STATIC)).astype(np.float32)
+    pos = np.broadcast_to(pde.x.astype(np.float32)[None],
+                          (D3_BATCH, *D3_GRID, 3)).copy()
+    empty = np.zeros((D3_BATCH, 0), np.float32)
+    return tuple(torch.from_numpy(a).to(tr.device)
+                 for a in (u, u, pos, cond, empty, empty))
+
+
+def case_paths(seed, tmp, fam_paths):
+    """{case: its argv, weights and reference paths}: the sp world's for
+    a case whose reference is the sp family's (sp_family_paths), the
+    others' written by case_reference."""
+    paths = {}
+    for name, case in CASES.items():
+        if case.get("ref") == "sp":
+            paths[name] = dict(fam_paths[name])
+        else:
+            paths[name] = {
+                "argv": [*train_argv(tmp, seed, 1, f"case_{name}"),
+                         *case.get("over", [])],
+                "weights": f"{tmp}/case_{name}_weights.pt",
+                "ref": f"{tmp}/case_{name}_ref.pt"}
+    return paths
+
+
+def grid_step(tr, batch, depth, steps0, weights):
+    """One train step at ``depth`` from ``weights`` and a fresh optimizer:
+    its loss, ms (host clock around the synchronised step), K1 and K2
+    launches, collective bytes and peak memory."""
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.parallel import spatial
+
+    tr.load_model(weights)
+    tr.set_optimizer(tr.optimizer_spec)
+    kernels.reset_launches()
+    spatial.traffic.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = tr.train_step(batch, 0, 0, unrolled=depth, steps0=steps0)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "ms": 1e3 * (time.perf_counter() - t0),
+            "launches": dict(kernels.launches),
+            "collective_bytes": {k: v for k, v in spatial.traffic.items()
+                                 if k.endswith("bytes")},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def held_steps(tr, batch, depths, ref, weights, shapes):
+    """A step at each of ``depths`` against ``ref`` (its loss, the
+    gradients gathered whole), the kernels' input shapes added to
+    ``shapes``; {depth: record}."""
+    from nps_tpu_torch import parallel
+
+    steps = {}
+    for depth in depths:
+        with kernel_shapes() as seen:
+            r = grid_step(tr, batch, depth, ref["steps0"][depth], weights)
+        for key in shapes:
+            shapes[key] |= seen[key]
+        r["state_bytes"] = parallel.state_bytes(tr.optimizer)
+        r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
+            ref["loss"][depth])
+        r["grad_rel_err"], r["worst_grad"] = _grad_errors(
+            tr.whole_grads(), ref["grads"][depth], DP_GRAD_FLOOR)
+        steps[str(depth)] = r
+    return steps
+
+
+def grid_case(regime, name, paths, device, seed, shapes):
+    """Model case ``name`` on this rank's world under ``regime`` (a GRID
+    key): its trainer with that regime, from the reference's weights, a
+    step at each of its depths (held_steps), the rank's parameter
+    bytes."""
+    import gc
+
+    import torch
+
+    g = GRID[regime]
+    ref = torch.load(paths["ref"], weights_only=False)
+    # a 3D batch of D3_BATCH pipelines as that many microbatches
+    micro = D3_BATCH if "d3" in CASES[name] else PP_MICRO
+    tr = case_trainer(name, paths["argv"], device, seed, {
+        "data_parallel": True, g["key"]: g["k"],
+        **({"pipeline_microbatches": micro} if regime == "pp" else {})})
+    tr.load_model(paths["weights"])
+    tr.ensure_initialized()
+    batch = case_batch(name, tr, seed)
+    seen = {"gn": set(), "spectral": set()}
+    rec = {"batch": int(batch[1].shape[0]),
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in tr.model.parameters()),
+           "steps": held_steps(tr, batch, CASES[name]["depths"], ref,
+                               paths["weights"], seen)}
+    rec["shapes"] = {k: [list(v) for v in sorted(vs)]
+                     for k, vs in seen.items()}
+    for key in shapes:
+        shapes[key] |= seen[key]
+    del tr, batch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def grid_worker(spec_path):
     """One rank of a grid phase (``chip_smoke.py --grid-worker SPEC``): join
     the gloo world on the card, build the trainer with the phase's regime,
@@ -5017,19 +5300,19 @@ def grid_worker(spec_path):
     step at each of the phase's depths (loss, the gradients gathered whole
     against the reference's, launches, collective bytes, ms, peak memory,
     parameter and optimizer-state bytes, the shapes the kernels saw), under
-    tp the evaluation of a cut of the batch, and last one forward apply
-    under torch.profiler (K1's and K2's kernels counted by name). Writes
-    its record to the spec's ``out`` as JSON, with the wall-clock times it
-    started and ended."""
+    tp the evaluation of a cut of the batch, the phase's model cases
+    (grid_case), and last one forward apply under torch.profiler (K1's and
+    K2's kernels counted by name). Writes its record to the spec's ``out``
+    as JSON, with the wall-clock times it started and ended."""
     import torch
 
     from nps_tpu_torch import kernels, parallel
     from nps_tpu_torch.inference import autotuned_convs
-    from nps_tpu_torch.parallel import spatial
 
     started = time.time()
     spec = json.loads(Path(spec_path).read_text())
-    g = GRID[spec["phase"]]
+    phase = spec["phase"]
+    g = GRID[phase]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = parallel.init_distributed(
@@ -5038,7 +5321,7 @@ def grid_worker(spec_path):
         timeout=GRID_TIMEOUT)
     rank = parallel.world()[0]
     rec = {"rank": rank, "device": str(device),
-           "backend": torch.distributed.get_backend(), "steps": {}}
+           "backend": torch.distributed.get_backend(), "cases": {}}
     try:
         ref = torch.load(spec["ref"], weights_only=False)
         with autotuned_convs(deterministic=True):
@@ -5051,44 +5334,13 @@ def grid_worker(spec_path):
             rec["batch"] = int(batch[1].shape[0])
             rec["param_bytes"] = sum(p.numel() * p.element_size()
                                      for p in tr.model.parameters())
-
-            def step(depth):
-                tr.load_model(spec["weights"])
-                tr.set_optimizer(tr.optimizer_spec)
-                kernels.reset_launches()
-                spatial.traffic.clear()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
-                                        steps0=ref["steps0"][depth])
-                torch.cuda.synchronize()
-                return {"loss": float(loss),
-                        "ms": 1e3 * (time.perf_counter() - t0),
-                        "launches": dict(kernels.launches),
-                        "collective_bytes": {
-                            k: v for k, v in spatial.traffic.items()
-                            if k.endswith("bytes")},
-                        "peak_mem_gib": torch.cuda.max_memory_allocated()
-                        / 2 ** 30}
-
-            if spec["phase"] != "tp":
-                step(g["depths"][0])   # warm-up: cuDNN's timing, gloo's rings
+            if phase != "tp":   # warm-up: cuDNN's timing, gloo's rings
+                grid_step(tr, batch, g["depths"][0],
+                          ref["steps0"][g["depths"][0]], spec["weights"])
             shapes = {"gn": set(), "spectral": set()}
-            for depth in g["depths"]:
-                with kernel_shapes() as seen:
-                    r = step(depth)
-                for key in shapes:
-                    shapes[key] |= seen[key]
-                r["state_bytes"] = parallel.state_bytes(tr.optimizer)
-                r["loss_rel_err"] = abs(r["loss"] - ref["loss"][depth]) / abs(
-                    ref["loss"][depth])
-                r["grad_rel_err"], r["worst_grad"] = _grad_errors(
-                    tr.whole_grads(), ref["grads"][depth], DP_GRAD_FLOOR)
-                rec["steps"][str(depth)] = r
-            rec["shapes"] = {k: [list(v) for v in sorted(vs)]
-                             for k, vs in shapes.items()}
-            if spec["phase"] == "tp":
+            rec["steps"] = held_steps(tr, batch, g["depths"], ref,
+                                      spec["weights"], shapes)
+            if phase == "tp":
                 tr.load_model(spec["weights"])
                 info, pred = eval_rollout(
                     tr, tuple(a[:TP_EVAL_B] for a in batch), TP_EVAL_T)
@@ -5096,6 +5348,15 @@ def grid_worker(spec_path):
                     ev = torch.load(spec["eval_ref"], weights_only=False)
                     rec["eval"] = eval_errors(info, pred, ev["info"],
                                               ev["pred"])
+            for regime, name in GRID_CASES[phase]:
+                t0 = time.perf_counter()
+                rec["cases"][name] = grid_case(regime, name,
+                                               spec["cases"][name], device,
+                                               spec["seed"], shapes)
+                rec["cases"][name].update(
+                    regime=regime, seconds=time.perf_counter() - t0)
+            rec["shapes"] = {k: [list(v) for v in sorted(vs)]
+                             for k, vs in shapes.items()}
             # last (a profiler session slows the host for the rest of the
             # process): one forward apply's K1 and K2 kernels by name
             tr.load_model(spec["weights"])
@@ -5152,20 +5413,9 @@ def grid_reference(name, seed, tmp, dp_argv):
     rec = {"param_bytes": sum(p.numel() * p.element_size()
                               for p in tr.model.parameters())}
     with autotuned_convs(deterministic=True):
-        gen = torch.Generator().manual_seed(seed + 4)
-        ref = {"steps0": {}, "loss": {}, "grads": {}}
         tr.train_step(batch, 0, 0, unrolled=0)   # warm-up
-        for depth in g["depths"]:
-            steps0 = torch.randint(TW, TRAIN_NT - TW * (depth + 1) + 1,
-                                   (TRAIN_BATCH,), generator=gen)
-            tr.load_model(weights)
-            tr.set_optimizer(tr.optimizer_spec)
-            loss, _ = tr.train_step(batch, 0, 0, unrolled=depth,
-                                    steps0=steps0)
-            ref["steps0"][depth] = steps0
-            ref["loss"][depth] = float(loss)
-            ref["grads"][depth] = {k: p.grad.detach().cpu() for k, p in
-                                   tr.model.named_parameters()}
+        ref = reference_steps(tr, batch, g["depths"], weights,
+                              torch.Generator().manual_seed(seed + 4))
         torch.save(ref, ref_path)
         steps0 = ref["steps0"][0]
         del ref
@@ -5192,49 +5442,123 @@ def grid_reference(name, seed, tmp, dp_argv):
     return paths, rec
 
 
-def grid_check(name, card, gen, single, logs, outs, rcs, seconds):
-    """One grid phase's ranks held to its reference; both kernel ops then
-    against their plain versions at every shape the ranks' steps gave them.
-    Prints the phase's line and the per-rank lines; returns (rank 0's
-    launches at the phase's last depth, or None, the failures)."""
+def case_reference(name, seed, paths):
+    """The one process a model case's ranks are held to, on the card: its
+    weights drawn from the seed (saved to ``paths``), a warm-up step, then
+    a step at each of its depths (reference_steps) and its peak memory."""
+    import gc
+
+    import torch
+
+    from nps_tpu_torch.inference import autotuned_convs
+
+    tr = case_trainer(name, paths["argv"], "cuda", seed)
+    tr.ensure_initialized()
+    torch.save({k: v.detach().cpu() for k, v in
+                tr.model.state_dict().items()}, paths["weights"])
+    batch = case_batch(name, tr, seed)
+    torch.cuda.reset_peak_memory_stats()
+    with autotuned_convs(deterministic=True):
+        tr.train_step(batch, 0, 0, unrolled=0)   # warm-up
+        ref = reference_steps(tr, batch, CASES[name]["depths"],
+                              paths["weights"],
+                              torch.Generator().manual_seed(seed + 7))
+    ref["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(ref, paths["ref"])
+    del tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def grid_check(name, card, gen, single, logs, outs, rcs, seconds, cases):
+    """One grid phase's ranks held to its reference, and each of its model
+    cases to its own (``cases``: case_paths); both kernel ops then against
+    their plain versions at every shape the ranks' steps gave them, and
+    timed at the cases' new shapes (K1 at the tp share of the
+    time-conditioned U-FNO and at the ep MoE's input with its BC code, K2
+    at the attention U-FNO's largest input under pp). Prints the phase's
+    line, the per-rank and per-case lines; returns ({"<phase>" and
+    "<regime>_<case>": rank 0's launches at the last depth}, the kernel
+    records by kernel and key, the failures)."""
+    import torch
+
     g = GRID[name]
     failures = [f"rank {r} exited {rc}:\n{_tail(log)}"
                 for r, (rc, log) in enumerate(zip(rcs, logs)) if rc != 0]
     ranks = ([json.loads(o.read_text()) for o in outs]
              if all(rc == 0 for rc in rcs) else [])
-    for r in ranks:
-        if r["backend"] != "gloo" or r["batch"] != TRAIN_BATCH:
-            failures.append(f"rank {r['rank']}: {r['backend']}, batch "
-                            f"{r['batch']}")
-        for depth in g["depths"]:
-            s = r["steps"][str(depth)]
-            want = grid_launches(name, depth)
+
+    def held(who, regime, steps, want_fn, batch, want_batch, share,
+             whole):
+        if batch != want_batch:
+            failures.append(f"{who}: batch {batch}, want {want_batch}")
+        for depth, s in steps.items():
+            want = want_fn(int(depth))
             if not (s["loss_rel_err"] <= DP_LOSS_TOL
                     and s["grad_rel_err"] <= REL_TOL_GRAD
                     and s["launches"] == want):
-                failures.append(f"rank {r['rank']} depth {depth}: {s}, "
-                                f"launches want {want}")
+                failures.append(f"{who} depth {depth}: {s}, launches want "
+                                f"{want}")
+        if (share < 1) != (regime != "pp") or share > 1:
+            failures.append(f"{who}: parameter share {share} of {whole}")
+
+    case_single = {c: torch.load(cases[c]["ref"], weights_only=False)
+                   for _, c in GRID_CASES[name]}
+    case_single = {c: {k: ref[k] for k in ("param_bytes", "state_bytes",
+                                            "batch", "peak_mem_gib")
+                       if k in ref}
+                   for c, ref in case_single.items()}
+    for r in ranks:
+        if r["backend"] != "gloo":
+            failures.append(f"rank {r['rank']}: {r['backend']}")
+        held(f"rank {r['rank']}", name, r["steps"],
+             lambda d: grid_launches(name, d), r["batch"], TRAIN_BATCH,
+             r["param_bytes"] / single["param_bytes"], single["param_bytes"])
+        for c, rc in r["cases"].items():
+            one = case_single[c]
+            held(f"rank {r['rank']} {c}", rc["regime"], rc["steps"],
+                 lambda d, c=c: case_launches(c, d), rc["batch"],
+                 one["batch"], rc["param_bytes"] / one["param_bytes"],
+                 one["param_bytes"])
         p = r["profiled"]
         fwd = {k: v for k, v in grid_launches(name, 0).items()
                if k in ("gn1_gelu_fwd", "spectral_dft2d_fwd")}
         if not p["counts"] == p["want"] == fwd:
             failures.append(f"rank {r['rank']}: profiled {p}, want {fwd}")
-        share = r["param_bytes"] / single["param_bytes"]
-        if (share < 1) != (name != "pp"):
-            failures.append(f"rank {r['rank']}: parameter share {share}")
+    if ranks and [(rc["regime"], c) for c, rc in ranks[0]["cases"].items()
+                  ] != list(GRID_CASES[name]):
+        failures.append(f"cases {sorted(ranks[0]['cases'])}")
     ev = ranks[0].get("eval") if ranks else None
     if name == "tp" and ranks and not (
             ev["step_loss_rel_err"] <= DP_LOSS_TOL
             and ev["window_rel_err"][0] <= DP_EVAL_TOL):
         failures.append(f"evaluation against the single process: {ev}")
-    seen = {k: {tuple((tuple(x) if isinstance(x, list) else x)
-                      for x in row) for r in ranks for row in r["shapes"][k]}
-            for k in ("gn", "spectral")}
+
+    def rows_of(rs, key):
+        return {tuple((tuple(x) if isinstance(x, list) else x) for x in row)
+                for r in rs for row in r["shapes"][key]}
+
+    seen = {k: rows_of(ranks, k) for k in ("gn", "spectral")}
     shape_rows = check_shapes(seen, gen) if ranks else []
     bad = [row for row in shape_rows if not (
         row["rel_err_y"] < REL_TOL_F32 and row["rel_err_grad"] < REL_TOL_GRAD)]
     if bad:
         failures.append(f"kernel ops at the {name} shapes: {bad}")
+    # the cases' new shapes, timed (kernel records)
+    kern = {}
+    if ranks:
+        first = [r["cases"] for r in ranks[:1]]
+        if name in ("tp", "ep"):
+            case = "ufno_tcond" if name == "tp" else "moe_bc"
+            shape, co, _ = max(rows_of([c[case] for c in first],
+                                       "spectral"))
+            kern["spectral_dft2d_fwd"] = {
+                f"{name}_{case}_shape": spectral_fwd_record(gen, shape, co)}
+        else:
+            shape, _ = max(rows_of([c["ufno_attn"] for c in first], "gn"),
+                           key=lambda row: math.prod(row[0]))
+            kern["gn1_gelu_fwd"] = {"pp_ufno_attn_shape":
+                                    gn_fwd_record(gen, shape)}
     emit({"phase": name, "config": family_cfg(g["cfg"]), "k": g["k"],
           "data_slices": 1, "backend": "gloo", "global_batch": TRAIN_BATCH,
           "depths": list(g["depths"]), "flags": g["flags"],
@@ -5242,7 +5566,8 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds):
                     "phases' ranks: host clock around one synchronised step "
                     "each, cuDNN's deterministic algorithms; says nothing "
                     "about scaling",
-          "single_process": single, "seconds": seconds, "ranks": ranks,
+          "single_process": single, "cases_single_process": case_single,
+          "seconds": seconds, "ranks": ranks,
           "launches_per_rank_expected": {
               str(d): grid_launches(name, d) for d in g["depths"]},
           "kernel_shapes": shape_rows, "card": card, "tf32": False})
@@ -5262,7 +5587,33 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds):
               f"{last} {s['launches']}, profiled in a forward apply "
               f"{r['profiled']['counts']}; "
               f"collective bytes {s['collective_bytes']}", flush=True)
-    return (ranks[0]["steps"][last]["launches"] if ranks else None), failures
+        for c, rc in r["cases"].items():
+            one = case_single[c]
+            cl = str(CASES[c]["depths"][-1])
+            sc = rc["steps"][cl]
+            print(f"{name} rank {r['rank']} case {c} under "
+                  f"{rc['regime']} (batch {rc['batch']}, "
+                  f"{rc['seconds']:.1f} s): loss rel err " + ", ".join(
+                      f"depth {d} {v['loss_rel_err']:.3g}"
+                      for d, v in rc["steps"].items())
+                  + "; gradients " + ", ".join(
+                      f"depth {d} {v['grad_rel_err']:.3g}"
+                      for d, v in rc["steps"].items())
+                  + f"; step ms " + ", ".join(
+                      f"depth {d} {v['ms']:.1f}"
+                      for d, v in rc["steps"].items())
+                  + f"; parameter bytes {rc['param_bytes']} of one "
+                  f"process's {one['param_bytes']}, optimizer-state bytes "
+                  f"{sc['state_bytes']} of {one['state_bytes']}; peak GiB "
+                  f"{sc['peak_mem_gib']:.2f}; launches at depth {cl} "
+                  f"{sc['launches']}", flush=True)
+    launches = {}
+    if ranks:
+        launches[name] = ranks[0]["steps"][last]["launches"]
+        for c, rc in ranks[0]["cases"].items():
+            launches[f"{rc['regime']}_{c}"] = rc["steps"][str(
+                CASES[c]["depths"][-1])]["launches"]
+    return launches, kern, failures
 
 
 def main():
@@ -5346,10 +5697,14 @@ def run_phases(args, out_dir):
         # the sp and grid worlds share one batch of ranks: its references
         # and its ranks' seconds under "sp_grids_references" and
         # "sp_grids_ranks"
-        sp, sp_kern, grid, parts = clocked(
+        sp, sp_kern, grid, case_kern, parts = clocked(
             "sp_grids", phase_worlds, args.seed, card, gen, out_dir, tmp,
             dp_argv)
         seconds.update({f"sp_grids_{k}": v for k, v in parts.items()})
+        for name, recs in case_kern.items():
+            kern[name].update({k: {f: v for f, v in r.items()
+                                   if f not in ("phase", "name")}
+                               for k, r in recs.items()})
         var1d = clocked("var1d", phase_var1d, args.seed, card, out_dir, tmp)
         kern["spectral_dw2d"]["ns512"] = kern.pop("spectral_dw2d_ns512")
         # after training: torch.export keeps the constants it traced (the
@@ -5459,7 +5814,9 @@ def run_phases(args, out_dir):
         for key in ("timing_refused", "same_bits", "film", "unet_shapes",
                     "dispatch_host_us", "library_how", "dtype", "shape",
                     "act", "bound_f32_ops_ms", "f32", "shapes", "ns512", "stages",
-                    "step_calls", "tp_shape", "tcond_shape"):
+                    "step_calls", "tp_shape", "tcond_shape",
+                    "tp_ufno_tcond_shape", "ep_moe_bc_shape",
+                    "pp_ufno_attn_shape"):
             if key in r:
                 line[-1][key] = r[key]
         if "adjoint" in r:   # the backward's adjoint launch alone

@@ -27,9 +27,10 @@ wraps ``FNO_Layer`` in ``nn.remat``. FiLM conditioning is refused.
 Under expert parallelism (``parallel.scope`` of an expert axis) rank r of K
 runs only its experts [r E / K, (r + 1) E / K) of each block (the others'
 parameters are empty there): their gated terms, summed in f32, are summed over
-the expert group (``parallel.expert.expert_sum``), and the block's input enters
-the block through ``parallel.tensor.copy_in``, ahead of the experts and of a
-gate that pools it: each rank's gradient into it is partial.
+the expert group (``parallel.expert.expert_sum``), and the block's input and
+its conditioning enter the block through ``parallel.tensor.copy_in``, ahead of
+the experts and of the gate: each rank's gradient into them is partial (a BC
+encoder's code reaches both).
 
 Under spatial parallelism (``parallel.scope`` of an x axis: h holds this
 rank's rows) each expert's spectral conv runs split (K1's split entries on
@@ -111,10 +112,13 @@ class MoEFNO(nn.Module):
         axis = expert.current()
         local = range(len(experts))
         if axis is not None:
-            # every use of h below (the experts and a pooled gate) gives
-            # only this rank's part of its gradient: summed over the group
+            # every use below of h and of the conditioning (the experts and
+            # the gate; a BC encoder's code is in both) gives only this
+            # rank's part of its gradient: summed over the group
             local = range(*axis.part(len(experts)))
-            h = tensor.copy_in(h, axis)
+            h, variables, variables_broadcast = (
+                None if t is None else tensor.copy_in(t, axis)
+                for t in (h, variables, variables_broadcast))
         h_in = (torch.cat([h, variables_broadcast], dim=1)
                 if (self.cond_mode == "concat"
                     and variables_broadcast is not None) else h)

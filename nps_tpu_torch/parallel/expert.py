@@ -12,19 +12,21 @@ experts [r E / K, (r + 1) E / K) of every block of
 once each), sums their gated terms in f32 and sums that partial mixture
 over the expert group (:func:`expert_sum`, an all-reduce whose backward
 passes the gradient through, as ``parallel.mesh.global_sum``'s). The
-block's input enters the block through ``parallel.tensor.copy_in``, whose
-backward sums its gradient over the expert group: each rank's experts, and
-a gate that pools the input, give only their part of it.
+block's input, and its conditioning (the vector the gate reads and its
+broadcast to the grid, which the experts read: a BC encoder's code is in
+both), enter the block through ``parallel.tensor.copy_in``, whose backward
+sums their gradients over the expert group: each rank's experts, and the
+gate's columns they read, give only their part of them.
 
 The gate is replicated and runs on every rank; its gradient is partial
 there (dL/dg[:, e] exists only where expert e lives), so it is summed over
 the expert group as well as the data group (:func:`partial_params`). The
-encoder's, the decoder's and the experts' gradients are whole on each rank
-and are summed over the data group only.
+encoder's, a BC encoder's, the decoder's and the experts' gradients are
+whole on each rank and are summed over the data group only.
 """
 
 from nps_tpu_torch.parallel import spatial
-from nps_tpu_torch.parallel.mesh import global_sum, refuse_pieces
+from nps_tpu_torch.parallel.mesh import global_sum
 
 
 def current():
@@ -100,5 +102,4 @@ def check(model, k, config=None):
         raise ValueError(
             f"expert_parallel={k} splits the experts of a mixture of "
             f"spectral experts (MoEFNO); {type(model).__name__} has none")
-    refuse_pieces(model, "expert", ("bc_encoder", "3d"))
     partition_specs(model, k)

@@ -338,16 +338,10 @@ class AllReduceGrads:
 
 
 def _pieces():
-    """The model pieces of P13a that some grid regime does not take yet:
-    the test on a module that marks each (ROADMAP P9b). Imported here, as
-    the models import this module."""
-    from nps_tpu_torch.models.common import BCEncoder
-    from nps_tpu_torch.models.unet_modern import AttentionBlock
-
+    """The model pieces that some grid regime does not take yet (ROADMAP
+    P9b): the 3D models under spatial parallelism, which would need a
+    split 3D FFT."""
     return {
-        "attention": ("the U-Net's AttentionBlock (it reads the whole field)",
-                      lambda m: isinstance(m, AttentionBlock)),
-        "bc_encoder": ("the BC encoder", lambda m: isinstance(m, BCEncoder)),
         "3d": ("the 3D models",
                lambda m: getattr(m, "num_spatial_dims", 2) == 3),
     }

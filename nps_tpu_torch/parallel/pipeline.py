@@ -5,9 +5,12 @@ The processor chain of an ``EncProcDec`` is a homogeneous stack of stages
 (:class:`StageSplit`, the JAX package's ``_StageSplit``):
 
 - block mode: one processor (``UFNO``, ``DilatedResnet``, ``FNO``,
-  ``MoEFNO``), one stage per internal block (the processor's ``block``);
-- processor mode: a list of identical processor specs, one stage per
-  processor, with ``processor_residual`` between them;
+  ``MoEFNO``), one stage per internal block (the processor's ``block``),
+  whatever the block holds (a U-FNO's mini U-Net with attention, 3D
+  convs and spectral weights);
+- processor mode: a list of identical processor specs (any processor, a
+  ``UNetModern`` with attention too), one stage per processor, with
+  ``processor_residual`` between them;
 - a heterogeneous chain (FNO -> U-FNO) raises, and so does a pipe size
   that does not divide the stage count.
 
@@ -48,7 +51,7 @@ from argparse import Namespace
 import torch
 
 from nps_tpu_torch.parallel import spatial
-from nps_tpu_torch.parallel.mesh import refuse_pieces, world
+from nps_tpu_torch.parallel.mesh import world
 from nps_tpu_torch.parallel.spatial import _exact_sum, _slot_buffer, traffic
 
 # the processors that decompose into blocks (their ``block`` method)
@@ -126,7 +129,6 @@ def check(model, k, config=None):
     """Raise unless ``model`` pipelines over ``k`` ranks, and for a
     ``pipeline_microbatches`` that never divides the steady-state batch of
     a data slice: every batch would take the sequential remainder path."""
-    refuse_pieces(model, "pipeline", ("attention", "3d"))
     StageSplit(model).check(k)
     n_micro = int(getattr(config, "pipeline_microbatches", 0) or 0)
     if not n_micro:

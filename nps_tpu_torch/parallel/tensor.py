@@ -11,8 +11,8 @@ hand. The partition rule is ``_leaf_spec``'s, on the port's layouts
 - conv weight ``[out, in, *k]`` (:class:`~nps_tpu_torch.models.common.
   ConvND`) and dense weight ``[out, in]`` (``Dense``): axis 0;
 - transposed-conv weight ``[in, out, *k]`` (``ConvTransposeND``): axis 1;
-- spectral ``weights1/2`` ``[2, ci, co, *modes]`` (``SpectralConvND``):
-  axis 2;
+- spectral ``weights1..4`` ``[2, ci, co, *modes]`` (``SpectralConvND``;
+  1D has ``weights1``, 2D two blocks, 3D four): axis 2;
 - a weight whose axis does not divide by K stays whole, as in JAX;
   everything else (biases, the norms' affine) is replicated.
 
@@ -45,7 +45,6 @@ import torch
 import torch.distributed as dist
 
 from nps_tpu_torch.parallel import spatial
-from nps_tpu_torch.parallel.mesh import refuse_pieces
 from nps_tpu_torch.parallel.spatial import _exact_sum, _slot_buffer, traffic
 
 
@@ -66,8 +65,7 @@ def _shard_dims(module):
     if isinstance(module, ConvTransposeND):
         return {"weight": 1}
     if isinstance(module, SpectralConvND):
-        return {name: 2 for name in ("weights1", "weights2")
-                if getattr(module, name, None) is not None}
+        return {f"weights{i + 1}": 2 for i in range(len(module._weights()))}
     return {}
 
 
@@ -188,11 +186,8 @@ def sharded_layer(fn, x, weight, bias, axis, dim=1):
 
 
 def check(model, k, config=None):
-    """Raise for a model tensor parallelism does not take here: the MP-GNN
-    (its dense layers feed a graph gather; ROADMAP P9b item 4's
-    remainder)."""
-    if getattr(model, "data_structure", "grid") != "grid":
-        raise NotImplementedError(
-            "tensor parallelism of the MP-GNN is not ported (ROADMAP P9b "
-            "item 4: the grid families only)")
-    refuse_pieces(model, "tensor", ("attention", "bc_encoder", "3d"))
+    """Tensor parallelism takes every model, as JAX's rule does: whatever
+    layer it holds (the MP-GNN's dense layers on node tensors ``[N, c]``,
+    the attention block's projections, the BC encoder's 1D convs and dense
+    layer, the 3D convs and spectral weights), a weight whose out-features
+    K divides is split and the rest stays whole."""

@@ -4,7 +4,8 @@ JAX file's reference-tree comparison has no port side): ``PDE3D``'s derived
 fields, the 3D spectral conv alone (four corner blocks, forward and
 gradients), the whole ``EncProcDec`` at ``num_spatial_dims=3`` with an FNO
 and a Dilated ResNet processor (forward, every gradient, the weights' round
-trip), a 3D FNO grad step, FiLM in 3D refused as in JAX, and a model
+trip), the 3D mixture of spectral experts (forward and every gradient),
+a 3D FNO grad step, FiLM in 3D refused as in JAX, and a model
 spec's ``mix_impl`` values (an FNO layer built from a spec with each gives
 JAX's output in 1D, 2D and 3D; an unknown value raises where the port reads
 the spec, where the JAX package takes its FFT route for it).
@@ -195,6 +196,36 @@ def test_grad_step_3d_fno():
     assert any(np.abs(g).max() > 0 for g in got.values())
     for k, g in got.items():
         assert _rel(g, ref_g[k].numpy()) < REL_GRAD, k
+
+
+def test_moe_3d_forward_and_gradients():
+    """The 3D mixture of spectral experts (2 blocks x 2 experts, its gate on
+    the static conditioning; the expert-parallel cases hold it split):
+    output and every parameter's gradient against jax.vjp, JAX's stacked
+    experts split by ``from_jax_params``."""
+    nx = NX["fno"]
+    cfg = dict(_model_cfg("fno"), processor="MoEFNO", n_experts=2)
+    jmodel = jm.EncProcDec(pde=JaxPDE3D(**_pde_kw(nx)), **cfg)
+    tmodel = EncProcDec(pde=PDE3D(**_pde_kw(nx)), **cfg)
+    u, cond, pos = _inputs(nx)
+    params = _np(jax.jit(lambda: jmodel.init(jax.random.PRNGKey(0), u,
+                                             cond=cond, pos=pos))())
+    tmodel.load_state_dict(from_jax_params(params), strict=True)
+    assert any(".experts.1.1.conv.weights4" in k
+               for k in tmodel.state_dict())
+    dy = np.random.default_rng(2).standard_normal(u.shape).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref, vjp = jax.vjp(lambda p: jmodel.apply(p, u, cond=cond, pos=pos),
+                           params)
+        (grads,) = vjp(jnp.asarray(dy))
+    out = tmodel(torch.from_numpy(u), cond=torch.from_numpy(cond),
+                 pos=torch.from_numpy(pos))
+    (out * torch.from_numpy(dy)).sum().backward()
+    assert out.shape == ref.shape
+    assert _rel(out.detach().numpy(), ref) < REL_FWD
+    ref_g = from_jax_params(_np(grads))
+    for k, p in tmodel.named_parameters():
+        assert _rel(p.grad.numpy(), ref_g[k].numpy()) < REL_GRAD, k
 
 
 def test_film_in_3d_raises_as_in_jax():

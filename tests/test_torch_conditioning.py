@@ -247,21 +247,42 @@ def _apply_pair(name):
     return jax_apply, tmodel, port_apply, inputs, params
 
 
+def _f64_vjp(jax_apply, params, inputs, dy):
+    """JAX's gradient of every parameter for the cotangent ``dy``, computed
+    in float64 (f64 parameters, inputs and cotangent) inside an x64 scope
+    that no other test sees: the truth the port's f32 gradients are held
+    to. JAX's own f32 gradients sit at f32 round-off from it, as the port's
+    do, and a tensor near the bar's floor can then be farther from JAX's
+    f32 result than from the truth (the U-FNO's smallest bias gradient: JAX
+    f32 1.76e-6 from the f64 result, the port 4.7e-7)."""
+    def f64(a):
+        a = np.asarray(a)
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+
+    def grads(p, inp, dy):
+        return jax.vjp(lambda p: jax_apply(p, inp), p)[1](dy)[0]
+
+    with jax.enable_x64(True), jax.default_matmul_precision("highest"):
+        return _tree_np(jax.jit(grads)(
+            jax.tree_util.tree_map(f64, params),
+            {k: f64(v) for k, v in inputs.items()}, jnp.asarray(f64(dy))))
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_enc_proc_dec_with_bc_encoder(name):
-    """Forward, every gradient (jax.vjp of the same cotangent) and the
-    weights' round trip through convert_state_dict, bit for bit (for the
-    MP-GNN the BC encoder's: the JAX package's converter knows no GNN
-    layer names)."""
+    """Forward (against JAX's f32), every gradient (against JAX's in
+    float64, ``_f64_vjp``, for the same cotangent) and the weights' round
+    trip through convert_state_dict, bit for bit (for the MP-GNN the BC
+    encoder's: the JAX package's converter knows no GNN layer names)."""
     from nps_tpu.compat import convert_state_dict
 
     jax_apply, tmodel, port_apply, inputs, params = _apply_pair(name)
     assert "bc_encoder" in params["params"]
     with jax.default_matmul_precision("highest"):
-        ref, vjp = jax.vjp(lambda p: jax_apply(p, inputs), params)
-        dy = np.random.default_rng(1).standard_normal(ref.shape).astype(
-            np.float32)
-        (g_params,) = vjp(jnp.asarray(dy))
+        ref = jax_apply(params, inputs)
+    dy = np.random.default_rng(1).standard_normal(ref.shape).astype(
+        np.float32)
+    g_params = _f64_vjp(jax_apply, params, inputs, dy)
     out = port_apply({k: torch.from_numpy(v) for k, v in inputs.items()})
     (out * torch.from_numpy(dy)).sum().backward()
     assert out.shape == ref.shape
@@ -315,21 +336,22 @@ def test_t_cond_without_bc_encoder_is_ignored():
 
 
 def _grid_model(piece):
-    """A small 2D U-FNO (3D FNO for "3d", MoE for "moe_bc") carrying the
-    piece, two blocks."""
+    """A small 2D U-FNO (3D FNO for "3d", 3D MoE for "moe3d", MoE for
+    "moe_bc") carrying the piece, two blocks."""
     from nps_tpu_torch.models.enc_proc_dec import EncProcDec
 
     kw, make_pde, _ = _case("2d_ufno_tcond")
     kw = dict(_port_kw(kw), hidden_blocks=2)
     if piece == "attention":
         kw = dict(kw, bc_encoder=None, is_attn=[True, False])
-    elif piece == "3d":
+    elif piece in ("3d", "moe3d"):
         from nps_tpu_torch.pde import PDE3D
 
         return EncProcDec(
             pde=PDE3D(tmin=0, tmax=1, nt=11, L1=1, L2=1, L3=1, nx1=8, nx2=8,
                       nx3=8, x=None, name="box3d", n_cond_static=2),
-            encoder="enc_grid.ElementWise", processor="FNO",
+            encoder="enc_grid.ElementWise",
+            processor="FNO" if piece == "3d" else "MoEFNO", n_experts=2,
             decoder="dec_grid.TimeConvDense", num_c=1, num_spatial_dims=3,
             time_window=TW, hidden_features=8, fno_modes=2, hidden_blocks=2)
     elif piece == "moe_bc":
@@ -339,16 +361,19 @@ def _grid_model(piece):
 
 @pytest.mark.parametrize("regime,piece,refused", [
     ("spatial", "attention", False), ("spatial", "bc", False),
-    ("spatial", "3d", True), ("tensor", "attention", True),
-    ("tensor", "bc", True), ("tensor", "3d", True),
-    ("expert", "moe_bc", True), ("pipeline", "attention", True),
-    ("pipeline", "3d", True), ("pipeline", "bc", False)])
+    ("spatial", "3d", True), ("tensor", "attention", False),
+    ("tensor", "bc", False), ("tensor", "3d", False),
+    ("expert", "moe_bc", False), ("expert", "moe3d", False),
+    ("pipeline", "attention", False), ("pipeline", "3d", False),
+    ("pipeline", "bc", False)])
 def test_grid_regimes_take_or_refuse_the_pieces(regime, piece, refused):
-    """Each grid regime's check: the pipeline takes the BC encoder (held in
-    a world by test_pipelined_bc_encoder_path), spatial parallelism the
-    attention block and the BC encoder (held in worlds by
-    test_torch_spatial_families.py); every other combination of these
-    pieces is refused naming ROADMAP P9b."""
+    """Each grid regime's check: every regime takes every piece (held in
+    worlds against one process and JAX: the pipeline's BC encoder by
+    test_pipelined_bc_encoder_path, spatial parallelism's by
+    test_torch_spatial_families.py, the tensor, pipeline and expert cases
+    by test_torch_{tensor,pipeline,expert}_parallel.py) but the 3D models
+    under spatial parallelism, which are refused naming ROADMAP P9b (a
+    split 3D FFT is not written)."""
     from nps_tpu_torch.parallel import expert, pipeline, spatial, tensor
 
     model = _grid_model(piece)

@@ -9,7 +9,10 @@ of ``torch_grid_harness.py``. The cases mirror
 partition (experts on their ranks, the rest replicated), a non-divisible
 expert stack refused, the sharded step against the unsharded one, the
 trainer end to end; besides, the gather of the experts is the whole state
-bit for bit, and each parameter tag's gradient is reduced once.
+bit for bit, and each parameter tag's gradient is reduced once. The
+worlds also run the model cases (the harness's ``CASES``): the MoE with a
+BC encoder (its gradient summed over the expert group, on every rank)
+and a 3D MoE, each against one process and JAX.
 """
 
 import os
@@ -41,6 +44,10 @@ def sc_held(spec, g):
 
 
 SCENARIOS = dict(H.COMMON, held=sc_held)
+# the models beside the MoE (torch_grid_harness.CASES): the MoE with a BC
+# encoder over t_cond, and a 3D MoE
+CASES = ["moe_bc", "moe3d"]
+CASE_N = [(name, n) for name in CASES for n in (2, 4)]
 
 
 # ------------------------------------------------------------ fixtures
@@ -71,10 +78,9 @@ def single(data_dir, jax_ref):
 
 @pytest.fixture(scope="module")
 def worlds(data_dir, single):
-    return {2: H.run_world(__file__, data_dir, single, 2, PORT_CFG, FLAGS,
-                           list(SCENARIOS)),
-            4: H.run_world(__file__, data_dir, single, 4, PORT_CFG, FLAGS,
-                           ["forward", "step", "eval"])}
+    return H.case_runs(__file__, data_dir, single, PORT_CFG, FLAGS,
+                       {2: list(SCENARIOS), 4: ["forward", "step", "eval"]},
+                       CASES)
 
 
 @pytest.fixture(scope="module")
@@ -241,6 +247,56 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="P9b item 6"):
         refuse_unported(Namespace(data_parallel=True, expert_parallel=2,
                                   pipeline_parallel=2))
+
+
+# ------------------------------------------------------ the model cases
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_forward_matches_single_process_and_jax(worlds, name, n):
+    """Each model case, its experts split over the expert axis, equals the
+    port's single process and nps_tpu's."""
+    H.check_case_forward(worlds[n], name, worlds["single"][name],
+                         worlds["jax"][name])
+
+
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_step_matches_single_process(worlds, name, n):
+    """Each model case's depth-1 step: the loss, every gradient gathered
+    whole, and every replicated gradient as each expert rank holds it."""
+    H.check_case_step(worlds[n], name, worlds["single"][name])
+
+
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_step_matches_jax(worlds, name, n):
+    H.check_case_step_jax(worlds[n], name, worlds["jax"][name])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bc_encoder_gradient_summed_over_the_expert_group(worlds, n):
+    """The BC encoder's code reaches every expert's input and the gate; an
+    expert rank runs only its experts, so its gradient into the code is
+    partial: the block takes the conditioning through ``copy_in``, whose
+    backward sums it over the expert group. On every rank each of the
+    encoder's gradients, as the rank holds it, is the single process's
+    (without the sum: a rank's own experts' part)."""
+    ref = worlds["single"]["moe_bc"]["grads"]
+    keys = [k for k in ref if k.startswith("bc_encoder.")]
+    assert len(keys) == 6
+    for res in worlds[n]["ranks"]:
+        got = res["cases"]["moe_bc"]["replicated"]
+        for k in keys:
+            err = float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+            assert err <= H.REL_GRAD, (k, err)
+
+
+def test_3d_moe_experts_on_their_ranks(worlds, single):
+    """The 3D MoE (2 experts a block): each expert rank holds one expert of
+    every block, its four 3D spectral weights included."""
+    whole = worlds["single"]["moe3d"]["grads"]
+    experts = sum(v.numel() for k, v in whole.items() if ".experts." in k)
+    total = sum(v.numel() for v in whole.values())
+    assert any(k.endswith("conv.weights4") for k in whole)
+    for res in worlds[2]["ranks"]:
+        assert res["cases"]["moe3d"]["numel"] == total - experts // 2
 
 
 if __name__ == "__main__":

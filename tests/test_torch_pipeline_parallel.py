@@ -12,7 +12,11 @@ the train step against one process, the trainer end to end; besides, a
 batch the microbatches do not tile runs the sequential chain (forward and
 gradients), each parameter tag's gradient is reduced once, and the MP-GNN
 is refused. The BC-encoder case of the JAX tests is
-``tests/test_torch_conditioning.py::test_pipelined_bc_encoder_path``.
+``tests/test_torch_conditioning.py::test_pipelined_bc_encoder_path``. The
+worlds also run the model cases (the harness's ``CASES``): the U-FNO with
+attention in its mini U-Nets and the 3D FNO and DRN block by block, and a
+list of two attention U-Nets one a stage, each against one process and
+JAX.
 """
 
 import os
@@ -104,6 +108,11 @@ def sc_families(spec, g):
 
 SCENARIOS = dict(H.COMMON, micro=sc_micro, remainder=sc_remainder,
                  families=sc_families)
+# the models beside the U-FNO (torch_grid_harness.CASES): the U-FNO with
+# attention in its mini U-Nets (block mode), a list of two attention
+# U-Nets (processor mode), the 3D FNO and DRN (block mode)
+CASES = ["ufno_attn", "unet_attn_list", "fno3d", "drn3d"]
+CASE_N = [(name, n) for name in CASES for n in (2, 4)]
 
 
 # ------------------------------------------------------------ fixtures
@@ -148,10 +157,9 @@ def single(data_dir, jax_ref):
 
 @pytest.fixture(scope="module")
 def worlds(data_dir, single):
-    return {2: H.run_world(__file__, data_dir, single, 2, PORT_CFG, FLAGS,
-                           list(SCENARIOS)),
-            4: H.run_world(__file__, data_dir, single, 4, PORT_CFG, FLAGS,
-                           ["forward", "step", "eval", "micro"])}
+    return H.case_runs(__file__, data_dir, single, PORT_CFG, FLAGS,
+                       {2: list(SCENARIOS),
+                        4: ["forward", "step", "eval", "micro"]}, CASES)
 
 
 def _model(cfg, extra=("--model.fno_modes=4",)):
@@ -291,6 +299,53 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="P9b item 5"):
         refuse_unported(Namespace(data_parallel=True, pipeline_parallel=2,
                                   tensor_parallel=2))
+
+
+# ------------------------------------------------------ the model cases
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_forward_matches_single_process_and_jax(worlds, name, n):
+    """Each model case pipelined over 2 stages (one a pipe rank) equals the
+    port's single process and nps_tpu's."""
+    H.check_case_forward(worlds[n], name, worlds["single"][name],
+                         worlds["jax"][name])
+
+
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_step_matches_single_process(worlds, name, n):
+    """Each model case's depth-1 step: the loss and every gradient, on every
+    pipe rank (the stages', the encoder's and the attention blocks' summed
+    over the pipe group)."""
+    H.check_case_step(worlds[n], name, worlds["single"][name])
+
+
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_step_matches_jax(worlds, name, n):
+    H.check_case_step_jax(worlds[n], name, worlds["jax"][name])
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("ufno_attn", "block"), ("unet_attn_list", "processor"),
+    ("fno3d", "block"), ("drn3d", "block")])
+def test_case_stages(data_dir, name, mode):
+    """How each case splits: the attention U-FNO block by block, with its
+    attention blocks inside each stage's ``unet_layers.{i}`` (JAX's
+    ``unet_layers_{i}`` key template), the attention U-Nets one processor
+    a stage, the 3D FNO and DRN block by block; each over 2 stages."""
+    from nps_tpu_torch.models.unet_modern import AttentionBlock
+    from nps_tpu_torch.parallel import pipeline
+
+    tr = H.case_trainer(name, data_dir / "data", data_dir / f"{name}_st")
+    model = tr.model
+    split = pipeline.StageSplit(model)
+    assert (split.mode, split.n_stages) == (mode, 2)
+    pipeline.check(model, H.K)
+    attn = [p for p, m in model.named_modules()
+            if isinstance(m, AttentionBlock)]
+    if name == "ufno_attn":
+        assert {p.split(".")[2] for p in attn} == {"unet_layers"}
+        assert {p.split(".")[3] for p in attn} == {"0", "1"}
+    elif name == "unet_attn_list":
+        assert {p.split(".")[1] for p in attn} == {"0", "1"}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,11 @@ harness, sizes and bars of ``torch_grid_harness.py``. The cases mirror
 gradient step; besides, the gather of the shards is the whole state, bit
 for bit, and so is the saved checkpoint, each parameter tag's gradient is
 reduced once, every grid family that the rule splits gives its unsplit
-forward, and the refusals.
+forward, and the refusals. The worlds also run the model cases (the
+harness's ``CASES``): the MP-GNN, the attention U-Net (a rank's share of
+its projection straddling q and k), the time-conditioned U-FNO (its BC
+encoder split too) and the 3D FNO and DRN, each against one process and
+JAX, with its split leaves held to JAX's rule.
 """
 
 import os
@@ -72,6 +76,10 @@ def sc_families(spec, g):
 
 
 SCENARIOS = dict(H.COMMON, roundtrip=sc_roundtrip, families=sc_families)
+# the models beside the U-FNO (torch_grid_harness.CASES): the MP-GNN, the
+# attention U-Net, the time-conditioned U-FNO, the 3D FNO and DRN
+CASES = ["gnn", "unet_attn", "ufno_tcond", "fno3d", "drn3d"]
+CASE_N = [(name, n) for name in CASES for n in (2, 4)]
 
 
 # ------------------------------------------------------------ fixtures
@@ -103,11 +111,10 @@ def single(data_dir, jax_ref):
 @pytest.fixture(scope="module")
 def worlds(data_dir, single):
     """K = 2 in a world of two (every scenario), D = 2 x K = 2 in a world of
-    four."""
-    return {2: H.run_world(__file__, data_dir, single, 2, PORT_CFG, FLAGS,
-                           list(SCENARIOS)),
-            4: H.run_world(__file__, data_dir, single, 4, PORT_CFG, FLAGS,
-                           ["forward", "step", "eval"])}
+    four; both run every model case (``CASES``) too."""
+    return H.case_runs(__file__, data_dir, single, PORT_CFG, FLAGS,
+                       {2: list(SCENARIOS), 4: ["forward", "step", "eval"]},
+                       CASES)
 
 
 # ------------------------------------------------------------------ tests
@@ -253,8 +260,8 @@ def test_grid_families_sharded_forward(worlds, family):
 
 
 def test_refusals():
-    """zero1 under tensor parallelism, tensor with spatial parallelism, and
-    the MP-GNN (whose dense layers feed a graph gather) raise."""
+    """zero1 under tensor parallelism and tensor with spatial parallelism
+    raise; the MP-GNN (its dense layers on node tensors) is taken."""
     from nps_tpu_torch.parallel import tensor
     from nps_tpu_torch.train.base import refuse_unported
     from test_torch_spatial import _engine
@@ -271,8 +278,97 @@ def test_refusals():
                                   spatial_parallel=2))
     gnn = _engine("cfg_twophase_gnn.py", 16, ["--model.hidden_features=16",
                                               "--model.hidden_blocks=2"])
-    with pytest.raises(NotImplementedError, match="P9b item 4"):
-        tensor.check(gnn.model, H.K)
+    tensor.check(gnn.model, H.K)
+
+
+# ------------------------------------------------------ the model cases
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_forward_matches_single_process_and_jax(worlds, name, n):
+    """Each model case's forward of the first window, its layers split over
+    the model axis, equals the port's single process and nps_tpu's."""
+    H.check_case_forward(worlds[n], name, worlds["single"][name],
+                         worlds["jax"][name])
+
+
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_step_matches_single_process(worlds, name, n):
+    """Each model case's depth-1 step: the loss, every gradient gathered
+    whole, and every replicated gradient as each model rank holds it (the
+    BC encoder's biases among them: whole on every model rank)."""
+    H.check_case_step(worlds[n], name, worlds["single"][name])
+
+
+@pytest.mark.parametrize("name,n", CASE_N)
+def test_case_step_matches_jax(worlds, name, n):
+    H.check_case_step_jax(worlds[n], name, worlds["jax"][name])
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_case_partition_specs_match_jax(worlds, name):
+    """Each case's split leaves are those of ``nps_tpu``'s
+    ``param_partition_specs`` on its JAX tree (count and elements): the
+    MP-GNN's dense kernels, the attention projections, the BC encoder's
+    convs and dense layer, the 3D convs and all four 3D spectral weights;
+    each split leaf holds 1 / K of its elements on a rank."""
+    import jax
+
+    from nps_tpu.parallel import param_partition_specs
+    from nps_tpu_torch.parallel import tensor
+
+    root = worlds[2]["out"].parent
+    tr = H.case_trainer(name, root / "data", root / f"{name}_specs")
+    specs = tensor.partition_specs(tr.model, H.K)
+    tree = worlds["params0"][name]
+    leaves = jax.tree_util.tree_leaves(tree)
+    jflat = jax.tree_util.tree_leaves(
+        param_partition_specs(tree, H.K),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    j_split = sorted(np.size(a) for a, s in zip(leaves, jflat) if s != ())
+    state = tr.model.state_dict()
+    p_split = sorted(state[k].numel() for k, d in specs.items()
+                     if d is not None)
+    assert j_split and j_split == p_split
+    whole = sum(v.numel() for v in state.values())
+    split = sum(p_split)
+    for res in worlds[2]["ranks"]:
+        assert res["cases"][name]["numel"] == whole - split // H.K
+
+
+def test_gnn_gradient_tags(worlds):
+    """The MP-GNN's split edge weights (their shards' gradients; the
+    bias-free ``edge_0_send`` and ``edge_0_pos`` among them) and a
+    replicated bias (whole on every model rank): each reduced once over the
+    data group, neither K times nor 0."""
+    ref = worlds["single"]["gnn"]["grads"]
+    keys = [next(k for k in ref if k.endswith(tail)) for tail in (
+        "mp.0.edge_0_send.weight", "mp.0.edge_0_pos.weight",
+        "mp.1.edge.2.bias")]
+    for n in (2, 4):
+        for res in worlds[n]["ranks"]:
+            got = res["cases"]["gnn"]["grads"]
+            for key in keys:
+                ratio = float(got[key].norm() / ref[key].norm())
+                assert abs(ratio - 1) < 1e-3, (key, ratio)
+
+
+def test_attention_projection_share_straddles_q_and_k(data_dir):
+    """At the attention U-Net's 32 channels a model rank's share of the
+    projection (48 of 96 outputs) holds all of q and half of k: the split
+    into q, k and v comes after the gather, so the forward above does not
+    depend on where the share ends."""
+    from nps_tpu_torch.models.unet_modern import AttentionBlock
+    from nps_tpu_torch.parallel import tensor
+
+    tr = H.case_trainer("unet_attn", data_dir / "data", data_dir / "straddle")
+    blocks = [m for m in tr.model.modules() if isinstance(m, AttentionBlock)]
+    specs = tensor.partition_specs(tr.model, H.K)
+    assert blocks
+    for prefix, m in tr.model.named_modules():
+        if isinstance(m, AttentionBlock):
+            assert specs[f"{prefix}.projection.weight"] == 0
+            assert specs[f"{prefix}.output.weight"] == 0
+            share = 3 * m.d_k // H.K
+            assert m.d_k < share < 2 * m.d_k
 
 
 if __name__ == "__main__":
