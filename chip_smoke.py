@@ -182,7 +182,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              shard(2) rollout of 8 bundled steps (nRMSE 1e-3), the
              MP-GNN and cfg_var1d_fno at depth 0, whole on each x rank
              (no row fetched, nothing summed over the x group, no split
-             entry, the trainer's log line saying so); last, after the
+             entry, the trainer's log line saying so), then
+             export_rollout from a sharded engine of the U-FNO (rank 0
+             from shard(2), rank 1 from shard(0), each alone: no
+             collective), its artifact loaded and rolled out 8 bundled
+             steps on the card against the unsharded eager rollout
+             (rtol 1e-5, atol 1e-6), its K1 and K2 launches the path's
+             (the sp line's ranks' "export"); last, after the
              grid phases' ranks have ended, cfg_ns512_ufno as shipped
              with spatial_parallel=2 (bf16, remat, batch 8, 256 of 512
              rows a rank), one depth-0 step against the single-process
@@ -210,13 +216,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              microbatches, steps at depths 0 and 2; then each rank's
              model cases (GRID_CASES), each against one process on the
              card: tp the time-conditioned U-FNO (K1 at 204 input
-             channels to the rank's 96) at depths 0 and 1 and the U-Net
-             with attention on its two deepest levels and in the middle
-             at depth 0, from the sp world's references, the MP-GNN (6
-             x 128, whole activations on each rank) at batch 4, depth 0,
-             and, on the ep world's two ranks once their ep cases end,
+             channels to the rank's 96) at depths 0 and 1, from the sp
+             world's reference, the MP-GNN (6 x 128, whole activations
+             on each rank) at batch 4, depth 0, and, on the ep world's
+             two ranks once their ep cases end, the U-Net with attention
+             on its two deepest levels and in the middle at depth 0
+             (from the sp world's reference) and
              the 3D FNO and Dilated ResNet (32 features, 3 blocks,
-             64x64x32, batch 2) at depths 0 and 1; ep cfg_twophase_moe
+             64x64x32, batch 2) at depths 0 and 1, then the 3D FNO, DRN
+             and MoE under spatial parallelism (regime "sp": a (data, x)
+             grid of 1 x 2, 32 of the 64 rows a rank, the 3D spectral
+             conv split at its row contraction, the DRN's dilated
+             circular halos fetched; depths 0 and 1; halos or sums in
+             every step); ep cfg_twophase_moe
              with a BC encoder of 8 outputs over the split's
              t_conditioning and a 3D MoE (4 experts a block), depths 0
              and 1; pp the U-FNO
@@ -3733,6 +3745,12 @@ def run_ranks(commands, logs, timeout, env=None):
     the others. ``env``: variables added for every command, or a list of
     them, one per command. Returns the exit codes (None for a rank killed
     at the limit)."""
+    return wait_ranks(start_ranks(commands, logs, env), timeout)
+
+
+def start_ranks(commands, logs, env=None):
+    """Start one process per command (output to its log file; ``env`` as
+    run_ranks'); returns them. A failure to start kills those started."""
     import os
 
     envs = env if isinstance(env, list) else [env] * len(commands)
@@ -3744,6 +3762,25 @@ def run_ranks(commands, logs, timeout, env=None):
                     cmd, stdout=f, stderr=subprocess.STDOUT,
                     cwd=Path(__file__).resolve().parent,
                     env=dict(os.environ, **(extra or {}))))
+    except BaseException:
+        kill_ranks(procs)
+        raise
+    return procs
+
+
+def kill_ranks(procs):
+    """Kill every process of ``procs`` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_ranks(procs, timeout):
+    """Wait for every process of ``procs`` within ``timeout`` seconds; when
+    one fails or the time is up, kill the others. Returns the exit codes
+    (None for a rank killed at the limit)."""
+    try:
         deadline = time.monotonic() + timeout
         while True:
             # every rank polled (any() would stop at the first running one
@@ -3754,10 +3791,7 @@ def run_ranks(commands, logs, timeout, env=None):
                 break
             time.sleep(0.5)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        kill_ranks(procs)
     return [p.returncode for p in procs]
 
 
@@ -4454,6 +4488,17 @@ def wait_for(paths, limit):
     return time.perf_counter() - t0
 
 
+def wait_go(path, limit):
+    """Wait for the file ``path`` (phase_worlds writes it once every
+    reference is), at most ``limit`` seconds; returns the seconds waited,
+    raises at the limit."""
+    waited = wait_for([path], limit)
+    if not Path(path).exists():
+        raise RuntimeError(f"no {path} after {limit} s: the references "
+                           f"did not end")
+    return waited
+
+
 def sp_main(spec, rec, device, flags):
     """The sp world's main part: the twophase U-FNO from the dp phase's
     weights and starts (the first window's forward, a warm-up step, one
@@ -4530,8 +4575,9 @@ def sp_main(spec, rec, device, flags):
 def sp_others(spec, rec, device, flags):
     """The sp world's other part: simulate() of a cut of the U-FNO's first
     batch on its row-split trainer (the whole inputs given), the sharded
-    engine's rollout, and each family of SP_FAMILIES but SP_HEAVY
-    (sp_family)."""
+    engine's rollout, each family of SP_FAMILIES but SP_HEAVY
+    (sp_family), and last each rank's artifact exported from a sharded
+    engine (sp_export)."""
     import gc
 
     import numpy as np
@@ -4588,6 +4634,61 @@ def sp_others(spec, rec, device, flags):
         rec["families"][name] = sp_family(name, spec["families"][name],
                                           device, spec["seed"])
         rec["families"][name]["seconds"] = time.perf_counter() - t0
+    # last: torch.export keeps the constants it traced alive for the rest
+    # of the process
+    rec["export"] = sp_export(spec, device)
+
+
+def sp_export(spec, device):
+    """``export_rollout`` from a sharded engine of the U-FNO (the dp
+    weights): every rank shards two engines, shard(SP_K) and shard(0)
+    (collectives), then rank 0 exports the first and rank 1 the second,
+    each alone (an export makes no collective), loads its artifact and
+    rolls it out SP_ENGINE_STEPS steps on the card: held against the
+    unsharded eager rollout (EXPORT_RTOL, EXPORT_ATOL), its wrappers' K1
+    and K2 launches against the path's, the collectives the export made
+    counted."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from nps_tpu_torch import kernels
+    from nps_tpu_torch.inference import SurrogateEngine, load_exported
+    from nps_tpu_torch.parallel import spatial
+
+    engines = [SurrogateEngine.from_config(
+        family_cfg("ufno"), pde=twophase_pde(), device=device).load(
+            spec["weights"]).shard(k) for k in (SP_K, 0)]
+    k = (SP_K, 0)[spec["rank"]]
+    eng = engines[spec["rank"]]
+    u0, cond, sc = serving_inputs(spec["seed"])
+    path = str(Path(spec["out"]).with_suffix(".npst"))
+    spatial.traffic.clear()
+    t0 = time.perf_counter()
+    eng.export_rollout(path, SP_ENGINE_STEPS, u0, cond=cond, spatial_cond=sc)
+    rec = {"shard": k, "export_seconds": time.perf_counter() - t0,
+           "traffic": dict(spatial.traffic)}
+    del engines, eng
+    art = load_exported(path)
+    art.rollout(u0, cond=cond, spatial_cond=sc)   # warm-up: cuDNN's timing
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = art.rollout(u0, cond=cond, spatial_cond=sc)
+    torch.cuda.synchronize()
+    want = np.load(spec["engine_ref"])
+    rec.update(rollout_seconds=time.perf_counter() - t0,
+               launches=dict(kernels.launches),
+               launches_expected=family_launches(*FAMILIES["ufno"][:2],
+                                                 SP_ENGINE_STEPS, False),
+               allclose=bool(frames.shape == want.shape and np.allclose(
+                   frames, want, rtol=EXPORT_RTOL, atol=EXPORT_ATOL)),
+               max_abs_err=float(np.abs(frames - want).max()))
+    del art
+    gc.collect()   # the loaded program holds reference cycles
+    torch.cuda.empty_cache()
+    return rec
 
 
 def sp_worker(spec_path):
@@ -4615,6 +4716,7 @@ def sp_worker(spec_path):
     rec = {"rank": parallel.world()[0], "device": str(device),
            "backend": torch.distributed.get_backend()}
     try:
+        rec["go_waited_s"] = wait_go(spec["go"], SP_TIMEOUT)
         with autotuned_convs(deterministic=True):
             (sp_main if spec["part"] == "main" else sp_others)(
                 spec, rec, device, flags)
@@ -4807,8 +4909,13 @@ def sp_check(ranks, rcs, logs, single, seconds, card):
                                 f"launched: {unlaunched}")
         e = r["engine"]
         if not (e["nrmse"] < SP_NRMSE and e["captured"]
-                and "P9b item 3" in e["captured"]):
+                and "ROADMAP §2" in e["captured"]):
             failures.append(f"rank {r['rank']}: engine {e}")
+        x = r["export"]
+        if not (x["allclose"] and x["traffic"] == {}
+                and x["launches"] == x["launches_expected"]):
+            failures.append(f"rank {r['rank']}: export from shard("
+                            f"{x['shard']}) {x}")
         sim = r["simulate"]
         unlaunched = [k for k in ("spectral_split_dft", "spectral_split_inv",
                                   "gn1_split_sums", "gn1_split_apply")
@@ -4907,24 +5014,19 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
     (the sp U-FNO's depth-8 step launches on rank 0, the split entries'
     records, each grid phase's and model case's rank-0 launches at its
     last depth, the kernel records at the cases' new shapes, the seconds
-    of the references and of the ranks)."""
+    of the references and of the ranks). The ranks start before the
+    references (their interpreters, imports, CUDA contexts and gloo
+    rendezvous, ~25 s under 11 ranks at once, overlap them) and wait for
+    the file ``go``, written once every reference is."""
     t0 = time.perf_counter()
     kern, failures = sp_stage_records(gen)
-    sp_engine_reference(seed, tmp)
-    single = {"ns512": sp_ns512_reference(seed, tmp)}
-    phases = {name: grid_reference(name, seed, tmp, dp_argv) for name in GRID}
-    fam_paths = sp_family_paths(seed, tmp, phases["ep"][0])
-    sp_family_references(seed, tmp, dp_argv, fam_paths)
+    grid_paths_ = {name: grid_paths(name, seed, tmp, dp_argv)
+                   for name in GRID}
+    fam_paths = sp_family_paths(seed, tmp, grid_paths_["ep"])
     cases = case_paths(seed, tmp, fam_paths)
-    seconds = {"case_references": {}}
-    for name, case in CASES.items():
-        if case.get("ref") != "sp":
-            t1 = time.perf_counter()
-            case_reference(name, seed, cases[name])
-            seconds["case_references"][name] = time.perf_counter() - t1
-    seconds["references"] = time.perf_counter() - t0
+    go = Path(tmp) / "worlds_go"
     grid_cmds, grid_logs, grid_outs = {}, {}, {}
-    for name, (paths, _) in phases.items():
+    for name, paths in grid_paths_.items():
         port = _free_port()
         grid_cmds[name], grid_logs[name], grid_outs[name] = [], [], []
         for rank in range(GRID[name]["k"]):
@@ -4932,7 +5034,7 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
             grid_outs[name].append(Path(tmp) / f"{name}_rank{rank}.json")
             spec.write_text(json.dumps({
                 "phase": name, "rank": rank, "port": port, "seed": seed,
-                "out": str(grid_outs[name][-1]), **paths,
+                "out": str(grid_outs[name][-1]), "go": str(go), **paths,
                 "cases": {c: cases[c] for _, c in GRID_CASES[name]}}))
             grid_cmds[name].append([sys.executable,
                                     str(Path(__file__).resolve()),
@@ -4956,15 +5058,33 @@ def phase_worlds(seed, card, gen, out_dir, tmp, dp_argv):
                 "ns_weights": f"{tmp}/sp_ns_weights.pt",
                 "ns_ref": f"{tmp}/sp_ns_ref.pt",
                 "sim_ref": f"{tmp}/sp_sim_ref.pt", "families": fam_paths,
-                "after": after, "out": str(sp_outs[part][-1])}))
+                "after": after, "go": str(go),
+                "out": str(sp_outs[part][-1])}))
             sp_cmds.append([sys.executable, str(Path(__file__).resolve()),
                             "--sp-worker", str(spec)])
             sp_logs.append(out_dir / f"{tag}_rank{rank}.log")
+    procs = start_ranks(sp_cmds + [c for n in GRID for c in grid_cmds[n]],
+                        sp_logs + [lg for n in GRID for lg in grid_logs[n]])
+    try:
+        sp_engine_reference(seed, tmp)
+        single = {"ns512": sp_ns512_reference(seed, tmp)}
+        phases = {name: (paths, grid_reference(name, seed, paths))
+                  for name, paths in grid_paths_.items()}
+        sp_family_references(seed, tmp, dp_argv, fam_paths)
+        seconds = {"case_references": {}}
+        for name, case in CASES.items():
+            if case.get("ref") != "sp":
+                t1 = time.perf_counter()
+                case_reference(name, seed, cases[name])
+                seconds["case_references"][name] = time.perf_counter() - t1
+    except BaseException:
+        kill_ranks(procs)
+        raise
+    seconds["references"] = time.perf_counter() - t0
+    go.touch()
     launched = time.time()
     t1 = time.perf_counter()
-    rcs = run_ranks(sp_cmds + [c for n in GRID for c in grid_cmds[n]],
-                    sp_logs + [lg for n in GRID for lg in grid_logs[n]],
-                    max(SP_TIMEOUT, GRID_TIMEOUT))
+    rcs = wait_ranks(procs, max(SP_TIMEOUT, GRID_TIMEOUT))
     seconds["ranks"] = time.perf_counter() - t1
     n_sp = 2 * SP_K
     sp_rcs, rcs = rcs[:n_sp], rcs[n_sp:]
@@ -5068,15 +5188,19 @@ GRID = {"tp": dict(cfg="ufno", key="tensor_parallel", k=TP_K,
 # them through model_override on a generated batch of D3_CASE_NT frames.
 # GRID_CASES: each phase's ranks -> their cases, each (its regime, its
 # name): the ep world's 2 ranks, idle once their own cases end, take the
-# tp cases of the 3D models too (a (data, model) grid of 1 x 2 on the same
-# world; 2 GiB a rank), beside the tp ranks' longer cases. The MP-GNN's
-# tp case (10 GiB a rank) stays last on the tp ranks: run by the ep ranks
-# beside the others' peaks it ran the card out of memory.
+# attention U-Net's tp case and the tp cases of the 3D models too (a
+# (data, model) grid of 1 x 2 on the same world; 2-5 GiB a rank), and then
+# the 3D models under spatial parallelism ("sp": a (data, x) grid of 1 x
+# SP_K, D3_GRID's 64 rows split 32 a rank, SP_CASE), beside the tp ranks'
+# longer cases. The MP-GNN's tp case (10 GiB a rank) stays last on the tp
+# ranks: run by the ep ranks beside the others' peaks it ran the card out
+# of memory.
 GNN_TP_BATCH, D3_CASE_BLOCKS, D3_CASE_NT = 4, 3, 3 * D3_TW
-GRID_CASES = {"tp": (("tp", "ufno_tcond"), ("tp", "unet_attn"),
-                     ("tp", "gnn")),
-              "ep": (("ep", "moe_bc"), ("ep", "moe3d"), ("tp", "fno3d"),
-                     ("tp", "drn3d")),
+SP_CASE = dict(key="spatial_parallel", k=SP_K)
+GRID_CASES = {"tp": (("tp", "ufno_tcond"), ("tp", "gnn")),
+              "ep": (("ep", "moe_bc"), ("ep", "moe3d"), ("tp", "unet_attn"),
+                     ("tp", "fno3d"), ("tp", "drn3d"), ("sp", "fno3d"),
+                     ("sp", "drn3d"), ("sp", "moe3d")),
               "pp": (("pp", "ufno_attn"), ("pp", "unet_attn_list"),
                      ("pp", "fno3d"), ("pp", "drn3d"))}
 CASES = {
@@ -5129,7 +5253,8 @@ def case_launches(name, depth):
     each tp rank, the attention U-FNO's as the U-FNO's under pp (attention
     launches neither), one attention U-Net of the list a pp rank over
     PP_MICRO microbatches, half the MoE's experts an ep rank; none for the
-    MP-GNN and the 3D models (dense layers, Conv3d, torch.fft)."""
+    MP-GNN and the 3D models under any regime (dense layers, Conv3d,
+    torch.fft; no split entry under sp)."""
     if name in ("ufno_tcond", "unet_attn"):
         gn, spec = P13A[name][2][:2]
         return family_launches(gn, spec, depth + 1, True)
@@ -5257,16 +5382,22 @@ def held_steps(tr, batch, depths, ref, weights, shapes):
     return steps
 
 
+def case_key(regime, name):
+    """The key of case ``name`` under ``regime`` in a rank's records."""
+    return f"{regime}_{name}"
+
+
 def grid_case(regime, name, paths, device, seed, shapes):
     """Model case ``name`` on this rank's world under ``regime`` (a GRID
-    key): its trainer with that regime, from the reference's weights, a
-    step at each of its depths (held_steps), the rank's parameter
-    bytes."""
+    key, or "sp": SP_CASE, the batch's rows split over the world): its
+    trainer with that regime, from the reference's weights, a step at each
+    of its depths (held_steps), the rank's parameter bytes (and under sp
+    its rows)."""
     import gc
 
     import torch
 
-    g = GRID[regime]
+    g = GRID.get(regime, SP_CASE)
     ref = torch.load(paths["ref"], weights_only=False)
     # a 3D batch of D3_BATCH pipelines as that many microbatches
     micro = D3_BATCH if "d3" in CASES[name] else PP_MICRO
@@ -5276,6 +5407,8 @@ def grid_case(regime, name, paths, device, seed, shapes):
     tr.load_model(paths["weights"])
     tr.ensure_initialized()
     batch = case_batch(name, tr, seed)
+    if regime == "sp":
+        batch = tr.grid.shard_batch(batch)
     seen = {"gn": set(), "spectral": set()}
     rec = {"batch": int(batch[1].shape[0]),
            "param_bytes": sum(p.numel() * p.element_size()
@@ -5284,6 +5417,8 @@ def grid_case(regime, name, paths, device, seed, shapes):
                                paths["weights"], seen)}
     rec["shapes"] = {k: [list(v) for v in sorted(vs)]
                      for k, vs in seen.items()}
+    if regime == "sp":
+        rec["rows"] = int(batch[1].shape[3])
     for key in shapes:
         shapes[key] |= seen[key]
     del tr, batch, ref
@@ -5323,11 +5458,12 @@ def grid_worker(spec_path):
     rec = {"rank": rank, "device": str(device),
            "backend": torch.distributed.get_backend(), "cases": {}}
     try:
-        ref = torch.load(spec["ref"], weights_only=False)
         with autotuned_convs(deterministic=True):
             tr = build_trainer(family_cfg(g["cfg"]), [
                 *spec["argv"], "--trainer.data_parallel=true",
                 f"--trainer.{g['key']}={g['k']}", *g["flags"]], device)
+            rec["go_waited_s"] = wait_go(spec["go"], GRID_TIMEOUT)
+            ref = torch.load(spec["ref"], weights_only=False)
             tr.load_model(spec["weights"])
             tr.ensure_initialized()
             batch = first_batch(tr)
@@ -5350,11 +5486,13 @@ def grid_worker(spec_path):
                                               ev["pred"])
             for regime, name in GRID_CASES[phase]:
                 t0 = time.perf_counter()
-                rec["cases"][name] = grid_case(regime, name,
-                                               spec["cases"][name], device,
-                                               spec["seed"], shapes)
-                rec["cases"][name].update(
-                    regime=regime, seconds=time.perf_counter() - t0)
+                key = case_key(regime, name)
+                rec["cases"][key] = grid_case(regime, name,
+                                              spec["cases"][name], device,
+                                              spec["seed"], shapes)
+                rec["cases"][key].update(
+                    regime=regime, case=name,
+                    seconds=time.perf_counter() - t0)
             rec["shapes"] = {k: [list(v) for v in sorted(vs)]
                              for k, vs in shapes.items()}
             # last (a profiler session slows the host for the rest of the
@@ -5381,10 +5519,24 @@ def grid_worker(spec_path):
     return 0
 
 
-def grid_reference(name, seed, tmp, dp_argv):
-    """The one process the phase's ranks are held to, on the card: (the
-    paths of its argv, weights and reference file, its record). tp and pp
-    take the dp phase's cfg_twophase_ufno weights, ep draws the full-width
+def grid_paths(name, seed, tmp, dp_argv):
+    """The paths of grid phase ``name``'s one process (grid_reference): its
+    argv, weights and reference file (and tp's evaluation reference). tp
+    and pp take the dp phase's cfg_twophase_ufno argv and weights."""
+    paths = {"argv": dp_argv, "weights": f"{tmp}/dp_weights.pt",
+             "ref": f"{tmp}/{name}_ref.pt"}
+    if GRID[name]["cfg"] != "ufno":
+        paths.update(argv=train_argv(tmp, seed, 1, f"{name}_single"),
+                     weights=f"{tmp}/{name}_weights.pt")
+    if name == "tp":
+        paths["eval_ref"] = f"{tmp}/tp_eval_ref.pt"
+    return paths
+
+
+def grid_reference(name, seed, paths):
+    """The one process the phase's ranks are held to, on the card, written
+    to ``paths`` (grid_paths); returns its record. tp and pp take the dp
+    phase's cfg_twophase_ufno weights, ep draws the full-width
     cfg_twophase_moe from the seed; each steps them at the phase's depths
     (after a warm-up; start steps drawn from the seed: loss, gradients),
     then records a depth-0 step's ms, parameter and optimizer-state bytes
@@ -5397,11 +5549,7 @@ def grid_reference(name, seed, tmp, dp_argv):
     from nps_tpu_torch.inference import autotuned_convs
 
     g = GRID[name]
-    argv, weights = dp_argv, f"{tmp}/dp_weights.pt"
-    if g["cfg"] != "ufno":
-        argv = train_argv(tmp, seed, 1, f"{name}_single")
-        weights = f"{tmp}/{name}_weights.pt"
-    ref_path = f"{tmp}/{name}_ref.pt"
+    argv, weights, ref_path = paths["argv"], paths["weights"], paths["ref"]
     tr = build_trainer(family_cfg(g["cfg"]), argv, "cuda")
     tr.ensure_initialized()
     if g["cfg"] == "ufno":
@@ -5429,17 +5577,15 @@ def grid_reference(name, seed, tmp, dp_argv):
         rec["depth0_ms"] = 1e3 * (time.perf_counter() - t0)
         rec["state_bytes"] = parallel.state_bytes(tr.optimizer)
         rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        paths = {"argv": argv, "weights": weights, "ref": ref_path}
         if name == "tp":
             tr.load_model(weights)
             info, pred = eval_rollout(
                 tr, tuple(a[:TP_EVAL_B] for a in batch), TP_EVAL_T)
-            paths["eval_ref"] = f"{tmp}/tp_eval_ref.pt"
             torch.save({"info": info, "pred": pred}, paths["eval_ref"])
     del tr, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return paths, rec
+    return rec
 
 
 def case_reference(name, seed, paths):
@@ -5499,7 +5645,7 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds, cases):
                     and s["launches"] == want):
                 failures.append(f"{who} depth {depth}: {s}, launches want "
                                 f"{want}")
-        if (share < 1) != (regime != "pp") or share > 1:
+        if (share < 1) != (regime not in ("pp", "sp")) or share > 1:
             failures.append(f"{who}: parameter share {share} of {whole}")
 
     case_single = {c: torch.load(cases[c]["ref"], weights_only=False)
@@ -5514,18 +5660,28 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds, cases):
         held(f"rank {r['rank']}", name, r["steps"],
              lambda d: grid_launches(name, d), r["batch"], TRAIN_BATCH,
              r["param_bytes"] / single["param_bytes"], single["param_bytes"])
-        for c, rc in r["cases"].items():
+        for key, rc in r["cases"].items():
+            c = rc["case"]
             one = case_single[c]
-            held(f"rank {r['rank']} {c}", rc["regime"], rc["steps"],
+            held(f"rank {r['rank']} {key}", rc["regime"], rc["steps"],
                  lambda d, c=c: case_launches(c, d), rc["batch"],
                  one["batch"], rc["param_bytes"] / one["param_bytes"],
                  one["param_bytes"])
+            # under sp: this rank's share of the rows, and the halos or
+            # partial sums crossed the x group in every step
+            if rc["regime"] == "sp" and (
+                    rc["rows"] != D3_GRID[0] // SP_K or not all(
+                        s["collective_bytes"] for s in rc["steps"].values())):
+                moved = [s["collective_bytes"] for s in rc["steps"].values()]
+                failures.append(f"rank {r['rank']} {key}: rows "
+                                f"{rc['rows']}, collectives {moved}")
         p = r["profiled"]
         fwd = {k: v for k, v in grid_launches(name, 0).items()
                if k in ("gn1_gelu_fwd", "spectral_dft2d_fwd")}
         if not p["counts"] == p["want"] == fwd:
             failures.append(f"rank {r['rank']}: profiled {p}, want {fwd}")
-    if ranks and [(rc["regime"], c) for c, rc in ranks[0]["cases"].items()
+    if ranks and [(rc["regime"], rc["case"])
+                  for rc in ranks[0]["cases"].values()
                   ] != list(GRID_CASES[name]):
         failures.append(f"cases {sorted(ranks[0]['cases'])}")
     ev = ranks[0].get("eval") if ranks else None
@@ -5550,12 +5706,13 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds, cases):
         first = [r["cases"] for r in ranks[:1]]
         if name in ("tp", "ep"):
             case = "ufno_tcond" if name == "tp" else "moe_bc"
-            shape, co, _ = max(rows_of([c[case] for c in first],
-                                       "spectral"))
+            shape, co, _ = max(rows_of([c[case_key(name, case)]
+                                        for c in first], "spectral"))
             kern["spectral_dft2d_fwd"] = {
                 f"{name}_{case}_shape": spectral_fwd_record(gen, shape, co)}
         else:
-            shape, _ = max(rows_of([c["ufno_attn"] for c in first], "gn"),
+            shape, _ = max(rows_of([c[case_key("pp", "ufno_attn")]
+                                    for c in first], "gn"),
                            key=lambda row: math.prod(row[0]))
             kern["gn1_gelu_fwd"] = {"pp_ufno_attn_shape":
                                     gn_fwd_record(gen, shape)}
@@ -5587,12 +5744,14 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds, cases):
               f"{last} {s['launches']}, profiled in a forward apply "
               f"{r['profiled']['counts']}; "
               f"collective bytes {s['collective_bytes']}", flush=True)
-        for c, rc in r["cases"].items():
+        for rc in r["cases"].values():
+            c = rc["case"]
             one = case_single[c]
             cl = str(CASES[c]["depths"][-1])
             sc = rc["steps"][cl]
+            rows = f", rows {rc['rows']}" if "rows" in rc else ""
             print(f"{name} rank {r['rank']} case {c} under "
-                  f"{rc['regime']} (batch {rc['batch']}, "
+                  f"{rc['regime']} (batch {rc['batch']}{rows}, "
                   f"{rc['seconds']:.1f} s): loss rel err " + ", ".join(
                       f"depth {d} {v['loss_rel_err']:.3g}"
                       for d, v in rc["steps"].items())
@@ -5610,9 +5769,9 @@ def grid_check(name, card, gen, single, logs, outs, rcs, seconds, cases):
     launches = {}
     if ranks:
         launches[name] = ranks[0]["steps"][last]["launches"]
-        for c, rc in ranks[0]["cases"].items():
-            launches[f"{rc['regime']}_{c}"] = rc["steps"][str(
-                CASES[c]["depths"][-1])]["launches"]
+        for key, rc in ranks[0]["cases"].items():
+            launches[key] = rc["steps"][str(
+                CASES[rc["case"]]["depths"][-1])]["launches"]
     return launches, kern, failures
 
 

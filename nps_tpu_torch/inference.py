@@ -58,10 +58,14 @@ each, as the JAX engine's ``shard`` serves over a device mesh:
 ``spatial_parallel=K`` lays them out as a (data, x) grid and splits the
 first spatial axis of the fields over the K ranks of each x group as well
 (``parallel.spatial``; a 1D model runs whole on each x rank). Every rank
-calls ``rollout`` with the whole inputs and gets the whole frames back. A
-sharded engine serves eagerly only: a
-gloo collective cannot be captured into a CUDA graph, so ``captured=True``
-and ``export_rollout`` raise (ROADMAP P9b item 3).
+calls ``rollout`` with the whole inputs and gets the whole frames back.
+``export_rollout`` on a sharded engine exports the unsharded step from the
+replicated weights, outside any grid scope, as the JAX engine's export
+reads its params and never its mesh: it makes no collective, so one rank
+may call it alone, and the artifact serves on one device. ``captured=True``
+on a sharded engine raises: a gloo collective cannot be captured into a
+CUDA graph, and capturing the grid's collectives under NCCL is ROADMAP §2's
+work (the grid collectives under NCCL); serve it eagerly.
 """
 
 import io
@@ -229,8 +233,8 @@ class SurrogateEngine:
         and splits the fields' first spatial axis over each x group too.
         Rank 0's weights are broadcast to every rank. The MP-GNN refuses,
         as the JAX engine's ``shard`` does; a 1D model runs whole on each
-        x rank (``parallel.spatial.whole``), and a 3D model refuses
-        (``parallel.spatial.check_model``)."""
+        x rank (``parallel.spatial.whole``), and the 2D and 3D grid models
+        split their rows."""
         from nps_tpu_torch import parallel
 
         if self._is_gnn():
@@ -250,13 +254,6 @@ class SurrogateEngine:
         parallel.replicate(self.model)
         self.clear_captured()
         return self
-
-    def _refuse_sharded(self, what):
-        if self._data is not None:
-            raise NotImplementedError(
-                f"{what} on a sharded engine is not ported (ROADMAP P9b item "
-                f"3): a gloo collective cannot be captured into a CUDA "
-                f"graph or an exported program; serve it eagerly")
 
     def _sharded_rollout(self, u0, n_steps, cond, spatial_cond, include_init):
         """The eager rollout of a sharded engine: this rank's elements (and
@@ -356,7 +353,12 @@ class SurrogateEngine:
         per (n_steps, input shapes), captured at its first call.
         """
         if captured:
-            self._refuse_sharded("captured=True")
+            if self._data is not None:
+                raise NotImplementedError(
+                    "captured=True on a sharded engine: a gloo collective "
+                    "cannot be captured into a CUDA graph, and capturing the "
+                    "grid's collectives under NCCL is not written (ROADMAP "
+                    "§2, the grid collectives under NCCL); serve it eagerly")
             return self._captured_rollout(u0, n_steps, cond, spatial_cond,
                                           include_init)
         if self._data is not None:
@@ -430,8 +432,10 @@ class SurrogateEngine:
         symbolic dimension (an example batch of 1 is traced as 2). Reload
         with :func:`load_exported` on the export's device type. Returns
         ``path``. (``torch.export`` keeps the tensor constants it traced,
-        here the spectral packs, alive after the program is freed.)"""
-        self._refuse_sharded("export_rollout")
+        here the spectral packs, alive after the program is freed.) On a
+        sharded engine it exports the unsharded step from the replicated
+        weights, outside any grid scope: no collective, so any one rank may
+        call it."""
         if self._is_gnn():
             raise NotImplementedError(
                 "export_rollout supports grid models; the GNN rollout "
@@ -448,7 +452,8 @@ class SurrogateEngine:
             b = torch.export.Dim("b")
             # (u, rest): the step's signature is (u, *rest)
             dynamic = ({0: b}, tuple({0: b} for _ in args[1:]))
-        with torch.no_grad(), packed_spectral_weights(self.model), \
+        with torch.no_grad(), spatial.scope(None), \
+                packed_spectral_weights(self.model), \
                 _spectral_weights_hidden(self.model), \
                 compute_dtype_scope(self.compute_dtype):
             program = torch.export.export(step, tuple(args),

@@ -28,10 +28,10 @@ with ``resolve_remat_policy``: a processor wraps each block in it so that a
 backward pass recomputes the block instead of keeping its activations.
 
 Under spatial parallelism (:mod:`nps_tpu_torch.parallel.spatial`: a model
-apply inside ``spatial.scope``) a 2D field holds only this rank's rows of
-its first spatial axis, and the ops whose result crosses rows take the
-split into account: :class:`ConvND` and :class:`ConvTransposeND` fetch the
-rows their outputs need from the neighbours (wrapping around where the
+apply inside ``spatial.scope``) a 2D or 3D field holds only this rank's
+rows of its first spatial axis, and the ops whose result crosses rows take
+the split into account: :class:`ConvND` and :class:`ConvTransposeND` fetch
+the rows their outputs need from the neighbours (wrapping around where the
 padding is circular, zeros only at the global edges), :func:`crop_nd`
 crops and pads at the global edges, and the GroupNorms sum their
 statistics over the x group. Each takes ``rows``, the global row count of
@@ -175,15 +175,15 @@ def _crop_offset(cur, des):
 def crop_nd(x, target_shape, num_spatial_dims, rows=None, target_rows=None):
     """Center crop/zero-pad the trailing spatial dims of ``x`` to those of
     ``target_shape`` (see :func:`_crop_offset`). Under spatial parallelism
-    the first spatial axis of a 2D field is split: it goes from ``rows`` to
-    ``target_rows`` global rows (the grid's where None), each rank fetching
-    the rows of its output (zeros beyond the global edges)."""
+    the first spatial axis of a 2D or 3D field is split: it goes from
+    ``rows`` to ``target_rows`` global rows (the grid's where None), each
+    rank fetching the rows of its output (zeros beyond the global edges)."""
     if hasattr(target_shape, "shape"):
         target_shape = target_shape.shape
     nd = num_spatial_dims
     s_des = tuple(target_shape[-nd:])
     axis = spatial.current()
-    if axis is not None and nd == 2:
+    if axis is not None and nd >= 2:
         cur = axis.rows if rows is None else rows
         des = axis.rows if target_rows is None else target_rows
         if cur != des:
@@ -192,7 +192,7 @@ def crop_nd(x, target_shape, num_spatial_dims, rows=None, target_rows=None):
                 x, cur, [(o0 - lo, o1 - lo) for o0, o1 in
                          (axis.part(des, q) for q in range(axis.size))],
                 False, axis)
-        s_des = (x.shape[-2],) + s_des[1:]
+        s_des = (x.shape[-nd],) + s_des[1:]
     pads = [(0, 0)] * nd
     slices = [slice(None)] * x.ndim
     changed = False
@@ -270,9 +270,9 @@ class ConvND(nn.Module):
     def forward(self, x, rows=None):
         pads = self.pads
         axis = spatial.current()
-        if axis is not None and self.nd == 2:
+        if axis is not None and self.nd >= 2:
             x = self._split_rows(x, axis, axis.rows if rows is None else rows)
-            pads = [(0, 0), pads[1]]
+            pads = [(0, 0)] + pads[1:]
 
         def conv(x, weight, bias=None):
             if any(p != (0, 0) for p in pads):
@@ -341,7 +341,7 @@ class ConvTransposeND(nn.Module):
 
     def forward(self, x, rows=None):
         axis = spatial.current()
-        if axis is not None and self.nd == 2:
+        if axis is not None and self.nd >= 2:
             return self._split_forward(x, axis,
                                        axis.rows if rows is None else rows)
         if self.pre_pad > 0:
@@ -372,7 +372,8 @@ class ConvTransposeND(nn.Module):
             first.append(j0)
         x = spatial.fetch_rows(x, rows, needs, True, axis)
         if p > 0:
-            x = circular_pad(x, [(0, 0), (p, p)], self.nd)
+            x = circular_pad(x, [(0, 0)] + [(p, p)] * (self.nd - 1),
+                             self.nd)
         y = _CONV_T[self.nd](*_cast(x, self.weight, self.bias),
                              stride=self.strides)
         o0, o1 = axis.part(out)
@@ -426,7 +427,7 @@ class GroupNorm(nn.Module):
 
     def forward(self, x, rows=None):
         axis = spatial.current()
-        if axis is not None and x.ndim == 4:
+        if axis is not None and x.ndim >= 4:
             return group_norm_split(x, self.num_groups, self.weight,
                                     self.bias, axis,
                                     axis.rows if rows is None else rows
@@ -443,7 +444,7 @@ class GroupNorm(nn.Module):
         if approximate == "none" and fast_forward_active():
             approximate = "tanh"
         axis = spatial.current()
-        if axis is not None and x.ndim == 4:
+        if axis is not None and x.ndim >= 4:
             return gn_gelu_split(x, self.weight, self.bias, gelu,
                                  approximate=approximate, axis=axis,
                                  rows=axis.rows if rows is None else rows)

@@ -27,6 +27,11 @@ Under tensor parallelism (``parallel.scope`` of a model axis) a
 card) on the whole input with that share of the weights and of the FiLM
 factors, then gathers the output channels over the model group.
 
+Under spatial parallelism (``spatial.scope`` of an x axis: x holds this
+rank's rows) a 2D ``SpectralConvND`` runs K1's split entries
+(``ops.spectral.spectral_conv_2d_split``) and a 3D one the split
+``torch.fft`` route (``spectral_conv_3d_split``).
+
 Each processor applies its blocks through ``block(i, h, ...)``, which
 pipeline parallelism calls one stage at a time
 (``parallel.pipeline``).
@@ -45,6 +50,7 @@ from nps_tpu_torch.models.common import ConvND, Dense, remat_block
 from nps_tpu_torch.models.config import compute_dtype
 from nps_tpu_torch.ops.spectral import (pack_weights_2d,
                                        spectral_conv_2d_split,
+                                       spectral_conv_3d_split,
                                        spectral_conv_nd)
 from nps_tpu_torch.parallel import spatial, tensor
 
@@ -127,6 +133,11 @@ class SpectralConvND(nn.Module):
         model_axis = tensor.current() if self.tp_sharded else None
         if model_axis is not None:
             return self._sharded_forward(x, film, model_axis)
+        axis = spatial.current()
+        if self.nd == 3 and axis is not None:
+            # a row-split field: the 3D transform split at its rows
+            return spectral_conv_3d_split(x, self._weights(), self.modes,
+                                          film=film, axis=axis)
         if self.nd != 2:
             return spectral_conv_nd(x, self._weights(), self.modes, film=film,
                                     film_mode=self.transform_mode,
@@ -136,7 +147,6 @@ class SpectralConvND(nn.Module):
         dt = compute_dtype() or torch.float32
         if x.dtype != dt:
             x = x.to(dt)
-        axis = spatial.current()
         if axis is not None:
             # a row-split plane: the transform split at its row contraction
             return spectral_conv_2d_split(

@@ -34,9 +34,10 @@ encoder's code reaches both).
 
 Under spatial parallelism (``parallel.scope`` of an x axis: h holds this
 rank's rows) each expert's spectral conv runs split (K1's split entries on
-the card), and a pooled gate reads the grid's mean: the local rows' sums
-summed over the x group (``parallel.spatial.spatial_sum``), over the
-global cell count, as the JAX package's ``jnp.mean`` of the whole field.
+the card; in 3D the split ``torch.fft`` route), and a pooled gate reads the
+grid's mean: the local rows' sums summed over the x group
+(``parallel.spatial.spatial_sum``), over the global cell count, as the JAX
+package's ``jnp.mean`` of the whole field.
 
 Parameter names (the JAX package stacks each expert's leaves on a leading
 ``E`` axis; :func:`~nps_tpu_torch.compat.jax_weights.from_jax_params`
@@ -154,7 +155,7 @@ class MoEFNO(nn.Module):
         (``spatial_sum``), over the global cell count."""
         dims = tuple(range(2, 2 + self.nd))
         axis = spatial.current()
-        if axis is None or self.nd != 2:
+        if axis is None:
             return h.mean(dim=dims)
         total = spatial.spatial_sum(h.float().sum(dim=dims), axis)
         return (total / (axis.rows * math.prod(h.shape[3:]))).to(h.dtype)

@@ -178,6 +178,13 @@ def spectral_conv_1d(x, weights1, m1, film=None, film_mode=1):
     return out / n1
 
 
+def _refuse_film_3d(film):
+    if film is not None:
+        raise NotImplementedError(
+            "FiLM conditioning for 3D spectral convs is not supported (as "
+            "in the JAX package: the reference is inconsistent there)")
+
+
 def spectral_conv_3d(x, weights, modes, film=None):
     """The 3D mode-truncated spectral conv (the JAX package's FFT route):
     ``rfftn`` over the three spatial axes, the complex ci->co mix of each
@@ -186,10 +193,7 @@ def spectral_conv_3d(x, weights, modes, film=None):
     weights of ``weights`` [4 x [2, ci, co, m1, m2, m3]], zeros elsewhere,
     ``irfftn`` to the input's size. x [b, ci, n1, n2, n3] in any float
     type; the result in f32."""
-    if film is not None:
-        raise NotImplementedError(
-            "FiLM conditioning for 3D spectral convs is not supported (as "
-            "in the JAX package: the reference is inconsistent there)")
+    _refuse_film_3d(film)
     m1, m2, m3 = modes
     b, _, n1, n2, n3 = x.shape
     xf = torch.fft.rfftn(x.float(), dim=(2, 3, 4))
@@ -209,6 +213,98 @@ def spectral_conv_3d(x, weights, modes, film=None):
     z3 = xf.new_zeros((b, co, n1, n2, n3 // 2 + 1 - m3))
     return torch.fft.irfftn(torch.cat([plane, z3], dim=4), s=(n1, n2, n3),
                             dim=(2, 3, 4))
+
+
+# ---- the 3D conv on a row split ---------------------------------------------
+# As nps_tpu/parallel/spatial.py splits the 2D transform: the third and second
+# axes are local, so a rank takes rfft / fft over them, contracts its rows
+# with the row window of the first axis' DFT, and the partial spectra are
+# summed over the x group; the mix then runs on the whole spectrum, and the
+# inverse comes back to the local rows only. No FFT transpose is needed.
+
+
+def dft_rows_3d(n1, m1, r0, nl, device):
+    """The complex row tables of the window [r0, r0 + nl) of an n1-row
+    axis, k in [0, m1) u [n1 - m1, n1): the forward exp(-2 pi i k r / n1)
+    [nl, 2 m1] and the inverse exp(+2 pi i k r / n1) / n1 [2 m1, nl],
+    built in float64 on the host once per window and kept on ``device``."""
+    device = torch.device(device)
+    key = ("rows3d", n1, m1, r0, nl, device)
+    if key not in _TABLES:
+        ks = np.concatenate([np.arange(m1), np.arange(n1 - m1, n1)])
+        ang = 2.0 * np.pi * np.outer(np.arange(r0, r0 + nl), ks) / n1
+        fwd = np.exp(-1j * ang).astype(np.complex64)
+        inv = (np.exp(1j * ang.T) / n1).astype(np.complex64)
+        with torch.inference_mode(False):
+            _TABLES[key] = (torch.from_numpy(fwd).to(device),
+                            torch.from_numpy(inv).to(device))
+    return _TABLES[key]
+
+
+def spectrum_3d_rows(x, modes, n1, r0):
+    """The partial spectrum of rows [r0, r0 + nl) of an n1-row field x [b,
+    ci, nl, n2, n3]: ``rfft`` over the third axis (m3 modes), ``fft`` over
+    the second (its m2 low and m2 high columns), the row window's forward
+    table over the rows. Complex [b, ci, 2 m1, 2 m2, m3]; summed over the
+    ranks it is the whole field's retained spectrum."""
+    m1, m2, m3 = modes
+    n2 = x.shape[3]
+    fwd, _ = dft_rows_3d(n1, m1, r0, x.shape[2], x.device)
+    xf = torch.fft.fft(torch.fft.rfft(x.float(), dim=4)[..., :m3], dim=3)
+    xf = torch.cat([xf[:, :, :, :m2], xf[:, :, :, n2 - m2:]], dim=3)
+    return torch.einsum("bixyz,xk->bikyz", xf, fwd)
+
+
+def mix_3d(xs, weights, modes):
+    """The complex ci->co mix of each corner block of the retained spectrum
+    xs [b, ci, 2 m1, 2 m2, m3] with ``weights1..4`` [2, ci, co, m1, m2, m3]
+    in :func:`spectral_conv_3d`'s order: (low, low), (high, low), (low,
+    high), (high, high). Complex [b, co, 2 m1, 2 m2, m3]."""
+    m1, m2, _ = modes
+    rows = (slice(0, m1), slice(m1, 2 * m1))
+    cols = (slice(0, m2), slice(m2, 2 * m2))
+    outs = [torch.einsum("bixyz,ioxyz->boxyz", xs[:, :, r, c],
+                         torch.complex(w[0], w[1]))
+            for (r, c), w in zip([(r, c) for c in cols for r in rows],
+                                 weights)]
+    return torch.cat([torch.cat(outs[:2], dim=2), torch.cat(outs[2:], dim=2)],
+                     dim=3)
+
+
+def inverse_3d_rows(y, modes, n1, r0, nl, n2, n3):
+    """Rows [r0, r0 + nl) of the inverse of the retained spectrum y [b, co,
+    2 m1, 2 m2, m3]: the row window's inverse table, then ``ifft`` over the
+    second axis and ``irfft`` (n = n3) over the third, which together are
+    ``irfftn``'s normalisation and its half spectrum. f32 [b, co, nl, n2,
+    n3]."""
+    m1, m2, m3 = modes
+    _, inv = dft_rows_3d(n1, m1, r0, nl, y.device)
+    y = torch.einsum("bokyz,kx->boxyz", y, inv)
+    b, co = y.shape[:2]
+    z2 = y.new_zeros((b, co, nl, n2 - 2 * m2, m3))
+    y = torch.fft.ifft(torch.cat([y[:, :, :, :m2], z2, y[:, :, :, m2:]],
+                                 dim=3), dim=3)
+    z3 = y.new_zeros((b, co, nl, n2, n3 // 2 + 1 - m3))
+    return torch.fft.irfft(torch.cat([y, z3], dim=4), n=n3, dim=4)
+
+
+def spectral_conv_3d_split(x, weights, modes, film=None, axis=None):
+    """:func:`spectral_conv_3d` of a row-split field x [b, ci, nl, n2, n3]
+    (``axis``: the x group, its ``rows`` the field's n1): the local rows'
+    partial spectrum, its sum over the x group
+    (:func:`~nps_tpu_torch.parallel.spatial.spatial_sum`, whose backward
+    sums the gradient over the group too), the mix, the inverse to the local
+    rows. Autograd gives the backward, on either device; f32 out."""
+    from nps_tpu_torch.parallel.spatial import spatial_sum
+
+    _refuse_film_3d(film)
+    n1, (_, _, nl, n2, n3) = axis.rows, x.shape
+    r0 = axis.part(n1)[0]
+    check_modes(modes, (n1, n2, n3))
+    xs = torch.view_as_complex(spatial_sum(
+        torch.view_as_real(spectrum_3d_rows(x, modes, n1, r0)), axis))
+    return inverse_3d_rows(mix_3d(xs, weights, modes), modes, n1, r0, nl,
+                           n2, n3)
 
 
 # the JAX package's mix_impl values; "pallas" is its alias of "dft"

@@ -335,26 +335,3 @@ class AllReduceGrads:
 
     def load_state_dict(self, state):
         self.inner.load_state_dict(state)
-
-
-def _pieces():
-    """The model pieces that some grid regime does not take yet (ROADMAP
-    P9b): the 3D models under spatial parallelism, which would need a
-    split 3D FFT."""
-    return {
-        "3d": ("the 3D models",
-               lambda m: getattr(m, "num_spatial_dims", 2) == 3),
-    }
-
-
-def refuse_pieces(model, regime, pieces):
-    """Raise ``NotImplementedError`` naming ROADMAP P9b for the first of
-    ``pieces`` (keys of :func:`_pieces`) that ``model`` holds: a regime
-    that is not held against one process with it refuses it."""
-    known = _pieces()
-    for piece in pieces:
-        what, holds = known[piece]
-        if any(holds(m) for m in model.modules()):
-            raise NotImplementedError(
-                f"{regime} parallelism of {what} is not ported (ROADMAP "
-                f"P9b: the P13a pieces under the grid regimes)")

@@ -1,5 +1,5 @@
-"""Spatial parallelism: the first spatial axis of a 2D field split over the
-ranks of an x group (counterpart of ``nps_tpu/parallel/spatial.py``).
+"""Spatial parallelism: the first spatial axis of a 2D or 3D field split over
+the ranks of an x group (counterpart of ``nps_tpu/parallel/spatial.py``).
 
 In the JAX package GSPMD partitions the jitted step: it inserts the halo
 exchanges of the stencil convs and the partial sums of the spectral
@@ -23,7 +23,9 @@ A third, :func:`max_`, takes the attention softmax's shift (the maximum
 over the queries of every rank) outside autograd.
 
 The MP-GNN and the 1D models have no row axis to split: on an x axis they
-run whole on each rank (:func:`whole`), and the 3D models are refused.
+run whole on each rank (:func:`whole`). The 3D models split as the 2D ones,
+their spectral convs at the row contraction
+(``ops.spectral.spectral_conv_3d_split``).
 
 A split tensor of ``rows`` global rows holds on rank s of K the rows
 [s * rows // K, (s + 1) * rows // K) (:func:`part`). Each op decides from
@@ -368,16 +370,13 @@ def whole(model):
 
 def check_model(model, rows, k):
     """Raise unless ``model`` runs over an x axis of ``k`` ranks on a grid
-    of ``rows`` rows: the 3D models (``NotImplementedError`` naming ROADMAP
-    P9b: a split 3D FFT is not written), and, for a row-split model, rows
-    that do not split evenly at every level of a U-Net (``ValueError``:
+    of ``rows`` rows: for a row-split model (every 2D and 3D grid family),
+    rows that do not split evenly at every level of a U-Net (``ValueError``:
     rows % (k * 2^levels), no quiet fallback); ``rows`` None checks the
     family alone. A model that runs whole on each x rank (:func:`whole`)
     passes at any rows."""
-    from nps_tpu_torch.parallel.mesh import refuse_pieces
     from nps_tpu_torch.models.unet_modern import Downsample
 
-    refuse_pieces(model, "spatial", ("3d",))
     if whole(model):
         return
     levels = max([0] + [sum(isinstance(b, Downsample) for b in m.down)

@@ -40,10 +40,11 @@ batch (``rank`` and ``world`` are d and D) and holds rows [s X / K,
 ``parallel.scope`` of the x axis, where the ops whose result crosses rows
 take their halos and partial sums from the x group. The optimizer's sum
 over the world adds the data slices' and the x ranks' shares of every
-gradient. The 2D grid families split so (``parallel.spatial.check``); the
-MP-GNN and the 1D models run whole on each x rank (their batch uncut,
-their gradients summed over the data group, said on a log line); the 3D
-models, and rows that do not split over K * 2^levels of the U-Net, raise.
+gradient. The 2D and 3D grid families split so
+(``parallel.spatial.check``); the MP-GNN and the 1D models run whole on
+each x rank (their batch uncut, their gradients summed over the data
+group, said on a log line); rows that do not split over K * 2^levels of
+the U-Net raise.
 
 ``tensor_parallel``, ``pipeline_parallel`` (with ``pipeline_microbatches``)
 and ``expert_parallel`` = K (with ``data_parallel``) lay the world out as a

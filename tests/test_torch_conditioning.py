@@ -359,21 +359,17 @@ def _grid_model(piece):
     return EncProcDec(pde=make_pde(False), **kw)
 
 
-@pytest.mark.parametrize("regime,piece,refused", [
-    ("spatial", "attention", False), ("spatial", "bc", False),
-    ("spatial", "3d", True), ("tensor", "attention", False),
-    ("tensor", "bc", False), ("tensor", "3d", False),
-    ("expert", "moe_bc", False), ("expert", "moe3d", False),
-    ("pipeline", "attention", False), ("pipeline", "3d", False),
-    ("pipeline", "bc", False)])
-def test_grid_regimes_take_or_refuse_the_pieces(regime, piece, refused):
+@pytest.mark.parametrize("regime,piece", [
+    ("spatial", "attention"), ("spatial", "bc"), ("spatial", "3d"),
+    ("spatial", "moe3d"), ("tensor", "attention"), ("tensor", "bc"),
+    ("tensor", "3d"), ("expert", "moe_bc"), ("expert", "moe3d"),
+    ("pipeline", "attention"), ("pipeline", "3d"), ("pipeline", "bc")])
+def test_grid_regimes_take_or_refuse_the_pieces(regime, piece):
     """Each grid regime's check: every regime takes every piece (held in
     worlds against one process and JAX: the pipeline's BC encoder by
-    test_pipelined_bc_encoder_path, spatial parallelism's by
-    test_torch_spatial_families.py, the tensor, pipeline and expert cases
-    by test_torch_{tensor,pipeline,expert}_parallel.py) but the 3D models
-    under spatial parallelism, which are refused naming ROADMAP P9b (a
-    split 3D FFT is not written)."""
+    test_pipelined_bc_encoder_path, spatial parallelism's, the 3D models
+    included, by test_torch_spatial_families.py, the tensor, pipeline and
+    expert cases by test_torch_{tensor,pipeline,expert}_parallel.py)."""
     from nps_tpu_torch.parallel import expert, pipeline, spatial, tensor
 
     model = _grid_model(piece)
@@ -381,11 +377,7 @@ def test_grid_regimes_take_or_refuse_the_pieces(regime, piece, refused):
              "tensor": lambda m: tensor.check(m, 2),
              "expert": lambda m: expert.check(m, 2),
              "pipeline": lambda m: pipeline.check(m, 2)}[regime]
-    if refused:
-        with pytest.raises(NotImplementedError, match="P9b"):
-            check(model)
-    else:
-        check(model)
+    check(model)
 
 
 # ---- the time-conditioned U-FNO, trained ------------------------------------

@@ -187,21 +187,31 @@ def sc_eval(spec, g):
 
 
 def sc_engine(spec, g):
-    eng = _engine(*FAMILIES["ufno"], weights=spec["weights"]).shard(
-        spec["k"])
+    """The U-FNO's shard(K) rollout and captured=True's refusal; then every
+    rank shards a shard(K) and a shard(0) engine, and exports one of them
+    alone (even ranks the first, odd ranks the second), loads the artifact
+    and rolls it out in this process (the collectives the export made
+    counted)."""
+    from nps_tpu_torch.inference import load_exported
+    from nps_tpu_torch.parallel import spatial
+
     u0, cond, sc = _rollout_inputs(NX)
+    engines = {k: _engine(*FAMILIES["ufno"], weights=spec["weights"]).shard(k)
+               for k in (spec["k"], 0)}
+    eng = engines[spec["k"]]
     out = dict(frames=eng.rollout(u0, 3, cond=cond, spatial_cond=sc))
-    for name, call in (
-            ("captured", lambda: eng.rollout(u0, 3, cond=cond,
-                                             spatial_cond=sc, captured=True)),
-            ("export", lambda: eng.export_rollout(
-                os.path.join(spec["out"], "x.npst"), 3, u0, cond=cond,
-                spatial_cond=sc))):
-        try:
-            call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+    try:
+        eng.rollout(u0, 3, cond=cond, spatial_cond=sc, captured=True)
+        out["captured"] = None
+    except NotImplementedError as e:
+        out["captured"] = str(e)
+    k = (spec["k"], 0)[spec["rank"] % 2]
+    path = os.path.join(spec["out"], f"x{spec['rank']}.npst")
+    spatial.traffic.clear()
+    engines[k].export_rollout(path, 3, u0, cond=cond, spatial_cond=sc)
+    out["export"] = dict(shard=k, traffic=dict(spatial.traffic),
+                         frames=load_exported(path).rollout(
+                             u0, cond=cond, spatial_cond=sc))
     return out
 
 
@@ -650,15 +660,24 @@ def test_evaluation_matches_single_process(reference, worlds, n):
 @pytest.mark.parametrize("n", [2, 4])
 def test_engine_shard_matches_single_device(reference, worlds, n):
     """``SurrogateEngine.shard(2)``: the rollout's frames equal the
-    single-device rollout's on every rank; ``captured=True`` and
-    ``export_rollout`` raise on a sharded engine, naming their item."""
+    single-device rollout's on every rank; ``captured=True`` raises on a
+    sharded engine, naming ROADMAP §2; ``export_rollout`` of the shard(2)
+    engine (even ranks) or of the shard(0) one (odd ranks), called by each
+    rank alone, makes no collective and writes an artifact whose rollout
+    in one process equals the single-device rollout (rtol 1e-5, atol 1e-6:
+    the artifact bar of ``test_torch_export.py``)."""
     ref = reference["single"]["rollout"]
     for res in worlds[n]:
         got = res["engine"]
         assert got["frames"].shape == ref.shape
         assert _rel(got["frames"], ref) <= REL_FWD
-        for name in ("captured", "export"):
-            assert got[name] is not None and "P9b item 3" in got[name]
+        assert got["captured"] is not None and "ROADMAP §2" in got[
+            "captured"]
+        assert got["export"]["traffic"] == {}
+        np.testing.assert_allclose(got["export"]["frames"], ref, rtol=1e-5,
+                                   atol=1e-6)
+    assert [r["engine"]["export"]["shard"] for r in worlds[n]] == [
+        (K, 0)[r % 2] for r in range(n)]
 
 
 def test_bf16_ns512_step_matches_single_process(reference, worlds):
@@ -696,8 +715,8 @@ def test_refusals():
     parallelism without data parallelism or without a process group
     raises; the MP-GNN, the mixture of spectral experts and a 1D model are
     taken (the MP-GNN and the 1D model whole on each x rank, at any rows);
-    a 3D model is refused naming P9b; the MP-GNN's sharded engine is
-    refused, as JAX's."""
+    the 3D FNO and MoE are taken and split their rows; the MP-GNN's
+    sharded engine is refused, as JAX's."""
     from nps_tpu_torch.parallel import spatial, validate_grid_layout
     from nps_tpu_torch.train.base import refuse_unported
     from test_torch_conditioning import _grid_model
@@ -735,8 +754,10 @@ def test_refusals():
                 eng.shard(2)
         else:
             assert spatial.whole(eng.model) is None
-    with pytest.raises(NotImplementedError, match="P9b"):
-        spatial.check_model(_grid_model("3d"), 8, 2)
+    for piece in ("3d", "moe3d"):
+        model = _grid_model(piece)
+        spatial.check_model(model, 8, 2)
+        assert spatial.whole(model) is None
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Spatial parallelism of every family the JAX grid mesh takes
 (``nps_tpu_torch.parallel.spatial``): the mixture of spectral experts with
 a conditioned gate and with a pooled one, the U-Net with attention, the
-time-conditioned U-FNO (a BC encoder), split over the rows of an x axis;
-the MP-GNN and a 1D FNO whole on each x rank; ``simulate()`` on a
-row-split trainer; ``SurrogateEngine.shard(2)`` for the MoE, the attention
-U-Net and a 1D model. Real gloo worlds on the CPU of K = 2 (two processes)
+time-conditioned U-FNO (a BC encoder), the 3D FNO, DRN and MoE, split over
+the rows of an x axis; the MP-GNN and a 1D FNO whole on each x rank;
+``simulate()`` on a row-split trainer; the evaluation of the 3D models;
+``SurrogateEngine.shard(2)`` for the MoE, the attention U-Net, a 1D model
+and the 3D models. Real gloo worlds on the CPU of K = 2 (two processes)
 and of D = 2 data slices x K = 2 (four); each world runs every case, each
 rank this file run as a script (``python
 tests/test_torch_spatial_families.py --worker SPEC``) on one thread.
@@ -19,11 +20,15 @@ of the largest gradient: no relative bar reads it); the time-conditioned
 U-FNO 8 features with
 a BC encoder of 4 outputs over a 2-channel ``t_conditioning`` memmap; the
 MP-GNN 2 x 16); ``cfg_var1d_fno`` at 2 x 16, 4 modes, on 12 ragged
-simulations of 20-50 frames on 32 points.
+simulations of 20-50 frames on 32 points; the 3D cases are the grid
+harness's (``torch_grid_harness.CASES``: 8 x 8 x 8, 2 blocks x 16
+features, 2 modes, on a generated batch through the U-FNO config's
+trainer; 4 rows a rank).
 
 Bars: against the port's single process (one thread) the forward and the
 frames max|d| / max|ref| <= 1e-5, the loss and the simulated losses rtol
-1e-5, every gradient 1e-4 of max(its own max |ref|, 1e-3 of the largest);
+1e-5, every gradient 1e-4 of max(its own max |ref|, 1e-3 of the largest)
+(5e-5 for the 3D cases, the grid harness's bar);
 against ``nps_tpu`` on the same numpy inputs and converted weights (f32,
 precision "highest") the forward 1e-4, the loss 2e-3, the gradients 5e-3
 above a floor of 1e-5 of the largest, a rollout's nRMSE 1e-3 (the ROADMAP
@@ -46,7 +51,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_distributed import (  # noqa: E402
     _assert_grads_close, _assert_ok, _parse, _rel, _rendezvous, _run_world,
     _tensors)
-from torch_grid_harness import _parse_none, mine, one_thread  # noqa: E402
+from torch_grid_harness import (  # noqa: E402
+    CASES as GRID_CASES, NX3, _parse_none, _pde3d, case_init, case_jax,
+    case_single, case_trainer, mine, one_thread)
+from torch_grid_harness import REL_GRAD as REL_GRAD_3D  # noqa: E402
 
 NT, TW, NX, B, K = 21, 5, 16, 4, 2
 V1_NX, V1_T_MIN, V1_T_MAX = 32, 4 * TW, 10 * TW
@@ -76,7 +84,14 @@ CASES = {
         "--model.hidden_features=16", "--model.hidden_blocks=2"], "2d", ()),
     "var1d": ("cfg_var1d_fno.py", "cfg_var1d_fno.py", FNO16, "1d",
               ("engine",)),
+    # the grid harness's 3D cases (its CASES' "d3" specs)
+    "fno3d": (None, None, [], "3d", ("eval", "engine")),
+    "drn3d": (None, None, [], "3d", ("eval", "engine")),
+    "moe3d": (None, None, [], "3d", ("eval", "engine")),
 }
+D3 = [name for name in CASES if CASES[name][3] == "3d"]
+GRID_FLAGS = ["--trainer.data_parallel=true",
+              f"--trainer.spatial_parallel={K}"]
 WHOLE = {"gnn": "the MP-GNN", "var1d": "a 1D model"}
 
 
@@ -146,6 +161,9 @@ def _engine_overrides(name):
 
 def _rollout_inputs(name):
     rng = np.random.default_rng(11)
+    if CASES[name][3] == "3d":
+        return ((0.1 + 0.8 * rng.random((B, 1, TW, *NX3))).astype(
+            np.float32), rng.random((B, 2), dtype=np.float32), None)
     if CASES[name][3] == "1d":
         return (rng.random((B, 2, TW, V1_NX), dtype=np.float32),
                 rng.random((B, 2), dtype=np.float32), None)
@@ -157,6 +175,13 @@ def _rollout_inputs(name):
 def _port_engine(name, weights):
     from nps_tpu_torch.inference import SurrogateEngine
 
+    if CASES[name][3] == "3d":
+        from nps_tpu_torch.models.enc_proc_dec import EncProcDec
+
+        pde = _pde3d()
+        eng = SurrogateEngine(EncProcDec(pde=pde, **GRID_CASES[name]["d3"]),
+                              pde, TW, device="cpu")
+        return eng.load(weights)
     eng = SurrogateEngine.from_config(_port_cfg(name), pde=_pde(name),
                                       overrides=_engine_overrides(name),
                                       device="cpu")
@@ -174,18 +199,23 @@ def _simulate_kw(batch):
 def _run_case(spec, case):
     """One case on this rank's grid: the forward of the first window and a
     depth-1 step on its rows of its data slice, and what else the case
-    runs (the sharded engine's rollout, ``simulate``)."""
+    runs (the evaluation and the saved weights, the sharded engine's
+    rollout, ``simulate``)."""
     from nps_tpu_torch.parallel import spatial
 
     name = case["name"]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        tr = _port_trainer(name, case["argv"], K)
+        if CASES[name][3] == "3d":
+            tr = case_trainer(name, os.path.join(case["root"], "data"),
+                              spec["out"], GRID_FLAGS)
+        else:
+            tr = _port_trainer(name, case["argv"], K)
     tr.load_model(case["weights"])
     tr.ensure_initialized()
     g = torch.load(case["inputs"], weights_only=False)
-    batch, steps0 = mine(tr, g["batch"], g["steps0"])
-    batch = tr.grid.shard_batch(batch)
+    whole, steps0 = mine(tr, g["batch"], g["steps0"])
+    batch = tr.grid.shard_batch(whole)
     out = {"whole": tr.grid.whole, "log": log.getvalue(),
            "rows": int(batch[1].shape[3])}
     spatial.traffic.clear()
@@ -194,6 +224,16 @@ def _run_case(spec, case):
     loss, _ = tr.train_step(batch, 0, 0, unrolled=1, steps0=steps0)
     out["step"] = dict(loss=float(loss), grads=tr.whole_grads())
     out["traffic"] = dict(spatial.traffic)
+    if "eval" in CASES[name][4]:
+        # the loaded weights again (the step moved them); the trainer cuts
+        # this rank's rows of its data slice itself
+        tr.load_model(case["weights"])
+        loss, stats = tr.test([whole])
+        saved = os.path.join(spec["out"], f"{name}_saved.pt")
+        tr.save_model(saved)
+        out["eval"] = dict(loss=loss, stats=stats, saved=saved)
+    if name == "moe3d":
+        out["pooled"] = _pooled_split(tr)
     if "simulate" in CASES[name][4]:
         tr.load_model(case["weights"])
         args, kw = _simulate_kw(g["batch"])
@@ -207,6 +247,21 @@ def _run_case(spec, case):
                                                 spatial_cond=sc),
                              traffic=dict(spatial.traffic))
     return out
+
+
+def _pooled_split(tr):
+    """The 3D MoE's pooled gate input (the grid mean) of a field split over
+    the x group against the whole field's mean: max|d| / max|ref|."""
+    from nps_tpu_torch.parallel import spatial
+
+    proc = next(m for m in tr.model.modules() if hasattr(m, "_pooled"))
+    h = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (2, 3, *NX3)).astype(np.float32))
+    ref = proc._pooled(h)
+    lo, hi = tr.grid.axis.part(NX3[0])
+    with spatial.scope(tr.grid.axis.at(NX3[0])):
+        got = proc._pooled(h[:, :, lo:hi])
+    return _rel(got, ref)
 
 
 def _worker(spec_path):
@@ -398,6 +453,40 @@ def _single(name, root, params0, batch, steps0):
     return out
 
 
+def _single_3d(name, root, init):
+    """A 3D case's single process from JAX's weights (one thread): the
+    grid harness's forward and depth-1 step, then the evaluation of the
+    case's batch and the one-device engine's rollout."""
+    out = case_single(name, root, init)
+    weights = str(out["weights"])
+    with one_thread():
+        tr = case_trainer(name, root / "data", root / f"{name}_ref")
+        tr.load_model(weights)
+        loss, stats = tr.test([_tensors(init[1])])
+        u0, cond, _ = _rollout_inputs(name)
+        rollout = _port_engine(name, weights).rollout(u0, ROLLOUT_STEPS,
+                                                      cond=cond)
+    return dict(out, weights=weights, inputs=str(out["inputs"]),
+                eval=dict(loss=loss, stats=stats), rollout=rollout)
+
+
+def _jax_rollout_3d(name, params0):
+    """JAX's engine's rollout of a 3D case from its weights."""
+    import jax
+    import jax.numpy as jnp
+
+    import nps_tpu.models as jm
+    from nps_tpu.inference import SurrogateEngine as JaxEngine
+    from nps_tpu.pde import PDE3D as JaxPDE3D
+
+    pde = _pde3d(JaxPDE3D)
+    eng = JaxEngine(jm.EncProcDec(pde=pde, **GRID_CASES[name]["d3"]),
+                    jax.tree_util.tree_map(jnp.asarray, params0), pde, TW)
+    u0, cond, _ = _rollout_inputs(name)
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(eng.rollout(u0, n_steps=ROLLOUT_STEPS, cond=cond))
+
+
 # ------------------------------------------------------------ fixtures
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
@@ -431,16 +520,25 @@ def runs(data_dir):
     and rollouts."""
     inits, single = {}, {}
     for name in CASES:
+        if name in D3:
+            inits[name] = case_init(name, data_dir)
+            single[name] = _single_3d(name, data_dir, inits[name])
+            continue
         inits[name] = _jax_init(name, data_dir)
         _, batch, params0, steps0 = inits[name]
         single[name] = _single(name, data_dir, params0, batch, steps0)
     cases = [dict(name=name, argv=_argv(name, data_dir, data_dir / "w"),
-                  weights=single[name]["weights"],
+                  root=str(data_dir), weights=single[name]["weights"],
                   inputs=single[name]["inputs"]) for name in CASES]
     with ThreadPoolExecutor(2) as pool:
         worlds = {n: pool.submit(_world, data_dir, n, cases) for n in (2, 4)}
         jax_ref = {}
-        for name, (jt, batch, params0, steps0) in inits.items():
+        for name, init in inits.items():
+            if name in D3:
+                jax_ref[name] = dict(case_jax(init), rollout=_jax_rollout_3d(
+                    name, init[2]))
+                continue
+            jt, batch, params0, steps0 = init
             jax_ref[name] = dict(_jax_forward_step(jt, batch, params0,
                                                    steps0),
                                  **_jax_extras(name, jt, batch, params0))
@@ -469,10 +567,11 @@ def test_step_matches_single_process(runs, name, n):
     """A depth-1 step on the grid: the loss and every gradient equal the
     single-process step's, on every rank."""
     ref = runs["single"][name]
+    bar = REL_GRAD_3D if name in D3 else REL_GRAD
     for res in runs["worlds"][n]:
         got = res[name]["step"]
         np.testing.assert_allclose(got["loss"], ref["loss"], rtol=REL_LOSS)
-        _assert_grads_close(got["grads"], ref["grads"], REL_GRAD, 1e-3)
+        _assert_grads_close(got["grads"], ref["grads"], bar, 1e-3)
 
 
 @pytest.mark.parametrize("name,n", CASE_N)
@@ -512,9 +611,10 @@ def test_row_split_families_split_their_rows(runs, name):
     """The other cases hold half the rows a rank and fetch and sum over the
     x group; the attention U-Net's softmax takes its shift over the group
     (a MAX all-reduce) and fetches every row of its keys and values."""
+    rows = (NX3[0] if name in D3 else NX) // K
     for res in runs["worlds"][2]:
         got = res[name]
-        assert got["whole"] is None and got["rows"] == NX // K
+        assert got["whole"] is None and got["rows"] == rows
         assert got["traffic"].get("fetch", 0) + got["traffic"].get("sum", 0)
         assert ("max" in got["traffic"]) == (name == "unet_attn")
 
@@ -553,6 +653,34 @@ def test_shard_rollout_matches_one_device_and_jax(runs, name, n):
         assert _rel(got, ref) <= REL_FWD
         nrmse = np.sqrt(np.mean((got - jref) ** 2) / np.mean(jref ** 2))
         assert nrmse < NRMSE
+
+
+@pytest.mark.parametrize("name,n", [(c, n) for c in D3 for n in (2, 4)])
+def test_3d_evaluation_and_saved_weights_match_single_process(runs, name, n):
+    """The evaluation of a 3D case's batch on the row-split trainer (its
+    loss and every per-step loss and metric) equals the single process's,
+    and the weights it saves are the loaded ones, bit for bit."""
+    ref = runs["single"][name]["eval"]
+    want = torch.load(runs["single"][name]["weights"], weights_only=True)
+    for res in runs["worlds"][n]:
+        got = res[name]["eval"]
+        np.testing.assert_allclose(got["loss"], ref["loss"], rtol=REL_LOSS)
+        assert set(got["stats"]) == set(ref["stats"])
+        for k, v in ref["stats"].items():
+            np.testing.assert_allclose(got["stats"][k], v, rtol=REL_LOSS,
+                                       err_msg=k)
+        saved = torch.load(got["saved"], weights_only=True)
+        assert list(saved) == list(want)
+        assert all(torch.equal(saved[k], v) for k, v in want.items())
+
+
+def test_3d_pooled_gate_is_the_grid_mean(runs):
+    """The 3D MoE's pooled gate input on a row split (the local rows'
+    sums summed over the x group, over the grid's cell count) is the
+    whole field's mean, on every rank of both worlds."""
+    for n in (2, 4):
+        for res in runs["worlds"][n]:
+            assert res["moe3d"]["pooled"] <= 1e-6
 
 
 def test_mpgnn_shard_is_refused_as_in_jax():
