@@ -296,7 +296,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              each under torch.profiler: K1 and K2 counted by kernel name
              (a CUDA graph's replay makes no Python launch, so the
              wrappers' counters cannot see it) and the device-busy share;
-             the var1d rollout's too (no K1 or K2 may appear);
+             the var1d rollout's too (no K1 or K2 may appear); then K2's
+             backward at every input the train steps gave it, its kernels
+             and memsets by name against the calls each route took, and
+             each route's launches a call (the kernels line's
+             launches_per_call);
 11. stages - the large-plane spectral conv at the ns512 call, forward
              and input gradient, bf16 and f32: each of its kernels' device
              time (torch.profiler) and a call's span, failing unless the
@@ -307,7 +311,9 @@ In the kernels phase the spectral conv runs at the serving batch (4) and
 the train batch (16), and at the train batch to 96 channels (a model
 rank's share under tp: under ``tp_shape`` in its record), and the backward
 ops join the forward kernels at the
-train batch: the gn1_gelu_bwd kernel and the spectral conv's backward (the
+train batch: the gn1_gelu_bwd kernels (gn1_bwd_ticket at the train shape;
+the three-kernel route, for samples under BWD_THREE_BELOW bytes, at the
+U-Net's 9x5 planes) and the spectral conv's backward (the
 adjoint launch spectral_dft2d_bwd on dy with the forward's saved weight
 pack, and the weight-gradient kernel spectral_dw2d), each against autograd
 through its plain version; the backward is called on the autograd node its
@@ -682,6 +688,8 @@ def phase_kernels(gen):
     for name in ("gn1_gelu_fwd", "spectral_dft2d_fwd"):
         results[name]["dispatch_host_us"] = dispatch[name]
     results["gn1_gelu_bwd"] = gn_bwd_record(gen)
+    results["gn1_gelu_bwd_three"] = gn_bwd_record(gen, GN_UNET_SHAPES[1],
+                                                  "three")
     results["spectral_dft2d_bwd"], results["spectral_dw2d"] = (
         spectral_bwd_records(gen))
     results["spectral_dft2d_bwd"]["film"] = [
@@ -858,10 +866,48 @@ def _errors(got, ref):
             max(float((a - r).abs().max()) for a, r in zip(got, ref)))
 
 
-def gn_bwd_record(gen, shape=GN_BWD_SHAPE):
-    """gn1_gelu_bwd at ``shape`` (the train step's largest GroupNorm input)
-    against autograd through the plain version and through F.group_norm +
-    F.gelu."""
+def gn_bwd_design(x, dy):
+    """gn1_gelu_bwd's route at x and dy (ops/group_norm.py:gn_bwd_route),
+    the ticket kernel's plan there, and the route's floor as a model: on
+    gn1_bwd_ticket the one-read bound where a sample's x and dy fit L2
+    (``l2_fit``), else x and dy read twice less the L2's bytes a sample
+    (the tail of the sums read again first); on the three-kernel route x
+    and dy read twice."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    route = gn.gn_bwd_route(x)
+    vec, plan = gn.gn1_bwd_plan_for(x, dy)
+    resident, l2 = gn._bwd_resident(x.device, x.dtype == torch.bfloat16, vec)
+    n, size = x.numel(), x.element_size()
+    fit = 2 * size * n <= x.shape[0] * l2
+    nbytes = 3 * size * n
+    if route == "three":
+        nbytes += 2 * size * n
+    elif not fit:
+        nbytes += max(0, 2 * size * n - x.shape[0] * l2)
+    return {"route": route,
+            "plan": dict(plan._asdict(), vec=vec, resident=resident,
+                         l2_bytes=l2),
+            "l2_fit": fit, "floor_ms": nbytes / PEAK_BYTES * 1e3}
+
+
+# the design model's keys (gn_bwd_design), kept in the phase records and
+# out of the kernels line, which holds measured numbers and bound_ms only
+GN_BWD_MODEL_KEYS = ("plan", "l2_fit", "floor_ms")
+
+
+def gn_bwd_measured(rec):
+    """``rec`` without the design model's keys."""
+    return {k: v for k, v in rec.items() if k not in GN_BWD_MODEL_KEYS}
+
+
+def gn_bwd_record(gen, shape=GN_BWD_SHAPE, route="ticket"):
+    """gn1_gelu_bwd at ``shape`` (the train step's largest GroupNorm input;
+    the U-Net's smallest for the three-kernel route) against autograd
+    through the plain version and through F.group_norm + F.gelu; it must
+    take ``route`` there."""
     import torch
     import torch.nn.functional as F
 
@@ -888,7 +934,7 @@ def gn_bwd_record(gen, shape=GN_BWD_SHAPE):
            "rel_err_fwd_y": err_y, "same_bits": same,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bound_how": "x, dy read once + dx written once, f32, at "
-                        "3.35 TB/s"}
+                        "3.35 TB/s", **gn_bwd_design(x, dy)}
     timed(rec, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy), "ms")
     rec["plain_ms"] = event_ms(lambda: torch.autograd.grad(
         y_p, leaves_p, dy, retain_graph=True))
@@ -900,9 +946,11 @@ def gn_bwd_record(gen, shape=GN_BWD_SHAPE):
         y_l, leaves_l, dy, retain_graph=True))
     rec["bound_share"] = bound_ms / rec["ms"] if rec["ms"] else None
     emit(rec)
-    if not (err < REL_TOL_GRAD and err_y < REL_TOL_F32 and same):
+    if not (err < REL_TOL_GRAD and err_y < REL_TOL_F32 and same
+            and rec["route"] == route):
         raise AssertionError(f"gn1_gelu_bwd disagrees: {err} (forward y "
-                             f"{err_y}), same bits {same}")
+                             f"{err_y}), same bits {same}, route "
+                             f"{rec['route']}, want {route}")
     return rec
 
 
@@ -1408,16 +1456,13 @@ def serving_inputs(seed):
     return u0, cond, sc
 
 
-def profiled(fn):
-    """Run ``fn`` once under torch.profiler: the device kernels of the
-    port's two forward ops counted by name (K2: gn1_gelu_kernel; K1: its
-    mix stage, one per call), the device-busy share of the window, and the
-    window's host ms. This counts what a CUDA graph's replay launches, which
-    the wrappers' Python counters do not see."""
+def profiled_events(fn):
+    """Run ``fn`` once under torch.profiler: its device events and the
+    window's host seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from nps_tpu_torch.trace_step import _busy_share, _device_events
+    from nps_tpu_torch.trace_step import _device_events
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1432,7 +1477,18 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    events = _device_events(prof)
+    return _device_events(prof), window
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler: the device kernels of the
+    port's two forward ops counted by name (K2: gn1_gelu_kernel; K1: its
+    mix stage, one per call), the device-busy share of the window, and the
+    window's host ms. This counts what a CUDA graph's replay launches, which
+    the wrappers' Python counters do not see."""
+    from nps_tpu_torch.trace_step import _busy_share
+
+    events, window = profiled_events(fn)
     counts = {"gn1_gelu_fwd": sum("gn1_gelu_kernel" in e.name
                                   for e in events),
               "spectral_dft2d_fwd": sum("mix_kernel" in e.name
@@ -1685,7 +1741,7 @@ def family_train(name, seed, out_dir, tmp):
         train_losses, val_losses, _ = trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = with_routes(kernels)
     save = trainer.config.save_path
     with open(save + "_metrics.jsonl") as f:
         metrics = [json.loads(line) for line in f]
@@ -1696,8 +1752,9 @@ def family_train(name, seed, out_dir, tmp):
     # single steps at injected depths, on one batch of the split
     batch = first_batch(trainer)
     with autotuned_convs():
-        with kernel_shapes() as seen:   # also a first warm-up
-            trainer.train_step(batch, 0, 0, unrolled=1)
+        with kernel_shapes() as seen, gn_bwd_calls() as bwds:
+            trainer.train_step(batch, 0, 0, unrolled=1)  # also a warm-up
+        GN_BWD_STEP_CALLS[name] = bwds["calls"]
         # K1: per forward its launches, per backward one adjoint launch on
         # dy and one weight gradient
         steps = {d: timed_steps(trainer, batch, d,
@@ -1748,6 +1805,14 @@ def family_train(name, seed, out_dir, tmp):
     if not (loss_err < REL_TOL_STEP and grad_err < REL_TOL_STEP_GRAD):
         failures.append(f"card vs CPU train step: {vs_cpu}")
     return rec, launches, failures
+
+
+def with_routes(kernels):
+    """The launch counts, with gn1_gelu_bwd's calls by route under
+    "gn1_gelu_bwd_ticket" and "gn1_gelu_bwd_three"."""
+    return {**kernels.launches,
+            **{f"{name}_{route}": n for (name, route), n
+               in kernels.route_launches.items()}}
 
 
 def phase_slice(seed, card):
@@ -1852,6 +1917,68 @@ def profiled_counts(fn, want, tries=3):
     return counts, busy, ms, attempts
 
 
+def gn_bwd_by_name(tries=3):
+    """One gn1_gelu_bwd call at every distinct input the train steps gave
+    it (GN_BWD_STEP_CALLS), all in one window under torch.profiler
+    (profiled_events), taken again up to ``tries`` times while the tracer
+    drops records: the device kernels and memsets by name, against the
+    calls each route took (the ticket route: one memset and one
+    gn1_bwd_ticket a call; the three-kernel route: gn1_bwd_sums,
+    gn1_bwd_reduce and gn1_bwd_apply once a call), and the launches a call
+    made on each
+    route (``launches_per_call``, the counts over the route's calls).
+    Returns (record, failures)."""
+    import torch
+
+    from nps_tpu_torch.ops import group_norm as gn
+
+    inputs = sorted({c for calls in GN_BWD_STEP_CALLS.values()
+                     for c in calls}, key=str)
+    args, routes = [], collections.Counter()
+    for shape, dtype, act in inputs:
+        x = torch.randn(shape, device="cuda").to(dtype)
+        dy = torch.randn(shape, device="cuda").to(dtype)
+        w = torch.ones(shape[1], device="cuda")
+        kw = GN_ACT_KW[act]
+        _, stats = gn.gn1_gelu_fwd_stats(x, w, torch.zeros_like(w), **kw)
+        args.append(((x, w, torch.zeros_like(w), stats, dy), kw))
+        routes[gn.gn_bwd_route(x)] += 1
+
+    def run():
+        for a, kw in args:
+            gn.gn1_gelu_bwd(*a, **kw)
+
+    kinds = {"ticket": ("gn1_bwd_ticket", "memset"),
+             "three": ("gn1_bwd_sums", "gn1_bwd_reduce", "gn1_bwd_apply")}
+    want = {k: routes[r] for r, ks in kinds.items() for k in ks}
+    run()
+    attempts = []
+    for _ in range(tries):
+        names = collections.Counter(e.name for e in profiled_events(run)[0])
+        got = {k: sum(n for name, n in names.items() if k in name.lower())
+               for k in want}
+        got["other_gn1_bwd"] = sum(
+            n for name, n in names.items()
+            if "gn1_bwd_" in name and not any(k in name for k in want))
+        attempts.append(got)
+        if all(got[k] == v for k, v in want.items()):
+            break
+    del args
+    torch.cuda.empty_cache()
+    out = {"inputs": [[list(s), str(d)[6:], a] for s, d, a in inputs],
+           "calls": dict(routes), "attempts": attempts,
+           "launches_per_call": {
+               r: {k: got[k] / routes[r] for k in ks}
+               for r, ks in kinds.items() if routes[r]}}
+    bad = any(got[k] != v for k, v in want.items()) or got["other_gn1_bwd"]
+    return out, ([f"gn1_gelu_bwd by kernel name: {got}, want {want}"]
+                 if bad else [])
+
+
+# the profile phase's gn_bwd_by_name record, for the kernels line
+GN_BWD_BY_NAME = {}
+
+
 def phase_profile(seed, card, artifact):
     """Last, since a profiler session leaves the host slower for the rest
     of the process: for every family (its engine built again from the
@@ -1861,7 +1988,9 @@ def phase_profile(seed, card, artifact):
     captured one, and at the end the artifact's rollouts at BATCH and 2
     (the file at ``artifact`` loaded again), each under torch.profiler (``profiled_counts``): the K1 and K2 kernels
     counted by name against the launches expected, and the device-busy
-    share. Returns each family's replay counts, by family name."""
+    share; then K2's backward kernel by name at every train-step input
+    (gn_bwd_by_name). Returns each family's replay counts, by family
+    name."""
     import torch
 
     from nps_tpu_torch.inference import SurrogateEngine, load_exported
@@ -1930,6 +2059,9 @@ def phase_profile(seed, card, artifact):
         if counts != want:
             failures.append(f"artifact at batch {b}: profiled {counts}, "
                             f"want {want}")
+    rec["gn_bwd_by_name"], bad = gn_bwd_by_name()
+    GN_BWD_BY_NAME.update(rec["gn_bwd_by_name"])
+    failures += bad
     emit({**rec, "card": card})
     if failures:
         raise AssertionError("; ".join(failures))
@@ -2941,7 +3073,7 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
         train_losses, val_losses, _ = trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    launches = with_routes(kernels)
     n_steps = len(trainer.get_dataloaders()[0])
     per_step = ns512_train_launches(gn_inputs, 0)
     want_run = {k: v * n_steps for k, v in per_step.items()
@@ -2989,6 +3121,7 @@ def ns512_train(seed, tmp, out_dir, gn_inputs):
         failures.append(f"ns512 train step: gn1_gelu_bwd activations "
                         f"{sorted({a for _, _, a in bwds['calls']})}, "
                         f"{bwds['dy_copies']} copies of dy")
+    GN_BWD_STEP_CALLS["ns512"] = bwds["calls"]
     gn_bwd_step = dict(gn_bwd_step_time(bwds["calls"]),
                        dy_copies=bwds["dy_copies"])
     gc.collect()
@@ -3354,8 +3487,8 @@ def gn_bwd_bf16_record(gen, shape, act):
     version at REL_TOL_BF16, dgamma and dbeta (f32) at REL_TOL_GRAD, twice
     for the same bits, timed (graph replay) beside autograd through the
     plain version and through F.group_norm (+ F.gelu) in bf16 (eager calls
-    between CUDA events), with the bound (x, dy read once, dx written once)
-    and the present design's floor (x and dy read twice)."""
+    between CUDA events), with the bound (x, dy read once, dx written once),
+    the floor of x and dy read twice, and the design's (gn_bwd_design)."""
     import torch
     import torch.nn.functional as F
 
@@ -3389,7 +3522,7 @@ def gn_bwd_bf16_record(gen, shape, act):
            "bound_ms": bound_ms, "bound_by": bound_by,
            "two_read_floor_ms": 5 * 2 * n / PEAK_BYTES * 1e3,
            "bound_how": "x, dy read once + dx written once, bf16, at "
-                        "3.35 TB/s"}
+                        "3.35 TB/s", **gn_bwd_design(x, dy)}
     del again
     timed(rec, lambda: gn.gn1_gelu_bwd(x, gamma, beta, stats, dy, **kw),
           "ms", **FEW_CALLS)
@@ -3411,6 +3544,12 @@ def gn_bwd_bf16_record(gen, shape, act):
         raise AssertionError(f"gn1_gelu_bwd bf16 at {shape}: dx {err}, "
                              f"dweight {err_w}, same bits {same}, {launched}")
     return rec
+
+
+# each train step's gn1_gelu_bwd calls (shape, dtype, activation), by
+# family ("ns512" for cfg_ns512_ufno's), for the profile phase's count of
+# the backward's kernels by name
+GN_BWD_STEP_CALLS = {}
 
 
 @contextlib.contextmanager
@@ -3444,12 +3583,14 @@ def gn_bwd_calls():
 def gn_bwd_step_time(calls):
     """The gn1_gelu_bwd calls of one train step (``calls``: shape, dtype,
     activation) on fresh inputs, timed together (graph replay) beside their
-    summed bound."""
+    summed bound and design floor (gn_bwd_design), with each shape's
+    l2_fit and the calls by route."""
     import torch
 
     from nps_tpu_torch.ops import group_norm as gn
 
-    args, bound_ms, counts = [], 0.0, collections.Counter()
+    args, bound_ms, floor_ms, counts = [], 0.0, 0.0, collections.Counter()
+    fits, routes = {}, collections.Counter()
     for shape, dtype, act in calls:
         x = torch.randn(shape, device="cuda").to(dtype)
         dy = torch.randn(shape, device="cuda").to(dtype)
@@ -3459,13 +3600,18 @@ def gn_bwd_step_time(calls):
         args.append((x, w, torch.zeros_like(w), stats, dy, kw))
         n, size = math.prod(shape), x.element_size()
         bound_ms += bound(3 * size * n, GN_BWD_FLOPS_PER_ELEMENT * n)[0]
+        design = gn_bwd_design(x, dy)
+        floor_ms += design["floor_ms"]
+        fits[str(list(shape))] = design["l2_fit"]
+        routes[design["route"]] += 1
         counts[(shape, str(dtype), act)] += 1
 
     def run():
         for *a, kw in args:
             gn.gn1_gelu_bwd(*a, **kw)
 
-    rec = {"calls": len(calls), "bound_ms": bound_ms,
+    rec = {"calls": len(calls), "bound_ms": bound_ms, "floor_ms": floor_ms,
+           "l2_fit": fits, "routes": dict(routes),
            "shapes": [[list(s), d, a, k] for (s, d, a), k in
                       sorted(counts.items())]}
     timed(rec, run, "ms", calls=2, replays=3, warmup=1)
@@ -3516,7 +3662,7 @@ def phase_ns512_train(seed, card, gen, out_dir, tmp, gn_inputs):
         {k: r[k] for k in ("shape", "act", "launched", "rel_err",
                            "rel_err_dweight", "same_bits", "ms", "plain_ms",
                            "library_ms", "bound_ms", "bound_share")}
-        for r in records], step_calls=rec["gn_bwd_step"])
+        for r in records], step_calls=gn_bwd_measured(rec["gn_bwd_step"]))
     recs["seconds"] = time.perf_counter() - t0
     return launches, accum_launches, recs
 
@@ -5843,8 +5989,9 @@ def run_phases(args, out_dir):
                                   out_dir, tmp)
         families.update(p13a)
         for name, rec in p13a_kern.items():
-            kern[name]["tcond_shape"] = {k: v for k, v in rec.items()
-                                         if k not in ("phase", "name")}
+            kern[name]["tcond_shape"] = {
+                k: v for k, v in gn_bwd_measured(rec).items()
+                if k not in ("phase", "name")}
         clocked("gnn_bf16", gnn_bf16, args.seed, card, tmp)
         ns512, ns_kern, gn_inputs = clocked("ns512", phase_ns512, args.seed,
                                             card, gen, tmp)
@@ -5884,9 +6031,19 @@ def run_phases(args, out_dir):
     sources = {
         "gn1_gelu_fwd": ("nps_tpu_torch/csrc/gn1_gelu.cu",
                          "tools/pallas_group_norm_evidence.py:61", serve),
-        "gn1_gelu_bwd": ("nps_tpu_torch/csrc/gn1_gelu.cu",
+        "gn1_gelu_bwd": ("nps_tpu_torch/csrc/gn1_gelu.cu (gn1_bwd_ticket, "
+                         "one launch after a memset of its counters: "
+                         "gn1_gelu_bwd's route for samples of x and dy of "
+                         "BWD_THREE_BELOW bytes or more)",
                          "tools/pallas_group_norm_evidence.py:106 (_gn_bwd, "
-                         "XLA)", train),
+                         "XLA)", train, "gn1_gelu_bwd_ticket"),
+        "gn1_gelu_bwd_three": (
+            "nps_tpu_torch/csrc/gn1_gelu.cu (gn1_bwd_sums, gn1_bwd_reduce, "
+            "gn1_bwd_apply: gn1_gelu_bwd's route for samples under "
+            "BWD_THREE_BELOW bytes; at the U-Net's [16, 256, 9, 5], "
+            "launches on the U-Net's training run)",
+            "tools/pallas_group_norm_evidence.py:106 (_gn_bwd, XLA)",
+            families["unet_train"], "gn1_gelu_bwd_three"),
         "spectral_dft2d_fwd": (
             "nps_tpu_torch/csrc/spectral_dft2d.cu",
             "nps_tpu/ops/pallas/spectral_dft.py:144 (git 92d7866^)", serve),
@@ -5922,42 +6079,47 @@ def run_phases(args, out_dir):
             "nps_tpu/ops/pallas/spectral_dft.py:175 (git 92d7866^, "
             "_pallas_bwd, XLA)", ns512_train),
         "gn1_gelu_bwd_bf16": (
-            "nps_tpu_torch/csrc/gn1_gelu.cu (gn1_bwd_sums, gn1_bwd_reduce, "
-            "gn1_bwd_apply on bf16 x and dy; at the largest ns512 GroupNorm "
+            "nps_tpu_torch/csrc/gn1_gelu.cu (gn1_bwd_ticket on bf16 x and "
+            "dy; at the largest ns512 GroupNorm "
             "input with the tanh GELU "
             "as ns512 runs it; both shapes with the GELU off and tanh under "
             "shapes; the 66 calls of one ns512 train step under "
             "step_calls)",
             "tools/pallas_group_norm_evidence.py:106 (_gn_bwd, XLA)",
-            ns512_train, "gn1_gelu_bwd")}
+            ns512_train, "gn1_gelu_bwd_ticket")}
     line = []
+    route_paths = {"train": train, "ns512_train": ns512_train,
+                   **{p: n for p, n in families.items()
+                      if p.endswith("_train")}}
     eager = {"gn1_gelu_bwd": "plain and library", "spectral_dft2d_bwd":
              "plain and library", "gn1_gelu_bwd_bf16": "plain and library",
+             "gn1_gelu_bwd_three": "plain and library",
              "spectral_dft2d_bwd_large": "library"}
+
+    def by_path(key):
+        return {"serve": serve.get(key, 0),
+                "captured": replays["ufno"].get(key, 0),
+                "export": export.get(key, 0),
+                "train": train.get(key, 0),
+                "ns512": ns512.get(key, 0),
+                "ns512_train": ns512_train.get(key, 0),
+                "ns512_train_grad_accum": ns512_accum.get(key, 0),
+                "var1d": var1d.get(key, 0),
+                "dp_rank": dp.get(key, 0),
+                "sp_rank": sp.get(key, 0),
+                **{f"{g}_rank": n.get(key, 0) for g, n in grid.items()},
+                **{p: n.get(key, 0) for p, n in families.items()},
+                **{f"{f}_captured": n.get(key, 0)
+                   for f, n in replays.items() if f != "ufno"},
+                "gnn": sum(n.get(key, 0) for p, n in families.items()
+                           if p.startswith("gnn_"))}
+
     for name, (src, replaces, path, *counter) in sources.items():
         r = kern[name]
-        key = counter[0] if counter else name
+        count = counter[0] if counter else name
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": path.get(key, 0),
-                     "launches_by_path": {
-                         "serve": serve.get(key, 0),
-                         "captured": replays["ufno"].get(key, 0),
-                         "export": export.get(key, 0),
-                         "train": train.get(key, 0),
-                         "ns512": ns512.get(key, 0),
-                         "ns512_train": ns512_train.get(key, 0),
-                         "ns512_train_grad_accum": ns512_accum.get(key, 0),
-                         "var1d": var1d.get(key, 0),
-                         "dp_rank": dp.get(key, 0),
-                         "sp_rank": sp.get(key, 0),
-                         **{f"{g}_rank": n.get(key, 0)
-                            for g, n in grid.items()},
-                         **{p: n.get(key, 0) for p, n in families.items()},
-                         **{f"{f}_captured": n.get(key, 0)
-                            for f, n in replays.items() if f != "ufno"},
-                         "gnn": sum(n.get(key, 0) for p, n in
-                                    families.items()
-                                    if p.startswith("gnn_"))},
+                     "replaces": replaces, "launches": path.get(count, 0),
+                     "launches_by_path": by_path(count),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -5981,6 +6143,16 @@ def run_phases(args, out_dir):
         if "adjoint" in r:   # the backward's adjoint launch alone
             line[-1]["adjoint"] = {k: r["adjoint"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_share")}
+        if count.startswith("gn1_gelu_bwd_"):
+            # the backward's routes are counted on the training runs only
+            # (with_routes), the wrapper's calls on every path; each route's
+            # launches a call by kernel name in the profile phase
+            # (gn_bwd_by_name)
+            line[-1]["calls_by_path"] = by_path("gn1_gelu_bwd")
+            line[-1]["launches_by_path"] = {
+                p: n.get(count, 0) for p, n in route_paths.items()}
+            line[-1]["launches_per_call"] = GN_BWD_BY_NAME[
+                "launches_per_call"].get(count[len("gn1_gelu_bwd_"):])
     for name, r in sp_kern.items():
         line.append({"name": name, "route": "cuda",
                      "source": "nps_tpu_torch/csrc/"
@@ -6005,6 +6177,10 @@ def run_phases(args, out_dir):
                         if k in r}})
     with open(out_dir / "kernels.json", "w") as f:
         json.dump({"card": card, "kernels": line}, f, indent=1)
+    idle = [k["name"] for k in line if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels launched no time on their path: "
+                             f"{idle}")
     emit({"kernels": line})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,8 @@ returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
 ``launches`` counts, per kernel name, the launches the wrappers made since
 :func:`reset_launches`; ``act_launches`` counts the GN+GELU forward
 launches among them by (kernel name, activation code: 0 none, 1 erf GELU,
-2 tanh GELU).
+2 tanh GELU); ``route_launches`` the GN+GELU backward's calls by
+(``"gn1_gelu_bwd"``, route: ``"ticket"`` or ``"three"``).
 """
 
 import ctypes
@@ -46,9 +47,15 @@ SIGNATURES = {
     # x, gamma, beta, y, stats, partials, b, c, hw, eps, act, bf16, chunk,
     # chunks, vec, stream
     "gn1_gelu_fwd_stream": [P] * 6 + [I, I, I64, F32, I, I, I, I, I] + [P],
-    # x, dy, gamma, beta, stats, ws, coef, dx, dgamma, dbeta, b, c, hw,
-    # act, bf16, vec, stream
-    "gn1_gelu_bwd": [P] * 10 + [I, I, I64, I, I, I] + [P],
+    # bf16, vec, out[2] (resident CTAs of the backward kernel, L2 bytes)
+    "gn1_bwd_resident": [I, I, P],
+    # x, dy, gamma, beta, stats, ws, coef, ctr, dx, dgamma, dbeta, b, c, hw,
+    # act, bf16, vec, then the plan (planes per item, items per sample,
+    # warp per plane, L2 hints, grid), stream
+    "gn1_gelu_bwd": [P] * 11 + [I, I, I64] + [I] * 8 + [P],
+    # x, dy, gamma, beta, stats, ws, coef, dx, dgamma, dbeta, b, c, hw, act,
+    # bf16, load4, stream
+    "gn1_gelu_bwd_three": [P] * 10 + [I, I, I64, I, I, I] + [P],
     # x, w_packed, film, film_mode, c2, s2, c1, s1, ic2, is2, ic1, is1,
     # xr, xi, yr, yi, ur, ui, out, b, ci, co, n1, n2, m1, m2, stream
     "spectral_dft2d_fwd": [P, P, P, I] + [P] * 8 + [P] * 7
@@ -95,12 +102,14 @@ SIGNATURES = {
 
 launches = Counter()
 act_launches = Counter()
+route_launches = Counter()
 _lib = None
 
 
 def reset_launches():
     launches.clear()
     act_launches.clear()
+    route_launches.clear()
 
 
 def nvcc_path():

@@ -33,9 +33,15 @@ Without gradients, :func:`gn_gelu` calls the custom op
 devices: the kernel on CUDA, the plain version on the CPU. Gradients: on
 CUDA, :class:`GNGeluFn` pairs the forward kernel with the hand-written
 backward ``gn1_gelu_bwd`` (f32 or bf16, with f32 sums and f32 weight
-gradients). On the CPU, autograd runs through the plain version.
+gradients), by the sample's bytes (:func:`gn_bwd_route`): one launch of
+``gn1_bwd_ticket`` under the plan :func:`gn_bwd_plan` computes (items of
+whole planes in ticket order, each sample's sums then its applies in the
+reverse order), or for a sample under BWD_THREE_BELOW bytes three kernels
+of one CTA a plane (:func:`launch_gn1_bwd_three`). On the CPU, autograd
+runs through the plain version.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -185,13 +191,116 @@ def _launch_stream(x, weight, bias, y, stats, act, eps):
     kernels.act_launches["gn1_gelu_fwd_stream", act] += 1
 
 
-def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True, approximate="none"):
-    """Launch the backward kernel: (dx, dweight, dbias) of the fused op at
-    ``x`` for the output gradient ``dy``, from the forward's ``stats``.
-    CUDA, contiguous; ``x`` and ``dy`` both f32 or both bf16, dx in their
-    type, dweight and dbias (and every sum) f32."""
-    if x.device.type != "cuda":
-        raise ValueError(f"gn1_gelu_bwd takes CUDA tensors, got {x.device}")
+# ---- the backward's plan (csrc/gn1_gelu.cu: gn1_bwd_ticket) --------------------
+# x + dy bytes an item of whole planes aims at; planes of at most
+# BWD_WARP_PLANE elements take a warp each (else the whole CTA); at most
+# BWD_MAX_PER planes an item (the kernel's kMaxPer); BWD_WARPS warps a CTA
+BWD_ITEM_BYTES = 64 * 1024
+BWD_WARP_PLANE = 2048
+BWD_MAX_PER = 32
+BWD_WARPS = 8
+
+BwdPlan = collections.namedtuple(
+    "BwdPlan", "per items grid warp hint counters")
+BwdPlan.__doc__ = """gn1_bwd_ticket's plan: ``per`` planes an item, ``items``
+items a sample, ``grid`` CTAs (one a ticket: 2 b items), ``warp`` (a warp
+per plane), ``hint`` (the loads' L2 policies, where a sample's x and dy
+fit L2) and ``counters`` (the int workspace: the ticket, samples whose
+coef is published, then per sample its sums items done and its coef's
+state)."""
+
+
+def gn_bwd_plan(b, c, hw, itemsize, resident, l2_bytes):
+    """The backward kernel's plan for x [b, c, hw] of ``itemsize`` bytes an
+    element on a card with ``resident`` CTAs of the kernel at once and
+    ``l2_bytes`` of L2 (see the note at the head of the backward section of
+    ``csrc/gn1_gelu.cu``):
+
+    - an item holds ``per`` whole planes, about BWD_ITEM_BYTES of x and dy;
+      planes of up to BWD_WARP_PLANE elements go a warp each, and then an
+      item holds a multiple of BWD_WARPS planes where the batch has enough
+      (so that every resident CTA still gets one);
+    - ``hint`` where a sample's x and dy fit L2;
+    - ``grid``: one CTA a ticket."""
+    plane = 2 * hw * itemsize
+    warp = hw <= BWD_WARP_PLANE
+    per = max(1, min(BWD_MAX_PER, c, BWD_ITEM_BYTES // plane))
+    if warp:
+        per = min(per, max(BWD_WARPS, b * c // resident))
+        if per >= BWD_WARPS:
+            per -= per % BWD_WARPS
+    items = -(-c // per)
+    return BwdPlan(per=per, items=items, grid=2 * b * items, warp=int(warp),
+                   hint=int(c * plane <= l2_bytes), counters=2 + 2 * b)
+
+
+def gn_bwd_tickets(plan, b):
+    """(apply, sample, item) of every ticket of ``plan`` in order, the item
+    counted in the sums' order (planes ``gn_bwd_planes``): sample 0's sums
+    items, then for each sample s the sums of sample s + 1 (where there is
+    one) and s's apply items in the reverse order. The kernel decodes a
+    ticket the same way (``decode_ticket``)."""
+    k = plan.items
+    out = [(0, 0, i) for i in range(k)]
+    for s in range(b):
+        if s + 1 < b:
+            out += [(0, s + 1, i) for i in range(k)]
+        out += [(1, s, i) for i in reversed(range(k))]
+    return out
+
+
+def gn_bwd_planes(plan, c, item):
+    """The planes [first, end) of a sample that ``item`` covers."""
+    return item * plan.per, min(c, (item + 1) * plan.per)
+
+
+_BWD_RESIDENT = {}
+
+
+def _bwd_resident(device, bf16, vec):
+    """(resident CTAs of the backward kernel, L2 bytes) on ``device``."""
+    key = (device, bf16, vec)
+    if key not in _BWD_RESIDENT:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            kernels.check(kernels.library().gn1_bwd_resident(
+                int(bf16), int(vec), out), "gn1_bwd_resident")
+        _BWD_RESIDENT[key] = (out[0], out[1])
+    return _BWD_RESIDENT[key]
+
+
+# a sample of fewer x + dy bytes takes the three-kernel route
+# (launch_gn1_bwd_three; measured: the note at the head of the backward
+# section of csrc/gn1_gelu.cu)
+BWD_THREE_BELOW = 7 << 20
+
+
+def gn_bwd_route(x):
+    """"three" for a sample of x and dy under BWD_THREE_BELOW bytes, else
+    "ticket" (gn1_bwd_ticket)."""
+    small = 2 * x[0].numel() * x.element_size() < BWD_THREE_BELOW
+    return "three" if small else "ticket"
+
+
+def _aligned16(*ts):
+    return int(all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def gn1_bwd_plan_for(x, dy):
+    """(vec, plan) of the backward at x and dy: the 16-byte path where both
+    are 16-byte aligned (dx is fresh), and :func:`gn_bwd_plan` for the
+    card's resident CTAs and L2."""
+    vec = _aligned16(x, dy)
+    bf16 = x.dtype == torch.bfloat16
+    resident, l2 = _bwd_resident(x.device, bf16, vec)
+    b, c = x.shape[:2]
+    return vec, gn_bwd_plan(b, c, x[0, 0].numel(), x.element_size(),
+                            resident, l2)
+
+
+def _check_bwd(x, weight, bias, stats, dy, gelu, approximate):
+    """The backward's argument checks (the device last, so that each holds
+    on any device); returns the activation code."""
     if (x.dtype not in (torch.float32, torch.bfloat16)
             or dy.dtype != x.dtype):
         raise TypeError(f"gn1_gelu_bwd takes f32 or bf16 x and dy of one "
@@ -202,28 +311,73 @@ def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True, approximate="none"):
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("gn1_gelu_bwd takes contiguous NCHW tensors")
     act = _act(gelu, approximate)
-    b, c = x.shape[:2]
+    b = x.shape[0]
     _check_affine(x, weight, bias)
     if (stats.device != x.device or stats.dtype != torch.float32
             or tuple(stats.shape) != (b, 2) or not stats.is_contiguous()):
         raise ValueError(f"stats must be the forward's f32 [{b}, 2] tensor")
     _check_sample_size(x)
+    if x.device.type != "cuda" or dy.device != x.device:
+        raise ValueError(f"gn1_gelu_bwd takes CUDA tensors, got {x.device}")
+    return act
+
+
+def gn1_gelu_bwd(x, weight, bias, stats, dy, gelu=True, approximate="none"):
+    """Launch the backward kernel: (dx, dweight, dbias) of the fused op at
+    ``x`` for the output gradient ``dy``, from the forward's ``stats``.
+    CUDA, contiguous; ``x`` and ``dy`` both f32 or both bf16, dx in their
+    type, dweight and dbias (and every sum) f32."""
+    act = _check_bwd(x, weight, bias, stats, dy, gelu, approximate)
+    if gn_bwd_route(x) == "three":
+        return launch_gn1_bwd_three(x, weight, bias, stats, dy, act)
+    vec, plan = gn1_bwd_plan_for(x, dy)
+    return launch_gn1_bwd(x, weight, bias, stats, dy, act, vec, plan)
+
+
+def launch_gn1_bwd(x, weight, bias, stats, dy, act, vec, plan, ctr=None):
+    """One launch of the backward kernel under ``plan`` (checked arguments;
+    ``ctr``: None, or an int32 [plan.counters] workspace the caller keeps to
+    read the counters the call leaves)."""
+    b, c = x.shape[:2]
+    dx = torch.empty_like(x)
+    dw, db = torch.empty_like(weight), torch.empty_like(bias)
+    ws = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    coef = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    if ctr is None:
+        ctr = torch.empty(plan.counters, dtype=torch.int32, device=x.device)
+    rc = kernels.library().gn1_gelu_bwd(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), ctr.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), b, c, x[0, 0].numel(),
+        act, int(x.dtype == torch.bfloat16), vec, plan.per, plan.items,
+        plan.warp, plan.hint, plan.grid, kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_gelu_bwd")
+    kernels.launches["gn1_gelu_bwd"] += 1
+    kernels.route_launches["gn1_gelu_bwd", "ticket"] += 1
+    return dx, dw, db
+
+
+def launch_gn1_bwd_three(x, weight, bias, stats, dy, act):
+    """The three-kernel route (gn1_bwd_sums, gn1_bwd_reduce, gn1_bwd_apply:
+    one CTA a plane), for samples under BWD_THREE_BELOW bytes (checked
+    arguments)."""
+    b, c = x.shape[:2]
     hw = x[0, 0].numel()
     dx = torch.empty_like(x)
     dw, db = torch.empty_like(weight), torch.empty_like(bias)
     ws = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
     coef = torch.empty((b, 2), dtype=torch.float32, device=x.device)
-    # 4 elements a load: 16 bytes f32, 8 bf16
     align = 4 * x.element_size()
-    vec = int(hw % 4 == 0 and all(t.data_ptr() % align == 0
-                                  for t in (x, dy, dx)))
-    rc = kernels.library().gn1_gelu_bwd(
+    load4 = int(hw % 4 == 0 and all(t.data_ptr() % align == 0
+                                    for t in (x, dy, dx)))
+    rc = kernels.library().gn1_gelu_bwd_three(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), db.data_ptr(), b, c, hw, act,
-        int(x.dtype == torch.bfloat16), vec, kernels.stream_ptr(x.device))
-    kernels.check(rc, "gn1_gelu_bwd")
+        int(x.dtype == torch.bfloat16), load4, kernels.stream_ptr(x.device))
+    kernels.check(rc, "gn1_gelu_bwd_three")
     kernels.launches["gn1_gelu_bwd"] += 1
+    kernels.route_launches["gn1_gelu_bwd", "three"] += 1
     return dx, dw, db
 
 
@@ -355,12 +509,6 @@ def gn1_split_apply(x, sums, count, weight, bias, act, eps=EPS):
     return y, stats
 
 
-def _bwd_vec(x, dy, dx):
-    align = 4 * x.element_size()
-    return int(x[0, 0].numel() % 4 == 0 and all(
-        t.data_ptr() % align == 0 for t in (x, dy, dx)))
-
-
 def gn1_split_bwd_sums(x, dy, weight, bias, stats, count, act):
     """The first backward stage on CUDA: (this rank's coef [b, 2] over the
     whole sample's ``count``, its dweight, its dbias)."""
@@ -373,7 +521,7 @@ def gn1_split_bwd_sums(x, dy, weight, bias, stats, count, act):
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         stats.data_ptr(), ws.data_ptr(), coef.data_ptr(), dw.data_ptr(),
         db.data_ptr(), b, c, x[0, 0].numel(), float(count), act,
-        int(x.dtype == torch.bfloat16), _bwd_vec(x, dy, x),
+        int(x.dtype == torch.bfloat16), _aligned16(x, dy),
         kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_split_bwd_sums")
     kernels.launches["gn1_split_bwd_sums"] += 1
@@ -390,7 +538,7 @@ def gn1_split_bwd_apply(x, dy, weight, bias, stats, coef, act):
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         stats.data_ptr(), coef.data_ptr(), dx.data_ptr(), b, c,
         x[0, 0].numel(), act, int(x.dtype == torch.bfloat16),
-        _bwd_vec(x, dy, dx), kernels.stream_ptr(x.device))
+        _aligned16(x, dy, dx), kernels.stream_ptr(x.device))
     kernels.check(rc, "gn1_split_bwd_apply")
     kernels.launches["gn1_split_bwd_apply"] += 1
     return dx

@@ -231,13 +231,15 @@ def test_gn_gelu_fn_gradient_matches_plain_autograd(shape, gelu):
         assert _rel(a, r) < 1e-4, name
 
 
-def test_gn_gelu_bwd_is_deterministic():
+@pytest.mark.parametrize("shape", [(4, 192, 47, 31), (16, 396, 100, 68),
+                                   (64, 8, 16, 16), (1, 388, 100, 68)])
+def test_gn_gelu_bwd_is_deterministic(shape):
     from nps_tpu_torch.ops import group_norm as gn
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn((4, 192, 47, 31), device="cuda", generator=g)
-    w = torch.randn(192, device="cuda", generator=g)
-    b = torch.randn(192, device="cuda", generator=g)
+    x = torch.randn(shape, device="cuda", generator=g)
+    w = torch.randn(shape[1], device="cuda", generator=g)
+    b = torch.randn(shape[1], device="cuda", generator=g)
     dy = torch.randn_like(x)
     _, stats = gn.gn1_gelu_fwd_stats(x, w, b)
     first = gn.gn1_gelu_bwd(x, w, b, stats, dy)
@@ -1141,16 +1143,27 @@ def test_remat_train_step_matches_no_remat(dtype):
 
 
 # ---- gn1_gelu_bwd with each activation, and the tanh GELU -----------------
-# (shape, the backward's path): planes of a multiple of 4 elements take
-# 4-element loads ("vec"), others single elements ("scalar"); the ns512
-# shapes at batch 1 and 2, batch 5, the twophase train shape.
+# (shape, the backward's route and, on gn1_bwd_ticket, its per-plane path):
+# a sample of x and dy under BWD_THREE_BELOW bytes takes the three-kernel
+# route ("three"), a larger one the ticket kernel, where planes of up to
+# 2048 elements take a warp each ("ticket-warp") and larger ones the whole
+# CTA ("ticket-cta"); every plane takes 16-byte loads there where x and dy
+# are 16-byte aligned, its elements outside whole units one by one (odd
+# h * w). The twophase train shape, the time-conditioned one and at batch
+# 1; many samples of few small planes, so that the ticket kernel's apply
+# items wait on their samples' flags; the ns512 shapes at batch 1 and 2,
+# batch 5.
 GN_BWD_CLASSES = [
-    ((5, 7, 13, 11), "scalar"),
-    ((16, 64, 9, 5), "scalar"),
-    ((16, 388, 100, 68), "vec"),
-    ((1, 128, 125, 125), "scalar"),
-    ((2, 132, 263, 263), "scalar"),
-    ((2, 260, 526, 526), "vec"),
+    ((5, 7, 13, 11), "three"),
+    ((16, 64, 9, 5), "three"),
+    ((16, 388, 100, 68), "ticket-cta"),
+    ((16, 396, 100, 68), "ticket-cta"),
+    ((1, 388, 100, 68), "ticket-cta"),
+    ((64, 8, 16, 16), "three"),
+    ((48, 72, 15, 15), "three"),
+    ((1, 128, 125, 125), "ticket-cta"),
+    ((2, 132, 263, 263), "ticket-cta"),
+    ((2, 260, 526, 526), "ticket-cta"),
 ]
 GN_ACTS = [(False, "none"), (True, "none"), (True, "tanh")]
 
@@ -1170,14 +1183,17 @@ def _gn_case(shape, dtype, seed):
 @pytest.mark.parametrize("gelu,approximate", GN_ACTS)
 def test_gn1_gelu_bwd_matches_plain_autograd(shape, cls, dtype, gelu,
                                              approximate):
-    """The backward kernels against autograd through the plain version: dx
+    """The backward kernel against autograd through the plain version: dx
     at 1e-4 in f32 and 1e-2 in bf16, dgamma and dbeta (f32) at 1e-4; the
     same bits on a second call."""
     from nps_tpu_torch import kernels
     from nps_tpu_torch.ops import group_norm as gn
 
     x, w, b, dy = _gn_case(shape, dtype, 13)
-    assert (shape[2] * shape[3] % 4 == 0) == (cls == "vec")
+    route, _, path = cls.partition("-")
+    assert gn.gn_bwd_route(x) == route
+    vec, plan = gn.gn1_bwd_plan_for(x, dy)
+    assert vec and (route == "three" or bool(plan.warp) == (path == "warp"))
     kernels.reset_launches()
     got = _grads(lambda *t: gn.GNGeluFn.apply(*t, gelu, gn.EPS, approximate),
                  (x, w, b), dy)
@@ -1185,6 +1201,7 @@ def test_gn1_gelu_bwd_matches_plain_autograd(shape, cls, dtype, gelu,
         ("gn1_gelu_fwd" if gn._plan(shape[0], x[0].numel(),
                                     dtype == torch.bfloat16)
          else "gn1_gelu_fwd_stream"): 1, "gn1_gelu_bwd": 1}
+    assert dict(kernels.route_launches) == {("gn1_gelu_bwd", route): 1}
     ref = _grads(lambda *t: gn.gn_gelu_plain(*t, gelu, gn.EPS, approximate),
                  (x, w, b), dy)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
@@ -1201,12 +1218,69 @@ def test_gn1_gelu_bwd_matches_plain_autograd(shape, cls, dtype, gelu,
     assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
+def _held_at_the_bars(got, ref, dtype):
+    """dx at 1e-4 in f32 and 1e-2 in bf16, dgamma and dbeta at 1e-4."""
+    bars = (1e-2 if dtype == torch.bfloat16 else 1e-4, 1e-4, 1e-4)
+    for a, r, bar, name in zip(got, ref, bars, ("dx", "dgamma", "dbeta")):
+        assert a.dtype == r.dtype and _rel(a, r) < bar, (name, _rel(a, r))
+
+
+@pytest.mark.parametrize("shape,cls", GN_BWD_CLASSES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn1_bwd_kernel_runs_every_item_once(shape, cls, dtype):
+    """gn1_bwd_ticket at every shape, whichever route the wrapper takes
+    there: the counters a call leaves (gn_bwd_plan's workspace): every
+    ticket taken, every sums item done once, every sample's coef published,
+    under the plan and with the L2 hints flipped; the same bits both ways,
+    against autograd through the plain version."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    x, w, b, dy = _gn_case(shape, dtype, 16)
+    _, stats = gn.gn1_gelu_fwd_stats(x, w, b)
+    vec, plan = gn.gn1_bwd_plan_for(x, dy)
+    n, outs = shape[0], []
+    for p in (plan, plan._replace(hint=1 - plan.hint)):
+        ctr = torch.empty(p.counters, dtype=torch.int32, device="cuda")
+        outs.append(gn.launch_gn1_bwd(x, w, b, stats, dy, 1, vec, p, ctr))
+        torch.cuda.synchronize()
+        c = ctr.tolist()
+        assert c[:2] == [p.grid, n]
+        assert c[2:2 + n] == [p.items] * n and c[2 + n:] == [2] * n
+    assert all(torch.equal(u, v) for u, v in zip(*outs))
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, True, gn.EPS, "none"),
+                 (x, w, b), dy)[1:]
+    _held_at_the_bars(outs[0], ref, dtype)
+
+
+@pytest.mark.parametrize("shape,cls", GN_BWD_CLASSES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approximate", ["none", "tanh"])
+def test_gn1_bwd_three_kernel_route_matches_plain_autograd(shape, cls, dtype,
+                                                           approximate):
+    """The three-kernel route at every shape, whichever route the wrapper
+    takes there: against autograd through the plain version, the same bits
+    twice."""
+    from nps_tpu_torch.ops import group_norm as gn
+
+    x, w, b, dy = _gn_case(shape, dtype, 17)
+    _, stats = gn.gn1_gelu_fwd_stats(x, w, b, True, gn.EPS, approximate)
+    act = gn._act(True, approximate)
+    got = gn.launch_gn1_bwd_three(x, w, b, stats, dy, act)
+    again = gn.launch_gn1_bwd_three(x, w, b, stats, dy, act)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    ref = _grads(lambda *t: gn.gn_gelu_plain(*t, True, gn.EPS, approximate),
+                 (x, w, b), dy)[1:]
+    _held_at_the_bars(got, ref, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("approximate", ["none", "tanh"])
 def test_gn1_gelu_bwd_misaligned_view(dtype, approximate):
     """x and dy as views one element into their storage: planes of a
     multiple of 4 elements that take the scalar path, as they are not
-    aligned, against autograd through the plain version."""
+    aligned, through the wrapper's route and through gn1_bwd_ticket,
+    against autograd through the plain version."""
     from nps_tpu_torch.ops import group_norm as gn
 
     shape = (3, 20, 16, 9)
@@ -1219,16 +1293,22 @@ def test_gn1_gelu_bwd_misaligned_view(dtype, approximate):
     b = 0.1 * torch.randn(shape[1], device="cuda", generator=g)
     x, dy = x0[1:].view(shape), dy0[1:].view(shape)
     assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    assert gn.gn1_bwd_plan_for(x, dy)[0] == 0
     _, stats = gn.gn1_gelu_fwd_stats(x, w, b, True, gn.EPS, approximate)
-    got = gn.gn1_gelu_bwd(x, w, b, stats, dy, True, approximate)
-    again = gn.gn1_gelu_bwd(x, w, b, stats, dy, True, approximate)
     ref = _grads(lambda *t: gn.gn_gelu_plain(*t, True, gn.EPS, approximate),
                  (x, w, b), dy)[1:]
-    torch.cuda.synchronize()
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-    assert _rel(got[0], ref[0]) < tol
-    assert _rel(got[1], ref[1]) < 1e-4 and _rel(got[2], ref[2]) < 1e-4
-    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    vec, plan = gn.gn1_bwd_plan_for(x, dy)
+    act = gn._act(True, approximate)
+    for call in (lambda: gn.gn1_gelu_bwd(x, w, b, stats, dy, True,
+                                         approximate),
+                 lambda: gn.launch_gn1_bwd(x, w, b, stats, dy, act, vec,
+                                           plan)):
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        assert _rel(got[0], ref[0]) < tol
+        assert _rel(got[1], ref[1]) < 1e-4 and _rel(got[2], ref[2]) < 1e-4
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.parametrize("shape", [(3, 5, 7, 9), (4, 388, 100, 68),
